@@ -1,0 +1,15 @@
+"""PyTorch + CUDA port of superviseddescent_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``superviseddescent_tpu`` is the reference this package is
+held against; this package imports neither JAX nor that package. Entry
+points run on CUDA unless the caller passes ``device="cpu"``, and never drop
+to the CPU on their own.
+
+First slice: batched RCR-22 detection through the stepped window detector
+(``models.rcr.DetectionModel.make_stepped_detector``), with the HOG kernel
+(``ops/hog_flat.py``, ``csrc/hog_flat.cu``) and the window patch sampler
+(``ops/patches_window.py``, ``csrc/patches_window.cu``) written by hand in
+CUDA C++ for ``sm_90a``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,453 @@
+"""Robust Cascaded Regression (RCR) landmark detection, inference surface.
+
+Counterpart of ``superviseddescent_tpu/models/rcr.py`` (reference:
+rcr/model.hpp, rcr/adaptive_vlhog.hpp): 22-landmark face alignment with
+IED-adaptive HOG features and inter-eye-distance normalisation.
+
+Two feature backends per cascade level (``HogTransform``):
+  * ``gather``: plain PyTorch, ``ops/patches.extract_patches`` (the
+    bit-exact cv::resize emulation) + ``ops/hog.hog_descriptor``; the path
+    of ``DetectionModel.detect_batch``;
+  * ``window``: the two CUDA kernels, K2 (``ops/patches_window``) then K1
+    (``ops/hog_flat``), on per-face ROI windows; the path of
+    ``make_stepped_detector(window_sampler=True)``.
+
+The regressor product ``x - (F @ W) / norm`` is a float32 ``torch.matmul``
+(with TF32 off, the PyTorch default), as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from superviseddescent_tpu_torch.core.cascade import SupervisedDescentOptimiser
+from superviseddescent_tpu_torch.core.regressor import LinearRegressor
+from superviseddescent_tpu_torch.core.regulariser import (
+    RegularisationType, Regulariser)
+from superviseddescent_tpu_torch.io.cereal import (
+    CerealDetectionModel, CerealHoGParam, CerealRegressor,
+    load_detection_model, save_detection_model)
+from superviseddescent_tpu_torch.ops.hog import (
+    HogVariant, hog_descriptor, hog_dimension, hog_num_cells)
+from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
+from superviseddescent_tpu_torch.ops.patches import extract_patches
+from superviseddescent_tpu_torch.ops.patches_window import (
+    max_patch_half, max_patch_half_x, min_sub_window, min_sub_window_x,
+    sample_patches_window)
+from superviseddescent_tpu_torch.utils.device import resolve_device
+from superviseddescent_tpu_torch.utils.landmarks import (
+    LandmarkCollection, ied_from_rows, resolve_eye_indices)
+
+
+@dataclass(frozen=True)
+class HogParams:
+    """Per-cascade-level HOG configuration (reference HoGParam)."""
+    variant: HogVariant = HogVariant.Uoctti
+    num_cells: int = 5
+    cell_size: int = 11
+    num_bins: int = 4
+    relative_patch_size: float = 1.0   # patch size as a fraction of the IED
+
+    @property
+    def patch_size(self) -> int:
+        """Fixed resize target in pixels."""
+        return self.num_cells * self.cell_size
+
+
+# the shipped RCR-22 configuration (rcr-train.cpp)
+RCR22_HOG_PARAMS = (
+    HogParams(HogVariant.Uoctti, 5, 11, 4, 1.0),
+    HogParams(HogVariant.Uoctti, 5, 10, 4, 0.7),
+    HogParams(HogVariant.Uoctti, 5, 8, 4, 0.4),
+    HogParams(HogVariant.Uoctti, 5, 6, 4, 0.25),
+)
+
+
+def rows_shift(ox: torch.Tensor, oy: torch.Tensor, n_lm: int) -> torch.Tensor:
+    """(N,) window origins -> (N, 2L) additive shift for [x..., y...] rows."""
+    return torch.cat([ox[:, None].expand(-1, n_lm),
+                      oy[:, None].expand(-1, n_lm)], dim=1)
+
+
+def align_mean(mean: torch.Tensor, facebox: torch.Tensor) -> torch.Tensor:
+    """Place the mean shape ([-0.5, 0.5]^2 facebox space) into pixel
+    faceboxes (x, y, w, h). mean: (..., 2L); facebox: (..., 4)."""
+    x, y, w, h = (facebox[..., i] for i in range(4))
+    l = mean.shape[-1] // 2
+    mx = (mean[..., :l] + 0.5) * w[..., None] + x[..., None]
+    my = (mean[..., l:] + 0.5) * h[..., None] + y[..., None]
+    return torch.cat([mx, my], dim=-1)
+
+
+class InterEyeDistanceNormalisation:
+    """Adaptive normalisation: rows of 1/IED of the current estimate."""
+
+    def __init__(self, model_landmarks: Sequence[str],
+                 right_eye_ids: Sequence[str], left_eye_ids: Sequence[str]):
+        self.model_landmarks = list(model_landmarks)
+        self.right_eye_ids = list(right_eye_ids)
+        self.left_eye_ids = list(left_eye_ids)
+        self._right_idx, self._left_idx = resolve_eye_indices(
+            model_landmarks, right_eye_ids, left_eye_ids)
+
+    def __call__(self, params: torch.Tensor) -> torch.Tensor:
+        ied = ied_from_rows(params, self._right_idx, self._left_idx)
+        return torch.ones_like(params) / ied[..., None]
+
+
+class HogTransform:
+    """Batched adaptive-HOG projection ``h(x, level) -> (N, F)`` for the
+    cascade: per level the patch half-size is round(rel * IED(x) / 2), the
+    patches are described with HOG, flattened per landmark in Matlab order,
+    concatenated, and a bias 1 is appended.
+
+    images: (I, H, W) uint8 or float32 stack (for ``window``: one ROI
+    window per sample). backend: ``gather`` or ``window``. sampling
+    (``window`` only): ``exact`` or ``fast`` (bf16 sampling, sector-binned
+    bf16 HOG, transposed patch hand-off). sub_windows / sub_windows_x:
+    per-level sampler sub-window sides (0 = the whole window).
+    """
+
+    def __init__(self, images: torch.Tensor, hog_params: Sequence[HogParams],
+                 model_landmarks: Sequence[str],
+                 right_eye_ids: Sequence[str], left_eye_ids: Sequence[str],
+                 image_indices: Optional[torch.Tensor] = None,
+                 quantize: bool = True, backend: str = "gather",
+                 sampling: str = "exact",
+                 sub_windows: Optional[Sequence[int]] = None,
+                 sub_windows_x: Optional[Sequence[int]] = None):
+        if backend not in ("gather", "window"):
+            raise ValueError(f"unknown feature backend: {backend!r}")
+        if sampling not in ("exact", "fast"):
+            raise ValueError(f"unknown sampling mode: {sampling!r} "
+                             "(expected 'exact' or 'fast')")
+        self.images = images if images.ndim == 3 else images[None]
+        self.hog_params = tuple(hog_params)
+        self.model_landmarks = list(model_landmarks)
+        self._right_idx, self._left_idx = resolve_eye_indices(
+            model_landmarks, right_eye_ids, left_eye_ids)
+        self.image_indices = image_indices
+        self.quantize = quantize
+        self.backend = backend
+        self.sampling = sampling
+        levels = len(self.hog_params)
+        self.sub_windows = tuple(sub_windows or (0,) * levels)
+        self.sub_windows_x = tuple(sub_windows_x or (0,) * levels)
+
+    def _indices_for(self, n: int) -> torch.Tensor:
+        if self.image_indices is not None:
+            return self.image_indices
+        dev = self.images.device
+        if self.images.shape[0] == 1:
+            return torch.zeros((n,), dtype=torch.long, device=dev)
+        if self.images.shape[0] == n:
+            return torch.arange(n, device=dev)
+        raise ValueError(
+            f"cannot infer image indices for batch {n} over "
+            f"{self.images.shape[0]} images; pass image_indices")
+
+    def _patch_half(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        """round(rel * IED / 2) (half away from zero), at least 1."""
+        p = self.hog_params[level]
+        ied = ied_from_rows(x, self._right_idx, self._left_idx)
+        return torch.clamp(torch.floor(
+            p.relative_patch_size * ied / 2.0 + 0.5), min=1.0)
+
+    def window_args(self, x: torch.Tensor, level: int):
+        """The ``window`` backend's K2 and K1 calls for one level, as
+        (sampler args, sampler kwargs, hog kwargs); the patches that K2
+        returns are reshaped to (N*L, S*S) for K1."""
+        p = self.hog_params[level]
+        n, l = x.shape[0], x.shape[1] // 2
+        windows = self.images
+        if self.image_indices is not None or windows.shape[0] != n:
+            raise ValueError("the window backend takes one window per sample")
+        w = self.sub_windows[level] or windows.shape[1]
+        wx = self.sub_windows_x[level] or windows.shape[2]
+        # faces larger than the sub-window was sized for get a consistently
+        # smaller patch instead of a truncated one
+        phw = torch.clamp(self._patch_half(x, level), max=max_patch_half(w))
+        if wx != windows.shape[2]:
+            phw = torch.clamp(phw, max=max_patch_half_x(wx))
+        fast = self.sampling == "fast"
+        # fast mode hands the patches to K1 transposed, in bf16 (lossless
+        # for quantised pixels)
+        transposed = fast
+        sampler_args = (windows, x[:, :l], x[:, l:], phw, p.patch_size)
+        sampler_kwargs = dict(
+            sub_window=self.sub_windows[level],
+            sub_window_x=self.sub_windows_x[level], quantize=self.quantize,
+            sampling=self.sampling, transposed=transposed,
+            out_dtype=(torch.bfloat16 if transposed and self.quantize
+                       else torch.float32))
+        hog_kwargs = dict(size=p.patch_size, cell_size=p.cell_size,
+                          num_orientations=p.num_bins, variant=p.variant,
+                          fast=fast, transposed=transposed)
+        return sampler_args, sampler_kwargs, hog_kwargs
+
+    def __call__(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        p = self.hog_params[level]
+        n, l = x.shape[0], x.shape[1] // 2
+        s = p.patch_size
+        if self.backend == "window":
+            args, sampler_kwargs, hog_kwargs = self.window_args(x, level)
+            patches = sample_patches_window(*args, **sampler_kwargs)
+            desc = hog_descriptor_flat(patches.reshape(n * l, s * s),
+                                       **hog_kwargs)
+        else:
+            patches = extract_patches(
+                self.images, self._indices_for(n), x[:, :l], x[:, l:],
+                self._patch_half(x, level), s, quantize=self.quantize)
+            desc = hog_descriptor(patches.reshape(n * l, s, s), p.cell_size,
+                                  p.num_bins, p.variant)
+        desc = desc.reshape(n, -1)
+        return torch.cat([desc, torch.ones((n, 1), dtype=desc.dtype,
+                                           device=desc.device)], dim=1)
+
+
+class SteppedDetector:
+    """``f(images (B, H, W), faceboxes (B, 4)) -> (B, 2L)``, one cascade
+    level at a time; built by ``DetectionModel.make_stepped_detector``.
+
+    With ``roi`` each face's window is cut out first (clamped inside the
+    image) and the cascade runs in window coordinates.
+    """
+
+    def __init__(self, model: "DetectionModel", batch: int, quantize: bool,
+                 roi: Optional[int], sampling: str, window_sampler: bool,
+                 sub_windows, sub_windows_x):
+        self.model = model
+        self.batch = batch
+        self.quantize = quantize
+        self.roi = roi
+        self.sampling = sampling
+        self.window_sampler = window_sampler
+        self.sub_windows = sub_windows
+        self.sub_windows_x = sub_windows_x
+
+    def transform(self, images: torch.Tensor) -> HogTransform:
+        m = self.model
+        return HogTransform(
+            images, m.hog_params, m.landmark_ids, m.right_eye_ids,
+            m.left_eye_ids, quantize=self.quantize,
+            backend="window" if self.window_sampler else "gather",
+            sampling=self.sampling, sub_windows=self.sub_windows,
+            sub_windows_x=self.sub_windows_x)
+
+    def crop(self, images: torch.Tensor, boxes: torch.Tensor):
+        """Per-face ROI windows and their (ox, oy) origins.
+
+        With the window sampler, 128-aligned stacks and column sub-windows
+        at every level, the windows are full-width row bands (origins
+        floored to 32 rows) and the sampler's column sub-windows do the
+        x-windowing; otherwise they are roi x roi squares.
+        """
+        roi = self.roi
+        n, h, w = images.shape
+        if h < roi or w < roi:
+            raise ValueError(f"roi {roi} exceeds image stack {h}x{w}")
+        dev = images.device
+        cx = boxes[:, 0] + boxes[:, 2] / 2.0
+        cy = boxes[:, 1] + boxes[:, 3] / 2.0
+        oy = torch.clamp(torch.round(cy - roi / 2.0), 0, h - roi).long()
+        face = torch.arange(n, device=dev)[:, None]
+        span = torch.arange(roi, device=dev)
+        rows_only = (self.window_sampler and w % 128 == 0
+                     and all(self.sub_windows_x))
+        if rows_only:
+            oy = torch.div(oy, 32, rounding_mode="floor") * 32
+            rows = images
+            if images.is_contiguous() and (w * images.element_size()) % 8 == 0:
+                # copy whole rows as 8-byte words: the same bytes in an
+                # eighth of the gather's elements (uint8 rows)
+                rows = images.view(torch.int64)
+            windows = rows[face, oy[:, None] + span].view(images.dtype)
+            ox = torch.zeros_like(oy)
+        else:
+            ox = torch.clamp(torch.round(cx - roi / 2.0), 0, w - roi).long()
+            rows = (oy[:, None] + span)[:, :, None]
+            cols = (ox[:, None] + span)[:, None, :]
+            windows = images[face[:, :, None], rows, cols]       # (N, R, R)
+        return windows, ox.float(), oy.float()
+
+    def level(self, li: int, images: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+        """One cascade level on ``images`` (the windows with roi)."""
+        features = self.transform(images)(x, li)
+        return self.model.sdo.step(li, x, features)
+
+    def __call__(self, images, faceboxes) -> torch.Tensor:
+        m = self.model
+        images = torch.as_tensor(images, device=m.device)
+        boxes = torch.as_tensor(faceboxes, dtype=torch.float32,
+                                device=m.device)
+        if images.shape[0] != self.batch or boxes.shape != (self.batch, 4):
+            raise ValueError(
+                f"detector built for batch {self.batch}: got "
+                f"{tuple(images.shape)} images, {tuple(boxes.shape)} boxes")
+        x = align_mean(m.mean[None, :], boxes)
+        if self.roi is None:
+            for li in range(len(m.sdo.regressors)):
+                x = self.level(li, images, x)
+            return x
+        windows, ox, oy = self.crop(images, boxes)
+        shift = rows_shift(ox, oy, len(m.landmark_ids))
+        x = x - shift
+        for li in range(len(m.sdo.regressors)):
+            x = self.level(li, windows, x)
+        return x + shift
+
+
+class DetectionModel:
+    """A trained RCR landmark detection model (reference:
+    rcr::detection_model), holding its tensors on ``device``."""
+
+    def __init__(self, sdo: SupervisedDescentOptimiser, mean,
+                 landmark_ids: Sequence[str],
+                 hog_params: Sequence[HogParams],
+                 right_eye_ids: Sequence[str], left_eye_ids: Sequence[str],
+                 device=None):
+        self.device = resolve_device(device)
+        self.sdo = sdo
+        for r in sdo.regressors:
+            r.weights = torch.as_tensor(r.weights, dtype=torch.float32,
+                                        device=self.device)
+        self.mean = torch.as_tensor(np.asarray(mean, np.float32),
+                                    device=self.device)
+        self.landmark_ids = list(landmark_ids)
+        self.hog_params = tuple(hog_params)
+        self.right_eye_ids = list(right_eye_ids)
+        self.left_eye_ids = list(left_eye_ids)
+
+    def detect_batch(self, images, faceboxes, image_indices=None,
+                     quantize: bool = True) -> torch.Tensor:
+        """(I, H, W) image stack + (B, 4) faceboxes -> (B, 2L) landmark
+        rows, through the plain ``gather`` features."""
+        images = torch.as_tensor(images, device=self.device)
+        boxes = torch.as_tensor(faceboxes, dtype=torch.float32,
+                                device=self.device)
+        if image_indices is not None:
+            image_indices = torch.as_tensor(image_indices,
+                                            device=self.device).long()
+        hog = HogTransform(images, self.hog_params, self.landmark_ids,
+                           self.right_eye_ids, self.left_eye_ids,
+                           image_indices=image_indices, quantize=quantize)
+        return self.sdo.test(align_mean(self.mean[None, :], boxes), None, hog)
+
+    def make_stepped_detector(self, batch: int, quantize: bool = True,
+                              roi: Optional[int] = None,
+                              sampling: str = "exact",
+                              window_sampler: bool = False,
+                              max_ied: Optional[float] = None
+                              ) -> SteppedDetector:
+        """``f(images (B, H, W), faceboxes (B, 4)) -> (B, 2L)``, one
+        cascade level at a time.
+
+        roi: cut a window of R rows (and R columns, or the full width for
+        128-aligned stacks with the window sampler) around each facebox
+        first; exact as long as every patch stays inside the window.
+        window_sampler: the K2 -> K1 kernels; requires roi. Per-level
+        sub-windows are sized from max_ied (default roi / 2.13); faces
+        beyond it get a consistently smaller patch.
+        sampling: 'exact' or 'fast' (window sampler only).
+        """
+        if sampling not in ("exact", "fast"):
+            raise ValueError(f"unknown sampling mode: {sampling!r} "
+                             "(expected 'exact' or 'fast')")
+        if window_sampler and roi is None:
+            raise ValueError("window_sampler requires roi")
+        sub_windows = sub_windows_x = None
+        if window_sampler:
+            mi = max_ied if max_ied is not None else roi / 2.13
+            sub_windows, sub_windows_x = level_sub_windows(
+                self.hog_params, roi, mi)
+        return SteppedDetector(self, batch, quantize, roi, sampling,
+                               window_sampler, sub_windows, sub_windows_x)
+
+    # -------------------------------------------------------------- #
+    # Persistence (cereal byte-compatible)
+    # -------------------------------------------------------------- #
+    def to_cereal(self) -> CerealDetectionModel:
+        regs = [CerealRegressor(
+            weights=r.weights.detach().cpu().numpy().astype(np.float32),
+            regularisation_type=int(r.regulariser.regularisation_type),
+            lambda_=float(r.regulariser.param),
+            regularise_last_row=bool(r.regulariser.regularise_last_row))
+            for r in self.sdo.regressors]
+        norm = self.sdo.normalisation
+        return CerealDetectionModel(
+            regressors=regs,
+            norm_model_landmarks=norm.model_landmarks,
+            norm_right_eye_ids=norm.right_eye_ids,
+            norm_left_eye_ids=norm.left_eye_ids,
+            mean=self.mean.cpu().numpy(),
+            landmark_ids=self.landmark_ids,
+            hog_params=[CerealHoGParam(int(p.variant), p.num_cells,
+                                       p.cell_size, p.num_bins,
+                                       p.relative_patch_size)
+                        for p in self.hog_params],
+            right_eye_ids=self.right_eye_ids,
+            left_eye_ids=self.left_eye_ids)
+
+    @classmethod
+    def from_cereal(cls, cm: CerealDetectionModel,
+                    device=None) -> "DetectionModel":
+        regressors = [LinearRegressor(
+            weights=torch.from_numpy(np.asarray(cr.weights, np.float32)),
+            regulariser=Regulariser(RegularisationType(
+                cr.regularisation_type), cr.lambda_, cr.regularise_last_row))
+            for cr in cm.regressors]
+        norm = InterEyeDistanceNormalisation(
+            cm.norm_model_landmarks, cm.norm_right_eye_ids,
+            cm.norm_left_eye_ids)
+        hog_params = tuple(HogParams(HogVariant(p.vlhog_variant), p.num_cells,
+                                     p.cell_size, p.num_bins,
+                                     p.relative_patch_size)
+                           for p in cm.hog_params)
+        return cls(SupervisedDescentOptimiser(regressors, norm), cm.mean,
+                   cm.landmark_ids, hog_params, cm.right_eye_ids,
+                   cm.left_eye_ids, device=device)
+
+    def save(self, filename):
+        """Write the reference-compatible cereal binary format."""
+        save_detection_model(self.to_cereal(), filename)
+
+    @classmethod
+    def load(cls, filename, device=None) -> "DetectionModel":
+        return cls.from_cereal(load_detection_model(filename), device=device)
+
+
+def level_sub_windows(hog_params: Sequence[HogParams], roi: int,
+                      max_ied: float):
+    """Per-level window-sampler sub-window sides (W rows, WX columns) for
+    a ROI side and an IED bound. A WX of 0 means the full width; column
+    sub-windows are used only when roi is a multiple of 128."""
+    sub = tuple(min(roi, min_sub_window(p.relative_patch_size * max_ied + 2))
+                for p in hog_params)
+    if roi % 128 != 0:
+        return sub, (0,) * len(sub)
+    sub_x = tuple(
+        (lambda v: 0 if v >= roi else v)(
+            min_sub_window_x(p.relative_patch_size * max_ied + 2))
+        for p in hog_params)
+    return sub, sub_x
+
+
+def gt_facebox(landmarks: LandmarkCollection, margin: float = 0.2,
+               square: bool = True):
+    """A facebox (x, y, w, h) from ground-truth landmarks."""
+    c = landmarks.coordinates
+    x0, y0 = c.min(axis=0)
+    x1, y1 = c.max(axis=0)
+    w, h = x1 - x0, y1 - y0
+    if square:
+        side = max(w, h) * (1.0 + margin)
+        cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+        return (float(cx - side / 2), float(cy - side / 2),
+                float(side), float(side))
+    return (float(x0 - w * margin / 2), float(y0 - h * margin / 2),
+            float(w * (1 + margin)), float(h * (1 + margin)))

@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source compiles on its own with nvcc into a shared library with a
+plain C interface, loaded with ctypes: pointers and the stream pass as
+``c_void_p``, and every C entry point returns ``cudaGetLastError()``.
+Libraries go to ``build/torch_kernels/`` beside the package (git-ignored),
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused.
+
+``-fmad=false`` keeps every float multiply and add rounding on its own, as
+PyTorch's separate elementwise operations do: the kernels then agree with
+their plain twins operation for operation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# C entry points: name -> (symbol, argument types)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNELS = {
+    "hog_flat": ("hog_flat_launch",
+                 [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "patches_window": ("patches_window_launch",
+                       [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P]),
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{key[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists; returns the
+    process (or None) and the temporary output path."""
+    path = library_path(name)
+    if path.exists():
+        return None, path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, proc, tmp: Path) -> str:
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, library_path(name))
+    return log
+
+
+def build_all() -> dict:
+    """Compile every kernel, one nvcc per source, all started together.
+    Returns {name: compiler log} (ptxas register and shared-memory usage;
+    empty for a library that was already built) and the seconds taken
+    under the key "seconds"."""
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in KERNELS}
+    logs = {name: _finish(name, *started[name]) for name in KERNELS}
+    logs["seconds"] = time.perf_counter() - t0
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str):
+    """The loaded library of kernel ``name``, built at first use."""
+    _finish(name, *_start(name))
+    lib = ctypes.CDLL(str(library_path(name)))
+    symbol, argtypes = KERNELS[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,249 @@
+"""K1: HOG of flattened S x S patches, a hand-written CUDA kernel.
+
+Replaces the TPU kernel ``superviseddescent_tpu/ops/hog_pallas_flat.py::
+hog_descriptor_pallas_flat`` (``_flat_kernel``), with the same contract:
+(B, S*S) row-major flattened patches (or (x, y)-major with
+``transposed``), float32 or bfloat16 -> (B, D*C*C) float32 descriptors in
+Matlab order d*C*C + cx*C + cy. Exact mode matches ``ops/hog.py``; fast
+mode (O=4 only for the sector compare) classifies orientations by two slope
+compares and rounds the gradient planes and tent weights to bfloat16 with
+float32 accumulation.
+
+The kernel (``csrc/hog_flat.cu``) runs one block per patch:
+  1. the patch is staged in shared memory as float32 (un-transposed);
+  2. one thread per pixel computes the central-difference gradient, its
+     magnitude and its bin;
+  3. one warp per cell sums magnitude x tent weight over the cell's tent
+     support: each lane adds into its own (bin, lane) slot in shared
+     memory, then a fixed shuffle tree sums the lanes (no atomics, so runs
+     repeat bit for bit);
+  4. one thread per cell forms the four block factors and writes the
+     Uoctti / DalalTriggs channels.
+What bounds it on the H100: memory. At the RCR-22 level-0 shape
+(90,112 patches of 55 x 55 float32) it must read 1.09 GB and write
+0.14 GB, ~0.37 ms at 3.35 TB/s, against ~11 GFLOP of float32 arithmetic
+(~0.16 ms at 67 TFLOP/s). The design reads each input pixel once and keeps
+every intermediate (gradients, bins, cell histograms) in shared memory,
+so device memory sees only the patch and the descriptor.
+
+The kernel is compiled with -fmad=false so that every float operation
+rounds as PyTorch's separate elementwise operations do; the plain twin
+``hog_descriptor_flat_reference`` then differs from it only in the order
+of the splat sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from superviseddescent_tpu_torch.ops.hog import (
+    HogVariant, _orientation_vectors, _tent_1d, hog_dimension, hog_num_cells)
+
+# (dx, dy) neighbours of the four 2x2 blocks around a cell, factor order
+# 1..4 of vl_hog_extract (UL, UR, LL, LR)
+_BLOCKS = (((-1, -1), (0, -1), (-1, 0), (0, 0)),
+           ((0, -1), (1, -1), (0, 0), (1, 0)),
+           ((-1, 0), (0, 0), (-1, 1), (0, 1)),
+           ((0, 0), (1, 0), (0, 1), (1, 1)))
+_TAN_PI_8 = 0.41421356237
+_TAN_3PI_8 = 2.41421356237
+# the kernel stages one patch and its gradient planes in shared memory
+_MAX_SIZE = 96
+_MAX_ORIENTATIONS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_weights(size: int, cell_size: int) -> np.ndarray:
+    """(S*S, C*C) float32 tent weights w2[y*S + x, cx*C + cy] =
+    Wy[y, cy] * Wx[x, cx], formed in float64 and rounded once, with border
+    pixels zero (the same table as the TPU kernel's)."""
+    w = _tent_1d(size, cell_size)
+    c = w.shape[1]
+    return np.einsum("yc,xd->yxdc", w, w).reshape(
+        size * size, c * c).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_weights_on(size: int, cell_size: int,
+                     device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_flat_weights(size, cell_size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_weights_by_cell_on(size: int, cell_size: int,
+                             device: torch.device) -> torch.Tensor:
+    """The kernel's layout of the same table: (C*C, S*S), so that the
+    lanes scanning one cell's support read neighbouring weights."""
+    return _flat_weights_on(size, cell_size, device).t().contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _orientations_on(num_orientations: int,
+                     device: torch.device) -> torch.Tensor:
+    """(2, O) float32 (cos, sin)(k*pi/O) on ``device``."""
+    return torch.from_numpy(_orientation_vectors(num_orientations)).to(device)
+
+
+def _check(patches_flat, size, cell_size, num_orientations, variant):
+    if patches_flat.ndim != 2 or patches_flat.shape[1] != size * size:
+        raise ValueError(f"expected (B, {size * size}) patches, got "
+                         f"{tuple(patches_flat.shape)}")
+    if patches_flat.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"patches must be float32 or bfloat16, got "
+                         f"{patches_flat.dtype}")
+    if not (3 <= size <= _MAX_SIZE and 1 <= cell_size <= size
+            and 1 <= num_orientations <= _MAX_ORIENTATIONS):
+        raise ValueError(
+            f"unsupported HOG shape: size {size} (3..{_MAX_SIZE}), cell "
+            f"size {cell_size}, {num_orientations} orientations "
+            f"(1..{_MAX_ORIENTATIONS})")
+    HogVariant(variant)
+
+
+def hog_descriptor_flat_reference(patches_flat: torch.Tensor, size: int,
+                                  cell_size: int, num_orientations: int,
+                                  variant: HogVariant = HogVariant.Uoctti,
+                                  fast: bool = False,
+                                  transposed: bool = False) -> torch.Tensor:
+    """Plain PyTorch twin of the K1 kernel, on any device."""
+    _check(patches_flat, size, cell_size, num_orientations, variant)
+    s, o = size, num_orientations
+    b = patches_flat.shape[0]
+    dev = patches_flat.device
+    img = patches_flat.float().reshape(b, s, s)
+    if transposed:
+        img = img.transpose(1, 2)
+    gx = torch.zeros_like(img)
+    gy = torch.zeros_like(img)
+    gx[:, 1:-1, 1:-1] = img[:, 1:-1, 2:] - img[:, 1:-1, :-2]
+    gy[:, 1:-1, 1:-1] = img[:, 2:, 1:-1] - img[:, :-2, 1:-1]
+    gx = gx.reshape(b, s * s)
+    gy = gy.reshape(b, s * s)
+    grad = torch.sqrt(gx * gx + gy * gy)
+
+    if fast and o == 4:
+        ax, ay = gx.abs(), gy.abs()
+        px, py = gx >= 0, gy >= 0
+        one = torch.ones((), dtype=torch.long, device=dev)
+        bin_h = torch.where(px, 0 * one, 4 * one)
+        bin_v = torch.where(py, 2 * one, 6 * one)
+        bin_d = torch.where(px == py, torch.where(px, one, 5 * one),
+                            torch.where(py, 3 * one, 7 * one))
+        t_lo = torch.tensor(_TAN_PI_8, dtype=torch.float32, device=dev)
+        t_hi = torch.tensor(_TAN_3PI_8, dtype=torch.float32, device=dev)
+        best_bin = torch.where(ay < ax * t_lo, bin_h,
+                               torch.where(ay > ax * t_hi, bin_v, bin_d))
+    else:
+        # argmax of |score| on unnormalised gradients, first maximum wins,
+        # k + O for a negative score
+        ov = _orientations_on(o, dev)
+        best = torch.zeros_like(grad)
+        best_bin = torch.full(grad.shape, -1, dtype=torch.long, device=dev)
+        for k in range(o):
+            sc = gx * ov[0, k] + gy * ov[1, k]
+            a = sc.abs()
+            upd = a > best
+            best = torch.where(upd, a, best)
+            best_bin = torch.where(
+                upd, torch.where(sc < 0, k + o, k), best_bin)
+
+    bins = torch.arange(2 * o, device=dev)[None, :, None]
+    planes = torch.where(best_bin[:, None, :] == bins, grad[:, None, :],
+                         torch.zeros((), device=dev))           # (B, 2O, P)
+    w2 = _flat_weights_on(s, cell_size, dev)
+    if fast:
+        planes = planes.bfloat16().float()
+        w2 = w2.bfloat16().float()
+    cells = torch.matmul(planes, w2)                            # (B, 2O, CC)
+    ha, hb = cells[:, :o], cells[:, o:]
+
+    c = hog_num_cells(s, cell_size)
+    energy = torch.zeros((b, c * c), device=dev)
+    for k in range(o):
+        f = ha[:, k] + hb[:, k]
+        energy = energy + f * f
+    e = torch.nn.functional.pad(energy.reshape(b, 1, c, c), (1, 1, 1, 1),
+                                mode="replicate")[:, 0]        # [cx, cy]
+    factors = []
+    for block in _BLOCKS:
+        total = None
+        for dx, dy in block:
+            n = e[:, 1 + dx:1 + dx + c, 1 + dy:1 + dy + c].reshape(b, c * c)
+            total = n if total is None else total + n
+        factors.append(torch.rsqrt(total + 1e-4))
+
+    if variant == HogVariant.Uoctti:
+        t_acc = [0.0] * 4
+        chan_a, chan_b, chan_c = [], [], []
+        for k in range(o):
+            ha_s = hb_s = hc_s = 0.0
+            for i in range(4):
+                hai = factors[i] * ha[:, k]
+                hbi = factors[i] * hb[:, k]
+                hci = torch.clamp(hai + hbi, max=0.2)
+                ha_s = ha_s + torch.clamp(hai, max=0.2)
+                hb_s = hb_s + torch.clamp(hbi, max=0.2)
+                hc_s = hc_s + hci
+                t_acc[i] = t_acc[i] + hci
+            chan_a.append(0.5 * ha_s)
+            chan_b.append(0.5 * hb_s)
+            chan_c.append(0.5 * hc_s)
+        scale_t = float(np.float32(1.0) / np.sqrt(np.float32(18.0)))
+        channels = chan_a + chan_b + chan_c + [t * scale_t for t in t_acc]
+    else:
+        channels = [torch.clamp(factors[i] * (ha[:, k] + hb[:, k]), max=0.2)
+                    for i in range(4) for k in range(o)]
+    return torch.cat(channels, dim=1)
+
+
+def hog_descriptor_flat(patches_flat: torch.Tensor, size: int,
+                        cell_size: int, num_orientations: int,
+                        variant: HogVariant = HogVariant.Uoctti,
+                        fast: bool = False,
+                        transposed: bool = False) -> torch.Tensor:
+    """(B, S*S) flattened patches -> (B, C*C*D) float32 descriptors.
+
+    A CUDA tensor launches the K1 kernel; a CPU tensor takes the plain
+    twin. fast=True: sector binning (O=4) and bfloat16 gradient planes and
+    tent weights with float32 sums. transposed: patches are flattened
+    (x, y)-major, the window sampler's transposed output.
+    """
+    _check(patches_flat, size, cell_size, num_orientations, variant)
+    if patches_flat.device.type == "cpu":
+        return hog_descriptor_flat_reference(
+            patches_flat, size, cell_size, num_orientations, variant,
+            fast=fast, transposed=transposed)
+    if patches_flat.device.type != "cuda":
+        raise ValueError(f"unsupported device {patches_flat.device}")
+    if not patches_flat.is_contiguous():
+        raise ValueError("patches must be contiguous")
+    from superviseddescent_tpu_torch.ops._build import load_library
+    lib = load_library("hog_flat")
+    b = patches_flat.shape[0]
+    c = hog_num_cells(size, cell_size)
+    dims = hog_dimension(variant, num_orientations)
+    out = torch.empty((b, dims * c * c), dtype=torch.float32,
+                      device=patches_flat.device)
+    if b == 0:
+        return out
+    w2t = _flat_weights_by_cell_on(size, cell_size, patches_flat.device)
+    ov = _orientations_on(num_orientations, patches_flat.device)
+    err = lib.hog_flat_launch(
+        ctypes.c_void_p(patches_flat.data_ptr()),
+        int(patches_flat.dtype == torch.bfloat16),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(w2t.data_ptr()),
+        ctypes.c_void_p(ov.data_ptr()),
+        b, size, cell_size, num_orientations, int(variant), int(fast),
+        int(transposed),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"hog_flat kernel launch failed: CUDA error {err}")
+    hog_descriptor_flat.launches += 1
+    return out
+
+
+hog_descriptor_flat.launches = 0

@@ -1,0 +1,133 @@
+"""Batched landmark-patch extraction: crop + zero-pad + resize in one
+bilinear gather, plus image loading and stacking.
+
+Counterpart of ``superviseddescent_tpu/ops/patches.py`` (reference:
+rcr/adaptive_vlhog.hpp: crop a (2*phw)^2 square at the rounded landmark,
+copyMakeBorder, cv::resize to S x S). Destination pixel d samples the crop at
+clamp((d + 0.5) * 2*phw/S - 0.5, 0, 2*phw - 1); pixels outside the image
+are 0. Landmark centres round half to even (cvRound, and torch.round).
+``quantize=True`` reproduces cv::resize's 8U fixed-point pipeline bit for
+bit (11-bit coefficients, truncating shifts).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from superviseddescent_tpu_torch.io.png import read_png
+
+
+def extract_patches(images: torch.Tensor, image_indices: torch.Tensor,
+                    centers_x: torch.Tensor, centers_y: torch.Tensor,
+                    patch_half: torch.Tensor, out_size: int,
+                    quantize: bool = True) -> torch.Tensor:
+    """Sample (N, L, S, S) float32 patches around landmark centres.
+
+    images: (I, H, W) float32 or uint8 gray stack (zero-padded);
+    image_indices: (N,) image per sample; centers_x/_y: (N, L);
+    patch_half: (N,) half patch size in source pixels.
+    """
+    n, l = centers_x.shape
+    h, w = images.shape[1], images.shape[2]
+    s = out_size
+    dev = centers_x.device
+    image_indices = image_indices.long()
+    origin_x = torch.round(centers_x) - patch_half[:, None]      # (N, L)
+    origin_y = torch.round(centers_y) - patch_half[:, None]
+    d = torch.arange(s, dtype=torch.float32, device=dev)
+    src = (d[None, :] + 0.5) * (2.0 * patch_half[:, None] / s) - 0.5
+    if not quantize:
+        src = torch.minimum(torch.clamp(src, min=0.0),
+                            2.0 * patch_half[:, None] - 1.0)     # (N, S)
+    s0 = torch.floor(src)
+    frac = (src - s0)[:, None, :]                                # (N, 1, S)
+    img_idx = image_indices[:, None, None]
+
+    def rows_at(iy):
+        """(N, L, S) row indices -> (N, L, S, W) rows, zero outside."""
+        inb = ((iy >= 0) & (iy < h))[..., None]
+        vals = images[img_idx, iy.clamp(0, h - 1)].float()
+        return torch.where(inb, vals, torch.zeros((), device=dev))
+
+    def cols_at(rows, ix):
+        """(N, L, S) column indices -> (N, L, S, S), zero outside."""
+        inb = ((ix >= 0) & (ix < w))[:, :, None, :]
+        take = ix.clamp(0, w - 1)[:, :, None, :].expand(n, l, s, s)
+        vals = torch.gather(rows, 3, take)
+        return torch.where(inb, vals, torch.zeros((), device=dev))
+
+    if not quantize:
+        x0 = (origin_x[:, :, None] + src[:, None, :]).floor().long()
+        y0 = (origin_y[:, :, None] + src[:, None, :]).floor().long()
+        wx = frac.expand(n, l, s)[:, :, None, :]                 # (N,L,1,S)
+        wy = frac.expand(n, l, s)[:, :, :, None]                 # (N,L,S,1)
+        rows = rows_at(y0) * (1.0 - wy) + rows_at(y0 + 1) * wy
+        return cols_at(rows, x0) * (1.0 - wx) + cols_at(rows, x0 + 1) * wx
+
+    # cv::resize 8U INTER_LINEAR: a1 = cvRound(f*2048), a0 = 2048 - a1 with
+    # the fraction unclamped (only the indices replicate-clamp into the
+    # crop); h = p0*a0 + p1*a1; t = ((h >> 4) * b) >> 16 per row pair;
+    # dst = sat((t0 + t1 + 2) >> 2)
+    ext = (2.0 * patch_half - 1.0)[:, None, None]                # (N, 1, 1)
+    i0 = torch.minimum(torch.clamp(s0[:, None, :], min=0.0), ext)
+    i1 = torch.minimum(torch.clamp(s0[:, None, :] + 1.0, min=0.0), ext)
+    ix0 = (origin_x[:, :, None] + i0).long()                     # (N, L, S)
+    ix1 = (origin_x[:, :, None] + i1).long()
+    iy0 = (origin_y[:, :, None] + i0).long()
+    iy1 = (origin_y[:, :, None] + i1).long()
+    r0, r1 = rows_at(iy0), rows_at(iy1)
+    c00 = cols_at(r0, ix0).int()
+    c01 = cols_at(r0, ix1).int()
+    c10 = cols_at(r1, ix0).int()
+    c11 = cols_at(r1, ix1).int()
+    ax1 = torch.round(frac * 2048.0).int()[:, :, None, :]        # (N,1,1,S)
+    ay1 = torch.round(frac * 2048.0).int()[:, :, :, None]        # (N,1,S,1)
+    ax0, ay0 = 2048 - ax1, 2048 - ay1
+    h0 = c00 * ax0 + c01 * ax1
+    h1 = c10 * ax0 + c11 * ax1
+    t = (((h0 >> 4) * ay0) >> 16) + (((h1 >> 4) * ay1) >> 16)
+    return torch.clamp((t + 2) >> 2, 0, 255).float()
+
+
+def rgb_to_gray_u8(rgb) -> np.ndarray:
+    """OpenCV-parity RGB -> gray for uint8 images:
+    (R*4899 + G*9617 + B*1868 + 8192) >> 14. rgb: (..., 3) uint8."""
+    rgb = np.asarray(rgb)
+    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
+    return ((r * 4899 + g * 9617 + b * 1868 + 8192) >> 14).astype(np.uint8)
+
+
+def load_gray_image(path) -> np.ndarray:
+    """Load a PNG as (H, W) float32 gray in [0, 255]; colour images convert
+    with OpenCV parity (alpha is dropped, as PIL's convert('RGB') does)."""
+    pixels = read_png(path)
+    if pixels.shape[2] <= 2:
+        gray = pixels[..., 0]
+    else:
+        gray = rgb_to_gray_u8(pixels[..., :3])
+    return gray.astype(np.float32)
+
+
+def stack_images(gray_images, dtype=None, pad_width_to=1,
+                 pad_height_to=None):
+    """Zero-pad (H_i, W_i) images into one (I, Hmax, Wmax) numpy stack.
+
+    Returns (stack, sizes) with sizes (I, 2) [h, w]. pad_width_to rounds
+    the width up to a multiple (128 enables the stepped detector's
+    rows-only crop); pad_height_to defaults to 32 when the width is
+    128-padded, else 1, as in the JAX package.
+    """
+    dtype = dtype or np.float32
+    if pad_height_to is None:
+        pad_height_to = 32 if pad_width_to % 128 == 0 else 1
+    hmax = max(im.shape[0] for im in gray_images)
+    hmax = -(-hmax // pad_height_to) * pad_height_to
+    wmax = max(im.shape[1] for im in gray_images)
+    wmax = -(-wmax // pad_width_to) * pad_width_to
+    stack = np.zeros((len(gray_images), hmax, wmax), dtype)
+    sizes = np.zeros((len(gray_images), 2), np.int32)
+    for i, im in enumerate(gray_images):
+        stack[i, :im.shape[0], :im.shape[1]] = np.asarray(im, dtype)
+        sizes[i] = im.shape
+    return stack, sizes

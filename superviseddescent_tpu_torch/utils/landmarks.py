@@ -1,0 +1,98 @@
+"""Landmark containers and helpers.
+
+Counterpart of ``superviseddescent_tpu/utils/landmarks.py`` (reference:
+rcr/landmark.hpp, rcr/helpers.hpp). One row per shape everywhere:
+``[x_0 .. x_{n-1}, y_0 .. y_{n-1}]``. Names exist only at the host boundary;
+eye identifiers resolve once to index tuples.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclass
+class LandmarkCollection:
+    """Named 2D landmarks. ``coordinates`` is (N, 2) float32 [x, y]."""
+
+    names: list
+    coordinates: np.ndarray
+
+    def __post_init__(self):
+        self.coordinates = np.asarray(self.coordinates, np.float32)
+        if self.coordinates.shape != (len(self.names), 2):
+            raise ValueError(
+                f"coordinates {self.coordinates.shape} do not match "
+                f"{len(self.names)} names")
+
+    def __len__(self):
+        return len(self.names)
+
+    def filter(self, keep_names: Sequence[str]) -> "LandmarkCollection":
+        """Subset by name, in the order of ``keep_names``."""
+        index = {n: i for i, n in enumerate(self.names)}
+        kept = [n for n in keep_names if n in index]
+        return LandmarkCollection(kept,
+                                  self.coordinates[[index[n] for n in kept]])
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.coordinates[self.names.index(name)]
+
+
+def to_row(landmarks: LandmarkCollection) -> np.ndarray:
+    """(N, 2) named landmarks -> (2N,) row [x..., y...]."""
+    c = landmarks.coordinates
+    return np.concatenate([c[:, 0], c[:, 1]]).astype(np.float32)
+
+
+def to_landmark_collection(row, names: Sequence[str]) -> LandmarkCollection:
+    """Row [x..., y...] -> named landmarks."""
+    if isinstance(row, torch.Tensor):
+        row = row.detach().cpu().numpy()
+    row = np.asarray(row).reshape(-1)
+    n = row.shape[0] // 2
+    if n != len(names):
+        raise ValueError(f"row holds {n} landmarks, {len(names)} names given")
+    return LandmarkCollection(list(names), np.stack([row[:n], row[n:]], 1))
+
+
+def resolve_eye_indices(model_landmarks: Sequence[str],
+                        right_eye_ids: Sequence[str],
+                        left_eye_ids: Sequence[str]
+                        ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Eye identifier names -> index tuples into the model landmark list.
+    Raises ValueError if an identifier is missing."""
+    index = {n: i for i, n in enumerate(model_landmarks)}
+    try:
+        right = tuple(index[n] for n in right_eye_ids)
+        left = tuple(index[n] for n in left_eye_ids)
+    except KeyError as e:
+        raise ValueError(
+            f"eye identifier {e} not present in model landmarks") from e
+    return right, left
+
+
+def ied_from_rows(rows: torch.Tensor, right_idx: Tuple[int, ...],
+                  left_idx: Tuple[int, ...]) -> torch.Tensor:
+    """Inter-eye distance per row: the L2 distance of the two eye centres,
+    each the mean of its landmarks. rows: (..., 2N) -> (...,)."""
+    n = rows.shape[-1] // 2
+    xs, ys = rows[..., :n], rows[..., n:]
+    ri, li = list(right_idx), list(left_idx)
+    rx = xs[..., ri].mean(-1)
+    ry = ys[..., ri].mean(-1)
+    lx = xs[..., li].mean(-1)
+    ly = ys[..., li].mean(-1)
+    return torch.sqrt((rx - lx) ** 2 + (ry - ly) ** 2)
+
+
+def get_ied(landmarks: LandmarkCollection, right_eye_ids: Sequence[str],
+            left_eye_ids: Sequence[str]) -> float:
+    """Host-side IED from named landmarks."""
+    right = np.mean([landmarks[n] for n in right_eye_ids], axis=0)
+    left = np.mean([landmarks[n] for n in left_eye_ids], axis=0)
+    return float(np.linalg.norm(right - left))
