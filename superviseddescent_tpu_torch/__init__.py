@@ -9,7 +9,10 @@ First slice: batched RCR-22 detection through the stepped window detector
 (``models.rcr.DetectionModel.make_stepped_detector``), with the HOG kernel
 (``ops/hog_flat.py``, ``csrc/hog_flat.cu``) and the window patch sampler
 (``ops/patches_window.py``, ``csrc/patches_window.cu``) written by hand in
-CUDA C++ for ``sm_90a``.
+CUDA C++ for ``sm_90a``. Second slice: the fused detector
+(``models.rcr.DetectionModel.make_fused_detector`` and
+``make_fused_tracker``), which runs the whole cascade per face in one launch
+of a CUDA kernel (``ops/cascade_fused.py``, ``csrc/cascade_fused.cu``).
 """
 
 __version__ = "0.1.0"

@@ -12,8 +12,10 @@ Two feature backends per cascade level (``HogTransform``):
     (``ops/hog_flat``), on per-face ROI windows; the path of
     ``make_stepped_detector(window_sampler=True)``.
 
-The regressor product ``x - (F @ W) / norm`` is a float32 ``torch.matmul``
-(with TF32 off, the PyTorch default), as the JAX package leaves it to XLA.
+On these paths the regressor product ``x - (F @ W) / norm`` is a float32
+``torch.matmul`` (with TF32 off, the PyTorch default), as the JAX package
+leaves it to XLA. ``make_fused_detector`` runs the whole cascade, GEMV
+included, in one launch of K3 or K4 (``ops/cascade_fused``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from superviseddescent_tpu_torch.core.regulariser import (
 from superviseddescent_tpu_torch.io.cereal import (
     CerealDetectionModel, CerealHoGParam, CerealRegressor,
     load_detection_model, save_detection_model)
+from superviseddescent_tpu_torch.ops.cascade_fused import (
+    FRAME_COL_ALIGN, FRAME_ROW_ALIGN, detect_cascade_fused,
+    detect_cascade_fused_frames, prepare_weights, validate_fused_config)
 from superviseddescent_tpu_torch.ops.hog import (
     HogVariant, hog_descriptor, hog_dimension, hog_num_cells)
 from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
@@ -302,6 +307,181 @@ class SteppedDetector:
         return x + shift
 
 
+class FusedDetector:
+    """``f(images (I, H, W), faceboxes (B, 4) or prior rows (B, 2L),
+    image_indices=None) -> (B, 2L)``: the whole cascade in one kernel
+    launch; built by ``DetectionModel.make_fused_detector``.
+
+    A uint8 stack whose height is a multiple of 32 and width a multiple of
+    128 goes to K3, which reads each face's window straight from the stack
+    at 32-row / 128-column aligned origins (window (roi + 32, roi + 128)
+    where the stack allows it). Any other stack is cropped here into
+    roi x roi bf16 windows for K4. ``image_indices`` maps faces to frames
+    of a unique-frame stack; without it the stack holds one frame per face.
+    """
+
+    def __init__(self, model: "DetectionModel", roi: int,
+                 max_ied: Optional[float], init: str, quantize: bool):
+        if roi % 128 != 0:
+            raise ValueError("fused detector requires a 128-aligned roi")
+        if init not in ("facebox", "landmarks"):
+            raise ValueError(f"unknown init mode: {init!r}")
+        p0 = model.hog_params[0]
+        c = p0.num_cells
+        for p in model.hog_params:
+            if (p.num_cells, p.num_bins, p.variant) != (
+                    c, p0.num_bins, p0.variant):
+                raise ValueError(
+                    "fused detector requires uniform cell-count/bins")
+        validate_fused_config(len(model.landmark_ids), c, p0.num_bins,
+                              p0.variant)
+        mi = max_ied if max_ied is not None else roi / 2.13
+        sub_w, sub_x = level_sub_windows(model.hog_params, roi, mi)
+        self.model = model
+        self.roi = roi
+        self.init = init
+        self.quantize = quantize
+        # the column sub-window falls back to roi, not to the window width:
+        # on the frames path every level samples a 128-aligned sub-window
+        self.levels = tuple(
+            (p.patch_size, sub_w[li], sub_x[li] or roi,
+             p.relative_patch_size)
+            for li, p in enumerate(model.hog_params))
+        self.cell_sizes = tuple(p.cell_size for p in model.hog_params)
+        self.num_bins = p0.num_bins
+        self.dims = hog_dimension(p0.variant, p0.num_bins)
+        self.r_idx, self.l_idx = resolve_eye_indices(
+            model.landmark_ids, model.right_eye_ids, model.left_eye_ids)
+        self.weights = prepare_weights(
+            [r.weights for r in model.sdo.regressors], model.device)
+
+    @staticmethod
+    def frames_path_ok(images: torch.Tensor) -> bool:
+        """K3 takes uint8 stacks of 32-aligned height, 128-aligned width."""
+        return (images.dtype == torch.uint8
+                and images.shape[2] % FRAME_COL_ALIGN == 0
+                and images.shape[1] % FRAME_ROW_ALIGN == 0)
+
+    def aligned_origins(self, images: torch.Tensor, boxes: torch.Tensor):
+        """Per-face window origins for K3 and the window shape: the roi crop
+        origin floored to the (32, 128) grain first, then clamped, with the
+        window one grain larger where the stack allows, so it still covers
+        the whole crop (floor first: a clamp first could strip the slack
+        from faces at the bottom or right edge)."""
+        roi = self.roi
+        h, w = images.shape[1], images.shape[2]
+        if h < roi or w < roi:
+            raise ValueError(f"roi {roi} exceeds image stack {h}x{w}")
+        ry = roi + (FRAME_ROW_ALIGN if h >= roi + FRAME_ROW_ALIGN else 0)
+        rx = roi + (FRAME_COL_ALIGN if w >= roi + FRAME_COL_ALIGN else 0)
+        cx = boxes[:, 0] + boxes[:, 2] / 2.0
+        cy = boxes[:, 1] + boxes[:, 3] / 2.0
+        oy = torch.round(cy - roi / 2.0).to(torch.int32)
+        oy = torch.clamp(torch.div(oy, FRAME_ROW_ALIGN, rounding_mode="floor")
+                         * FRAME_ROW_ALIGN, 0, h - ry)
+        ox = torch.round(cx - roi / 2.0).to(torch.int32)
+        ox = torch.clamp(torch.div(ox, FRAME_COL_ALIGN, rounding_mode="floor")
+                         * FRAME_COL_ALIGN, 0, w - rx)
+        return oy, ox, (ry, rx)
+
+    def crop(self, images: torch.Tensor, boxes: torch.Tensor,
+             idx: torch.Tensor):
+        """roi x roi bf16 windows around the boxes (clamped inside the
+        image) for K4, and their (ox, oy) origins."""
+        roi = self.roi
+        h, w = images.shape[1], images.shape[2]
+        if h < roi or w < roi:
+            raise ValueError(f"roi {roi} exceeds image stack {h}x{w}")
+        cx = boxes[:, 0] + boxes[:, 2] / 2.0
+        cy = boxes[:, 1] + boxes[:, 3] / 2.0
+        oy = torch.clamp(torch.round(cy - roi / 2.0), 0, h - roi).long()
+        ox = torch.clamp(torch.round(cx - roi / 2.0), 0, w - roi).long()
+        span = torch.arange(roi, device=images.device)
+        windows = images[idx.long()[:, None, None],
+                         (oy[:, None] + span)[:, :, None],
+                         (ox[:, None] + span)[:, None, :]]
+        return windows.bfloat16(), ox.float(), oy.float()
+
+    def boxes_from_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """roi x roi boxes centred on each row's landmark extent."""
+        n_lm = len(self.model.landmark_ids)
+        xs, ys = rows[:, :n_lm], rows[:, n_lm:]
+        roi = float(self.roi)
+        return torch.stack([
+            (xs.min(1).values + xs.max(1).values) / 2.0 - roi / 2.0,
+            (ys.min(1).values + ys.max(1).values) / 2.0 - roi / 2.0,
+            torch.full(rows.shape[:1], roi, device=rows.device),
+            torch.full(rows.shape[:1], roi, device=rows.device)], dim=1)
+
+    def indices(self, images: torch.Tensor, n: int, image_indices):
+        """(n,) int32 frame index of each face on the model's device. An
+        index array on the host is range-checked before upload; a CUDA
+        tensor is passed on unchecked (the kernels write NaN rows for
+        entries outside the stack)."""
+        dev = self.model.device
+        n_img = images.shape[0]
+        if image_indices is None:
+            if n_img != n:
+                raise ValueError(
+                    f"{n} faces over {n_img} images: pass image_indices")
+            return torch.arange(n, dtype=torch.int32, device=dev)
+        if isinstance(image_indices, torch.Tensor) and \
+                image_indices.device.type == "cuda":
+            idx = image_indices.to(dev, torch.int32)
+        else:
+            arr = np.asarray(image_indices.cpu() if isinstance(
+                image_indices, torch.Tensor) else image_indices)
+            bad = np.flatnonzero((arr < 0) | (arr >= n_img))
+            if bad.size:
+                raise ValueError(
+                    f"image_indices[{bad[0]}] = {arr[bad[0]]} is outside the "
+                    f"stack of {n_img} images")
+            idx = torch.as_tensor(arr.astype(np.int32), device=dev)
+        if idx.shape != (n,):
+            raise ValueError(f"image_indices must be ({n},), got "
+                             f"{tuple(idx.shape)}")
+        return idx
+
+    def __call__(self, images, boxes_or_rows, image_indices=None):
+        m = self.model
+        images = torch.as_tensor(images, device=m.device)
+        if images.ndim != 3:
+            raise ValueError("images must be an (I, H, W) stack")
+        given = torch.as_tensor(boxes_or_rows, dtype=torch.float32,
+                                device=m.device)
+        n_lm = len(m.landmark_ids)
+        if self.init == "landmarks":
+            x0 = given
+            boxes = self.boxes_from_rows(given)
+        else:
+            boxes = given
+            x0 = align_mean(m.mean[None, :], boxes)
+        if x0.ndim != 2 or x0.shape[1] != 2 * n_lm or boxes.shape[1] != 4:
+            raise ValueError("expected (B, 4) faceboxes or (B, 2L) rows")
+        idx = self.indices(images, x0.shape[0], image_indices)
+        config = dict(levels=self.levels, cell_sizes=self.cell_sizes,
+                      num_orientations=self.num_bins, dims=self.dims,
+                      r_idx=self.r_idx, l_idx=self.l_idx,
+                      quantize=self.quantize)
+        if self.frames_path_ok(images):
+            oy, ox, window_shape = self.aligned_origins(images, boxes)
+            shift = rows_shift(ox.float(), oy.float(), n_lm)
+            out = detect_cascade_fused_frames(
+                images, idx, oy, ox, x0 - shift, self.weights, window_shape,
+                **config)
+            return out + shift
+        n_img = images.shape[0]
+        valid = (idx >= 0) & (idx < n_img)
+        windows, ox, oy = self.crop(images, boxes, idx.clamp(0, n_img - 1))
+        shift = rows_shift(ox, oy, n_lm)
+        out = detect_cascade_fused(windows, x0 - shift, self.weights,
+                                   **config) + shift
+        # an out-of-range CUDA index was read clamped: its row is NaN, as
+        # on the frames path
+        return torch.where(valid[:, None], out,
+                           torch.full((), float("nan"), device=out.device))
+
+
 class DetectionModel:
     """A trained RCR landmark detection model (reference:
     rcr::detection_model), holding its tensors on ``device``."""
@@ -367,6 +547,33 @@ class DetectionModel:
                 self.hog_params, roi, mi)
         return SteppedDetector(self, batch, quantize, roi, sampling,
                                window_sampler, sub_windows, sub_windows_x)
+
+    def make_fused_detector(self, roi: int, max_ied: Optional[float] = None,
+                            init: str = "facebox",
+                            quantize: bool = True) -> FusedDetector:
+        """``f(images, faceboxes_or_prior_rows, image_indices=None) ->
+        (B, 2L)``: the whole cascade in one launch of the fused kernel
+        (K3 for 32/128-aligned uint8 stacks, K4 otherwise).
+
+        Serving-fast numerics (bf16 sampling and splat, sector binning,
+        quantised patches; quantize=False keeps the patches unrounded).
+        roi: a multiple of 128; max_ied sizes the per-level sub-windows as
+        for the stepped window detector (default roi / 2.13).
+        init="facebox" aligns the mean shape into each box;
+        init="landmarks" starts from prior landmark rows (tracking) with
+        the window centred on each row's extent. image_indices: (B,) frame
+        of each face in a unique-frame stack; an index array on the host
+        raises ValueError when an entry lies outside the stack, and a CUDA
+        index tensor gives that face a row of NaN.
+        """
+        return FusedDetector(self, roi, max_ied, init, quantize)
+
+    def make_fused_tracker(self, roi: int,
+                           max_ied: Optional[float] = None) -> FusedDetector:
+        """``f(frames (N, H, W), prior_rows (N, 2L)) -> (N, 2L)``: the fused
+        cascade initialised from prior landmark rows (tracking)."""
+        return self.make_fused_detector(roi, max_ied=max_ied,
+                                        init="landmarks")
 
     # -------------------------------------------------------------- #
     # Persistence (cereal byte-compatible)

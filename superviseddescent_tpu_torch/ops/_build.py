@@ -28,14 +28,20 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-# C entry points: name -> (symbol, argument types)
+# C entry points: source name -> {symbol: argument types}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# the cascade kernels' common tail: x0, out, weights, level tables, tents,
+# eyes; n, levels, L, C, RY, RX, Fp, quantize, S_max; stream
+_CASCADE = [_P] * 7 + [_I] * 9 + [_P]
 KERNELS = {
-    "hog_flat": ("hog_flat_launch",
-                 [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "patches_window": ("patches_window_launch",
+    "hog_flat": {"hog_flat_launch":
+                 [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "patches_window": {"patches_window_launch":
                        [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _P]),
+                        _I, _I, _I, _I, _P]},
+    "cascade_fused": {"cascade_fused_frames_launch":
+                      [_P] * 4 + [_I] * 3 + _CASCADE,
+                      "cascade_fused_launch": [_P] + _CASCADE},
 }
 
 
@@ -95,8 +101,8 @@ def load_library(name: str):
     """The loaded library of kernel ``name``, built at first use."""
     _finish(name, *_start(name))
     lib = ctypes.CDLL(str(library_path(name)))
-    symbol, argtypes = KERNELS[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for symbol, argtypes in KERNELS[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -104,6 +104,47 @@ def _check(patches_flat, size, cell_size, num_orientations, variant):
     HogVariant(variant)
 
 
+def sector_bins(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """Directed bin 0..7 of each gradient for O=4: the nearest multiple of
+    pi/4, picked by two slope compares (the fast mode's binning)."""
+    dev = gx.device
+    ax, ay = gx.abs(), gy.abs()
+    px, py = gx >= 0, gy >= 0
+    one = torch.ones((), dtype=torch.long, device=dev)
+    bin_h = torch.where(px, 0 * one, 4 * one)
+    bin_v = torch.where(py, 2 * one, 6 * one)
+    bin_d = torch.where(px == py, torch.where(px, one, 5 * one),
+                        torch.where(py, 3 * one, 7 * one))
+    t_lo = torch.tensor(_TAN_PI_8, dtype=torch.float32, device=dev)
+    t_hi = torch.tensor(_TAN_3PI_8, dtype=torch.float32, device=dev)
+    return torch.where(ay < ax * t_lo, bin_h,
+                       torch.where(ay > ax * t_hi, bin_v, bin_d))
+
+
+def uoctti_channels(factors, ha, hb):
+    """The 3O + 4 Uoctti channels from the four block factors and the
+    per-orientation directed (ha) and opposite (hb) histograms, all
+    tensors of one shape: 0.5 x the sums of the four normalised copies,
+    clamped at 0.2, then the texture channels t_i / sqrt(18)."""
+    t_acc = [0.0] * 4
+    chan_a, chan_b, chan_c = [], [], []
+    for ha_k, hb_k in zip(ha, hb):
+        ha_s = hb_s = hc_s = 0.0
+        for i in range(4):
+            hai = factors[i] * ha_k
+            hbi = factors[i] * hb_k
+            hci = torch.clamp(hai + hbi, max=0.2)
+            ha_s = ha_s + torch.clamp(hai, max=0.2)
+            hb_s = hb_s + torch.clamp(hbi, max=0.2)
+            hc_s = hc_s + hci
+            t_acc[i] = t_acc[i] + hci
+        chan_a.append(0.5 * ha_s)
+        chan_b.append(0.5 * hb_s)
+        chan_c.append(0.5 * hc_s)
+    scale_t = float(np.float32(1.0) / np.sqrt(np.float32(18.0)))
+    return chan_a + chan_b + chan_c + [t * scale_t for t in t_acc]
+
+
 def hog_descriptor_flat_reference(patches_flat: torch.Tensor, size: int,
                                   cell_size: int, num_orientations: int,
                                   variant: HogVariant = HogVariant.Uoctti,
@@ -126,17 +167,7 @@ def hog_descriptor_flat_reference(patches_flat: torch.Tensor, size: int,
     grad = torch.sqrt(gx * gx + gy * gy)
 
     if fast and o == 4:
-        ax, ay = gx.abs(), gy.abs()
-        px, py = gx >= 0, gy >= 0
-        one = torch.ones((), dtype=torch.long, device=dev)
-        bin_h = torch.where(px, 0 * one, 4 * one)
-        bin_v = torch.where(py, 2 * one, 6 * one)
-        bin_d = torch.where(px == py, torch.where(px, one, 5 * one),
-                            torch.where(py, 3 * one, 7 * one))
-        t_lo = torch.tensor(_TAN_PI_8, dtype=torch.float32, device=dev)
-        t_hi = torch.tensor(_TAN_3PI_8, dtype=torch.float32, device=dev)
-        best_bin = torch.where(ay < ax * t_lo, bin_h,
-                               torch.where(ay > ax * t_hi, bin_v, bin_d))
+        best_bin = sector_bins(gx, gy)
     else:
         # argmax of |score| on unnormalised gradients, first maximum wins,
         # k + O for a negative score
@@ -177,23 +208,8 @@ def hog_descriptor_flat_reference(patches_flat: torch.Tensor, size: int,
         factors.append(torch.rsqrt(total + 1e-4))
 
     if variant == HogVariant.Uoctti:
-        t_acc = [0.0] * 4
-        chan_a, chan_b, chan_c = [], [], []
-        for k in range(o):
-            ha_s = hb_s = hc_s = 0.0
-            for i in range(4):
-                hai = factors[i] * ha[:, k]
-                hbi = factors[i] * hb[:, k]
-                hci = torch.clamp(hai + hbi, max=0.2)
-                ha_s = ha_s + torch.clamp(hai, max=0.2)
-                hb_s = hb_s + torch.clamp(hbi, max=0.2)
-                hc_s = hc_s + hci
-                t_acc[i] = t_acc[i] + hci
-            chan_a.append(0.5 * ha_s)
-            chan_b.append(0.5 * hb_s)
-            chan_c.append(0.5 * hc_s)
-        scale_t = float(np.float32(1.0) / np.sqrt(np.float32(18.0)))
-        channels = chan_a + chan_b + chan_c + [t * scale_t for t in t_acc]
+        channels = uoctti_channels(factors, [ha[:, k] for k in range(o)],
+                                   [hb[:, k] for k in range(o)])
     else:
         channels = [torch.clamp(factors[i] * (ha[:, k] + hb[:, k]), max=0.2)
                     for i in range(4) for k in range(o)]

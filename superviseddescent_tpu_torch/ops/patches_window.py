@@ -103,8 +103,11 @@ def _prepare(centers_x, centers_y, patch_half, out_size):
     cy = torch.round(centers_y)
     oxy = torch.cat([cy - patch_half[:, None], cx - patch_half[:, None]],
                     dim=1).float().contiguous()                # (N, 2L)
-    sp = torch.stack([2.0 * patch_half / out_size, patch_half],
-                     dim=1).float().contiguous()               # (N, 2)
+    # a tensor divisor: on CUDA, PyTorch multiplies by the reciprocal of a
+    # Python-scalar divisor, which differs from the true quotient (the CPU's,
+    # JAX's and the fused kernel's) in the last bit
+    step = 2.0 * patch_half / torch.full_like(patch_half, float(out_size))
+    sp = torch.stack([step, patch_half], dim=1).float().contiguous()  # (N, 2)
     return oxy, sp
 
 

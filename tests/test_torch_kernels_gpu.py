@@ -1,8 +1,9 @@
-"""K1 and K2 CUDA kernels against their plain PyTorch twins, on the card.
+"""K1-K4 CUDA kernels against their plain PyTorch twins, on the card.
 
 Marked ``gpu``: each test skips unless a CUDA device is present (decided
 inside the fixture, never at import). On the card:
-``python -m pytest tests/test_torch_kernels_gpu.py -m gpu``.
+``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu``
+(the repository's conftest imports JAX, which the card's machine lacks).
 """
 
 import numpy as np
@@ -80,3 +81,166 @@ def test_window_kernel_equals_twin(cuda, window_dtype, sampling, transposed):
             torch.float32)
         # every float operation rounds as the twin's does: bit-equal
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------ #
+# K3 / K4: the fused cascade against its plain twin
+# ------------------------------------------------------------------ #
+LEVEL_PX = 1e-3     # one level from equal rows: only the GEMV sums differ
+WHOLE_PX = 0.02     # whole cascade: a centre may round the other way
+WHOLE_MAX_PX = 0.75
+
+
+def random_model(cuda, num_landmarks, levels, cells, seed=0, scale=0.02):
+    """An RCR model with random regressors (numpy, seeded) on the card."""
+    from superviseddescent_tpu_torch.core.cascade import (
+        SupervisedDescentOptimiser)
+    from superviseddescent_tpu_torch.core.regressor import LinearRegressor
+    from superviseddescent_tpu_torch.models.rcr import (
+        DetectionModel, HogParams, InterEyeDistanceNormalisation)
+    rng = np.random.default_rng(seed)
+    names = [str(i + 1) for i in range(num_landmarks)]
+    params = tuple(HogParams(HogVariant.Uoctti, cells, 4, 4, 0.8)
+                   for _ in range(levels))
+    f = num_landmarks * cells * cells * 16 + 1
+    regs = [LinearRegressor(torch.from_numpy(
+        (rng.normal(size=(f, 2 * num_landmarks)) * scale).astype(np.float32)))
+        for _ in range(levels)]
+    mean = rng.uniform(-0.35, 0.35, 2 * num_landmarks).astype(np.float32)
+    mean[0], mean[1] = -0.15, 0.15
+    norm = InterEyeDistanceNormalisation(names, ["1"], ["2"])
+    return DetectionModel(SupervisedDescentOptimiser(regs, norm), mean, names,
+                          params, ["1"], ["2"], device=cuda)
+
+
+def check_fused_against_twin(det, frames, boxes, idx=None):
+    """K3 (uint8 frames) and K4 (float32 frames) against their twins: per
+    level from the twin's own rows, then the whole cascade."""
+    from superviseddescent_tpu_torch.models.rcr import align_mean, rows_shift
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        detect_cascade_fused, detect_cascade_fused_frames,
+        detect_cascade_fused_frames_reference, detect_cascade_fused_reference,
+        prepare_weights)
+    m = det.model
+    n_lm = len(m.landmark_ids)
+    n = boxes.shape[0]
+    idx = torch.arange(n, device=frames.device, dtype=torch.int32) \
+        if idx is None else idx
+    eyes = (det.r_idx, det.l_idx)
+    x_img = align_mean(m.mean[None], boxes)
+    oy, ox, window = det.aligned_origins(frames, boxes)
+    x_k3 = x_img - rows_shift(ox.float(), oy.float(), n_lm)
+    windows, wox, woy = det.crop(frames.float(), boxes, idx)
+    x_k4 = x_img - rows_shift(wox, woy, n_lm)
+    for li, level in enumerate(det.levels):
+        w1 = prepare_weights([m.sdo.regressors[li].weights])
+        one = ((level,), (det.cell_sizes[li],))
+        before = detect_cascade_fused_frames.launches
+        got = detect_cascade_fused_frames(frames, idx, oy, ox, x_k3, w1,
+                                          window, *one, 4, 16, *eyes)
+        assert detect_cascade_fused_frames.launches == before + 1
+        ref = detect_cascade_fused_frames_reference(frames, idx, oy, ox,
+                                                    x_k3, w1, window, *one,
+                                                    *eyes)
+        assert float((got - ref).abs().max()) <= LEVEL_PX
+        got4 = detect_cascade_fused(windows, x_k4, w1, *one, 4, 16, *eyes)
+        ref4 = detect_cascade_fused_reference(windows, x_k4, w1, *one, *eyes)
+        assert float((got4 - ref4).abs().max()) <= LEVEL_PX
+        x_k3, x_k4 = ref, ref4
+    weights = det.weights
+    for got, ref in (
+            (detect_cascade_fused_frames(
+                frames, idx, oy, ox, x_img - rows_shift(
+                    ox.float(), oy.float(), n_lm), weights, window,
+                det.levels, det.cell_sizes, 4, 16, *eyes),
+             detect_cascade_fused_frames_reference(
+                 frames, idx, oy, ox, x_img - rows_shift(
+                     ox.float(), oy.float(), n_lm), weights, window,
+                 det.levels, det.cell_sizes, *eyes)),
+            (detect_cascade_fused(windows, x_img - rows_shift(wox, woy, n_lm),
+                                  weights, det.levels, det.cell_sizes, 4, 16,
+                                  *eyes),
+             detect_cascade_fused_reference(
+                 windows, x_img - rows_shift(wox, woy, n_lm), weights,
+                 det.levels, det.cell_sizes, *eyes))):
+        per_face = (got - ref).abs().amax(dim=1)
+        assert bool(torch.isfinite(got).all())
+        assert float(per_face.max()) <= WHOLE_MAX_PX
+        # at most 0.1% of the faces (rounded up) beyond the fast-class bound
+        assert int((per_face > WHOLE_PX).sum()) <= -(-n // 1000)
+
+
+@pytest.mark.parametrize("num_landmarks,cells", [(6, 3), (29, 5)])
+def test_fused_kernels_match_twin_tiny(cuda, num_landmarks, cells):
+    rng = np.random.default_rng(num_landmarks)
+    model = random_model(cuda, num_landmarks, 2, cells)
+    # 128 columns: the frames path's window is the full width (see
+    # tests/test_torch_fused_small.py::frames_and_boxes)
+    frames = torch.from_numpy(rng.integers(0, 256, size=(6, 192, 128))
+                              .astype(np.uint8)).to(cuda)
+    boxes = torch.from_numpy(np.column_stack([
+        rng.uniform(0, 48, 6), rng.uniform(0, 110, 6),
+        np.full(6, 80.0), np.full(6, 80.0)]).astype(np.float32)).to(cuda)
+    check_fused_against_twin(model.make_fused_detector(roi=128), frames,
+                             boxes)
+
+
+@pytest.fixture(scope="module")
+def rcr22_faces():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import glob
+    import os
+    from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
+    from superviseddescent_tpu_torch.models.rcr import (
+        DetectionModel, gt_facebox)
+    from superviseddescent_tpu_torch.ops.patches import (
+        load_gray_image, stack_images)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = DetectionModel.load(
+        os.path.join(repo, "pretrained", "rcr22_lfpw5.bin"), device="cuda")
+    files = sorted(glob.glob(os.path.join(repo, ".synth120", "*.png")))[:16]
+    images = [load_gray_image(f) for f in files]
+    boxes = np.array([gt_facebox(read_pts_landmarks(f[:-4] + ".pts")
+                                 .filter(model.landmark_ids))
+                      for f in files], np.float32)
+    stack, _ = stack_images(images, dtype=np.uint8, pad_width_to=128)
+    sel = np.arange(64) % len(files)
+    return (model, torch.from_numpy(stack).cuda(),
+            torch.from_numpy(boxes[sel]).cuda(),
+            torch.from_numpy(sel.astype(np.int32)).cuda())
+
+
+def test_fused_kernels_match_twin_rcr22(cuda, rcr22_faces):
+    model, stack, boxes, idx = rcr22_faces
+    det = model.make_fused_detector(roi=512)
+    check_fused_against_twin(det, stack, boxes, idx)
+
+
+def test_fused_out_of_range_cuda_index_gives_nan_row(cuda, rcr22_faces):
+    model, stack, boxes, idx = rcr22_faces
+    det = model.make_fused_detector(roi=512)
+    good = det(stack, boxes, image_indices=idx)
+    bad_idx = idx.clone()
+    bad_idx[3] = stack.shape[0]
+    bad_idx[7] = -1
+    for images in (stack, stack.float()):  # K3, then the crop path to K4
+        rows = det(images, boxes, image_indices=bad_idx)
+        assert bool(torch.isnan(rows[[3, 7]]).all())
+        keep = torch.ones(len(idx), dtype=torch.bool, device=cuda)
+        keep[[3, 7]] = False
+        assert bool(torch.isfinite(rows[keep]).all())
+        if images.dtype == torch.uint8:
+            torch.testing.assert_close(rows[keep], good[keep], rtol=0,
+                                       atol=0)
+
+
+def test_fused_empty_batch_launches_nothing(cuda, rcr22_faces):
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        detect_cascade_fused_frames)
+    model, stack, boxes, idx = rcr22_faces
+    det = model.make_fused_detector(roi=512)
+    before = detect_cascade_fused_frames.launches
+    rows = det(stack, boxes[:0], image_indices=idx[:0])
+    assert rows.shape == (0, 44)
+    assert detect_cascade_fused_frames.launches == before
