@@ -6,19 +6,27 @@
 Builds the port's CUDA kernels from ``superviseddescent_tpu_torch/csrc``,
 holds each against its plain PyTorch twin on the card, then drives the two
 serving paths with pretrained RCR-22 (``pretrained/rcr22_lfpw5.bin``) over
-4,096 faces of the 120 ``.synth120`` images:
+4,096 faces of the 120 ``.synth120`` images, and trains RCR-22 on them:
 
 * the stepped detector,
   ``DetectionModel.make_stepped_detector(window_sampler=True, roi=512)``,
   in exact and fast sampling (K2 then K1 per level);
 * the fused detector, ``DetectionModel.make_fused_detector(roi=512)``, on
   the unique 120-frame uint8 stack with ``image_indices`` (K3, one launch
-  per call) and on the float32 stack (the crop path to K4).
+  per call) and on the float32 stack (the crop path to K4);
+* training, ``train_rcr(..., RcrTrainConfig(roi=512,
+  patch_backend="fused"))``, on 1,024 faces x 11 initialisations = 11,264
+  samples of the uint8 stack (K5, one launch per level, then the normal
+  equations and the LU solve); a smaller run on the float32 stack in
+  chunks of 512 samples (K6) and one with ``patch_backend="window"``
+  (K2 + K1 under training).
 
 It checks each path's launch counts, each kernel against its twin at the
 path's own inputs, the rows against the port's CPU path, the train-set IOD
-error and the fused rows against the exact stepped rows, and times the
-detectors and each kernel with CUDA events.
+error and the fused rows against the exact stepped rows, the trained
+regressors against their normal equations in float64 and the trained
+model's error against the pretrained model's, and times the detectors,
+the training and each kernel with CUDA events.
 
 Any failed check exits non-zero. The last line of standard output is the
 JSON result; the line before it lists every kernel with its times and
@@ -52,6 +60,25 @@ FUSED_LEVEL_PX = 1e-3
 FUSED_WHOLE_PX = 0.02
 FUSED_SHARE = 0.999
 FUSED_WHOLE_MAX_PX = 0.75
+# training: 1,024 faces x (1 + 10 perturbations), the shape of the JAX
+# package's 300-W-scale training benchmark; the smaller runs use 128 faces
+TRAIN_FACES = 1024
+TRAIN_FACES_SMALL = 128
+TRAIN_CHUNK = 512
+# K5 / K6 against their twins: the same float32 operations in the same
+# order, so equal up to a last bit of a block factor
+FEATURES_ATOL = 1e-6
+# a level's float32 LU solution W against its regularised normal equations,
+# the matrices recomputed in float64 from the level's rows: the residual
+# r = (AtA + diag) W - Atb as the normwise backward error
+# ||r|| / (||AtA + diag|| ||W|| + ||Atb||), which a float32 solve keeps at a
+# few eps (eps = 1.19e-7; TF32 products would leave about 1e-4). The same
+# check reads as a limit on the relative residual ||r|| / ||Atb|| that is
+# computed in the run for each level: the float32 rounding of AtA leaves a
+# residual of the size eps * ||AtA|| * ||W||, a larger share of ||Atb|| at
+# the later levels, where the right-hand side (the remaining landmark error)
+# is small, so no one fixed number is tight at every level.
+BACKWARD_ERROR_LIMIT = 1e-6
 SOURCES = {
     "hog_flat": ("superviseddescent_tpu_torch/csrc/hog_flat.cu",
                  "superviseddescent_tpu/ops/hog_pallas_flat.py:271"),
@@ -62,6 +89,11 @@ SOURCES = {
         "superviseddescent_tpu/ops/cascade_pallas.py:1054"),
     "cascade_fused": ("superviseddescent_tpu_torch/csrc/cascade_fused.cu",
                       "superviseddescent_tpu/ops/cascade_pallas.py:1207"),
+    "features_fused_frames": (
+        "superviseddescent_tpu_torch/csrc/features_fused.cu",
+        "superviseddescent_tpu/ops/cascade_pallas.py:926"),
+    "features_fused": ("superviseddescent_tpu_torch/csrc/features_fused.cu",
+                       "superviseddescent_tpu/ops/cascade_pallas.py:773"),
 }
 
 
@@ -97,7 +129,7 @@ def phase_device(torch):
 def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
     logs = build_all()
-    log(f"[build] K1-K4 built in {logs.pop('seconds'):.2f} s "
+    log(f"[build] K1-K6 built in {logs.pop('seconds'):.2f} s "
         f"(nvcc, sm_90a, one process per source)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -176,7 +208,7 @@ def load_data(torch):
         frames=stack_dev, sel_dev=sel_dev.int(), images=stack_dev[sel_dev],
         boxes=torch.from_numpy(boxes[sel]).cuda(),
         gt=torch.from_numpy(gt_rows[sel]).cuda(), r_idx=r_idx, l_idx=l_idx,
-        max_ied=max_ied)
+        max_ied=max_ied, image_boxes=boxes, image_gt=gt_rows)
     torch.cuda.synchronize()
     log(f"[data] model + {len(files)} images decoded in "
         f"{time.perf_counter() - t0:.1f} s; stack {tuple(stack.shape)} uint8;"
@@ -257,6 +289,44 @@ def k2_bound(torch, windows, oxy, sp, s, w, wx, kw):
     return bytes_moved / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
 
 
+def window_level_vs_twins(torch, label, li, windows, args, skw, hkw):
+    """K2 then K1 against their plain twins on one level's own arguments
+    (``HogTransform.window_args``): K2 must equal its twin, K1 stay within
+    K1_RTOL / K1_ATOL. Returns (K2 error, K1 error, the (N*L, S*S) patches,
+    K1's descriptors)."""
+    from superviseddescent_tpu_torch.ops.hog_flat import (
+        hog_descriptor_flat, hog_descriptor_flat_reference)
+    from superviseddescent_tpu_torch.ops.patches_window import (
+        _prepare, sample_patches_window, sample_patches_window_reference)
+    s = args[4]
+    n, l = args[1].shape
+    oxy, sp = _prepare(args[1], args[2], args[3], s)
+    w = skw["sub_window"] or windows.shape[1]
+    wx = skw["sub_window_x"] or windows.shape[2]
+    got = sample_patches_window(*args, **skw)
+    ref = sample_patches_window_reference(
+        windows, oxy, sp, s, w, wx, skw["quantize"], skw["sampling"],
+        skw["transposed"], skw["out_dtype"])
+    k2_err = float((got.float() - ref.float()).abs().max())
+    del ref
+    log(f"[check] {label} level {li} (S={s} W={w} WX={wx}): K2 vs twin on "
+        f"{n * l} patches max abs {k2_err:.1f} (tolerance: equal)")
+    check(k2_err == 0.0, f"K2 differs from its twin on the path of {label} "
+          f"at level {li}")
+    patches = got.reshape(n * l, s * s)
+    desc = hog_descriptor_flat(patches, **hkw)
+    ref = hog_descriptor_flat_reference(patches, **hkw)
+    diff = (desc - ref).abs()
+    k1_err = float(diff.max())
+    bad = int((diff > K1_ATOL + K1_RTOL * ref.abs()).sum())
+    log(f"[check] {label} level {li}: K1 vs twin on {n * l} rows max abs "
+        f"{k1_err:.3e} (tolerance rtol {K1_RTOL} + atol {K1_ATOL}; {bad} "
+        f"outside)")
+    check(bad == 0, f"K1 disagrees with its twin on the path of {label} at "
+          f"level {li}")
+    return k2_err, k1_err, patches, desc
+
+
 def phase_main(torch, data):
     from superviseddescent_tpu_torch.models.rcr import (
         DetectionModel, align_mean, rows_shift)
@@ -283,9 +353,8 @@ def phase_main(torch, data):
         log(f"[main] {sampling}: launches {launches} in one detect call "
             f"of {BATCH} faces (sub-windows W {det.sub_windows}, WX "
             f"{det.sub_windows_x})")
-        check(launches == {"hog_flat": 4, "patches_window": 4,
-                           "cascade_fused_frames": 0, "cascade_fused": 0},
-              f"expected 4 launches of K1 and K2, got {launches}")
+        expect_counts(launches, f"stepped {sampling} detect", hog_flat=4,
+                      patches_window=4)
         check(out.shape == (BATCH, 2 * len(model.landmark_ids))
               and bool(torch.isfinite(out).all()),
               "non-finite or misshapen landmark rows")
@@ -327,26 +396,8 @@ def phase_main(torch, data):
             ref_args = (windows, oxy, sp, s, w, wx, skw["quantize"], sampling,
                         skw["transposed"], skw["out_dtype"])
 
-            got = sample_patches_window(*args, **skw)
-            ref = sample_patches_window_reference(*ref_args)
-            k2_err = float((got.float() - ref.float()).abs().max())
-            del ref
-            log(f"[check] {sampling} level {li}: K2 vs twin on {n * l} "
-                f"patches max abs {k2_err:.1f} (tolerance: equal)")
-            check(k2_err == 0.0, f"K2 {sampling} differs from its twin on "
-                  f"the main path at level {li}")
-            patches = got.reshape(n * l, s * s)
-            got = hog_descriptor_flat(patches, **hkw)
-            ref = hog_descriptor_flat_reference(patches, **hkw)
-            diff = (got - ref).abs()
-            k1_err = float(diff.max())
-            bad = int((diff > K1_ATOL + K1_RTOL * ref.abs()).sum())
-            del got, ref, diff
-            log(f"[check] {sampling} level {li}: K1 vs twin on {n * l} rows "
-                f"max abs {k1_err:.3e} (tolerance rtol {K1_RTOL} + atol "
-                f"{K1_ATOL}; {bad} outside)")
-            check(bad == 0, f"K1 {sampling} disagrees with its twin on the "
-                  f"main path at level {li}")
+            k2_err, k1_err, patches, _ = window_level_vs_twins(
+                torch, f"stepped {sampling}", li, windows, args, skw, hkw)
             results[sampling]["k1_err"] = max(results[sampling]["k1_err"],
                                               k1_err)
             results[sampling]["k2_err"] = max(results[sampling]["k2_err"],
@@ -447,28 +498,36 @@ def cascade_bound(torch, model, det, levels_x, window_shape, pixel_bytes,
     return b_bytes, b_ops, read
 
 
-def zero_counts():
+def counted_ops():
+    """Every kernel wrapper with a launch count, by kernel name."""
     from superviseddescent_tpu_torch.ops.cascade_fused import (
-        detect_cascade_fused, detect_cascade_fused_frames)
+        detect_cascade_fused, detect_cascade_fused_frames,
+        extract_features_fused, extract_features_fused_frames)
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
     from superviseddescent_tpu_torch.ops.patches_window import (
         sample_patches_window)
-    hog_descriptor_flat.launches = 0
-    sample_patches_window.launches = 0
-    detect_cascade_fused_frames.launches = 0
-    detect_cascade_fused.launches = 0
+    return {"hog_flat": hog_descriptor_flat,
+            "patches_window": sample_patches_window,
+            "cascade_fused_frames": detect_cascade_fused_frames,
+            "cascade_fused": detect_cascade_fused,
+            "features_fused_frames": extract_features_fused_frames,
+            "features_fused": extract_features_fused}
+
+
+def zero_counts():
+    for op in counted_ops().values():
+        op.launches = 0
 
 
 def read_counts():
-    from superviseddescent_tpu_torch.ops.cascade_fused import (
-        detect_cascade_fused, detect_cascade_fused_frames)
-    from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
-    from superviseddescent_tpu_torch.ops.patches_window import (
-        sample_patches_window)
-    return {"hog_flat": hog_descriptor_flat.launches,
-            "patches_window": sample_patches_window.launches,
-            "cascade_fused_frames": detect_cascade_fused_frames.launches,
-            "cascade_fused": detect_cascade_fused.launches}
+    return {name: op.launches for name, op in counted_ops().items()}
+
+
+def expect_counts(launches, what, **expected):
+    """Fail unless the counts are exactly ``expected`` (0 where not named)."""
+    want = {name: expected.get(name, 0) for name in launches}
+    check(launches == want, f"{what}: expected launches {want}, got "
+          f"{launches}")
 
 
 def cascade_compare(torch, name, per_face):
@@ -516,9 +575,8 @@ def phase_fused(torch, data, exact_rows):
     log(f"[fused] frames path (uint8 {tuple(frames.shape)} unique stack, "
         f"image_indices): launches {launches} in one detect call of {BATCH} "
         f"faces; levels (S, W, WX, rel) {det.levels}")
-    check(launches == {"hog_flat": 0, "patches_window": 0,
-                       "cascade_fused_frames": 1, "cascade_fused": 0},
-          f"expected exactly 1 K3 launch, got {launches}")
+    expect_counts(launches, "fused detect, frames path",
+                  cascade_fused_frames=1)
     check(out.shape == (BATCH, 2 * n_lm) and bool(torch.isfinite(out).all()),
           "non-finite or misshapen fused rows")
     frames_f32 = frames.float()
@@ -527,9 +585,7 @@ def phase_fused(torch, data, exact_rows):
     torch.cuda.synchronize()
     launches4 = read_counts()
     log(f"[fused] crop path (float32 stack): launches {launches4}")
-    check(launches4 == {"hog_flat": 0, "patches_window": 0,
-                        "cascade_fused_frames": 0, "cascade_fused": 1},
-          f"expected exactly 1 K4 launch, got {launches4}")
+    expect_counts(launches4, "fused detect, crop path", cascade_fused=1)
     check(bool(torch.isfinite(out4).all()), "non-finite K4 rows")
     k3_vs_k4 = float((out - out4).abs().max())
     log(f"[fused] K3 vs K4 rows: max {k3_vs_k4:.4f} px")
@@ -645,7 +701,7 @@ def phase_fused(torch, data, exact_rows):
             f"{BATCH / ms * 1e3:.0f} faces/s")
     torch.cuda.empty_cache()
     profile = phase_profile(
-        torch, "fused detect (K3)",
+        torch, "fused detect (K3)", f"{BATCH} faces",
         lambda: det(frames, boxes, image_indices=idx))
     return dict(kernels=results, timing=timing, iod_err=err,
                 vs_exact_px=vs_exact, share_above_026=above,
@@ -653,9 +709,394 @@ def phase_fused(torch, data, exact_rows):
                 profile=profile)
 
 
-def phase_profile(torch, label, call):
-    """Where one detect call spends device time: torch.profiler kernel
-    sums by name, and the device busy share of the call's wall."""
+def features_bound(torch, p, level, x, window_shape, pixel_bytes, eyes,
+                   num_features):
+    """Least time for one level's feature extraction (K5 / K6): the bytes
+    of each sample's tapped window pixels (the union over its landmarks,
+    read once), the landmark rows and origins, and the N x F float32 rows
+    written once, against K2's and K1's float32 operations at 67 TFLOP/s
+    (``cascade_bound``'s count for one level, less the GEMV)."""
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        level_patch_half)
+    from superviseddescent_tpu_torch.ops.patches_window import (
+        _prepare, _tap_plan)
+    ry, rx = window_shape
+    n, l2 = x.shape
+    l = l2 // 2
+    s, w, wx, _ = level
+    _, phw = level_patch_half(x, level, ry, rx, *eyes)
+    oxy, sp = _prepare(x[:, :l], x[:, l:], phw, s)
+    read = read_pixels(torch, (ry, rx),
+                       [_tap_plan(ry, rx, oxy, sp, s, w, wx, True, True)])
+    bytes_moved = (read * pixel_bytes + n * num_features * 4 + n * l2 * 4
+                   + 3 * n * 4)
+    ops = k1_bound(n * l, p, 2)[1] * F32_OPS_PER_S + n * l * s * s * 15
+    return bytes_moved / MEM_BYTES_PER_S, ops / F32_OPS_PER_S, read
+
+
+def phase_train(torch, data, pretrained_iod):
+    """Training at full RCR-22 width. The main run: ``train_rcr`` with the
+    fused backend on the uint8 frame stack (frames mode, K5), 11,264
+    samples; then each level replayed from ``training_problem`` (the
+    set-up ``train_rcr`` itself runs) to hold K5 against its twin at the
+    path's own inputs, to time the level's stages and to check the solve.
+    Then the windows path on the float32 stack (K6, chunked) and the
+    window backend (K2 + K1), 1,408 samples each."""
+    import numpy as np
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, normalised_landmark_errors, train_rcr,
+        training_problem)
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        extract_features_fused, extract_features_fused_frames_reference,
+        extract_features_fused_reference)
+    from superviseddescent_tpu_torch.ops.solver import (
+        _solve_from_normal, normal_equations)
+    from superviseddescent_tpu_torch.utils.timing import cuda_time_ms
+    model, frames = data["model"], data["frames"]
+    ids = (model.landmark_ids, model.right_eye_ids, model.left_eye_ids)
+    eyes = (data["r_idx"], data["l_idx"])
+    mean = model.mean.cpu().numpy()
+    n_lm = len(model.landmark_ids)
+    n_img = frames.shape[0]
+
+    def train_set(n_faces):
+        sel = np.arange(n_faces) % n_img
+        return data["image_gt"][sel], data["image_boxes"][sel], sel
+
+    def iod(rows, gt):
+        return float(normalised_landmark_errors(rows, gt, *eyes).mean())
+
+    def level_of(hog, li, window):
+        p = hog.hog_params[li]
+        return (p.patch_size, hog.sub_windows[li] or window[0],
+                hog.sub_windows_x[li] or window[1], p.relative_patch_size)
+
+    def compare_rows(name, li, got, ref):
+        check(bool(torch.isfinite(got).all()), f"{name}: NaN in the rows")
+        diff = (got - ref).abs()
+        err, unequal = float(diff.max()), int((got != ref).sum())
+        log(f"[train] {name} level {li} vs twin on {got.shape[0]} samples x "
+            f"{got.shape[1]} features: max abs {err:.3e}, {unequal} unequal "
+            f"entries of {got.numel()} (tolerance {FEATURES_ATOL})")
+        check(err <= FEATURES_ATOL, f"{name} disagrees with its twin at "
+              f"level {li}")
+        return err
+
+    # ---- the main run: 11,264 samples through K5 ----
+    cfg = RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                         solver_method="lu")
+    gt, bx, sel = train_set(TRAIN_FACES)
+    args = (frames, gt, bx, *ids, mean, cfg)
+    epoch_rows = []
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = train_rcr(*args, image_indices=sel, on_epoch=epoch_rows.append)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = read_counts()
+    levels = len(cfg.hog_params)
+    n = TRAIN_FACES * (cfg.num_perturbations + 1)
+    log(f"[train] train_rcr(fused, roi {ROI}) on the uint8 stack, "
+        f"{TRAIN_FACES} faces x {cfg.num_perturbations + 1} = {n} samples: "
+        f"launches {launches}; {cold_s:.3f} s (first call)")
+    expect_counts(launches, "train_rcr, fused frames mode",
+                  features_fused_frames=levels)
+    t0 = time.perf_counter()
+    train_rcr(*args, image_indices=sel)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log(f"[train] warm train_rcr (second call): {warm_s:.3f} s")
+    profile = phase_profile(torch, "train_rcr (fused, K5)", f"{n} samples",
+                            lambda: train_rcr(*args, image_indices=sel))
+    check(len(epoch_rows) == levels and all(
+        r.shape == (n, 2 * n_lm) and bool(torch.isfinite(r).all())
+        for r in epoch_rows), "non-finite or misshapen training rows")
+    for r in trained.sdo.regressors:
+        check(r.weights.shape == (8801, 2 * n_lm)
+              and bool(torch.isfinite(r.weights).all()),
+              "non-finite or misshapen trained weights")
+
+    # ---- each level replayed at the main path's own inputs ----
+    prob = training_problem(*args, image_indices=sel)
+    hog, x = prob.hog, prob.x0
+    window = hog.frame_window
+    fi, foy, fox = (t[hog.image_indices.long()] for t in hog.frame_table)
+    stages, k5 = [], dict(err=0.0, ms=0.0, plain_ms=0.0, bytes_ms=0.0,
+                          ops_ms=0.0)
+    for li, p in enumerate(cfg.hog_params):
+        level = level_of(hog, li, window)
+        feats = hog(x, li)
+        twin_args = (frames, fi, foy, fox, x, window, level, p.cell_size,
+                     *eyes)
+        ref = extract_features_fused_frames_reference(*twin_args)
+        k5["err"] = max(k5["err"], compare_rows("K5", li, feats, ref))
+        del ref
+        k5_ms, _ = cuda_time_ms(hog, x, li, reps=10, warmup=2)
+        plain_ms, _ = cuda_time_ms(extract_features_fused_frames_reference,
+                                   *twin_args, reps=2, warmup=1)
+        b_bytes, b_ops, read = features_bound(torch, p, level, x, window, 1,
+                                              eyes, feats.shape[1])
+        torch.cuda.empty_cache()
+        reg = trained.sdo.regressors[li]
+        norm = prob.sdo.normalisation(x)
+        b = (x - prob.x_gt) * norm
+        ne_ms, _ = cuda_time_ms(normal_equations, feats, b, reps=5, warmup=1)
+        ata, atb = normal_equations(feats, b)
+        solve_ms, _ = cuda_time_ms(_solve_from_normal, ata, atb, n,
+                                   reg.regulariser, reg.method, reps=3,
+                                   warmup=1)
+        again = _solve_from_normal(ata, atb, n, reg.regulariser, reg.method)
+        resolve_delta = float((again - reg.weights).abs().max())
+        del ata, atb, again
+        upd_ms, _ = cuda_time_ms(lambda: x - reg.predict(feats) / norm,
+                                 reps=10, warmup=2)
+        # the level's solution against its normal equations in float64
+        f64 = feats.double()
+        lhs = f64.t() @ f64
+        rhs = f64.t() @ b.double()
+        del f64
+        lhs.diagonal().add_(reg.regulariser.diagonal(lhs, n))
+        w64 = reg.weights.double()
+        r_norm = float(torch.linalg.norm(lhs @ w64 - rhs))
+        rhs_norm = float(torch.linalg.norm(rhs))
+        scale = (float(torch.linalg.norm(lhs))
+                 * float(torch.linalg.norm(w64)) + rhs_norm)
+        residual, backward = r_norm / rhs_norm, r_norm / scale
+        residual_limit = BACKWARD_ERROR_LIMIT * scale / rhs_norm
+        del lhs, rhs, w64
+        x_next = x - reg.predict(feats) / norm
+        replay_delta = float((x_next + prob.sample_shift
+                              - epoch_rows[li]).abs().max())
+        moved = float((x_next - x).abs().max())
+        log(f"[train] level {li} S={p.patch_size}: K5 {k5_ms:.4f} ms (plain "
+            f"twin {plain_ms:.1f}, bound {max(b_bytes, b_ops) * 1e3:.4f}: "
+            f"bytes {b_bytes * 1e3:.4f} with {read} window pixels, "
+            f"operations {b_ops * 1e3:.4f}) | AtA + Atb {ne_ms:.3f} ms | "
+            f"{reg.method} solve {solve_ms:.3f} ms | update {upd_ms:.4f} ms")
+        log(f"[train] level {li}: relative residual of the regularised "
+            f"normal equations in float64 {residual:.3e} (this level's "
+            f"limit {residual_limit:.3e}), which is the normwise backward "
+            f"error {backward:.3e} (limit {BACKWARD_ERROR_LIMIT}); a second "
+            f"solve differs from the trained weights by "
+            f"{resolve_delta:.3e}; replayed rows vs the main "
+            f"run's on_epoch rows {replay_delta:.3e} px; rows moved "
+            f"{moved:.2f} px")
+        check(residual <= residual_limit,
+              f"level {li}: normal-equation residual {residual} over "
+              f"{residual_limit} (backward error {backward})")
+        check(replay_delta <= 1e-3, f"level {li}: the replay left the main "
+              f"path's rows by {replay_delta} px")
+        stages.append(dict(level=li, k5_ms=k5_ms, k5_plain_ms=plain_ms,
+                           k5_bound_bytes_ms=b_bytes * 1e3,
+                           k5_bound_ops_ms=b_ops * 1e3, read_pixels=read,
+                           normal_equations_ms=ne_ms, solve_ms=solve_ms,
+                           update_ms=upd_ms, residual=residual,
+                           residual_limit=residual_limit,
+                           backward_error=backward,
+                           resolve_delta=resolve_delta,
+                           replay_delta_px=replay_delta))
+        k5["ms"] += k5_ms
+        k5["plain_ms"] += plain_ms
+        k5["bytes_ms"] += b_bytes * 1e3
+        k5["ops_ms"] += b_ops * 1e3
+        x = x_next
+        del feats, b, norm
+        torch.cuda.empty_cache()
+    k5["launches"] = launches["features_fused_frames"]
+    staged = sum(st["k5_ms"] + st["normal_equations_ms"] + st["solve_ms"]
+                 + st["update_ms"] for st in stages)
+    log(f"[train] stages sum to {staged:.1f} ms of the warm {warm_s * 1e3:.1f}"
+        f" ms: K5 {k5['ms']:.2f}, AtA + Atb "
+        f"{sum(st['normal_equations_ms'] for st in stages):.1f}, solve "
+        f"{sum(st['solve_ms'] for st in stages):.1f}, update "
+        f"{sum(st['update_ms'] for st in stages):.2f}")
+    del prob, hog, x, epoch_rows
+
+    # ---- the trained model serves: accuracy, save and load ----
+    boxes, idx = data["boxes"], data["sel_dev"]
+    fused_det = trained.make_fused_detector(roi=ROI, max_ied=data["max_ied"])
+    fused_rows = fused_det(frames, boxes, image_indices=idx)
+    stepped = trained.make_stepped_detector(
+        BATCH, roi=ROI, sampling="exact", window_sampler=True,
+        max_ied=data["max_ied"])
+    exact_rows = stepped(data["images"], boxes)
+    err_fused, err_exact = iod(fused_rows, data["gt"]), iod(exact_rows,
+                                                             data["gt"])
+    log(f"[train] trained model, train-set IOD error on {BATCH} faces: "
+        f"fused (K3) {err_fused:.6f} (pretrained {pretrained_iod['fused']:.6f}"
+        f"), exact stepped {err_exact:.6f} (pretrained "
+        f"{pretrained_iod['exact']:.6f})")
+    check(err_fused < pretrained_iod["fused"]
+          and err_exact < pretrained_iod["exact"],
+          "the trained model is no better than the pretrained one on its "
+          "own training faces")
+    path = os.path.join(REPO, "build", "chip_smoke_trained.bin")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    trained.save(path)
+    loaded = DetectionModel.load(path)
+    same = bool(torch.equal(
+        loaded.make_fused_detector(roi=ROI, max_ied=data["max_ied"])(
+            frames, boxes[:256], image_indices=idx[:256]), fused_rows[:256]))
+    log(f"[train] saved and loaded again: rows of 256 faces "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    check(same, "the saved and loaded model detects other rows")
+    del stepped, exact_rows, loaded
+
+    # ---- the windows path: float32 stack, K6 in chunks ----
+    gt_s, bx_s, sel_s = train_set(TRAIN_FACES_SMALL)
+    cfg6 = RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                          solver_method="lu", feature_chunk_size=TRAIN_CHUNK)
+    frames_f32 = frames.float()
+    args6 = (frames_f32, gt_s, bx_s, *ids, mean, cfg6)
+    n_s = TRAIN_FACES_SMALL * (cfg6.num_perturbations + 1)
+    chunks = -(-n_s // TRAIN_CHUNK)
+    zero_counts()
+    trained6 = train_rcr(*args6, image_indices=sel_s)
+    torch.cuda.synchronize()
+    launches6 = read_counts()
+    log(f"[train] train_rcr(fused) on the float32 stack, {n_s} samples in "
+        f"chunks of {TRAIN_CHUNK}: launches {launches6}")
+    expect_counts(launches6, "train_rcr, fused windows mode",
+                  features_fused=levels * chunks)
+    prob = training_problem(*args6, image_indices=sel_s)
+    hog, x = prob.hog, prob.x0
+    sample_idx = hog.image_indices.long()
+    window = tuple(hog.images.shape[1:])
+    spans = [slice(a, a + TRAIN_CHUNK) for a in range(0, n_s, TRAIN_CHUNK)]
+    k6 = dict(err=0.0, ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+              gather_ms=0.0)
+    for li, p in enumerate(cfg6.hog_params):
+        level = level_of(hog, li, window)
+        tail = (level, p.cell_size, p.num_bins, 16, *eyes)
+        feats = hog(x, li)
+        ref = extract_features_fused_reference(
+            hog.images[sample_idx], x, level, p.cell_size, *eyes)
+        k6["err"] = max(k6["err"], compare_rows("K6", li, feats, ref))
+        del ref
+        gathered = [(hog.images[sample_idx[sp]], x[sp]) for sp in spans]
+        ms, _ = cuda_time_ms(
+            lambda: [extract_features_fused(w, xc, *tail)
+                     for w, xc in gathered], reps=10, warmup=2)
+        plain_ms, _ = cuda_time_ms(
+            lambda: [extract_features_fused_reference(
+                w, xc, level, p.cell_size, *eyes) for w, xc in gathered],
+            reps=2, warmup=1)
+        del gathered
+        gather_ms, _ = cuda_time_ms(
+            lambda: [hog.images[sample_idx[sp]] for sp in spans], reps=10,
+            warmup=2)
+        b_bytes, b_ops, read = features_bound(torch, p, level, x, window, 2,
+                                              eyes, feats.shape[1])
+        log(f"[train] K6 level {li} S={p.patch_size}: {chunks} launches "
+            f"{ms:.4f} ms ({ms / chunks:.4f} per launch; plain twin "
+            f"{plain_ms:.1f}; bound {max(b_bytes, b_ops) * 1e3:.4f}: bytes "
+            f"{b_bytes * 1e3:.4f}, operations {b_ops * 1e3:.4f}) | window "
+            f"gather before them {gather_ms:.4f} ms")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bytes_ms", b_bytes * 1e3), ("ops_ms", b_ops * 1e3),
+                       ("gather_ms", gather_ms)):
+            k6[key] += v
+        x = trained6.sdo.step(li, x, feats)
+        del feats
+        torch.cuda.empty_cache()
+    k6["launches"] = launches6["features_fused"]
+    k6["launches_per_level"] = chunks
+    crop_ms, _ = cuda_time_ms(
+        lambda: training_problem(*args6, image_indices=sel_s), reps=3,
+        warmup=1)
+    log(f"[train] set-up of the windows path (crop of {TRAIN_FACES_SMALL} "
+        f"faces from the float32 stack, bf16 cast, initialisations): "
+        f"{crop_ms:.3f} ms")
+    del prob, hog, x, frames_f32
+    torch.cuda.empty_cache()
+    # the same faces through K5, and what the two models detect on them
+    cfg5 = RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                          solver_method="lu")
+    trained5 = train_rcr(frames, gt_s, bx_s, *ids, mean, cfg5,
+                         image_indices=sel_s)
+    boxes_s = torch.from_numpy(bx_s).cuda()
+    gt_dev = torch.from_numpy(gt_s).cuda()
+    rows5, rows6 = (m.make_fused_detector(roi=ROI, max_ied=data["max_ied"])(
+        frames, boxes_s, image_indices=sel_s) for m in (trained5, trained6))
+    k5_vs_k6 = float((rows5 - rows6).abs().max())
+    log(f"[train] K5-trained vs K6-trained model on the same "
+        f"{TRAIN_FACES_SMALL} faces: detections differ by max "
+        f"{k5_vs_k6:.4f} px (IOD error {iod(rows5, gt_dev):.6f} vs "
+        f"{iod(rows6, gt_dev):.6f})")
+    check(bool(torch.isfinite(rows5).all() and torch.isfinite(rows6).all()),
+          "non-finite rows from the small trained models")
+
+    # ---- the window backend: K2 + K1 under training ----
+    cfgw = RcrTrainConfig(roi=ROI, patch_backend="window", seed=0,
+                          solver_method="lu")
+    argsw = (frames, gt_s, bx_s, *ids, mean, cfgw)
+    epoch_rows = []
+    zero_counts()
+    t0 = time.perf_counter()
+    trained_w = train_rcr(*argsw, image_indices=sel_s,
+                          on_epoch=epoch_rows.append)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    launches_w = read_counts()
+    expect_counts(launches_w, "train_rcr, window backend", hog_flat=levels,
+                  patches_window=levels)
+    # each level replayed: K2 and K1 against their twins on this path's own
+    # windows (one per sample, gathered from the per-face crops) and at its
+    # own sub-windows, which follow the ground truth's IED
+    prob = training_problem(*argsw, image_indices=sel_s)
+    hog, x = prob.hog, prob.x0
+    windows = hog.images[hog.image_indices.long()]
+    kw_err = dict(k1=0.0, k2=0.0)
+    for li in range(levels):
+        k2_err, k1_err, _, desc = window_level_vs_twins(
+            torch, "train_rcr(window)", li, windows,
+            *hog.window_args(x, li, windows))
+        kw_err["k1"] = max(kw_err["k1"], k1_err)
+        kw_err["k2"] = max(kw_err["k2"], k2_err)
+        feats = torch.cat([desc.reshape(n_s, -1),
+                           torch.ones((n_s, 1), device=desc.device)], dim=1)
+        del desc
+        x = trained_w.sdo.step(li, x, feats)
+        replay_delta = float((x + prob.sample_shift
+                              - epoch_rows[li]).abs().max())
+        log(f"[train] window backend level {li}: replayed rows vs the run's "
+            f"on_epoch rows {replay_delta:.3e} px")
+        check(replay_delta <= 1e-3, f"window backend level {li}: the replay "
+              f"left the run's rows by {replay_delta} px")
+        del feats
+    log(f"[train] window backend sub-windows W {hog.sub_windows}, WX "
+        f"{hog.sub_windows_x} on {tuple(windows.shape)} "
+        f"{str(windows.dtype).split('.')[-1]} windows")
+    del prob, hog, x, windows, epoch_rows
+    torch.cuda.empty_cache()
+    images_s = frames[torch.from_numpy(sel_s).cuda()]
+    errs_w = [iod(m.make_stepped_detector(
+        TRAIN_FACES_SMALL, roi=ROI, sampling="exact", window_sampler=True,
+        max_ied=data["max_ied"])(images_s, boxes_s), gt_dev)
+        for m in (trained_w, model)]
+    log(f"[train] train_rcr(window) on {n_s} samples: launches {launches_w}, "
+        f"{window_s:.3f} s; IOD error on its {TRAIN_FACES_SMALL} faces "
+        f"(exact stepped) {errs_w[0]:.6f}, pretrained {errs_w[1]:.6f}")
+    check(all(bool(torch.isfinite(r.weights).all())
+              for r in trained_w.sdo.regressors) and errs_w[0] < errs_w[1],
+          "the window-backend model is no better than the pretrained one")
+    return dict(
+        samples=n, cold_s=cold_s, warm_s=warm_s, profile=profile,
+        stages=stages,
+        kernels=dict(features_fused_frames=k5, features_fused=k6),
+        iod_fused=err_fused, iod_exact=err_exact, saved_equal=same,
+        windows_run=dict(samples=n_s, chunk=TRAIN_CHUNK, launches=launches6,
+                         setup_ms=crop_ms, k5_vs_k6_px=k5_vs_k6),
+        window_backend=dict(samples=n_s, launches=launches_w,
+                            seconds=window_s, iod=errs_w[0],
+                            pretrained_iod=errs_w[1], sampling=cfgw.sampling,
+                            k1_err=kw_err["k1"], k2_err=kw_err["k2"]))
+
+
+def phase_profile(torch, label, size, call):
+    """Where one call spends device time: torch.profiler kernel sums by
+    name, and the device busy share of the call's wall."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -679,7 +1120,7 @@ def phase_profile(torch, label, call):
     if not rows:
         log("[profile] the profiler recorded no device time: not measured")
         return None
-    log(f"[profile] {label} of {BATCH} faces: wall {wall_ms:.3f} ms "
+    log(f"[profile] {label} of {size}: wall {wall_ms:.3f} ms "
         f"(profiled), kernels busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%)")
     for ms, count, key in rows[:12]:
@@ -689,14 +1130,19 @@ def phase_profile(torch, label, call):
                      for ms, count, key in rows[:20]])
 
 
-def kernel_entries(results, k1_errs, k2_errs, fused):
+def kernel_entries(results, k1_errs, k2_errs, fused, train):
     """One entry per kernel (K1 and K2 per sampling mode). max_abs_err is,
-    for K1 and K2, the larger of the twin checks at the main path's inputs
-    and those of the kernel phases; for K3 and K4 the largest per-level
-    delta in px from equal rows. library_ms is null: no single PyTorch call
-    computes HOG, the truncated, quantised window sampling or the
-    cascade."""
+    for K1 and K2, the largest of the twin checks at the stepped detector's
+    inputs, those of the kernel phases and, in the sampling mode it ran,
+    those at the window-backend training run's inputs; for K3 and K4 the largest per-level
+    delta in px from equal rows; for K5 and K6 the largest feature
+    difference over all levels. Times are sums over the launches of one
+    call of the path (K5: one ``train_rcr`` of 11,264 samples; K6: one of
+    1,408 samples in chunks of 512). library_ms is null: no single PyTorch
+    call computes HOG, the truncated, quantised window sampling, the
+    cascade or its feature rows."""
     entries = []
+    trained = train["window_backend"]
     for name, key, errs in (("hog_flat", "k1", k1_errs),
                             ("patches_window", "k2", k2_errs)):
         source, replaces = SOURCES[name]
@@ -709,8 +1155,10 @@ def kernel_entries(results, k1_errs, k2_errs, fused):
                 name=f"{name}/{sampling}", route="cuda", source=source,
                 replaces=replaces,
                 launches=results[sampling]["launches"][name],
-                max_abs_err=max(errs[sampling],
-                                results[sampling][f"{key}_err"]),
+                max_abs_err=max(
+                    errs[sampling], results[sampling][f"{key}_err"],
+                    trained[f"{key}_err"] if trained["sampling"] == sampling
+                    else 0.0),
                 ms=total(f"{key}_ms"),
                 plain_ms=total(f"{key}_plain_ms"),
                 bound_ms=max(b_bytes, b_ops),
@@ -723,6 +1171,15 @@ def kernel_entries(results, k1_errs, k2_errs, fused):
             name=name, route="cuda", source=source, replaces=replaces,
             launches=r["launches"], max_abs_err=r["level_err_px"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=max(b_bytes, b_ops),
+            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            library_ms=None))
+    for name, r in train["kernels"].items():
+        source, replaces = SOURCES[name]
+        b_bytes, b_ops = r["bytes_ms"], r["ops_ms"]
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=r["launches"], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             library_ms=None))
     return entries
@@ -749,16 +1206,19 @@ def main():
         BATCH, roi=ROI, sampling="exact", window_sampler=True,
         max_ied=data["max_ied"])
     profile = phase_profile(
-        torch, "exact stepped detect",
+        torch, "exact stepped detect", f"{BATCH} faces",
         lambda: stepped(data["images"], data["boxes"]))
     del stepped
     fused = phase_fused(torch, data, exact_rows)
-    entries = kernel_entries(results, k1_errs, k2_errs, fused)
+    del exact_rows
+    train = phase_train(torch, data, dict(
+        fused=fused["iod_err"], exact=results["exact"]["iod_err"]))
+    entries = kernel_entries(results, k1_errs, k2_errs, fused, train)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=name, nvidia_smi=smi, results=results,
                        fast_vs_exact_px=fast_vs_exact, profile=profile,
-                       fused=fused, kernels=entries,
+                       fused=fused, train=train, kernels=entries,
                        seconds=time.perf_counter() - t0), f, indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")
     log(f"[done] {time.perf_counter() - t0:.1f} s")

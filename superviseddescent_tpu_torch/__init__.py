@@ -13,6 +13,21 @@ CUDA C++ for ``sm_90a``. Second slice: the fused detector
 (``models.rcr.DetectionModel.make_fused_detector`` and
 ``make_fused_tracker``), which runs the whole cascade per face in one launch
 of a CUDA kernel (``ops/cascade_fused.py``, ``csrc/cascade_fused.cu``).
+Third slice: RCR training, ``train_rcr`` (``models/rcr_training.py``), with
+the ridge solvers (``ops/solver.py``) and the fused feature extractors
+``extract_features_fused_frames`` / ``extract_features_fused``
+(``csrc/features_fused.cu``, sharing the cascade kernel's per-landmark body
+in ``csrc/cascade_body.cuh``).
 """
+
+from superviseddescent_tpu_torch.core.cascade import (  # noqa: F401
+    SupervisedDescentOptimiser)
+from superviseddescent_tpu_torch.core.regressor import (  # noqa: F401
+    LinearRegressor)
+from superviseddescent_tpu_torch.core.regulariser import (  # noqa: F401
+    RegularisationType, Regulariser)
+from superviseddescent_tpu_torch.models import (  # noqa: F401
+    DetectionModel, RcrTrainConfig, augment_initialisations,
+    perturb_facebox, train_rcr)
 
 __version__ = "0.1.0"

@@ -1,9 +1,12 @@
-"""Build the port's DetectionModel from another model's parameters.
+"""Carry a DetectionModel's parameters between this package and another.
 
-The arguments are plain numpy arrays and Python values, so a model loaded
-by the JAX package can be handed to this package without either importing
-the other: pass ``[np.asarray(r.weights) for r in jax_model.sdo.regressors]``,
-``jax_model.mean`` and its id lists and HOG parameters.
+The parameters are plain numpy arrays and Python values, so a model loaded
+by the JAX package can be handed to this package, and one trained here
+handed back, without either package importing the other: pass
+``[np.asarray(r.weights) for r in jax_model.sdo.regressors]``,
+``jax_model.mean`` and its id lists and HOG parameters to
+``from_jax_params``; ``to_jax_params`` returns the same pieces of a model
+of this package.
 """
 
 from __future__ import annotations
@@ -40,3 +43,23 @@ def from_jax_params(weights: Sequence[np.ndarray], mean: np.ndarray,
     return DetectionModel(SupervisedDescentOptimiser(regressors, norm),
                           np.asarray(mean, np.float32), landmark_ids, params,
                           right_eye_ids, left_eye_ids, device=device)
+
+
+def to_jax_params(model: DetectionModel) -> dict:
+    """The inverse of ``from_jax_params``: ``weights`` (per-level (F, 2L)
+    float32 numpy arrays, reference feature order), ``mean`` ((2L,)
+    float32), ``landmark_ids``, ``right_eye_ids``, ``left_eye_ids``, and
+    ``hog_params`` (per level a dict of ``variant`` (int), ``num_cells``,
+    ``cell_size``, ``num_bins``, ``relative_patch_size``), from which the
+    JAX package's DetectionModel can be built."""
+    return dict(
+        weights=[r.weights.detach().cpu().numpy().astype(np.float32)
+                 for r in model.sdo.regressors],
+        mean=model.mean.detach().cpu().numpy().astype(np.float32),
+        landmark_ids=list(model.landmark_ids),
+        right_eye_ids=list(model.right_eye_ids),
+        left_eye_ids=list(model.left_eye_ids),
+        hog_params=[dict(variant=int(p.variant), num_cells=p.num_cells,
+                         cell_size=p.cell_size, num_bins=p.num_bins,
+                         relative_patch_size=p.relative_patch_size)
+                    for p in model.hog_params])

@@ -1,10 +1,12 @@
-"""The Supervised Descent Method cascade, inference side.
+"""The Supervised Descent Method cascade.
 
 Counterpart of ``superviseddescent_tpu/core/cascade.py`` (reference:
 superviseddescent/superviseddescent.hpp). The projection is batched by
 contract: ``h(x: (N, P), level) -> (N, F)``. Per level:
 ``x' = x - (observed @ W) / norm(x)`` with ``observed = h(x)`` or
-``h(x) - templates``.
+``h(x) - templates``; training learns ``W`` from
+``b = (x - x*) * norm(x)`` by a ridge solve on ``observed``, which is
+extracted once per level and used for both the solve and the update.
 """
 
 from __future__ import annotations
@@ -34,6 +36,47 @@ class SupervisedDescentOptimiser:
                  normalisation: Optional[Callable] = None):
         self.regressors: List[LinearRegressor] = list(regressors)
         self.normalisation = normalisation or NoNormalisation()
+
+    def train(self, parameters: torch.Tensor, initialisations: torch.Tensor,
+              templates, projection,
+              on_training_epoch_callback: Optional[Callable] = None,
+              start_level: int = 0,
+              learn_fn: Optional[Callable] = None) -> torch.Tensor:
+        """Learn the cascade from ground truth and initialisations.
+
+        parameters: (N, P) ground-truth rows x*. initialisations: (N, P)
+        starting rows x0 (when resuming with start_level > 0, the rows
+        after the last completed level). templates: (N, F) known templates
+        y, or None. projection: batched ``h(x, level) -> (N, F)``.
+        on_training_epoch_callback: called with the current (N, P) rows
+        after each level. start_level: first level to learn; the levels
+        before it must hold weights. learn_fn: replaces the per-level learn
+        step, ``(regressor, observed, b, level) -> LinearRegressor``.
+
+        Returns the (R', N, P) stacked rows after each level trained in
+        this call. The levels are sequential (level k+1's features depend
+        on level k's rows), so this is a Python loop.
+        """
+        x = initialisations
+        history = []
+        for level in range(start_level, len(self.regressors)):
+            features = projection(x, level)
+            observed = features if templates is None else features - templates
+            norm = self.normalisation(x)
+            b = (x - parameters) * norm
+            if learn_fn is not None:
+                self.regressors[level] = learn_fn(
+                    self.regressors[level], observed, b, level)
+            else:
+                self.regressors[level] = self.regressors[level].learn(
+                    observed, b)
+            x = x - self.regressors[level].predict(observed) / norm
+            history.append(x)
+            if on_training_epoch_callback is not None:
+                on_training_epoch_callback(x)
+        if history:
+            return torch.stack(history)
+        return x.new_zeros((0,) + tuple(x.shape))
 
     def step(self, level: int, x: torch.Tensor, features: torch.Tensor,
              templates: Optional[torch.Tensor] = None) -> torch.Tensor:

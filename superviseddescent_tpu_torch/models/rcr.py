@@ -35,7 +35,8 @@ from superviseddescent_tpu_torch.io.cereal import (
     load_detection_model, save_detection_model)
 from superviseddescent_tpu_torch.ops.cascade_fused import (
     FRAME_COL_ALIGN, FRAME_ROW_ALIGN, detect_cascade_fused,
-    detect_cascade_fused_frames, prepare_weights, validate_fused_config)
+    detect_cascade_fused_frames, extract_features_fused,
+    extract_features_fused_frames, prepare_weights, validate_fused_config)
 from superviseddescent_tpu_torch.ops.hog import (
     HogVariant, hog_descriptor, hog_dimension, hog_num_cells)
 from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
@@ -110,11 +111,29 @@ class HogTransform:
     patches are described with HOG, flattened per landmark in Matlab order,
     concatenated, and a bias 1 is appended.
 
-    images: (I, H, W) uint8 or float32 stack (for ``window``: one ROI
-    window per sample). backend: ``gather`` or ``window``. sampling
-    (``window`` only): ``exact`` or ``fast`` (bf16 sampling, sector-binned
-    bf16 HOG, transposed patch hand-off). sub_windows / sub_windows_x:
-    per-level sampler sub-window sides (0 = the whole window).
+    images: (I, H, W) uint8 or float32 stack. image_indices: (N,) sample ->
+    image map (default: one image for all, or image i for sample i).
+    backend:
+      * ``gather``: plain PyTorch (exact cv::resize emulation + HOG);
+      * ``window``: K2 then K1 on per-sample ROI windows
+        (``images[image_indices]``; the gather is skipped when sample i
+        provably reads window i);
+      * ``fused``: one launch per level of K6 on per-sample bf16 windows,
+        or, with ``frame_table``, of K5, which cuts each sample's window
+        out of the uint8 frame stack itself. Fast-class numerics; requires
+        ``quantize=True`` and the same cells, bins and variant at every
+        level.
+    sampling (``window`` only): ``exact`` or ``fast`` (bf16 sampling,
+    sector-binned bf16 HOG, transposed patch hand-off). sub_windows /
+    sub_windows_x: per-level sampler sub-window sides (0 = the whole
+    window). chunk_size: process the samples in chunks of this many, one
+    after the other, so that only one chunk's windows and patches exist at
+    a time (the (N, F) rows are still returned whole); the fused backend
+    needs no chunks when it gathers no windows (identity batches, frames
+    mode). frame_table: ``fused`` only, (frame index, oy, ox) int tensors
+    per FACE; ``images`` is then the uint8 frame stack, ``image_indices``
+    maps a sample to its face (row of the table), ``frame_window`` is the
+    (RY, RX) window shape, and x is in each face's window coordinates.
     """
 
     def __init__(self, images: torch.Tensor, hog_params: Sequence[HogParams],
@@ -124,8 +143,11 @@ class HogTransform:
                  quantize: bool = True, backend: str = "gather",
                  sampling: str = "exact",
                  sub_windows: Optional[Sequence[int]] = None,
-                 sub_windows_x: Optional[Sequence[int]] = None):
-        if backend not in ("gather", "window"):
+                 sub_windows_x: Optional[Sequence[int]] = None,
+                 chunk_size: Optional[int] = None,
+                 frame_table=None,
+                 frame_window: Optional[Sequence[int]] = None):
+        if backend not in ("gather", "window", "fused"):
             raise ValueError(f"unknown feature backend: {backend!r}")
         if sampling not in ("exact", "fast"):
             raise ValueError(f"unknown sampling mode: {sampling!r} "
@@ -136,12 +158,46 @@ class HogTransform:
         self._right_idx, self._left_idx = resolve_eye_indices(
             model_landmarks, right_eye_ids, left_eye_ids)
         self.image_indices = image_indices
+        # computed once by _identity_for: is the sample -> image map the
+        # identity, so that the per-sample window gather can be skipped?
+        self._indices_are_arange = None
         self.quantize = quantize
         self.backend = backend
         self.sampling = sampling
         levels = len(self.hog_params)
         self.sub_windows = tuple(sub_windows or (0,) * levels)
         self.sub_windows_x = tuple(sub_windows_x or (0,) * levels)
+        self.chunk_size = chunk_size
+        if backend == "fused":
+            p0 = self.hog_params[0]
+            if any((p.num_cells, p.num_bins, p.variant)
+                   != (p0.num_cells, p0.num_bins, p0.variant)
+                   for p in self.hog_params):
+                raise ValueError("fused backend requires uniform "
+                                 "cell-count/bins across levels")
+            validate_fused_config(len(self.model_landmarks), p0.num_cells,
+                                  p0.num_bins, p0.variant)
+            if not quantize:
+                raise ValueError("fused backend always quantizes patches")
+        if frame_table is not None:
+            if backend != "fused":
+                raise ValueError("frame_table requires the fused backend")
+            if frame_window is None:
+                raise ValueError("frame_table requires frame_window")
+            if self.images.dtype != torch.uint8:
+                raise ValueError("frame_table requires a uint8 frame stack")
+            frame_table = tuple(
+                torch.as_tensor(t).to(self.images.device, torch.int32)
+                for t in frame_table)
+        self.frame_table = frame_table
+        self.frame_window = (None if frame_window is None
+                             else tuple(int(v) for v in frame_window))
+
+    def feature_dim(self, level: int = 0) -> int:
+        p = self.hog_params[level]
+        c = hog_num_cells(p.patch_size, p.cell_size)
+        return len(self.model_landmarks) * c * c * hog_dimension(
+            p.variant, p.num_bins) + 1
 
     def _indices_for(self, n: int) -> torch.Tensor:
         if self.image_indices is not None:
@@ -155,6 +211,20 @@ class HogTransform:
             f"cannot infer image indices for batch {n} over "
             f"{self.images.shape[0]} images; pass image_indices")
 
+    def _identity_for(self, n: int) -> bool:
+        """True iff sample i provably reads window / image i."""
+        if self.images.shape[0] != n:
+            return False
+        if self.image_indices is None:
+            return True
+        if self.image_indices.shape[0] != n:
+            return False
+        if self._indices_are_arange is None:
+            # one read-back per transform when the indices lie on the card
+            self._indices_are_arange = bool(torch.equal(
+                self.image_indices.long().cpu(), torch.arange(n)))
+        return self._indices_are_arange
+
     def _patch_half(self, x: torch.Tensor, level: int) -> torch.Tensor:
         """round(rel * IED / 2) (half away from zero), at least 1."""
         p = self.hog_params[level]
@@ -162,15 +232,19 @@ class HogTransform:
         return torch.clamp(torch.floor(
             p.relative_patch_size * ied / 2.0 + 0.5), min=1.0)
 
-    def window_args(self, x: torch.Tensor, level: int):
+    def window_args(self, x: torch.Tensor, level: int,
+                    windows: Optional[torch.Tensor] = None):
         """The ``window`` backend's K2 and K1 calls for one level, as
         (sampler args, sampler kwargs, hog kwargs); the patches that K2
-        returns are reshaped to (N*L, S*S) for K1."""
+        returns are reshaped to (N*L, S*S) for K1. windows: one per sample
+        (default: the image stack, which must then hold one per sample)."""
         p = self.hog_params[level]
         n, l = x.shape[0], x.shape[1] // 2
-        windows = self.images
-        if self.image_indices is not None or windows.shape[0] != n:
-            raise ValueError("the window backend takes one window per sample")
+        if windows is None:
+            if not self._identity_for(n):
+                raise ValueError("pass the per-sample windows, or a stack "
+                                 "that holds one window per sample")
+            windows = self.images
         w = self.sub_windows[level] or windows.shape[1]
         wx = self.sub_windows_x[level] or windows.shape[2]
         # faces larger than the sub-window was sized for get a consistently
@@ -195,17 +269,55 @@ class HogTransform:
         return sampler_args, sampler_kwargs, hog_kwargs
 
     def __call__(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        n = x.shape[0]
+        indices = self._indices_for(n)
+        identity = self._identity_for(n)
+        gathers_nothing = self.backend == "fused" and (
+            identity or self.frame_table is not None)
+        c = self.chunk_size
+        if c is not None and n > c and not gathers_nothing:
+            # only one chunk's window gather and patches exist at a time
+            return torch.cat([
+                self._call_block(x[a:a + c], level, indices[a:a + c], False)
+                for a in range(0, n, c)])
+        return self._call_block(x, level, indices, identity)
+
+    def _fused_block(self, x, level, indices, identity):
+        p = self.hog_params[level]
+        dims = hog_dimension(p.variant, p.num_bins)
+        tail = (p.cell_size, p.num_bins, dims, self._right_idx,
+                self._left_idx)
+        if self.frame_table is not None:
+            # K5 cuts each sample's window out of the uint8 frames itself
+            fi, foy, fox = (t[indices.long()] for t in self.frame_table)
+            ry, rx = self.frame_window
+            lv = (p.patch_size, self.sub_windows[level] or ry,
+                  self.sub_windows_x[level] or rx, p.relative_patch_size)
+            return extract_features_fused_frames(
+                self.images, fi, foy, fox, x, (ry, rx), lv, *tail)
+        windows = self.images if identity else self.images[indices.long()]
+        lv = (p.patch_size, self.sub_windows[level] or windows.shape[1],
+              self.sub_windows_x[level] or windows.shape[2],
+              p.relative_patch_size)
+        return extract_features_fused(windows, x, lv, *tail)
+
+    def _call_block(self, x: torch.Tensor, level: int, indices: torch.Tensor,
+                    identity: bool) -> torch.Tensor:
         p = self.hog_params[level]
         n, l = x.shape[0], x.shape[1] // 2
         s = p.patch_size
+        if self.backend == "fused":
+            return self._fused_block(x, level, indices, identity)
         if self.backend == "window":
-            args, sampler_kwargs, hog_kwargs = self.window_args(x, level)
+            windows = self.images if identity else self.images[indices.long()]
+            args, sampler_kwargs, hog_kwargs = self.window_args(
+                x, level, windows)
             patches = sample_patches_window(*args, **sampler_kwargs)
             desc = hog_descriptor_flat(patches.reshape(n * l, s * s),
                                        **hog_kwargs)
         else:
             patches = extract_patches(
-                self.images, self._indices_for(n), x[:, :l], x[:, l:],
+                self.images, indices, x[:, :l], x[:, l:],
                 self._patch_half(x, level), s, quantize=self.quantize)
             desc = hog_descriptor(patches.reshape(n * l, s, s), p.cell_size,
                                   p.num_bins, p.variant)
@@ -307,6 +419,55 @@ class SteppedDetector:
         return x + shift
 
 
+def frames_path_ok(images: torch.Tensor) -> bool:
+    """The fused kernels read windows straight from a uint8 stack of
+    32-aligned height and 128-aligned width (K3, K5)."""
+    return (images.dtype == torch.uint8
+            and images.shape[2] % FRAME_COL_ALIGN == 0
+            and images.shape[1] % FRAME_ROW_ALIGN == 0)
+
+
+def aligned_window_origins(h: int, w: int, boxes: torch.Tensor, roi: int):
+    """Per-face window origins (oy, ox int32) in an (h, w) frame stack and
+    the window shape (RY, RX) for the kernels that read frames directly:
+    the roi crop origin floored to the (32, 128) grain first, then clamped,
+    with the window one grain larger where the stack allows, so it still
+    covers the whole crop (floor first: a clamp first could strip the slack
+    from faces at the bottom or right edge)."""
+    if h < roi or w < roi:
+        raise ValueError(f"roi {roi} exceeds image stack {h}x{w}")
+    ry = roi + (FRAME_ROW_ALIGN if h >= roi + FRAME_ROW_ALIGN else 0)
+    rx = roi + (FRAME_COL_ALIGN if w >= roi + FRAME_COL_ALIGN else 0)
+    cx = boxes[:, 0] + boxes[:, 2] / 2.0
+    cy = boxes[:, 1] + boxes[:, 3] / 2.0
+    oy = torch.round(cy - roi / 2.0).to(torch.int32)
+    oy = torch.clamp(torch.div(oy, FRAME_ROW_ALIGN, rounding_mode="floor")
+                     * FRAME_ROW_ALIGN, 0, h - ry)
+    ox = torch.round(cx - roi / 2.0).to(torch.int32)
+    ox = torch.clamp(torch.div(ox, FRAME_COL_ALIGN, rounding_mode="floor")
+                     * FRAME_COL_ALIGN, 0, w - rx)
+    return oy, ox, (ry, rx)
+
+
+def crop_windows(images: torch.Tensor, idx: torch.Tensor,
+                 boxes: torch.Tensor, roi: int):
+    """roi x roi windows around the boxes' centres (clamped inside the
+    image, in the stack's own type), and their (ox, oy) origins as int64
+    tensors. idx: (B,) frame of each box."""
+    h, w = images.shape[1], images.shape[2]
+    if h < roi or w < roi:
+        raise ValueError(f"roi {roi} exceeds image stack {h}x{w}")
+    cx = boxes[:, 0] + boxes[:, 2] / 2.0
+    cy = boxes[:, 1] + boxes[:, 3] / 2.0
+    oy = torch.clamp(torch.round(cy - roi / 2.0), 0, h - roi).long()
+    ox = torch.clamp(torch.round(cx - roi / 2.0), 0, w - roi).long()
+    span = torch.arange(roi, device=images.device)
+    windows = images[idx.long()[:, None, None],
+                     (oy[:, None] + span)[:, :, None],
+                     (ox[:, None] + span)[:, None, :]]
+    return windows, ox, oy
+
+
 class FusedDetector:
     """``f(images (I, H, W), faceboxes (B, 4) or prior rows (B, 2L),
     image_indices=None) -> (B, 2L)``: the whole cascade in one kernel
@@ -355,51 +516,19 @@ class FusedDetector:
         self.weights = prepare_weights(
             [r.weights for r in model.sdo.regressors], model.device)
 
-    @staticmethod
-    def frames_path_ok(images: torch.Tensor) -> bool:
-        """K3 takes uint8 stacks of 32-aligned height, 128-aligned width."""
-        return (images.dtype == torch.uint8
-                and images.shape[2] % FRAME_COL_ALIGN == 0
-                and images.shape[1] % FRAME_ROW_ALIGN == 0)
+    frames_path_ok = staticmethod(frames_path_ok)
 
     def aligned_origins(self, images: torch.Tensor, boxes: torch.Tensor):
-        """Per-face window origins for K3 and the window shape: the roi crop
-        origin floored to the (32, 128) grain first, then clamped, with the
-        window one grain larger where the stack allows, so it still covers
-        the whole crop (floor first: a clamp first could strip the slack
-        from faces at the bottom or right edge)."""
-        roi = self.roi
-        h, w = images.shape[1], images.shape[2]
-        if h < roi or w < roi:
-            raise ValueError(f"roi {roi} exceeds image stack {h}x{w}")
-        ry = roi + (FRAME_ROW_ALIGN if h >= roi + FRAME_ROW_ALIGN else 0)
-        rx = roi + (FRAME_COL_ALIGN if w >= roi + FRAME_COL_ALIGN else 0)
-        cx = boxes[:, 0] + boxes[:, 2] / 2.0
-        cy = boxes[:, 1] + boxes[:, 3] / 2.0
-        oy = torch.round(cy - roi / 2.0).to(torch.int32)
-        oy = torch.clamp(torch.div(oy, FRAME_ROW_ALIGN, rounding_mode="floor")
-                         * FRAME_ROW_ALIGN, 0, h - ry)
-        ox = torch.round(cx - roi / 2.0).to(torch.int32)
-        ox = torch.clamp(torch.div(ox, FRAME_COL_ALIGN, rounding_mode="floor")
-                         * FRAME_COL_ALIGN, 0, w - rx)
-        return oy, ox, (ry, rx)
+        """Per-face window origins for K3 and the window shape
+        (``aligned_window_origins`` at this detector's roi)."""
+        return aligned_window_origins(images.shape[1], images.shape[2], boxes,
+                                      self.roi)
 
     def crop(self, images: torch.Tensor, boxes: torch.Tensor,
              idx: torch.Tensor):
         """roi x roi bf16 windows around the boxes (clamped inside the
         image) for K4, and their (ox, oy) origins."""
-        roi = self.roi
-        h, w = images.shape[1], images.shape[2]
-        if h < roi or w < roi:
-            raise ValueError(f"roi {roi} exceeds image stack {h}x{w}")
-        cx = boxes[:, 0] + boxes[:, 2] / 2.0
-        cy = boxes[:, 1] + boxes[:, 3] / 2.0
-        oy = torch.clamp(torch.round(cy - roi / 2.0), 0, h - roi).long()
-        ox = torch.clamp(torch.round(cx - roi / 2.0), 0, w - roi).long()
-        span = torch.arange(roi, device=images.device)
-        windows = images[idx.long()[:, None, None],
-                         (oy[:, None] + span)[:, :, None],
-                         (ox[:, None] + span)[:, None, :]]
+        windows, ox, oy = crop_windows(images, idx, boxes, self.roi)
         return windows.bfloat16(), ox.float(), oy.float()
 
     def boxes_from_rows(self, rows: torch.Tensor) -> torch.Tensor:

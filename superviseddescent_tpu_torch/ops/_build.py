@@ -4,8 +4,8 @@ Each source compiles on its own with nvcc into a shared library with a
 plain C interface, loaded with ctypes: pointers and the stream pass as
 ``c_void_p``, and every C entry point returns ``cudaGetLastError()``.
 Libraries go to ``build/torch_kernels/`` beside the package (git-ignored),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.
+named by a hash of the source, the headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one is reused.
 
 ``-fmad=false`` keeps every float multiply and add rounding on its own, as
 PyTorch's separate elementwise operations do: the kernels then agree with
@@ -33,6 +33,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the cascade kernels' common tail: x0, out, weights, level tables, tents,
 # eyes; n, levels, L, C, RY, RX, Fp, quantize, S_max; stream
 _CASCADE = [_P] * 7 + [_I] * 9 + [_P]
+# the feature extractors' common tail: x, out, level tables, tents, eyes;
+# n, L, C, RY, RX, S; stream
+_FEATURES = [_P] * 6 + [_I] * 6 + [_P]
 KERNELS = {
     "hog_flat": {"hog_flat_launch":
                  [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
@@ -42,6 +45,9 @@ KERNELS = {
     "cascade_fused": {"cascade_fused_frames_launch":
                       [_P] * 4 + [_I] * 3 + _CASCADE,
                       "cascade_fused_launch": [_P] + _CASCADE},
+    "features_fused": {"features_fused_frames_launch":
+                       [_P] * 4 + [_I] * 3 + _FEATURES,
+                       "features_fused_launch": [_P] + _FEATURES},
 }
 
 
@@ -55,7 +61,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(source + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 

@@ -1,4 +1,6 @@
-"""K3 and K4: the whole RCR cascade in one launch, hand-written CUDA kernels.
+"""K3-K6: the fused RCR kernels, hand-written in CUDA. K3 and K4 run the
+whole cascade in one launch (serving); K5 and K6 extract one level's feature
+rows in one launch (training).
 
 Replace the TPU kernels ``superviseddescent_tpu/ops/cascade_pallas.py::
 detect_cascade_fused_frames`` (K3, ``_cascade_frames_kernel``) and
@@ -45,10 +47,29 @@ planes, partials, cell histograms, the bf16 feature row, the landmark row)
 in shared memory, so device memory sees only the pixels, the weights and
 the two rows, and a detect call is one launch.
 
+K5 and K6 replace ``cascade_pallas.py::extract_features_fused_frames``
+(K5, ``_features_frames_kernel``) and ``extract_features_fused`` (K6,
+``_features_kernel``): the same per-landmark body (one ``__device__``
+function in ``csrc/cascade_body.cuh``, shared with K3/K4) for ONE level,
+with the patches always quantised, and the float32 channels written to
+device memory *before* the bf16 rounding that K3/K4 apply for their GEMV.
+Rows are exactly (N, L*D*C*C + 1) float32 in the reference's Matlab order,
+bias 1 last: no lane segments, no padded width, no compact column order, so
+a solve on these rows gives regressors in the reference's order. One thread
+block per (sample, landmark) (``csrc/features_fused.cu``): there is no GEMV
+and no dependence between landmarks, so a block need not hold a face; that
+gives L times the blocks, needs no feature row in shared memory (any
+landmark count fits) and costs one IED per block. What bounds them on the
+H100: the float32 operations of sampling and HOG (the bytes are the tapped
+window pixels plus the N x F float32 rows written once, 397 MB at 11,264
+RCR-22 samples); every intermediate stays in shared memory, so device
+memory sees only those.
+
 Intended differences from the JAX kernels: any number of levels (the JAX
 ops take at most 4); a face whose frame index or window origin lies outside
 the frame stack gets a row of NaN from the kernel instead of a clamped read
-(host-side index arrays raise ``ValueError`` before upload instead).
+(host-side index arrays raise ``ValueError`` before upload instead); K5/K6
+take any N (no padding to a multiple of faces per step), N = 0 included.
 """
 
 from __future__ import annotations
@@ -166,23 +187,32 @@ def _check_config(n_landmarks, weights: FusedWeights, ry, rx, levels,
         raise ValueError(f"weights are ({weights.num_features}, "
                          f"{weights.tensor.shape[1]}); expected ({f}, "
                          f"{2 * n_landmarks})")
-    for s, w, wx, _ in levels:
-        if not 3 <= s <= _MAX_SIZE:
-            raise ValueError(f"patch size {s} outside 3..{_MAX_SIZE}")
-        if not (w <= ry and w % SUBLANE_ALIGN == 0
-                and ry % SUBLANE_ALIGN == 0):
-            raise ValueError(
-                f"row sub-window W={w} and window height RY={ry} must both "
-                f"be multiples of {SUBLANE_ALIGN} with W <= RY")
-        if not (wx <= rx and (wx == rx or (wx % LANE_ALIGN == 0
-                                           and rx % LANE_ALIGN == 0))):
-            raise ValueError(
-                f"column sub-window WX={wx} requires WX and the window width "
-                f"RX={rx} to be multiples of {LANE_ALIGN} (or WX == RX)")
+    for level in levels:
+        _check_geometry(level, ry, rx)
+    _check_eyes(n_landmarks, r_idx, l_idx)
+    return c
+
+
+def _check_geometry(level, ry, rx):
+    """One level's patch side and sub-windows against the window shape."""
+    s, w, wx, _ = level
+    if not 3 <= s <= _MAX_SIZE:
+        raise ValueError(f"patch size {s} outside 3..{_MAX_SIZE}")
+    if not (w <= ry and w % SUBLANE_ALIGN == 0 and ry % SUBLANE_ALIGN == 0):
+        raise ValueError(
+            f"row sub-window W={w} and window height RY={ry} must both "
+            f"be multiples of {SUBLANE_ALIGN} with W <= RY")
+    if not (wx <= rx and (wx == rx or (wx % LANE_ALIGN == 0
+                                       and rx % LANE_ALIGN == 0))):
+        raise ValueError(
+            f"column sub-window WX={wx} requires WX and the window width "
+            f"RX={rx} to be multiples of {LANE_ALIGN} (or WX == RX)")
+
+
+def _check_eyes(n_landmarks, r_idx, l_idx):
     if not r_idx or not l_idx or not all(
             0 <= i < n_landmarks for i in tuple(r_idx) + tuple(l_idx)):
         raise ValueError("eye indices must be non-empty and name landmarks")
-    return c
 
 
 # ------------------------------------------------------------------ #
@@ -266,15 +296,23 @@ def uoctti_from_cells(cells):
     return torch.stack(channels, dim=-3)
 
 
+def _features_chunk(windows, x, level, cell_size, r_idx, l_idx, quantize):
+    """One level's (N, F) float32 feature rows in reference order, bias 1
+    last, and the rows' IED."""
+    n, ry, rx = windows.shape
+    ied, phw = level_patch_half(x, level, ry, rx, r_idx, l_idx)
+    patches = level_patches(windows, x, level, phw, quantize)
+    chan = uoctti_from_cells(fused_hog_cells(patches, cell_size))
+    feats = torch.cat([chan.reshape(n, -1),
+                       torch.ones((n, 1), device=x.device)], dim=1)
+    return feats, ied
+
+
 def _cascade_chunk(windows, x, weights, levels, cell_sizes, r_idx, l_idx,
                    quantize):
-    n, ry, rx = windows.shape
     for li, level in enumerate(levels):
-        ied, phw = level_patch_half(x, level, ry, rx, r_idx, l_idx)
-        patches = level_patches(windows, x, level, phw, quantize)
-        chan = uoctti_from_cells(fused_hog_cells(patches, cell_sizes[li]))
-        feats = torch.cat([chan.reshape(n, -1),
-                           torch.ones((n, 1), device=x.device)], dim=1)
+        feats, ied = _features_chunk(windows, x, level, cell_sizes[li],
+                                     r_idx, l_idx, quantize)
         upd = torch.matmul(feats.bfloat16().float(), weights.reference(li))
         x = x - upd * ied[:, None]
     return x
@@ -331,6 +369,53 @@ def detect_cascade_fused_frames_reference(frames, image_indices, oy, ox, x0,
     return torch.cat(out) if out else x0.float().clone()
 
 
+def _num_features(n_landmarks, level, cell_size):
+    c = hog_num_cells(level[0], cell_size)
+    return n_landmarks * hog_dimension(HogVariant.Uoctti,
+                                       _ORIENTATIONS) * c * c + 1
+
+
+def extract_features_fused_reference(windows, x, level, cell_size, r_idx,
+                                     l_idx):
+    """Plain PyTorch twin of K6 (and, after the crop, of K5) on any device:
+    (N, RY, RX) windows (pixel values as bf16), (N, 2L) rows in window
+    coordinates -> (N, F) float32 feature rows of one level, reference
+    order, bias 1 last."""
+    level = tuple(level)
+    if windows.dtype != torch.bfloat16:
+        windows = windows.bfloat16()
+    x = x.float()
+    out = [_features_chunk(windows[a:a + _CHUNK], x[a:a + _CHUNK], level,
+                           cell_size, r_idx, l_idx, True)[0]
+           for a in range(0, x.shape[0], _CHUNK)]
+    if out:
+        return torch.cat(out)
+    return torch.zeros((0, _num_features(x.shape[1] // 2, level, cell_size)),
+                       device=x.device)
+
+
+def extract_features_fused_frames_reference(frames, image_indices, oy, ox, x,
+                                            window_shape, level, cell_size,
+                                            r_idx, l_idx):
+    """Plain PyTorch twin of K5 on any device: the windows are cut from the
+    frame stack, then the rows are K6's twin's. A sample whose index or
+    origin lies outside the stack gets a row of NaN, as in the kernel."""
+    level = tuple(level)
+    out = []
+    for a in range(0, x.shape[0], _CHUNK):
+        sl = slice(a, a + _CHUNK)
+        windows, valid = _frame_windows(frames, image_indices[sl], oy[sl],
+                                        ox[sl], window_shape)
+        rows, _ = _features_chunk(windows.bfloat16(), x[sl].float(), level,
+                                  cell_size, r_idx, l_idx, True)
+        out.append(torch.where(valid[:, None], rows,
+                               torch.full((), _NAN, device=rows.device)))
+    if out:
+        return torch.cat(out)
+    return torch.zeros((0, _num_features(x.shape[1] // 2, level, cell_size)),
+                       device=x.device)
+
+
 # ------------------------------------------------------------------ #
 # The kernels
 # ------------------------------------------------------------------ #
@@ -353,13 +438,23 @@ def _level_tables(levels, cell_sizes, r_idx, l_idx, device):
             torch.tensor(eyes, dtype=torch.int32, device=device))
 
 
-def _shared_bytes(l, c, fp, s):
-    """Dynamic shared memory of one block, as csrc/cascade_fused.cu lays
-    it out (every buffer 16-byte aligned)."""
-    sizes = [fp * 2, 2 * l * 4, 2 * l * 4, 4 * 4, s * 4, s * 4, s * 4,
-             s * 4, s * 4, s * 4, s * c * 4, s * s * 4, s * s * 4,
-             8 * c * s * 4, 8 * c * c * 4, c * c * 4, s * s]
+def _aligned_sum(sizes):
     return sum(-(-b // 16) * 16 for b in sizes)
+
+
+def _body_shared_bytes(c, s):
+    """Shared memory of one landmark's body, as csrc/cascade_body.cuh lays
+    it out (every buffer 16-byte aligned), after 4 scalars."""
+    return _aligned_sum([4 * 4, s * 4, s * 4, s * 4, s * 4, s * 4, s * 4,
+                         s * c * 4, s * s * 4, s * s * 4, 8 * c * s * 4,
+                         8 * c * c * 4, c * c * 4, s * s])
+
+
+def _shared_bytes(l, c, fp, s):
+    """Dynamic shared memory of one cascade block, as csrc/cascade_fused.cu
+    lays it out: the bf16 feature row and two landmark rows, then the body."""
+    return _aligned_sum([fp * 2, 2 * l * 4, 2 * l * 4]) + _body_shared_bytes(
+        c, s)
 
 
 def _launch_args(x0, weights, levels, cell_sizes, r_idx, l_idx, ry, rx, c,
@@ -517,3 +612,149 @@ def detect_cascade_fused(windows: torch.Tensor, x0: torch.Tensor, weights,
 
 detect_cascade_fused.launches = 0
 
+
+# ------------------------------------------------------------------ #
+# K5 / K6: one level's feature rows
+# ------------------------------------------------------------------ #
+def _check_level(n_landmarks, ry, rx, level, cell_size, num_orientations,
+                 dims, r_idx, l_idx):
+    """Validate one level's static configuration; returns the level as
+    (int S, int W, int WX, float rel), the cell count C and the row width
+    F."""
+    if num_orientations != _ORIENTATIONS or dims != hog_dimension(
+            HogVariant.Uoctti, num_orientations):
+        raise ValueError("fused kernel: Uoctti with num_orientations=4 "
+                         f"(16 dims) only; got {num_orientations}, {dims}")
+    s, w, wx, rel = level
+    level = (int(s), int(w), int(wx), float(rel))
+    s = level[0]
+    _check_geometry(level, ry, rx)
+    _check_eyes(n_landmarks, r_idx, l_idx)
+    c = hog_num_cells(s, cell_size)
+    if _body_shared_bytes(c, s) > _MAX_SHARED:
+        raise ValueError(f"patch size {s} with {c} cells needs more shared "
+                         "memory than one block has")
+    return level, c, n_landmarks * dims * c * c + 1
+
+
+def _features_launch_args(x, level, cell_size, r_idx, l_idx, ry, rx, c, f):
+    dev = x.device
+    level_i, level_rel, tents, eyes = _level_tables(
+        (level,), (int(cell_size),), tuple(int(i) for i in r_idx),
+        tuple(int(i) for i in l_idx), dev)
+    out = torch.empty((x.shape[0], f), dtype=torch.float32, device=dev)
+    args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(level_i.data_ptr()),
+            ctypes.c_void_p(level_rel.data_ptr()),
+            ctypes.c_void_p(tents.data_ptr()),
+            ctypes.c_void_p(eyes.data_ptr()),
+            x.shape[0], x.shape[1] // 2, c, ry, rx, level[0],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+    return out, args
+
+
+def extract_features_fused_frames(frames: torch.Tensor, image_indices, oy,
+                                  ox, x: torch.Tensor, window_shape, level,
+                                  cell_size: int, num_orientations: int,
+                                  dims: int, r_idx, l_idx) -> torch.Tensor:
+    """K5: one cascade level's feature rows for training, each sample's
+    window read straight from the uint8 frame stack.
+
+    frames: (n_img, H, W) uint8. image_indices, oy, ox: (N,) integers, the
+    sample's frame and the top-left corner of its (RY, RX) = window_shape
+    window in it. x: (N, 2L) float32 rows in window coordinates. level:
+    (S, W, WX, relative patch size), W and WX the sampler's sub-window
+    sides (WX == RX: the full width). r_idx / l_idx: the eye landmarks of
+    the IED. Returns (N, L*D*C*C + 1) float32 rows in the reference's order
+    ``lm*(D*C*C) + d*C*C + cx*C + cy``, bias 1 last; patches are always
+    quantised to grey levels.
+
+    Index arrays on the host are checked before upload (ValueError); on
+    the card, a sample whose index or origin lies outside the stack gets a
+    row of NaN. A CPU frame stack takes the plain twin; a CUDA one launches
+    the kernel.
+    """
+    if frames.ndim != 3 or frames.dtype != torch.uint8:
+        raise ValueError("frames must be an (n_img, H, W) uint8 stack")
+    n_img, h, w = frames.shape
+    ry, rx = (int(v) for v in window_shape)
+    if not (ry <= h and rx <= w):
+        raise ValueError(f"window {ry}x{rx} exceeds the frames {h}x{w}")
+    dev = frames.device
+    for name, v, high in (("image_indices", image_indices, n_img - 1),
+                          ("oy", oy, h - ry), ("ox", ox, w - rx)):
+        if _on_host(v) and dev.type == "cuda":
+            _check_host_indices(name, v, 0, high)
+    idx, oy, ox = (torch.as_tensor(v).to(dev, torch.int32).contiguous()
+                   for v in (image_indices, oy, ox))
+    n = x.shape[0]
+    if x.ndim != 2 or any(v.shape != (n,) for v in (idx, oy, ox)):
+        raise ValueError("x must be (N, 2L) and the indices and origins (N,)")
+    level, c, f = _check_level(x.shape[1] // 2, ry, rx, level, cell_size,
+                               num_orientations, dims, r_idx, l_idx)
+    if dev.type == "cpu":
+        return extract_features_fused_frames_reference(
+            frames, idx, oy, ox, x.float(), (ry, rx), level, cell_size,
+            r_idx, l_idx)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    frames = frames.contiguous()
+    x = x.to(dev, torch.float32).contiguous()
+    out, args = _features_launch_args(x, level, cell_size, r_idx, l_idx, ry,
+                                      rx, c, f)
+    if n == 0:
+        return out
+    from superviseddescent_tpu_torch.ops._build import load_library
+    lib = load_library("features_fused")
+    err = lib.features_fused_frames_launch(
+        ctypes.c_void_p(frames.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_void_p(oy.data_ptr()), ctypes.c_void_p(ox.data_ptr()),
+        n_img, h, w, *args)
+    if err != 0:
+        raise RuntimeError(
+            f"features_fused_frames kernel launch failed: CUDA error {err}")
+    extract_features_fused_frames.launches += 1
+    return out
+
+
+extract_features_fused_frames.launches = 0
+
+
+def extract_features_fused(windows: torch.Tensor, x: torch.Tensor, level,
+                           cell_size: int, num_orientations: int, dims: int,
+                           r_idx, l_idx) -> torch.Tensor:
+    """K6: K5 on pre-cropped (N, RY, RX) windows (bfloat16; uint8 and
+    float32 are cast to bfloat16 first). Everything else as
+    ``extract_features_fused_frames``. A CPU tensor takes the plain twin; a
+    CUDA one launches the kernel."""
+    if windows.ndim != 3 or x.ndim != 2 or windows.shape[0] != x.shape[0]:
+        raise ValueError("expected (N, RY, RX) windows and (N, 2L) rows")
+    if windows.dtype != torch.bfloat16:
+        windows = windows.bfloat16()
+    _, ry, rx = windows.shape
+    dev = windows.device
+    level, c, f = _check_level(x.shape[1] // 2, ry, rx, level, cell_size,
+                               num_orientations, dims, r_idx, l_idx)
+    if dev.type == "cpu":
+        return extract_features_fused_reference(
+            windows, x.float(), level, cell_size, r_idx, l_idx)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    windows = windows.contiguous()
+    x = x.to(dev, torch.float32).contiguous()
+    out, args = _features_launch_args(x, level, cell_size, r_idx, l_idx, ry,
+                                      rx, c, f)
+    if x.shape[0] == 0:
+        return out
+    from superviseddescent_tpu_torch.ops._build import load_library
+    lib = load_library("features_fused")
+    err = lib.features_fused_launch(ctypes.c_void_p(windows.data_ptr()),
+                                    *args)
+    if err != 0:
+        raise RuntimeError(
+            f"features_fused kernel launch failed: CUDA error {err}")
+    extract_features_fused.launches += 1
+    return out
+
+
+extract_features_fused.launches = 0

@@ -90,6 +90,44 @@ def ied_from_rows(rows: torch.Tensor, right_idx: Tuple[int, ...],
     return torch.sqrt((rx - lx) ** 2 + (ry - ly) ** 2)
 
 
+# left/right landmark correspondence of the ibug-68 scheme under a
+# horizontal flip (1-based ibug ids; ids not listed map to themselves)
+_IBUG68_MIRROR_PAIRS = (
+    (1, 17), (2, 16), (3, 15), (4, 14), (5, 13), (6, 12), (7, 11), (8, 10),
+    (18, 27), (19, 26), (20, 25), (21, 24), (22, 23),        # brows
+    (32, 36), (33, 35),                                      # nose base
+    (37, 46), (38, 45), (39, 44), (40, 43), (41, 48), (42, 47),  # eyes
+    (49, 55), (50, 54), (51, 53),                            # outer mouth
+    (61, 65), (62, 64), (60, 56), (59, 57), (68, 66),        # inner mouth
+)
+
+
+def mirror_permutation(model_landmarks: Sequence[str]) -> np.ndarray:
+    """(L,) index map for horizontally flipped faces (ibug naming).
+
+    In a flipped image, the landmark named ``model_landmarks[i]`` sits at
+    the mirrored position of the original image's landmark
+    ``model_landmarks[perm[i]]``, so a flipped ground-truth row is
+    ``x' = (W-1) - x[perm]``, ``y' = y[perm]``. Raises if the landmark set
+    is not closed under the ibug-68 mirror map (a one-sided subset cannot
+    be flip-augmented).
+    """
+    mirror = {}
+    for a, b in _IBUG68_MIRROR_PAIRS:
+        mirror[str(a)] = str(b)
+        mirror[str(b)] = str(a)
+    index = {n: i for i, n in enumerate(model_landmarks)}
+    perm = []
+    for n in model_landmarks:
+        partner = mirror.get(n, n)
+        if partner not in index:
+            raise ValueError(
+                f"landmark set is not mirror-closed: {n!r} needs its "
+                f"flip partner {partner!r} (ibug-68 correspondence)")
+        perm.append(index[partner])
+    return np.asarray(perm, np.int64)
+
+
 def get_ied(landmarks: LandmarkCollection, right_eye_ids: Sequence[str],
             left_eye_ids: Sequence[str]) -> float:
     """Host-side IED from named landmarks."""

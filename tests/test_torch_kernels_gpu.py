@@ -1,4 +1,4 @@
-"""K1-K4 CUDA kernels against their plain PyTorch twins, on the card.
+"""K1-K6 CUDA kernels against their plain PyTorch twins, on the card.
 
 Marked ``gpu``: each test skips unless a CUDA device is present (decided
 inside the fixture, never at import). On the card:
@@ -244,3 +244,131 @@ def test_fused_empty_batch_launches_nothing(cuda, rcr22_faces):
     rows = det(stack, boxes[:0], image_indices=idx[:0])
     assert rows.shape == (0, 44)
     assert detect_cascade_fused_frames.launches == before
+
+
+# ------------------------------------------------------------------ #
+# K5 / K6: the fused feature extractors against their plain twins
+# ------------------------------------------------------------------ #
+# the same float32 operations in the same order as the twin: equal, up to
+# a last-bit difference in a block factor (1e-6 on values below 0.5)
+FEATURES_ATOL = 1e-6
+
+
+def check_features_against_twin(det, frames, boxes, idx=None):
+    """K5 (uint8 frames) and K6 (bf16 windows) against their twins at every
+    level, from the aligned mean and from rows moved by a few pixels."""
+    from superviseddescent_tpu_torch.models.rcr import align_mean, rows_shift
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        extract_features_fused, extract_features_fused_frames,
+        extract_features_fused_frames_reference,
+        extract_features_fused_reference)
+    m = det.model
+    n_lm = len(m.landmark_ids)
+    n = boxes.shape[0]
+    idx = torch.arange(n, device=frames.device, dtype=torch.int32) \
+        if idx is None else idx
+    eyes = (det.r_idx, det.l_idx)
+    gen = torch.Generator().manual_seed(0)
+    jitter = (torch.rand((n, 2 * n_lm), generator=gen) * 6 - 3).to(
+        frames.device)
+    x_img = align_mean(m.mean[None], boxes) + jitter
+    oy, ox, window = det.aligned_origins(frames, boxes)
+    x_k5 = x_img - rows_shift(ox.float(), oy.float(), n_lm)
+    windows, wox, woy = det.crop(frames.float(), boxes, idx)
+    x_k6 = x_img - rows_shift(wox, woy, n_lm)
+    for li, level in enumerate(det.levels):
+        cs = det.cell_sizes[li]
+        before = extract_features_fused_frames.launches
+        got = extract_features_fused_frames(frames, idx, oy, ox, x_k5, window,
+                                            level, cs, 4, 16, *eyes)
+        assert extract_features_fused_frames.launches == before + 1
+        ref = extract_features_fused_frames_reference(
+            frames, idx, oy, ox, x_k5, window, level, cs, *eyes)
+        assert got.shape == ref.shape == (n, det.weights.num_features)
+        assert bool((got[:, -1] == 1).all())
+        assert float((got - ref).abs().max()) <= FEATURES_ATOL
+        before = extract_features_fused.launches
+        got6 = extract_features_fused(windows, x_k6, level, cs, 4, 16, *eyes)
+        assert extract_features_fused.launches == before + 1
+        ref6 = extract_features_fused_reference(windows, x_k6, level, cs,
+                                                *eyes)
+        assert float((got6 - ref6).abs().max()) <= FEATURES_ATOL
+        assert float(got.abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("num_landmarks,cells", [(6, 3), (29, 5)])
+def test_features_kernels_match_twin_tiny(cuda, num_landmarks, cells):
+    rng = np.random.default_rng(num_landmarks)
+    model = random_model(cuda, num_landmarks, 2, cells)
+    frames = torch.from_numpy(rng.integers(0, 256, size=(6, 192, 128))
+                              .astype(np.uint8)).to(cuda)
+    boxes = torch.from_numpy(np.column_stack([
+        rng.uniform(0, 48, 6), rng.uniform(0, 110, 6),
+        np.full(6, 80.0), np.full(6, 80.0)]).astype(np.float32)).to(cuda)
+    check_features_against_twin(model.make_fused_detector(roi=128), frames,
+                                boxes)
+
+
+def test_features_kernels_match_twin_rcr22(cuda, rcr22_faces):
+    model, stack, boxes, idx = rcr22_faces
+    check_features_against_twin(model.make_fused_detector(roi=512), stack,
+                                boxes, idx)
+
+
+def test_features_out_of_range_index_gives_nan_row_and_empty(cuda,
+                                                             rcr22_faces):
+    from superviseddescent_tpu_torch.models.rcr import align_mean, rows_shift
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        extract_features_fused_frames)
+    model, stack, boxes, idx = rcr22_faces
+    det = model.make_fused_detector(roi=512)
+    oy, ox, window = det.aligned_origins(stack, boxes)
+    x = align_mean(model.mean[None], boxes) - rows_shift(
+        ox.float(), oy.float(), 22)
+    args = (window, det.levels[0], det.cell_sizes[0], 4, 16, det.r_idx,
+            det.l_idx)
+    good = extract_features_fused_frames(stack, idx, oy, ox, x, *args)
+    bad_idx = idx.clone()
+    bad_idx[3] = stack.shape[0]
+    bad_oy = oy.clone()
+    bad_oy[7] = stack.shape[1]
+    rows = extract_features_fused_frames(stack, bad_idx, bad_oy, ox, x, *args)
+    assert bool(torch.isnan(rows[[3, 7]]).all())
+    keep = torch.ones(len(idx), dtype=torch.bool, device=cuda)
+    keep[[3, 7]] = False
+    torch.testing.assert_close(rows[keep], good[keep], rtol=0, atol=0)
+    before = extract_features_fused_frames.launches
+    empty = extract_features_fused_frames(stack, idx[:0], oy[:0], ox[:0],
+                                          x[:0], *args)
+    assert empty.shape == (0, 8801)
+    assert extract_features_fused_frames.launches == before
+
+
+# ------------------------------------------------------------------ #
+# the ridge solver on the card: true float32 whatever the TF32 flag says
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("method", ["lu", "cholesky", "qr"])
+def test_solver_ignores_tf32_flag_on_the_card(cuda, method):
+    """With ``allow_tf32`` on, the products and the factorisation's solves
+    still run in float32: the weights are the bits of a run with the flag
+    off, and the flag is restored."""
+    from superviseddescent_tpu_torch.core.regulariser import (
+        RegularisationType, Regulariser)
+    from superviseddescent_tpu_torch.ops.solver import (
+        solve_ridge_normal_equations)
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((2048, 700), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((2048, 44), dtype=np.float32))
+    a, b = a.to(cuda), b.to(cuda)
+    reg = Regulariser(RegularisationType.MatrixNorm, 1.5,
+                      regularise_last_row=False)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = solve_ridge_normal_equations(a, b, reg, method)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = solve_ridge_normal_equations(a, b, reg, method)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert bool(torch.equal(on, off))
