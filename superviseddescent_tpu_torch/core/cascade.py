@@ -37,6 +37,16 @@ class SupervisedDescentOptimiser:
         self.regressors: List[LinearRegressor] = list(regressors)
         self.normalisation = normalisation or NoNormalisation()
 
+    @property
+    def weight_stack(self):
+        """(R, F, P) stacked weights; all levels must share one shape."""
+        ws = [r.weights for r in self.regressors]
+        if any(w is None for w in ws):
+            raise ValueError("cascade has unlearned levels")
+        if len({tuple(w.shape) for w in ws}) != 1:
+            raise ValueError("levels have differing weight shapes")
+        return torch.stack(ws)
+
     def train(self, parameters: torch.Tensor, initialisations: torch.Tensor,
               templates, projection,
               on_training_epoch_callback: Optional[Callable] = None,

@@ -16,10 +16,16 @@ On these paths the regressor product ``x - (F @ W) / norm`` is a float32
 ``torch.matmul`` (with TF32 off, the PyTorch default), as the JAX package
 leaves it to XLA. ``make_fused_detector`` runs the whole cascade, GEMV
 included, in one launch of K3 or K4 (``ops/cascade_fused``).
+
+Tracking chains fused calls frame by frame, each frame starting from its
+predecessor's row on the device: ``make_fused_track_stream`` delivers the
+rows one by one through pinned host memory, ``make_fused_track_scan``
+enqueues a whole clip and returns its rows at once.
 """
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -41,12 +47,14 @@ from superviseddescent_tpu_torch.ops.hog import (
     HogVariant, hog_descriptor, hog_dimension, hog_num_cells)
 from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
 from superviseddescent_tpu_torch.ops.patches import extract_patches
+from superviseddescent_tpu_torch.ops.solver import float32_matmul
 from superviseddescent_tpu_torch.ops.patches_window import (
     max_patch_half, max_patch_half_x, min_sub_window, min_sub_window_x,
     sample_patches_window)
 from superviseddescent_tpu_torch.utils.device import resolve_device
 from superviseddescent_tpu_torch.utils.landmarks import (
-    LandmarkCollection, ied_from_rows, resolve_eye_indices)
+    LandmarkCollection, ied_from_rows, resolve_eye_indices,
+    to_landmark_collection)
 
 
 @dataclass(frozen=True)
@@ -611,6 +619,222 @@ class FusedDetector:
                            torch.full((), float("nan"), device=out.device))
 
 
+class BatchedDetector:
+    """``f(images (B, H, W), faceboxes (B, 4)) -> (B, 2L)`` for one fixed
+    image shape and batch, through the plain ``gather`` features (the path
+    of ``detect_batch``, image b for face b); built by
+    ``DetectionModel.make_batched_detector``. PyTorch runs eagerly, so
+    there is nothing to compile: the object fixes the shapes and checks
+    them."""
+
+    def __init__(self, model: "DetectionModel", image_shape, batch: int,
+                 quantize: bool):
+        self.model = model
+        self.image_shape = tuple(int(v) for v in image_shape)
+        if len(self.image_shape) != 2:
+            raise ValueError("image_shape must be (H, W)")
+        self.batch = int(batch)
+        self.quantize = quantize
+
+    def __call__(self, images, faceboxes) -> torch.Tensor:
+        m = self.model
+        images = torch.as_tensor(images, device=m.device)
+        boxes = torch.as_tensor(faceboxes, dtype=torch.float32,
+                                device=m.device)
+        if (tuple(images.shape) != (self.batch,) + self.image_shape
+                or boxes.shape != (self.batch, 4)):
+            raise ValueError(
+                f"detector built for {self.batch} images of "
+                f"{self.image_shape}: got {tuple(images.shape)} images, "
+                f"{tuple(boxes.shape)} boxes")
+        return m.detect_batch(
+            images, boxes, quantize=self.quantize,
+            image_indices=torch.arange(self.batch, device=m.device))
+
+
+class ScanDetector:
+    """``f(images (B, H, W), faceboxes (B, 4)) -> (B, 2L)`` for a model
+    whose levels share one HOG configuration: one level body applied over
+    the stacked weights; built by ``DetectionModel.make_scan_detector``.
+    The rows are those of ``detect_batch``."""
+
+    def __init__(self, model: "DetectionModel", batch: int, quantize: bool):
+        if len({(p.variant, p.num_cells, p.cell_size, p.num_bins,
+                 p.relative_patch_size) for p in model.hog_params}) != 1:
+            raise ValueError(
+                "make_scan_detector requires uniform per-level HOG params "
+                "(the scan body must be shape-uniform); this model's "
+                "levels differ — use make_stepped_detector")
+        self.weights = model.sdo.weight_stack              # (R, F, 2L)
+        self.model = model
+        self.batch = int(batch)
+        self.quantize = quantize
+
+    def __call__(self, images, faceboxes) -> torch.Tensor:
+        m = self.model
+        images = torch.as_tensor(images, device=m.device)
+        boxes = torch.as_tensor(faceboxes, dtype=torch.float32,
+                                device=m.device)
+        if images.shape[0] != self.batch or boxes.shape != (self.batch, 4):
+            raise ValueError(
+                f"detector built for batch {self.batch}: got "
+                f"{tuple(images.shape)} images, {tuple(boxes.shape)} boxes")
+        hog = HogTransform(
+            images, m.hog_params, m.landmark_ids, m.right_eye_ids,
+            m.left_eye_ids, quantize=self.quantize,
+            image_indices=torch.arange(self.batch, device=m.device))
+        x = align_mean(m.mean[None, :], boxes)
+        for w in self.weights:
+            observed = hog(x, 0)               # uniform params: any level
+            norm = m.sdo.normalisation(x)
+            with float32_matmul():
+                update = torch.matmul(observed, w)
+            x = x - update / norm
+        return x
+
+
+class _HostRows:
+    """Device rows to the host without stalling the stream: a ring of
+    pinned host buffers; ``start`` enqueues a non-blocking copy of (k, 2L)
+    rows into the next buffer and records an event behind it, ``finish``
+    waits for that event only and returns the rows as a numpy array of its
+    own. A buffer is reused after ``slots`` further starts, so at most
+    ``slots - 1`` reads may be outstanding when one is started. On the CPU
+    the copy is immediate and there is no event."""
+
+    def __init__(self, slots: int, rows: int, width: int, device):
+        self.cuda = device.type == "cuda"
+        self.buffers = torch.empty((slots, rows, width), dtype=torch.float32,
+                                   pin_memory=self.cuda)
+        self.started = 0
+
+    def start(self, rows: torch.Tensor):
+        host = self.buffers[self.started % self.buffers.shape[0],
+                            :rows.shape[0]]
+        self.started += 1
+        host.copy_(rows, non_blocking=True)
+        event = None
+        if self.cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return host, event
+
+    @staticmethod
+    def finish(read) -> np.ndarray:
+        host, event = read
+        if event is not None:
+            event.synchronize()
+        return host.numpy().copy()
+
+
+class FusedTrackStream:
+    """``stream(frames, facebox) -> iterator of (2L,) numpy rows``, one per
+    frame in order; built by ``DetectionModel.make_fused_track_stream``.
+
+    The first frame is fitted from ``facebox`` through the fused detector,
+    every later frame from its predecessor's row, which stays on the
+    device, through the fused tracker: a frame's fit is enqueued before
+    the previous row has reached the host. Frames are (H, W) arrays or
+    tensors (device tensors skip the upload). ``chunk=K`` delivers the rows
+    in bursts of K (one copy per K rows, read while the next K fits run)
+    and reads a tail shorter than K row by row; ``depth=D`` starts every
+    row's copy at its dispatch and delivers it D frames later. The rows
+    are the same bits for every setting; only the delivery lag changes.
+    """
+
+    def __init__(self, model: "DetectionModel", roi: int,
+                 max_ied: Optional[float], chunk: int,
+                 depth: Optional[int]):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if depth is not None and (depth < 1 or chunk > 1):
+            raise ValueError("depth requires chunk=1 and depth >= 1, "
+                             f"got depth={depth}, chunk={chunk}")
+        self.model = model
+        self.chunk = chunk
+        self.depth = depth
+        self.detector = model.make_fused_detector(roi, max_ied=max_ied)
+        self.tracker = model.make_fused_tracker(roi, max_ied=max_ied)
+
+    def fits(self, frames, facebox):
+        """The device rows (1, 2L), frame by frame."""
+        dev = self.model.device
+        box = torch.as_tensor(facebox, dtype=torch.float32,
+                              device=dev).reshape(1, 4)
+        prev = None
+        for frame in frames:
+            img = torch.as_tensor(frame, device=dev)
+            if img.ndim == 2:
+                img = img[None]
+            prev = (self.detector(img, box) if prev is None
+                    else self.tracker(img, prev))
+            yield prev
+
+    def __call__(self, frames, facebox):
+        width = 2 * len(self.model.landmark_ids)
+        dev = self.model.device
+        if self.depth is not None:
+            host = _HostRows(self.depth + 1, 1, width, dev)
+            window = collections.deque()    # rows with a copy in flight
+            for cur in self.fits(frames, facebox):
+                window.append(host.start(cur))
+                if len(window) > self.depth:
+                    yield host.finish(window.popleft())[0]
+            while window:
+                yield host.finish(window.popleft())[0]
+            return
+        host = _HostRows(2, self.chunk, width, dev)
+        pend = []        # device rows not yet in a flush, oldest first
+        flushing = None  # the flush whose copy is in flight
+        for cur in self.fits(frames, facebox):
+            pend.append(cur)
+            if len(pend) >= self.chunk:
+                started = host.start(pend[0] if self.chunk == 1
+                                     else torch.cat(pend))
+                pend = []
+                # read the previous flush now: its copy ran under the fits
+                # enqueued since it was started
+                if flushing is not None:
+                    yield from host.finish(flushing)
+                flushing = started
+        if flushing is not None:
+            yield from host.finish(flushing)
+        for row in pend:                 # a tail shorter than chunk
+            yield host.finish(host.start(row))[0]
+
+
+class FusedTrackScan:
+    """``f(frames (N, H, W), facebox (4,)) -> (N, 2L)``: a whole clip
+    tracked with no host synchronisation between frames; built by
+    ``DetectionModel.make_fused_track_scan``. Frame 0 is fitted from the
+    facebox, every later frame from its predecessor's row on the device;
+    all N fits are enqueued one after the other and the rows come back as
+    one device tensor, read once by the caller. With the frames and the
+    facebox already on the card nothing in the call waits for the device.
+    The rows equal the sequential detector / tracker chain exactly."""
+
+    def __init__(self, model: "DetectionModel", roi: int,
+                 max_ied: Optional[float]):
+        self.model = model
+        self.detector = model.make_fused_detector(roi, max_ied=max_ied)
+        self.tracker = model.make_fused_tracker(roi, max_ied=max_ied)
+
+    def __call__(self, frames, facebox) -> torch.Tensor:
+        dev = self.model.device
+        frames = torch.as_tensor(frames, device=dev)
+        if frames.ndim != 3:
+            raise ValueError("frames must be an (N, H, W) stack")
+        box = torch.as_tensor(facebox, dtype=torch.float32,
+                              device=dev).reshape(1, 4)
+        if frames.shape[0] == 0:
+            return torch.zeros((0, 2 * len(self.model.landmark_ids)),
+                               device=dev)
+        rows = [self.detector(frames[:1], box)]
+        for i in range(1, frames.shape[0]):
+            rows.append(self.tracker(frames[i:i + 1], rows[-1]))
+        return torch.cat(rows)
+
+
 class DetectionModel:
     """A trained RCR landmark detection model (reference:
     rcr::detection_model), holding its tensors on ``device``."""
@@ -632,6 +856,31 @@ class DetectionModel:
         self.right_eye_ids = list(right_eye_ids)
         self.left_eye_ids = list(left_eye_ids)
 
+    def _hog(self, image) -> HogTransform:
+        """The plain ``gather`` transform over one image."""
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.asarray(image, np.float32))
+        return HogTransform(
+            image.to(self.device, torch.float32), self.hog_params,
+            self.landmark_ids, self.right_eye_ids, self.left_eye_ids)
+
+    def detect(self, image, facebox) -> LandmarkCollection:
+        """Detect landmarks in one (H, W) image from a facebox
+        (x, y, w, h)."""
+        init = align_mean(self.mean, torch.as_tensor(
+            facebox, dtype=torch.float32, device=self.device))
+        row = self.sdo.predict(init, None, self._hog(image))
+        return to_landmark_collection(row, self.landmark_ids)
+
+    def detect_from_landmarks(self, image,
+                              initialisation) -> LandmarkCollection:
+        """Detect from a prior landmark estimate ((2L,) row), e.g. the
+        previous video frame (tracking)."""
+        init = torch.as_tensor(initialisation, dtype=torch.float32,
+                               device=self.device)
+        row = self.sdo.predict(init, None, self._hog(image))
+        return to_landmark_collection(row, self.landmark_ids)
+
     def detect_batch(self, images, faceboxes, image_indices=None,
                      quantize: bool = True) -> torch.Tensor:
         """(I, H, W) image stack + (B, 4) faceboxes -> (B, 2L) landmark
@@ -646,6 +895,24 @@ class DetectionModel:
                            self.right_eye_ids, self.left_eye_ids,
                            image_indices=image_indices, quantize=quantize)
         return self.sdo.test(align_mean(self.mean[None, :], boxes), None, hog)
+
+    def make_batched_detector(self, image_shape, batch: int,
+                              quantize: bool = True) -> BatchedDetector:
+        """``f(images (B, H, W), faceboxes (B, 4)) -> (B, 2L)`` for fixed
+        shapes, image b for face b, through ``detect_batch``."""
+        return BatchedDetector(self, image_shape, batch, quantize)
+
+    def make_scan_detector(self, batch: int,
+                           quantize: bool = True) -> ScanDetector:
+        """Whole-cascade detector whose levels run as one level body over
+        the stacked weights (``SupervisedDescentOptimiser.weight_stack``).
+
+        Requires every cascade level to share its HOG configuration. The
+        shipped RCR-22 configuration does not (cell sizes 11/10/8/6), so it
+        cannot scan: use ``make_stepped_detector`` there. In PyTorch the
+        body is a loop over the stack; the contract is the guard and rows
+        equal to ``detect_batch``."""
+        return ScanDetector(self, batch, quantize)
 
     def make_stepped_detector(self, batch: int, quantize: bool = True,
                               roi: Optional[int] = None,
@@ -703,6 +970,35 @@ class DetectionModel:
         cascade initialised from prior landmark rows (tracking)."""
         return self.make_fused_detector(roi, max_ied=max_ied,
                                         init="landmarks")
+
+    def make_fused_track_stream(self, roi: int,
+                                max_ied: Optional[float] = None,
+                                chunk: int = 1,
+                                depth: Optional[int] = None
+                                ) -> FusedTrackStream:
+        """``stream(frames, facebox) -> iterator of (2L,) numpy rows``, one
+        per frame in order: per-frame tracking with each fit enqueued from
+        the previous row on the device, and the rows copied to pinned host
+        memory behind an event instead of a blocking read per frame.
+
+        chunk=K delivers the rows in bursts of K, a tail shorter than K row
+        by row; depth=D (with chunk=1 only) delivers each row D frames
+        after its dispatch. The rows are bit-identical for every setting.
+        No loss detection: drive the detector and the tracker directly for
+        a re-initialisation."""
+        return FusedTrackStream(self, roi, max_ied, chunk, depth)
+
+    def make_fused_track_scan(self, roi: int,
+                              max_ied: Optional[float] = None
+                              ) -> FusedTrackScan:
+        """``f(frames (N, H, W), facebox (4,)) -> (N, 2L)``: the whole clip
+        enqueued with no host synchronisation between frames, the rows
+        returned as one device tensor. Frame 0 fits from the facebox, every
+        later frame from its predecessor's row; the rows equal the
+        sequential detector / tracker chain exactly. A uint8 stack of
+        32-aligned height and 128-aligned width rides K3 (one launch per
+        frame)."""
+        return FusedTrackScan(self, roi, max_ied)
 
     # -------------------------------------------------------------- #
     # Persistence (cereal byte-compatible)

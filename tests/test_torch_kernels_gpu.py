@@ -1,4 +1,4 @@
-"""K1-K6 CUDA kernels against their plain PyTorch twins, on the card.
+"""K1-K6 and the probe kernels against their plain PyTorch twins, on the card.
 
 Marked ``gpu``: each test skips unless a CUDA device is present (decided
 inside the fixture, never at import). On the card:
@@ -372,3 +372,178 @@ def test_solver_ignores_tf32_flag_on_the_card(cuda, method):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     assert bool(torch.equal(on, off))
+
+
+# ------------------------------------------------------------------ #
+# a 68-landmark K3 launch: the block holds a 27,208-value bf16 feature row
+# ------------------------------------------------------------------ #
+def test_fused_kernel_68_landmarks_matches_twin(cuda):
+    import glob
+    import os
+    from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
+    from superviseddescent_tpu_torch.models.rcr import (
+        DetectionModel, gt_facebox)
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        _MAX_SHARED, _shared_bytes)
+    from superviseddescent_tpu_torch.ops.patches import (
+        load_gray_image, stack_images)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = DetectionModel.load(
+        os.path.join(repo, "pretrained", "rcr68_lfpw5.bin"), device="cuda")
+    files = sorted(glob.glob(os.path.join(repo, ".synth120", "*.png")))[:8]
+    boxes = np.array([gt_facebox(read_pts_landmarks(f[:-4] + ".pts")
+                                 .filter(model.landmark_ids))
+                      for f in files], np.float32)
+    stack, _ = stack_images([load_gray_image(f) for f in files],
+                            dtype=np.uint8, pad_width_to=128)
+    sel = np.arange(32) % len(files)
+    det = model.make_fused_detector(roi=512)
+    fp = det.weights.tensor.shape[2]
+    assert (det.weights.num_features, fp) == (27201, 27208)
+    assert 48 * 1024 < _shared_bytes(68, 5, fp, 55) <= _MAX_SHARED
+    check_fused_against_twin(
+        det, torch.from_numpy(stack).cuda(),
+        torch.from_numpy(boxes[sel]).cuda(),
+        torch.from_numpy(sel.astype(np.int32)).cuda())
+
+
+# ------------------------------------------------------------------ #
+# the probes P1-P5 against their plain twins
+# ------------------------------------------------------------------ #
+def sampler_probe_case(cuda, s, ph, centres):
+    from superviseddescent_tpu_torch import probes
+    from superviseddescent_tpu_torch.probes.sampler import sub_window_origins
+    n, roi, l = 8, 512, 5
+    windows = probes.sampler_windows(1, n, roi, cuda)
+    if centres == "middle":
+        cx, cy = probes.sampler_centres(1, n, l, roi)
+    else:       # up to 4 px outside: origins clamp, taps are truncated
+        rng = np.random.default_rng(2)
+        cx = rng.uniform(-4, roi + 4, (n, l)).astype(np.float32)
+        cy = rng.uniform(-4, roi + 4, (n, l)).astype(np.float32)
+    oxy, sp = probes.sampler_inputs(cx, cy, s, ph, cuda)
+    return windows, oxy, sp, sub_window_origins
+
+
+@pytest.mark.parametrize("centres", ["middle", "border"])
+@pytest.mark.parametrize("s,w,wx,ph", [(55, 160, 384, 72.0),
+                                       (40, 72, 256, 29.0)])
+def test_sampler_probes_equal_twin_and_each_other(cuda, s, w, wx, ph,
+                                                  centres):
+    from superviseddescent_tpu_torch.probes.sampler import (
+        VARIANTS, probe_sampler, probe_sampler_g, probe_sampler_pre,
+        probe_sampler_reference)
+    windows, oxy, sp, origins = sampler_probe_case(cuda, s, ph, centres)
+    oo = origins(oxy, sp, 512, 512, s, w, wx)
+    outs = {}
+    for variant in VARIANTS:
+        before = probe_sampler.launches
+        outs[variant] = probe_sampler(windows, oxy, sp, variant, s, w, wx)
+        assert probe_sampler.launches == before + 1
+        ref = probe_sampler_reference(windows, oxy, sp, s, w, wx, variant)
+        # at most two non-zero terms per float32 sum: bit-equal
+        assert torch.equal(outs[variant].view(torch.int16),
+                           ref.view(torch.int16)), variant
+    assert float(outs["full"].float().max()) > 0
+    for g in (1, 2, 4):
+        before = probe_sampler_g.launches
+        got = probe_sampler_g(windows, oxy, sp, g, s, w, wx)
+        assert probe_sampler_g.launches == before + 1
+        assert torch.equal(got.view(torch.int16),
+                           outs["full"].view(torch.int16)), g
+    for pre in (False, True):
+        before = probe_sampler_pre.launches
+        got = probe_sampler_pre(windows, oxy, sp, oo, pre, s, w, wx)
+        assert probe_sampler_pre.launches == before + 1
+        assert torch.equal(got.view(torch.int16),
+                           outs["full"].view(torch.int16)), pre
+
+
+def test_sampler_probe_is_k2_fast_transposed(cuda):
+    windows, oxy, sp, _ = sampler_probe_case(cuda, 40, 29.0, "border")
+    from superviseddescent_tpu_torch.probes.sampler import probe_sampler
+    from superviseddescent_tpu_torch.ops._build import load_library
+    import ctypes
+    n, l = oxy.shape[0], oxy.shape[2] // 2
+    k2 = torch.empty((n, l, 40, 40), dtype=torch.bfloat16, device=cuda)
+    oxy2, sp2 = oxy.reshape(n, -1).contiguous(), sp.reshape(n, 2).contiguous()
+    err = load_library("patches_window").patches_window_launch(
+        ctypes.c_void_p(windows.data_ptr()), 1,
+        ctypes.c_void_p(oxy2.data_ptr()), ctypes.c_void_p(sp2.data_ptr()),
+        ctypes.c_void_p(k2.data_ptr()), 1, n, l, 512, 512, 40, 72, 256, 1, 1,
+        1, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    got = probe_sampler(windows, oxy, sp, "full", 40, 72, 256)
+    assert torch.equal(got.view(torch.int16), k2.view(torch.int16))
+
+
+def test_flatout_probe_equals_two_x(cuda):
+    from superviseddescent_tpu_torch.probes.flatout import probe_flatout
+    rng = np.random.default_rng(0)
+    for s in (55, 7, 96):
+        x = torch.from_numpy(rng.normal(size=(37, s, s))
+                             .astype(np.float32)).to(cuda)
+        before = probe_flatout.launches
+        got = probe_flatout(x)
+        assert probe_flatout.launches == before + 1
+        assert torch.equal(got, (x * 2.0).reshape(37, s * s))
+
+
+def test_dyn_probes_match_twin_and_emulation(cuda):
+    from superviseddescent_tpu_torch import probes
+    from superviseddescent_tpu_torch.probes.dyn import (
+        ABDE_RTOL, abde_emulation, c_emulation, probe_abde,
+        probe_abde_reference, probe_c, probe_c4, probe_c_reference)
+    d = probes.DYN
+    x, win, v = probes.dyn_inputs(3, cuda, **d)
+    shape = (d["s"], d["w"], d["wx"], d["seg"])
+    before = probe_abde.launches
+    got = probe_abde(x, win, *shape)
+    assert probe_abde.launches == before + 1
+    ref = probe_abde_reference(x, win, *shape)
+    # float32 sums over 128 and 32 terms in another order: one bf16
+    # rounding of the patch
+    torch.testing.assert_close(got, ref, rtol=ABDE_RTOL, atol=0)
+    emu = abde_emulation(x.cpu().numpy(), win.float().cpu().numpy(), *shape)
+    np.testing.assert_allclose(got.cpu().numpy(), emu, rtol=ABDE_RTOL, atol=0)
+    assert float(got.min()) > 100
+    ref_c = probe_c_reference(v, d["g"], d["br"])
+    for fn in (probe_c, probe_c4):
+        before = fn.launches
+        out = fn(v, d["g"], d["br"])
+        assert fn.launches == before + 1
+        assert torch.equal(out, ref_c)
+        np.testing.assert_array_equal(
+            out.cpu().numpy(), c_emulation(v.cpu().numpy(), d["g"], d["br"]))
+
+
+# ------------------------------------------------------------------ #
+# tracking on the card: stream and scan give the chain
+# ------------------------------------------------------------------ #
+def test_tracking_stream_and_scan_equal_the_chain(cuda):
+    rng = np.random.default_rng(5)
+    model = random_model(cuda, 6, 2, 3)
+    clip = torch.from_numpy(rng.integers(0, 256, size=(9, 192, 128))
+                            .astype(np.uint8)).to(cuda)
+    box = torch.tensor([24.0, 60.0, 76.0, 76.0], device=cuda)
+    detector = model.make_fused_detector(roi=128)
+    tracker = model.make_fused_tracker(roi=128)
+    rows = [detector(clip[:1], box[None])]
+    for k in range(1, 9):
+        rows.append(tracker(clip[k:k + 1], rows[-1]))
+    chain = torch.cat(rows)
+    assert bool(torch.isfinite(chain).all())
+    scan = model.make_fused_track_scan(roi=128)
+    scan(clip[:2], box)                      # first call uploads the tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scanned = scan(clip, box)            # nothing in it may synchronise
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(scanned, chain)
+    for chunk, depth in ((1, None), (4, None), (1, 3)):
+        stream = model.make_fused_track_stream(roi=128, chunk=chunk,
+                                               depth=depth)
+        got = np.stack(list(stream(iter(clip), box)))
+        np.testing.assert_array_equal(got, chain.cpu().numpy())
