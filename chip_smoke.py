@@ -36,6 +36,18 @@ Then the later phases:
   ``make_fused_track_stream`` (chunk 1 and 8, depth 4) and the sequential
   detector / tracker chain with a read-back per frame.
 
+Where K3 spends its time is read at 4,096 faces of each family and at
+batch 1 (``k3_split``): the kernel beside measurement builds of its source
+that skip the GEMV or the landmark bodies or clock each phase, K5 over the
+same faces. K3 at batch 1 and P4 are also timed with the L2 flushed
+before each launch, and K3 through its entry point at the batch sizes
+``K3_BATCHES`` (``k3_batches``), beside the kernel before its redesign.
+
+    python3 chip_smoke.py --k3-batches [--plans] [--package-root DIR]
+
+times only that, for RCR-22 and ibug-68: with ``--plans`` beside other
+launch plans, with ``--package-root`` the package of another checkout.
+
 It checks each path's launch counts, each kernel against its twin at the
 path's own inputs, the rows against the port's CPU path, the train-set IOD
 error and the fused rows against the exact stepped rows, the trained
@@ -48,6 +60,7 @@ JSON result; the line before it lists every kernel with its times and
 bounds. Full results also go to ``build/chip_smoke.json``.
 """
 
+import ctypes
 import glob
 import json
 import math
@@ -173,11 +186,16 @@ def phase_device(torch):
     return name, smi
 
 
+# measurement builds of K3 / K4's source for k3_split, never entry points
+SPLIT_BUILDS = (("CASCADE_SKIP_GEMV",), ("CASCADE_SKIP_BODY",),
+                ("CASCADE_PHASE_CLOCKS",))
+
+
 def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
-    logs = build_all()
-    log(f"[build] K1-K6 and the probes built in {logs.pop('seconds'):.2f} s "
-        f"(nvcc, sm_90a, one process per source)")
+    logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS])
+    log(f"[build] K1-K6, the probes and K3's measurement builds in "
+        f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -599,6 +617,82 @@ def cascade_compare(torch, name, per_face):
     return dict(max_px=worst, share_within=within, share_beyond_1e3=beyond_1e3)
 
 
+# K3's times before its redesign, as PERF.md records them (NVIDIA H100 80GB
+# HBM3, 700 W): 4,096 faces, and one face (profiler)
+K3_BEFORE_MS = {"rcr22_4096": 10.49, "rcr22_batch1": 0.667,
+                "rcr29_4096": 14.25, "rcr68_4096": 48.79}
+PHASE_NAMES = ("IED and bias", "taps", "sampling", "gradients",
+               "x contraction", "y contraction", "channels", "GEMV",
+               "row update")
+
+
+def k3_split(torch, det, frames, idx, oy, ox, window, x0, level_x):
+    """Where K3's time goes, at one path's inputs: the kernel beside two
+    measurement builds of its source (``-DCASCADE_SKIP_GEMV``: every
+    landmark body runs and the update is zero, so each level repeats the
+    rows it started from; ``-DCASCADE_SKIP_BODY``: no landmark body runs
+    and the GEMV reads whatever the feature buffers hold), and K5 over the
+    same faces from the same per-level rows ``level_x`` (the body alone
+    under another mapping: one block per face and landmark). The rest is
+    the whole less the two parts. Measurement builds are launched here
+    only; their launches do not count."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        _check_config, _launch_args, _launch_frames,
+        extract_features_fused_frames)
+    from superviseddescent_tpu_torch.utils.timing import cuda_time_ms
+    l = x0.shape[1] // 2
+    c = _check_config(l, det.weights, *window, det.levels, det.cell_sizes,
+                      det.num_bins, det.dims, det.r_idx, det.l_idx)
+
+    def timed(defines):
+        lib = load_library("cascade_fused", defines)
+
+        def call():
+            out, args = _launch_args(x0, det.weights, det.levels,
+                                     det.cell_sizes, det.r_idx, det.l_idx,
+                                     *window, c, det.quantize, x0.device)
+            _launch_frames(lib, frames, idx, oy, ox, args)
+            return out
+        return cuda_time_ms(call)[0]
+    whole = timed(())
+    body = timed(SPLIT_BUILDS[0])
+    gemv = timed(SPLIT_BUILDS[1])
+    # -DCASCADE_PHASE_CLOCKS: thread 0's cycles per phase, summed over the
+    # blocks of one launch, as shares of the launch
+    clocks = SPLIT_BUILDS[2]
+    timed(clocks)
+    cycles = (ctypes.c_ulonglong * len(PHASE_NAMES))()
+    lib = load_library("cascade_fused", clocks)
+    lib.cascade_phase_cycles.argtypes = [ctypes.c_void_p]
+    check(lib.cascade_phase_cycles(ctypes.byref(cycles)) == 0, "phase clocks")
+    out, args = _launch_args(x0, det.weights, det.levels, det.cell_sizes,
+                             det.r_idx, det.l_idx, *window, c, det.quantize,
+                             x0.device)
+    _launch_frames(lib, frames, idx, oy, ox, args)
+    torch.cuda.synchronize()
+    check(lib.cascade_phase_cycles(ctypes.byref(cycles)) == 0, "phase clocks")
+    total = max(1, sum(cycles))
+    shares = {name: cycles[k] / total for k, name in enumerate(PHASE_NAMES)}
+    k5 = sum(cuda_time_ms(
+        extract_features_fused_frames, frames, idx, oy, ox, x, window,
+        level, det.cell_sizes[li], det.num_bins, det.dims, det.r_idx,
+        det.l_idx)[0] for li, (level, x) in enumerate(zip(det.levels,
+                                                          level_x)))
+    split = dict(whole_ms=whole, body_ms=body, gemv_ms=gemv,
+                 rest_ms=whole - body - gemv, k5_levels_ms=k5,
+                 faces=x0.shape[0], phase_shares=shares)
+    log(f"[split] K3 on {x0.shape[0]} faces: whole {whole:.4f} ms; landmark "
+        f"bodies alone (GEMV skipped) {body:.4f} ms; GEMV alone (bodies "
+        f"skipped) {gemv:.4f} ms; rest {whole - body - gemv:.4f} ms; K5 over "
+        f"the same faces and levels (one block per face and landmark) "
+        f"{k5:.4f} ms")
+    log("[split] phase shares (thread 0's cycles between barriers, a build "
+        "with a barrier after the GEMV): " + ", ".join(
+            f"{name} {100 * v:.1f}%" for name, v in shares.items()))
+    return split
+
+
 def phase_fused(torch, data, exact_rows):
     """The fused detector (K3 on the unique uint8 frame stack with
     image_indices, K4 on the float32 stack): launch counts, each kernel
@@ -673,6 +767,9 @@ def phase_fused(torch, data, exact_rows):
                           path["x0"], x_img - path["x0"], path["rows"], BATCH)
         args, plain_ms = r.pop("args"), r["plain_ms"]
         ms, runs = cuda_time_ms(path["op"], *args)
+        if name == "cascade_fused_frames":
+            r["split"] = k3_split(torch, det, frames, idx, oy, ox, window,
+                                  path["x0"], r["level_x"])
         torch.cuda.empty_cache()
         b_bytes, b_ops, read = cascade_bound(
             torch, model, det, r.pop("level_x"), path["window"],
@@ -1274,10 +1371,27 @@ def phase_probes(torch, seed):
     # on the device as the probe's is
     library_ms = device_ms(torch, lambda: torch.mul(x, 2.0))
     b_bytes = 2 * x.numel() * 4 / MEM_BYTES_PER_S
-    kernels.append(entry("probe_flatout", by_label[("P4", "flat rows")]["ms"],
-                         err, plain_ms, b_bytes, x.numel() / F32_OPS_PER_S,
-                         library_ms, call=lambda: probe_flatout(x),
-                         plain_call=lambda: probe_flatout_reference(x)))
+    p4 = entry("probe_flatout", by_label[("P4", "flat rows")]["ms"], err,
+               plain_ms, b_bytes, x.numel() / F32_OPS_PER_S, library_ms,
+               call=lambda: probe_flatout(x),
+               plain_call=lambda: probe_flatout_reference(x))
+    # the 12.4 MB stay in the 50 MB L2 between launches, so the times
+    # above are warm; the byte bound is one of device memory and holds
+    # against times with the L2 flushed before each launch
+    flush = l2_flusher(torch)
+    p4.update(
+        ms_flushed=device_ms(torch, lambda: probe_flatout(x), before=flush),
+        library_ms_flushed=device_ms(torch, lambda: torch.mul(x, 2.0),
+                                     before=flush))
+    del flush
+    log(f"[probes] P4 with the L2 flushed before each launch (device time): "
+        f"the kernel {p4['ms_flushed']:.4f} ms, torch.mul "
+        f"{p4['library_ms_flushed']:.4f} ms (warm: {p4['ms']:.4f} and "
+        f"{library_ms:.4f} ms); byte bound {b_bytes * 1e3:.4f} ms")
+    log(f"[probes] P4 against torch.mul(x, 2): warm "
+        f"{p4['ms'] / library_ms:.3f}x, flushed "
+        f"{p4['ms_flushed'] / p4['library_ms_flushed']:.3f}x its time")
+    kernels.append(p4)
 
     # ---- P5 ----
     d = probes.DYN
@@ -1329,7 +1443,20 @@ def phase_probes(torch, seed):
     return dict(records=records, launches=launches, kernels=kernels)
 
 
-def device_ms(torch, call, reps=20, match=None, one_kernel=True):
+# the kernel of l2_flusher's call, which device_ms leaves out
+FLUSH_KERNEL = "FillFunctor"
+
+
+def l2_flusher(torch):
+    """A call that writes 256 MB, five times the H100's 50 MB L2, so that
+    the next launch finds none of its inputs there (one fill kernel,
+    named by FLUSH_KERNEL)."""
+    buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    return lambda: buf.fill_(1.0)
+
+
+def device_ms(torch, call, reps=20, match=None, one_kernel=True,
+              before=None):
     """Device time per call of the kernels that ``call`` launches, from
     torch.profiler's kernel records over ``reps`` calls: for work so short
     that the host's enqueue, not the device, sets the time between two CUDA
@@ -1338,13 +1465,17 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True):
     kernel, or the one kernel of a library call); otherwise the sum over all
     of them (a plain twin of several operations). Each kernel counts with
     its mean time over the launches recorded (the profiler may miss the
-    first few) times its launches per call. The run fails when the profiler
-    holds no such record: no other clock stands in for it."""
+    first few) times its launches per call. before: ``l2_flusher``'s call,
+    made ahead of each ``call``; its kernel is not counted. The run fails
+    when the profiler holds no such record: no other clock stands in for
+    it."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if before is not None:
+                before()
             call()
         torch.cuda.synchronize()
     found = []
@@ -1353,6 +1484,7 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True):
                          getattr(ev, "self_cuda_time_total", 0.0))
         if ("CUDA" in str(ev.device_type) and dev_us > 0 and ev.count
                 and not ev.key.startswith(("Memcpy", "Memset"))
+                and (before is None or FLUSH_KERNEL not in ev.key)
                 and (match is None or match in ev.key)):
             found.append((ev.key, max(1, round(ev.count / reps)),
                           dev_us / ev.count))
@@ -1443,8 +1575,9 @@ def phase_families(torch, data):
     from superviseddescent_tpu_torch.models.rcr_training import (
         normalised_landmark_errors)
     from superviseddescent_tpu_torch.ops.cascade_fused import (
-        _shared_bytes, detect_cascade_fused, detect_cascade_fused_frames,
-        detect_cascade_fused_frames_reference, detect_cascade_fused_reference)
+        detect_cascade_fused, detect_cascade_fused_frames,
+        detect_cascade_fused_frames_reference, detect_cascade_fused_reference,
+        launch_plan)
     from superviseddescent_tpu_torch.utils.timing import cuda_time_ms
     frames, idx, images = data["frames"], data["sel_dev"], data["images"]
     results = {}
@@ -1463,10 +1596,15 @@ def phase_families(torch, data):
 
         det = model.make_fused_detector(roi=ROI, max_ied=fam["max_ied"])
         f, fp = det.weights.num_features, det.weights.tensor.shape[2]
-        shared = _shared_bytes(n_lm, 5, fp, 55)
+        plan = launch_plan(
+            BATCH, n_lm, 5, 55, det.quantize,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        shared = plan.shared_bytes
         log(f"[{tag}] {n_lm} landmarks, {f} features (rows padded to {fp}), "
-            f"max_ied {fam['max_ied']:.2f} px, K3 block {shared} B of shared "
-            f"memory; levels (S, W, WX, rel) {det.levels}")
+            f"max_ied {fam['max_ied']:.2f} px, K3 block of {plan.faces} faces "
+            f"x {plan.group} landmarks per group, {plan.threads} threads, "
+            f"{shared} B of shared memory; levels (S, W, WX, rel) "
+            f"{det.levels}")
         fixed = dict(quantize=det.quantize)
         consts = (det.num_bins, det.dims, det.r_idx, det.l_idx)
 
@@ -1498,6 +1636,8 @@ def phase_families(torch, data):
         k3 = fused_vs_twin(torch, f"{tag} K3", model, det, op, twin,
                            x_img - shift, shift, fused, m)
         k3_ms, runs = cuda_time_ms(op, *k3["args"])
+        k3["split"] = k3_split(torch, det, frames, idx, oy, ox, window,
+                               x_img - shift, k3["level_x"])
         b_bytes, b_ops, read = cascade_bound(
             torch, model, det, k3.pop("level_x"), window, 1,
             det.weights.tensor.numel() * 2)
@@ -1719,7 +1859,8 @@ def phase_tracking(torch, data, seed):
     from superviseddescent_tpu_torch.models.rcr_training import (
         RcrTrainConfig, normalised_landmark_errors, train_rcr)
     from superviseddescent_tpu_torch.ops.cascade_fused import (
-        detect_cascade_fused_frames_reference)
+        detect_cascade_fused_frames, detect_cascade_fused_frames_reference,
+        prepare_weights)
     pretrained = data["model"]
     n_lm = len(pretrained.landmark_ids)
     eyes = (data["r_idx"], data["l_idx"])
@@ -1857,8 +1998,45 @@ def phase_tracking(torch, data, seed):
     # one fit alone: K3 at batch 1, a single 256-thread block
     k3_one_ms = device_ms(torch, lambda: tracker(clip[1:2], rows_dev[:1]),
                           match="cascade_kernel")
+    # the same with the L2 flushed first: the weights (3.1 MB) read cold
+    k3_cold_ms = device_ms(torch, lambda: tracker(clip[1:2], rows_dev[:1]),
+                           match="cascade_kernel", before=l2_flusher(torch))
+    log(f"[track] K3 at batch 1 with the L2 flushed before each fit "
+        f"{k3_cold_ms:.4f} ms, warm {k3_one_ms:.4f} ms")
+    # K3 at batch 1, split as at 4,096 faces
+    prior = rows_dev[:1]
+    one_oy, one_ox, one_window = tracker.aligned_origins(
+        clip[1:2], tracker.boxes_from_rows(prior))
+    one_idx = torch.zeros(1, dtype=torch.int32, device="cuda")
+    x1 = prior - rows_shift(one_ox.float(), one_oy.float(), n_lm)
+    level_x, x = [], x1
+    for li, level in enumerate(tracker.levels):
+        level_x.append(x)
+        x = detect_cascade_fused_frames(
+            clip[1:2], one_idx, one_oy, one_ox, x,
+            prepare_weights([model.sdo.regressors[li].weights]), one_window,
+            (level,), (tracker.cell_sizes[li],), tracker.num_bins,
+            tracker.dims, tracker.r_idx, tracker.l_idx,
+            quantize=tracker.quantize)
+    split1 = k3_split(torch, tracker, clip[1:2], one_idx, one_oy, one_ox,
+                      one_window, x1, level_x)
+    # the least time of one fit: its weights, window pixels and rows at the
+    # memory rate (the weights read cold), against its operations
+    w_bytes = tracker.weights.tensor.numel() * 2
+    b_bytes, b_ops, read1 = cascade_bound(torch, model, tracker, level_x,
+                                          one_window, 1, w_bytes)
+    bound1 = dict(bytes_ms=b_bytes * 1e3, ops_ms=b_ops * 1e3,
+                  weight_bytes=w_bytes, window_pixels=read1)
+    log(f"[track] K3 bound at batch 1: bytes {b_bytes * 1e3:.6f} ms "
+        f"({w_bytes} B of bf16 weights, {read1} window pixels of 1 B and "
+        f"the rows, at {MEM_BYTES_PER_S / 1e12} TB/s), operations "
+        f"{b_ops * 1e3:.6f} ms; K3 {k3_one_ms:.4f} ms warm = "
+        f"{k3_one_ms / (max(b_bytes, b_ops) * 1e3):.0f}x, "
+        f"{k3_cold_ms:.4f} ms with the L2 flushed")
     results.update(graph_ms_per_frame=graph_ms, graph_capture_s=capture_s,
-                   scan_again_ms_per_frame=eager_ms, k3_batch1_ms=k3_one_ms)
+                   scan_again_ms_per_frame=eager_ms, k3_batch1_ms=k3_one_ms,
+                   k3_batch1_cold_ms=k3_cold_ms, k3_batch1_split=split1,
+                   k3_batch1_bound=bound1)
     log(f"[track] experiment, the scan's {n} fits as one CUDA graph "
         f"(recorded in {capture_s:.2f} s): rows bit-equal to the chain; "
         f"{graph_ms:.4f} ms per frame with the frames' copy and the one "
@@ -2067,10 +2245,127 @@ def kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
-            library_ms=r["library_ms"], ms_source=r["ms_source"]))
+            library_ms=r["library_ms"], ms_source=r["ms_source"],
+            **{k: r[k] for k in ("ms_flushed", "library_ms_flushed")
+               if k in r}))
     for e in entries:
         e.setdefault("ms_source", "cuda_events")
     return entries
+
+
+def k3_inputs(torch, data, n_lm):
+    """K3's inputs on the fused detector's path for the 4,096 faces of a
+    family: the detector, the window origins and shape, the start rows in
+    window coordinates."""
+    from superviseddescent_tpu_torch.models.rcr import (
+        DetectionModel, align_mean, rows_shift)
+    model = data["model"] if n_lm == 22 else DetectionModel.load(
+        os.path.join(REPO, "pretrained", f"rcr{n_lm}_lfpw5.bin"))
+    fam = family_data(torch, data, model)
+    det = model.make_fused_detector(roi=ROI, max_ied=fam["max_ied"])
+    oy, ox, window = det.aligned_origins(data["frames"], fam["boxes"])
+    x0 = align_mean(model.mean[None], fam["boxes"]) - rows_shift(
+        ox.float(), oy.float(), n_lm)
+    return det, oy, ox, window, x0
+
+
+def plan_call(torch, det, frames, idx, oy, ox, window, x0, plan=None,
+              defines=()):
+    """A K3 launch on these faces with the (faces, group, threads) launch
+    plan ``plan`` in place of ``launch_plan``'s (group 0: the group of its
+    one-face plan), from the entry point's library or the measurement build
+    ``defines``; None when the plan does not fit in a block. A measurement
+    of this script only: the launch does not count."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        _MAX_FACES, _MAX_SHARED, _check_config, _launch_args, _launch_frames,
+        _shared_bytes, launch_plan)
+    l = x0.shape[1] // 2
+    c = _check_config(l, det.weights, *window, det.levels, det.cell_sizes,
+                      det.num_bins, det.dims, det.r_idx, det.l_idx)
+    s = max(lv[0] for lv in det.levels)
+    if plan is not None:
+        faces, group, threads = plan
+        if group == 0:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            group = launch_plan(1, l, c, s, det.quantize, sms).group
+        if faces > _MAX_FACES or _shared_bytes(
+                l, c, s, det.quantize, faces, group, threads) > _MAX_SHARED:
+            return None
+    lib = load_library("cascade_fused", tuple(defines))
+
+    def call():
+        out, args = _launch_args(x0, det.weights, det.levels, det.cell_sizes,
+                                 det.r_idx, det.l_idx, *window, c,
+                                 det.quantize, x0.device)
+        if plan is not None:
+            args[-4:-1] = [faces, group, threads]
+        _launch_frames(lib, frames, idx, oy, ox, args)
+        return out
+    return call
+
+
+# batch sizes at which K3 is timed through its entry point: one face, the
+# H100's 132 SMs and one face more, 2 to 8 x 132 faces (the one-wave
+# limits of launch_plan's plans there are 3, 4, 6 and 8 x 132), 12 and 16 x
+# 132, and the serving cell's 4,096
+K3_BATCHES = (1, 132, 133, 264, 396, 528, 792, 1056, 1584, 2112, 4096)
+# the kernel before the redesign at those sizes: device ms (torch.profiler)
+# on an NVIDIA H100 80GB HBM3 at 700.00 W, the mean of two runs of
+# ``--k3-batches --package-root`` on a checkout of that kernel
+K3_BEFORE_BATCH_MS = {
+    "rcr22": {1: 0.6693, 132: 0.7033, 133: 0.8128, 264: 0.8488, 396: 1.0618,
+              528: 1.6277, 792: 2.0848, 1056: 2.7951, 1584: 4.0120,
+              2112: 5.4977, 4096: 10.4593},
+    "rcr68": {1: 2.6556, 132: 2.7736, 133: 2.9998, 264: 3.1827, 396: 6.0906,
+              528: 6.2881, 792: 9.4758, 1056: 12.4779, 1584: 18.6627,
+              2112: 24.7366, 4096: 48.9544}}
+# launch plans (faces, group, threads) that ``--k3-batches --plans`` times
+# beside the entry point at each batch size
+K3_PLANS = ((1, 0, 1024), (1, 4, 256), (1, 2, 256), (1, 1, 256), (2, 1, 256),
+            (2, 2, 256))
+
+
+def k3_batches(torch, data, families=(22,), plans=(), slices=()):
+    """K3's device time (torch.profiler) through its entry point on the
+    first N faces of each family, at each N of K3_BATCHES; with ``plans``,
+    those launch plans beside it, with ``slices``, the measurement builds
+    that cut the weight rows into that many GEMV slices, at
+    ``launch_plan``'s plan (``plan_call``)."""
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        detect_cascade_fused_frames)
+    frames, idx = data["frames"], data["sel_dev"]
+    out = {}
+    for n_lm in families:
+        det, oy, ox, window, x0 = k3_inputs(torch, data, n_lm)
+        consts = (det.num_bins, det.dims, det.r_idx, det.l_idx)
+        rows = {}
+        for n in K3_BATCHES:
+            faces = (frames, idx[:n], oy[:n], ox[:n])
+
+            def entry(faces=faces, x=x0[:n]):
+                return detect_cascade_fused_frames(
+                    *faces, x, det.weights, window, det.levels,
+                    det.cell_sizes, *consts, quantize=det.quantize)
+            row = {"entry": device_ms(torch, entry, match="cascade_kernel")}
+            for plan in plans:
+                call = plan_call(torch, det, *faces, window, x0[:n], plan)
+                if call is not None:
+                    row[",".join(map(str, plan))] = device_ms(
+                        torch, call, match="cascade_kernel")
+            for k in slices:
+                call = plan_call(torch, det, *faces, window, x0[:n],
+                                 defines=(f"CASCADE_GEMV_SLICES={k}",))
+                row[f"slices={k}"] = device_ms(torch, call,
+                                               match="cascade_kernel")
+            rows[n] = row
+            before = K3_BEFORE_BATCH_MS.get(f"rcr{n_lm}", {}).get(n)
+            log(f"[K3 batch] rcr{n_lm} N={n}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in row.items())
+                + ("" if before is None else f" (before the redesign "
+                   f"{before})"))
+        out[f"rcr{n_lm}"] = rows
+    return out
 
 
 def main():
@@ -2078,16 +2373,42 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the probes' inputs and the clip")
-    seed = parser.parse_args().seed
+    parser.add_argument("--k3-batches", action="store_true",
+                        help="only time K3 at the batch sizes K3_BATCHES "
+                        "(RCR-22 and ibug-68) and print them as JSON")
+    parser.add_argument("--plans", action="store_true",
+                        help="with --k3-batches: also time K3_PLANS")
+    parser.add_argument("--slices", default="",
+                        help="with --k3-batches: also time builds with "
+                        "these GEMV slice counts, e.g. 5,11")
+    parser.add_argument("--package-root", default=REPO,
+                        help="with --k3-batches: the checkout whose "
+                        "superviseddescent_tpu_torch is timed (the data "
+                        "stay this checkout's)")
+    opts = parser.parse_args()
+    seed = opts.seed
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(REPO, "superviseddescent_tpu_torch")):
+    root = os.path.abspath(opts.package_root)
+    if not all(os.path.isdir(os.path.join(d, "superviseddescent_tpu_torch"))
+               for d in (REPO, root)):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, root if opts.k3_batches else REPO)
+    if opts.k3_batches:
+        phase_device(torch)
+        slices = [int(k) for k in opts.slices.split(",") if k]
+        if slices:
+            from superviseddescent_tpu_torch.ops._build import build_all
+            build_all(extra=[("cascade_fused", (f"CASCADE_GEMV_SLICES={k}",))
+                             for k in slices])
+        times = k3_batches(torch, load_data(torch), (22, 29, 68),
+                           K3_PLANS if opts.plans else (), slices)
+        print(json.dumps({"k3_batches": times, "package_root": root}))
+        return 0
     t0 = time.perf_counter()
     name, smi = phase_device(torch)
     phase_build()
@@ -2110,15 +2431,30 @@ def main():
     probes = phase_probes(torch, seed)
     families = phase_families(torch, data)
     tracking = phase_tracking(torch, data, seed)
+    batches = k3_batches(torch, data)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                              families)
+    k3_shapes = {
+        "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
+        "rcr22_batch1": tracking["k3_batch1_ms"],
+        "rcr29_4096": families["rcr29"]["k3_ms"],
+        "rcr68_4096": families["rcr68"]["k3_ms"]}
+    log("[K3] at the four shapes, ms (the times before the redesign in "
+        "brackets): " + ", ".join(f"{shape} {ms:.4f} ({K3_BEFORE_MS[shape]})"
+                    for shape, ms in k3_shapes.items()))
+    for e in entries:
+        if e["name"] == "cascade_fused_frames":
+            e["ms_by_shape"] = k3_shapes
+            bound1 = tracking["k3_batch1_bound"]
+            e["batch1_bound_ms"] = max(bound1["bytes_ms"], bound1["ops_ms"])
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=name, nvidia_smi=smi, results=results,
                        fast_vs_exact_px=fast_vs_exact, profile=profile,
                        fused=fused, train=train, probes=probes,
                        families=families, tracking=tracking, seed=seed,
-                       kernels=entries,
+                       kernels=entries, k3_shapes=k3_shapes,
+                       k3_batches=batches,
                        seconds=time.perf_counter() - t0), f, indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -1,11 +1,12 @@
-// The per-landmark body shared by the fused cascade kernels (K3 / K4,
-// cascade_fused.cu) and the fused feature extractors (K5 / K6,
-// features_fused.cu): the window sources, the level's IED and patch half,
-// and, for one landmark, sampling -> gradients -> separable cell splat ->
-// block energies -> Uoctti channels. The caller says where the 16 * C * C
-// channel values go and as what type: the cascade kernels keep a bf16 row
-// in shared memory for their GEMV, the extractors write float32 rows to
-// device memory. See ops/cascade_fused.py for the numerics.
+// The fused RCR kernels' shared pieces: the window sources, the level's IED
+// and patch half, K2's taps, the cell tent supports and a cell's block
+// factors and Uoctti channels (used by the cascade kernels K3 / K4,
+// cascade_fused.cu, and the feature extractors K5 / K6, features_fused.cu),
+// and the per-landmark body of K5 / K6: for one
+// landmark, sampling -> gradients -> separable cell splat -> block energies
+// -> Uoctti channels, with float32 buffers. The caller says where the
+// 16 * C * C channel values go and as what type. See ops/cascade_fused.py
+// for the numerics.
 //
 // Built with -fmad=false: every float operation rounds on its own, as
 // PyTorch's separate elementwise operations do. Both splat contractions sum
@@ -205,6 +206,52 @@ __device__ __forceinline__ void support(int c, int cs, int s, int* lo,
   *hi = min(h, s - 2);
 }
 
+// The block factors and the 16 Uoctti channels of cell q = cx * C + cy:
+// cells holds the (2O, C, C) histograms, energy(cell) a cell's energy (its
+// O terms summed in order). Stores dst[d * C * C + q]. K3 / K4 and K5 / K6
+// both run it, so their channels are one arithmetic.
+template <typename Energy, typename Out>
+__device__ __forceinline__ void cell_channels(int q, int c,
+                                              const float* cells,
+                                              Energy energy, Out* dst) {
+  const int cc = c * c;
+  const int ccx = q / c, ccy = q - ccx * c;
+  float factor[4];
+  for (int i = 0; i < 4; ++i) {
+    // factor i: blocks at x offset (i & 1) - 1, y offset (i >> 1) - 1;
+    // the x pair at each y first, then the two y sums
+    const int ax = (i & 1) - 1, ay = (i >> 1) - 1;
+    const int xa = min(max(ccx + ax, 0), c - 1);
+    const int xb = min(max(ccx + ax + 1, 0), c - 1);
+    const int ya = min(max(ccy + ay, 0), c - 1);
+    const int yb = min(max(ccy + ay + 1, 0), c - 1);
+    const float total = (energy(xa * c + ya) + energy(xb * c + ya)) +
+                        (energy(xa * c + yb) + energy(xb * c + yb));
+    factor[i] = 1.f / sqrtf(total + 1e-4f);
+  }
+  float t_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int o = 0; o < kOrient; ++o) {
+    const float ha = cells[o * cc + q];
+    const float hb = cells[(o + kOrient) * cc + q];
+    float ha_s = 0.f, hb_s = 0.f, hc_s = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const float hai = factor[i] * ha;
+      const float hbi = factor[i] * hb;
+      const float hci = fminf(hai + hbi, 0.2f);
+      ha_s = ha_s + fminf(hai, 0.2f);
+      hb_s = hb_s + fminf(hbi, 0.2f);
+      hc_s = hc_s + hci;
+      t_acc[i] = t_acc[i] + hci;
+    }
+    store_channel(dst + o * cc + q, 0.5f * ha_s);
+    store_channel(dst + (o + kOrient) * cc + q, 0.5f * hb_s);
+    store_channel(dst + (o + 2 * kOrient) * cc + q, 0.5f * hc_s);
+  }
+  const float scale_t = 1.f / sqrtf(18.f);  // computed in float32
+  for (int i = 0; i < 4; ++i)
+    store_channel(dst + (3 * kOrient + i) * cc + q, t_acc[i] * scale_t);
+}
+
 // The body of one landmark at (cx, cy) in window coordinates: the whole
 // block samples the S x S patch from `win`, then computes its Uoctti
 // channels and stores them at dst[d * C * C + cx * C + cy]. k.tent holds
@@ -325,44 +372,9 @@ __device__ void landmark_channels(const Pixel* win, int64_t stride, float cx,
   __syncthreads();
 
   // ---- block factors and Uoctti channels ----
-  for (int t = threadIdx.x; t < cc; t += blockDim.x) {
-    const int ccx = t / c, ccy = t % c;
-    float factor[4];
-    for (int i = 0; i < 4; ++i) {
-      // factor i: blocks at x offset (i & 1) - 1, y offset (i >> 1) - 1;
-      // the x pair at each y first, then the two y sums
-      const int ax = (i & 1) - 1, ay = (i >> 1) - 1;
-      const int xa = min(max(ccx + ax, 0), c - 1);
-      const int xb = min(max(ccx + ax + 1, 0), c - 1);
-      const int ya = min(max(ccy + ay, 0), c - 1);
-      const int yb = min(max(ccy + ay + 1, 0), c - 1);
-      const float total =
-          (k.energy[xa * c + ya] + k.energy[xb * c + ya]) +
-          (k.energy[xa * c + yb] + k.energy[xb * c + yb]);
-      factor[i] = 1.f / sqrtf(total + 1e-4f);
-    }
-    float t_acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int q = 0; q < kOrient; ++q) {
-      const float ha = k.cells[q * cc + t];
-      const float hb = k.cells[(q + kOrient) * cc + t];
-      float ha_s = 0.f, hb_s = 0.f, hc_s = 0.f;
-      for (int i = 0; i < 4; ++i) {
-        const float hai = factor[i] * ha;
-        const float hbi = factor[i] * hb;
-        const float hci = fminf(hai + hbi, 0.2f);
-        ha_s = ha_s + fminf(hai, 0.2f);
-        hb_s = hb_s + fminf(hbi, 0.2f);
-        hc_s = hc_s + hci;
-        t_acc[i] = t_acc[i] + hci;
-      }
-      store_channel(dst + q * cc + t, 0.5f * ha_s);
-      store_channel(dst + (q + kOrient) * cc + t, 0.5f * hb_s);
-      store_channel(dst + (q + 2 * kOrient) * cc + t, 0.5f * hc_s);
-    }
-    const float scale_t = 1.f / sqrtf(18.f);  // computed in float32
-    for (int i = 0; i < 4; ++i)
-      store_channel(dst + (3 * kOrient + i) * cc + t, t_acc[i] * scale_t);
-  }
+  for (int t = threadIdx.x; t < cc; t += blockDim.x)
+    cell_channels(t, c, k.cells, [&](int cell) { return k.energy[cell]; },
+                  dst);
 }
 
 }  // namespace fused

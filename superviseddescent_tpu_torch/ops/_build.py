@@ -31,8 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C entry points: source name -> {symbol: argument types}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the cascade kernels' common tail: x0, out, weights, level tables, tents,
-# eyes; n, levels, L, C, RY, RX, Fp, quantize, S_max; stream
-_CASCADE = [_P] * 7 + [_I] * 9 + [_P]
+# eyes; n, levels, L, C, RY, RX, Fp, quantize, S_max, faces per block,
+# landmarks per group, threads per block; stream
+_CASCADE = [_P] * 7 + [_I] * 12 + [_P]
 # the feature extractors' common tail: x, out, level tables, tents, eyes;
 # n, L, C, RY, RX, S; stream
 _FEATURES = [_P] * 6 + [_I] * 6 + [_P]
@@ -64,56 +65,68 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     source = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(source + headers
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                         + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: tuple = ()):
     """Start nvcc for one source unless its library exists; returns the
     process (or None) and the temporary output path."""
-    path = library_path(name)
+    path = library_path(name, defines)
     if path.exists():
         return None, path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+    cmd = [_nvcc(), *_flags(defines), "-Xptxas", "-v", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp
 
 
-def _finish(name: str, proc, tmp: Path) -> str:
+def _finish(name: str, proc, tmp: Path, defines: tuple = ()) -> str:
     if proc is None:
         return ""
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    os.replace(tmp, library_path(name))
+    os.replace(tmp, library_path(name, defines))
     return log
 
 
-def build_all() -> dict:
-    """Compile every kernel, one nvcc per source, all started together.
-    Returns {name: compiler log} (ptxas register and shared-memory usage;
-    empty for a library that was already built) and the seconds taken
-    under the key "seconds"."""
+def build_all(extra=()) -> dict:
+    """Compile every kernel, one nvcc per source, all started together,
+    and the measurement builds ``extra`` ((name, defines) pairs) beside
+    them. Returns {name: compiler log} (ptxas register and shared-memory
+    usage; empty for a library that was already built; a measurement
+    build's key is its name and defines joined by "+") and the seconds
+    taken under the key "seconds"."""
     t0 = time.perf_counter()
-    started = {name: _start(name) for name in KERNELS}
-    logs = {name: _finish(name, *started[name]) for name in KERNELS}
+    builds = [(name, ()) for name in KERNELS] + [
+        (name, tuple(defines)) for name, defines in extra]
+    started = [(name, defines, *_start(name, defines))
+               for name, defines in builds]
+    logs = {"+".join((name, *defines)): _finish(name, proc, tmp, defines)
+            for name, defines, proc, tmp in started}
     logs["seconds"] = time.perf_counter() - t0
     return logs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str):
-    """The loaded library of kernel ``name``, built at first use."""
-    _finish(name, *_start(name))
-    lib = ctypes.CDLL(str(library_path(name)))
+def load_library(name: str, defines: tuple = ()):
+    """The loaded library of kernel ``name``, built at first use.
+    ``defines`` (macro names) select a measurement build of the source;
+    the entry points load the plain build only."""
+    _finish(name, *_start(name, defines), defines)
+    lib = ctypes.CDLL(str(library_path(name, defines)))
     for symbol, argtypes in KERNELS[name].items():
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes

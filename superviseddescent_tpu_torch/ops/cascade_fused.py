@@ -7,12 +7,12 @@ detect_cascade_fused_frames`` (K3, ``_cascade_frames_kernel``) and
 ``detect_cascade_fused`` (K4, ``_cascade_kernel``). For every face, every
 level of the cascade runs inside one thread block: per landmark the
 IED-adaptive patch is sampled from the face's window, described with a
-fast-class Uoctti HOG and written into the feature row; the level's
-regressor is applied to the row and the landmark row is updated; the row
-never leaves the chip between levels. K3 reads each face's pixels straight
-from the uint8 frame stack at (frame, row, column) origins; K4 reads
-pre-cropped bfloat16 windows. Both are one templated kernel
-(``csrc/cascade_fused.cu``), each with its own entry point and launch count.
+fast-class Uoctti HOG, and the level's regressor is applied to the features;
+then the landmark row is updated; nothing of a face leaves the chip between
+levels. K3 reads each face's pixels straight from the uint8 frame stack at
+(frame, row, column) origins; K4 reads pre-cropped bfloat16 windows. Both
+are one templated kernel (``csrc/cascade_fused.cu``), each with its own
+entry point and launch count.
 
 Numerics (the serving "fast" class of the JAX kernels):
   * sampling is K2's fast, transposed, optionally quantised sampling
@@ -30,8 +30,11 @@ Numerics (the serving "fast" class of the JAX kernels):
 
 Both splat contractions sum in increasing pixel order in the kernel and in
 the plain twin (``detect_cascade_fused_reference``); the products are exact
-in float32, so the bf16-rounded partials and the cell histograms of kernel
-and twin are equal bit for bit. They differ only in the regressor sums.
+in float32, so the bf16-rounded partials, the cell histograms and the bf16
+features of kernel and twin are equal bit for bit. They differ only in the
+regressor sums (the kernel sums each slice of a weight row's words over the
+level, then adds the bias weight and the slices' sums, in one order for
+every launch plan).
 
 The port's kernel takes the regressors in the reference's Matlab feature
 order ``lm*(D*C*C) + d*C*C + cx*C + cy``, bias last; ``prepare_weights``
@@ -42,15 +45,27 @@ weight permutation, faces per grid step) is carried over.
 What bounds the kernels on the H100, and what the design does: the work per
 face is small (a few MFLOP of float32 per level) and the bytes are the
 window pixels under the patches plus the weights, which stay in the 50 MB
-L2 cache. The design keeps every intermediate of a face (patch, gradient
-planes, partials, cell histograms, the bf16 feature row, the landmark row)
-in shared memory, so device memory sees only the pixels, the weights and
-the two rows, and a detect call is one launch.
+L2 cache; the operation bound is the larger, and the float32 work of
+sampling and HOG (each pixel's four byte gathers above all) takes most of
+the time. A block holds F faces and runs the landmark bodies of F faces x
+GL landmarks at once, phase by phase (6 barriers per group of GL
+landmarks, not per landmark), in compact exact buffers (uint8 patches when
+quantised, bf16 magnitudes and x partials); after each group the threads
+apply the group's slice of the regressor to the F faces together, so each
+16-byte weight load serves F faces and no feature row is kept.
+``launch_plan`` picks F, GL and the block size from the batch, the shared
+memory and the blocks an SM holds: the plan with the most landmarks in
+flight per face that still runs the batch in one wave (one face per
+1,024-thread block up to one face per SM, as in tracking; then one face
+per 256-thread block with four, then two, landmarks in flight; then two
+faces per block with two, then one), and the last of these beyond. Device memory sees only the pixels, the
+weights and the two rows, and a detect call is one launch.
 
 K5 and K6 replace ``cascade_pallas.py::extract_features_fused_frames``
 (K5, ``_features_frames_kernel``) and ``extract_features_fused`` (K6,
-``_features_kernel``): the same per-landmark body (one ``__device__``
-function in ``csrc/cascade_body.cuh``, shared with K3/K4) for ONE level,
+``_features_kernel``): the per-landmark arithmetic of K3/K4 (here the
+``__device__`` function in ``csrc/cascade_body.cuh``, with float32 buffers,
+one block per landmark) for ONE level,
 with the patches always quantised, and the float32 channels written to
 device memory *before* the bf16 rounding that K3/K4 apply for their GEMV.
 Rows are exactly (N, L*D*C*C + 1) float32 in the reference's Matlab order,
@@ -77,6 +92,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -97,6 +113,15 @@ FRAME_COL_ALIGN = 128
 
 _MAX_SIZE = 96               # largest patch side the kernel's tables hold
 _MAX_SHARED = 232448         # dynamic shared memory one block may use
+_SM_SHARED = 233472          # shared memory of one H100 SM
+_BLOCK_RESERVED = 1024       # of it, reserved by the card for each block
+_THREADS = 256               # threads of a K3 / K4 block that shares its SM
+_MAX_FACES = 2               # faces per K3 / K4 block (kMaxFaces)
+# K3 / K4's launch plans, (faces per block, landmarks per group, threads),
+# in launch_plan's order; group 0: the fewest groups that fit
+_PLANS = ((1, 0, 1024), (1, 4, _THREADS), (1, 2, _THREADS),
+          (_MAX_FACES, 2, _THREADS), (_MAX_FACES, 1, _THREADS))
+_GEMV_SLICES = 5             # slices of a weight row (kGemvSlices)
 _ORIENTATIONS = 4            # the sector binning's O
 _CHUNK = 256                 # faces per step of the plain twin
 _NAN = float("nan")
@@ -438,27 +463,111 @@ def _level_tables(levels, cell_sizes, r_idx, l_idx, device):
             torch.tensor(eyes, dtype=torch.int32, device=device))
 
 
+def _aligned(nbytes):
+    return -(-nbytes // 16) * 16
+
+
 def _aligned_sum(sizes):
-    return sum(-(-b // 16) * 16 for b in sizes)
+    return sum(_aligned(b) for b in sizes)
 
 
 def _body_shared_bytes(c, s):
-    """Shared memory of one landmark's body, as csrc/cascade_body.cuh lays
+    """Shared memory of one K5 / K6 block, as csrc/cascade_body.cuh lays
     it out (every buffer 16-byte aligned), after 4 scalars."""
     return _aligned_sum([4 * 4, s * 4, s * 4, s * 4, s * 4, s * 4, s * 4,
                          s * c * 4, s * s * 4, s * s * 4, 8 * c * s * 4,
                          8 * c * c * 4, c * c * 4, s * s])
 
 
-def _shared_bytes(l, c, fp, s):
-    """Dynamic shared memory of one cascade block, as csrc/cascade_fused.cu
-    lays it out: the bf16 feature row and two landmark rows, then the body."""
-    return _aligned_sum([fp * 2, 2 * l * 4, 2 * l * 4]) + _body_shared_bytes(
-        c, s)
+def _shared_bytes(l, c, s, quantize, faces, group, threads=_THREADS):
+    """Dynamic shared memory of one K3 / K4 block of ``threads`` threads,
+    ``faces`` faces and ``faces * group`` landmark bodies, as
+    csrc/cascade_fused.cu's Layout lays it out: the level's tent, per face
+    the landmark row, the GEMV's partial sums (per slice of the weight words
+    and output row), IED and patch half and window, per body its taps
+    (shared with the x contraction's accumulators, 8 per thread), its patch
+    (uint8 when quantised, else float32; then the bf16 x partials), its
+    bf16 magnitudes (then the cell histograms and energy terms), its bins and
+    its 16 * C * C bf16 features."""
+    cc, bodies = c * c, faces * group
+    slices = _GEMV_SLICES
+    block = _aligned_sum([s * c * 4, faces * 2 * l * 4,
+                          slices * faces * 2 * l * 4, faces * 2 * 4,
+                          faces * 8, faces * 8, bodies * 2 * 4])
+    taps = bodies * _aligned_sum([s * 4] * 6)
+    block += _aligned(max(taps, 8 * threads * 4))
+    patch = s * s * (1 if quantize else 4)
+    body = _aligned_sum([max(patch, 8 * c * s * 2),
+                         max(s * s * 2, _aligned_sum([8 * cc * 4,
+                                                      4 * cc * 4])),
+                         s * s, 16 * cc * 2])
+    return block + bodies * body
+
+
+class LaunchPlan(NamedTuple):
+    """How K3 / K4 cut a batch: ``faces`` per block, ``group`` landmarks of
+    each face in flight, ``threads`` per block, and the block's shared
+    memory in bytes."""
+    faces: int
+    group: int
+    threads: int
+    shared_bytes: int
+
+
+def blocks_per_sm(plan: LaunchPlan) -> int:
+    """Blocks of ``plan`` that one SM holds at once: four of 256 threads
+    (the kernel's register budget), one of 1,024, fewer where their shared
+    memory (and the 1 KB the card reserves per block) exceeds the SM's."""
+    return min(4 if plan.threads == _THREADS else 1,
+               _SM_SHARED // (plan.shared_bytes + _BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(n, l, c, s, quantize, sms) -> LaunchPlan:
+    """K3 / K4's launch plan for N faces of L landmarks at the largest
+    patch side S on a card of ``sms`` SMs: the first plan of ``_PLANS``
+    that fits in a block and runs the batch in one wave (every block
+    resident at once), else the last that fits. In that order: one face
+    per 1,024-thread block in the fewest groups of landmarks that fit, of
+    even size (RCR-22: two groups of 11), the shortest chain for a face;
+    one face per 256-thread block with four, then two, landmarks in
+    flight; two faces per 256-thread block, which share each weight load,
+    with two, then one, landmarks in flight. Raises ValueError when not
+    even one body fits."""
+    fitting = []
+    for faces, group, threads in _PLANS:
+        if group == 0:
+            # the fewest groups that fit, then the landmarks spread evenly
+            fits = [g for g in range(1, l + 1) if _shared_bytes(
+                l, c, s, quantize, faces, g, threads) <= _MAX_SHARED]
+            if not fits:
+                continue
+            group = -(-l // -(-l // fits[-1]))
+        group = min(group, l)
+        shared = _shared_bytes(l, c, s, quantize, faces, group, threads)
+        if shared > _MAX_SHARED:
+            continue
+        plan = LaunchPlan(faces, group, threads, shared)
+        if -(-n // faces) <= blocks_per_sm(plan) * sms:
+            return plan
+        fitting.append(plan)
+    if fitting:
+        return fitting[-1]
+    raise ValueError(
+        f"{l} landmarks at patch size {s} with {c} cells need "
+        f"{_shared_bytes(l, c, s, quantize, 1, 1)} bytes of shared memory "
+        f"for one face and one landmark body; one block has {_MAX_SHARED}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_args(x0, weights, levels, cell_sizes, r_idx, l_idx, ry, rx, c,
                  quantize, device):
+    """The C entry points' arguments after the window source: x0, out,
+    the tables, the shapes and ``launch_plan``'s plan."""
     l = x0.shape[1] // 2
     levels = tuple(tuple(float(v) if i == 3 else int(v)
                          for i, v in enumerate(lv)) for lv in levels)
@@ -467,9 +576,8 @@ def _launch_args(x0, weights, levels, cell_sizes, r_idx, l_idx, ry, rx, c,
         tuple(l_idx), device)
     fp = weights.tensor.shape[2]
     s_max = max(lv[0] for lv in levels)
-    if _shared_bytes(l, c, fp, s_max) > _MAX_SHARED:
-        raise ValueError(f"{l} landmarks at patch size {s_max} need more "
-                         "shared memory than one block has")
+    faces, group, threads, _ = launch_plan(x0.shape[0], l, c, s_max,
+                                           bool(quantize), _sm_count(device))
     x0 = x0.to(device, torch.float32).contiguous()
     if weights.tensor.device != x0.device:
         raise ValueError("weights must lie on the windows' device")
@@ -481,7 +589,8 @@ def _launch_args(x0, weights, levels, cell_sizes, r_idx, l_idx, ry, rx, c,
             ctypes.c_void_p(tents.data_ptr()),
             ctypes.c_void_p(eyes.data_ptr()),
             x0.shape[0], len(levels), l, c, ry, rx, fp, int(quantize),
-            s_max, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+            s_max, faces, group, threads,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
     return out, args
 
 
@@ -556,7 +665,15 @@ def detect_cascade_fused_frames(frames: torch.Tensor, image_indices, oy, ox,
     if n == 0:
         return out
     from superviseddescent_tpu_torch.ops._build import load_library
-    lib = load_library("cascade_fused")
+    _launch_frames(load_library("cascade_fused"), frames, idx, oy, ox, args)
+    detect_cascade_fused_frames.launches += 1
+    return out
+
+
+def _launch_frames(lib, frames, idx, oy, ox, args):
+    """K3's launch from ``lib`` (the entry point's build, or a measurement
+    build of the same source) with ``_launch_args``' arguments."""
+    n_img, h, w = frames.shape
     err = lib.cascade_fused_frames_launch(
         ctypes.c_void_p(frames.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
         ctypes.c_void_p(oy.data_ptr()), ctypes.c_void_p(ox.data_ptr()),
@@ -564,8 +681,6 @@ def detect_cascade_fused_frames(frames: torch.Tensor, image_indices, oy, ox,
     if err != 0:
         raise RuntimeError(
             f"cascade_fused_frames kernel launch failed: CUDA error {err}")
-    detect_cascade_fused_frames.launches += 1
-    return out
 
 
 detect_cascade_fused_frames.launches = 0

@@ -1,13 +1,14 @@
 """P4: ``2 * x`` with each (S, S) tile written as one flat S*S row.
 
 Replaces the probe kernel of ``scripts/probe_flatout.py``: (N, S, S) float32
-tiles -> (N, S*S) float32 rows, ``out[n, r*S + c] = 2 * x[n, r, c]``. The TPU
-probe asked whether its compiler lowers the (S, S) -> (1, S*S) reshape inside
-a kernel at all; CUDA always can, and what is left is the cost of the
-samplers' flat store pattern: one block per tile, the doubled tile staged in
-shared memory, one contiguous S*S-float row written per block
-(``csrc/probe_flatout.cu``). Bound by memory: 2 * N * S * S * 4 bytes. The
-plain twin is ``2 * x`` reshaped.
+tiles -> (N, S*S) float32 rows, ``out[n, r*S + c] = 2 * x[n, r, c]``. The
+TPU probe asked whether its compiler lowers the (S, S) -> (1, S*S) reshape
+inside a kernel at all; on this card the tile and the flat row are the same
+bytes, so the kernel (``csrc/probe_flatout.cu``) is one pass of ``2 * x``
+over the N*S*S floats, two 16-byte loads and stores a thread, with scalar
+elements before the input's first 16-byte boundary and after the last whole
+word. Bound by memory: 2 * N * S * S * 4
+bytes. The plain twin is ``2 * x`` reshaped.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ from superviseddescent_tpu_torch.models.rcr import (
 from superviseddescent_tpu_torch.models.rcr_training import (
     normalised_landmark_errors)
 from superviseddescent_tpu_torch.ops.cascade_fused import (
-    _MAX_SHARED, _shared_bytes)
+    _MAX_SHARED, launch_plan)
 from superviseddescent_tpu_torch.ops.patches import (
     load_gray_image, stack_images)
 from superviseddescent_tpu_torch.utils.landmarks import (
@@ -91,8 +91,10 @@ def test_family_model_shape(n_lm):
     fp = det.weights.tensor.shape[2]
     assert fp == -(-f // 8) * 8 and det.weights.num_features == f
     assert not bool(det.weights.tensor[:, :, f:].any())
-    # one block holds the bf16 feature row and the body's buffers
-    assert _shared_bytes(n_lm, 5, fp, 55) <= _MAX_SHARED
+    # a block of several faces fits, at any batch (H100: 132 SMs)
+    for n in (1, 4096):
+        assert launch_plan(n, n_lm, 5, 55, True,
+                           132).shared_bytes <= _MAX_SHARED
     r_idx, l_idx = resolve_eye_indices(pm.landmark_ids, pm.right_eye_ids,
                                        pm.left_eye_ids)
     assert (det.r_idx, det.l_idx) == (r_idx, l_idx)

@@ -127,6 +127,7 @@ def check_fused_against_twin(det, frames, boxes, idx=None):
     idx = torch.arange(n, device=frames.device, dtype=torch.int32) \
         if idx is None else idx
     eyes = (det.r_idx, det.l_idx)
+    q = dict(quantize=det.quantize)
     x_img = align_mean(m.mean[None], boxes)
     oy, ox, window = det.aligned_origins(frames, boxes)
     x_k3 = x_img - rows_shift(ox.float(), oy.float(), n_lm)
@@ -137,14 +138,16 @@ def check_fused_against_twin(det, frames, boxes, idx=None):
         one = ((level,), (det.cell_sizes[li],))
         before = detect_cascade_fused_frames.launches
         got = detect_cascade_fused_frames(frames, idx, oy, ox, x_k3, w1,
-                                          window, *one, 4, 16, *eyes)
+                                          window, *one, 4, 16, *eyes, **q)
         assert detect_cascade_fused_frames.launches == before + 1
         ref = detect_cascade_fused_frames_reference(frames, idx, oy, ox,
                                                     x_k3, w1, window, *one,
-                                                    *eyes)
+                                                    *eyes, **q)
         assert float((got - ref).abs().max()) <= LEVEL_PX
-        got4 = detect_cascade_fused(windows, x_k4, w1, *one, 4, 16, *eyes)
-        ref4 = detect_cascade_fused_reference(windows, x_k4, w1, *one, *eyes)
+        got4 = detect_cascade_fused(windows, x_k4, w1, *one, 4, 16, *eyes,
+                                    **q)
+        ref4 = detect_cascade_fused_reference(windows, x_k4, w1, *one, *eyes,
+                                              **q)
         assert float((got4 - ref4).abs().max()) <= LEVEL_PX
         x_k3, x_k4 = ref, ref4
     weights = det.weights
@@ -152,17 +155,17 @@ def check_fused_against_twin(det, frames, boxes, idx=None):
             (detect_cascade_fused_frames(
                 frames, idx, oy, ox, x_img - rows_shift(
                     ox.float(), oy.float(), n_lm), weights, window,
-                det.levels, det.cell_sizes, 4, 16, *eyes),
+                det.levels, det.cell_sizes, 4, 16, *eyes, **q),
              detect_cascade_fused_frames_reference(
                  frames, idx, oy, ox, x_img - rows_shift(
                      ox.float(), oy.float(), n_lm), weights, window,
-                 det.levels, det.cell_sizes, *eyes)),
+                 det.levels, det.cell_sizes, *eyes, **q)),
             (detect_cascade_fused(windows, x_img - rows_shift(wox, woy, n_lm),
                                   weights, det.levels, det.cell_sizes, 4, 16,
-                                  *eyes),
+                                  *eyes, **q),
              detect_cascade_fused_reference(
                  windows, x_img - rows_shift(wox, woy, n_lm), weights,
-                 det.levels, det.cell_sizes, *eyes))):
+                 det.levels, det.cell_sizes, *eyes, **q))):
         per_face = (got - ref).abs().amax(dim=1)
         assert bool(torch.isfinite(got).all())
         assert float(per_face.max()) <= WHOLE_MAX_PX
@@ -170,10 +173,13 @@ def check_fused_against_twin(det, frames, boxes, idx=None):
         assert int((per_face > WHOLE_PX).sum()) <= -(-n // 1000)
 
 
-@pytest.mark.parametrize("num_landmarks,cells", [(6, 3), (29, 5)])
-def test_fused_kernels_match_twin_tiny(cuda, num_landmarks, cells):
+@pytest.mark.parametrize("num_landmarks,cells,levels,quantize",
+                         [(6, 3, 2, True), (29, 5, 2, True), (6, 3, 5, True),
+                          (6, 3, 2, False)])
+def test_fused_kernels_match_twin_tiny(cuda, num_landmarks, cells, levels,
+                                       quantize):
     rng = np.random.default_rng(num_landmarks)
-    model = random_model(cuda, num_landmarks, 2, cells)
+    model = random_model(cuda, num_landmarks, levels, cells)
     # 128 columns: the frames path's window is the full width (see
     # tests/test_torch_fused_small.py::frames_and_boxes)
     frames = torch.from_numpy(rng.integers(0, 256, size=(6, 192, 128))
@@ -181,8 +187,30 @@ def test_fused_kernels_match_twin_tiny(cuda, num_landmarks, cells):
     boxes = torch.from_numpy(np.column_stack([
         rng.uniform(0, 48, 6), rng.uniform(0, 110, 6),
         np.full(6, 80.0), np.full(6, 80.0)]).astype(np.float32)).to(cuda)
-    check_fused_against_twin(model.make_fused_detector(roi=128), frames,
-                             boxes)
+    check_fused_against_twin(
+        model.make_fused_detector(roi=128, quantize=quantize), frames, boxes)
+
+
+# K3 / K4's launch plans (launch_plan) on a card of `sms` SMs: a batch of
+# each, and the (faces per block, landmarks per group, threads) it takes
+def plan_batches(sms):
+    return {"one face, 1,024 threads": (1, (1, None, 1024)),
+            "one face, four landmarks": (sms + 5, (1, 4, 256)),
+            "one face, two landmarks": (3 * sms + 5, (1, 2, 256)),
+            "two faces, two landmarks": (4 * sms + 1, (2, 2, 256)),
+            "two faces, odd batch": (6 * sms + 1, (2, 1, 256))}
+
+
+def batch_for(cuda, label):
+    """The batch of plan_batches' ``label`` on this card, after checking
+    that launch_plan gives it that plan."""
+    from superviseddescent_tpu_torch.ops.cascade_fused import launch_plan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n, (faces, group, threads) = plan_batches(sms)[label]
+    plan = launch_plan(n, 22, 5, 55, True, sms)
+    assert (plan.faces, plan.threads) == (faces, threads)
+    assert group is None or plan.group == group
+    return n
 
 
 @pytest.fixture(scope="module")
@@ -205,20 +233,48 @@ def rcr22_faces():
                                  .filter(model.landmark_ids))
                       for f in files], np.float32)
     stack, _ = stack_images(images, dtype=np.uint8, pad_width_to=128)
-    sel = np.arange(64) % len(files)
+    # enough faces for every launch plan: the largest batch of
+    # plan_batches takes two faces per block and is odd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sel = np.arange(max(n for n, _ in plan_batches(sms).values())) \
+        % len(files)
     return (model, torch.from_numpy(stack).cuda(),
             torch.from_numpy(boxes[sel]).cuda(),
             torch.from_numpy(sel.astype(np.int32)).cuda())
 
 
-def test_fused_kernels_match_twin_rcr22(cuda, rcr22_faces):
+@pytest.mark.parametrize("label", list(plan_batches(132)))
+def test_fused_kernels_match_twin_rcr22(cuda, rcr22_faces, label):
+    model, stack, boxes, idx = rcr22_faces
+    n = batch_for(cuda, label)
+    det = model.make_fused_detector(roi=512)
+    check_fused_against_twin(det, stack, boxes[:n], idx[:n])
+
+
+@pytest.mark.parametrize("crop", [False, True])
+def test_fused_launch_plans_agree(cuda, rcr22_faces, crop):
+    """A face's rows are the same bits whatever batch it comes in, and so
+    whatever launch plan runs it: the entry point's rows of the first n
+    faces at each batch of plan_batches equal those of the whole batch
+    (K3 on the uint8 stack; with crop, K4 on a float32 stack)."""
     model, stack, boxes, idx = rcr22_faces
     det = model.make_fused_detector(roi=512)
-    check_fused_against_twin(det, stack, boxes, idx)
+    images = stack.float() if crop else stack
+    whole = det(images, boxes, image_indices=idx)
+    for label in plan_batches(132):
+        n = batch_for(cuda, label)
+        rows = det(images, boxes[:n], image_indices=idx[:n])
+        assert torch.equal(rows, whole[:n]), label
 
 
-def test_fused_out_of_range_cuda_index_gives_nan_row(cuda, rcr22_faces):
+@pytest.mark.parametrize("label", ["one face, 1,024 threads",
+                                   "two faces, odd batch"])
+def test_fused_out_of_range_cuda_index_gives_nan_row(cuda, rcr22_faces,
+                                                     label):
+    # with two faces per block, faces 3 and 7 share theirs with good faces
     model, stack, boxes, idx = rcr22_faces
+    n = max(64, batch_for(cuda, label))
+    boxes, idx = boxes[:n], idx[:n]
     det = model.make_fused_detector(roi=512)
     good = det(stack, boxes, image_indices=idx)
     bad_idx = idx.clone()
@@ -375,16 +431,17 @@ def test_solver_ignores_tf32_flag_on_the_card(cuda, method):
 
 
 # ------------------------------------------------------------------ #
-# a 68-landmark K3 launch: the block holds a 27,208-value bf16 feature row
+# a 68-landmark K3 launch: 27,208-value weight rows, 136 outputs
 # ------------------------------------------------------------------ #
-def test_fused_kernel_68_landmarks_matches_twin(cuda):
+@pytest.mark.parametrize("n", [32, 137, 529])
+def test_fused_kernel_68_landmarks_matches_twin(cuda, n):
     import glob
     import os
     from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
     from superviseddescent_tpu_torch.models.rcr import (
         DetectionModel, gt_facebox)
     from superviseddescent_tpu_torch.ops.cascade_fused import (
-        _MAX_SHARED, _shared_bytes)
+        _MAX_SHARED, launch_plan)
     from superviseddescent_tpu_torch.ops.patches import (
         load_gray_image, stack_images)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -396,11 +453,17 @@ def test_fused_kernel_68_landmarks_matches_twin(cuda):
                       for f in files], np.float32)
     stack, _ = stack_images([load_gray_image(f) for f in files],
                             dtype=np.uint8, pad_width_to=128)
-    sel = np.arange(32) % len(files)
+    sel = np.arange(n) % len(files)
     det = model.make_fused_detector(roi=512)
     fp = det.weights.tensor.shape[2]
     assert (det.weights.num_features, fp) == (27201, 27208)
-    assert 48 * 1024 < _shared_bytes(68, 5, fp, 55) <= _MAX_SHARED
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = launch_plan(n, 68, 5, 55, True, sms)
+    # 1,024 threads alone on an SM, one face of four landmarks in flight,
+    # two faces per block (529 on 132 SMs)
+    assert plan.shared_bytes <= _MAX_SHARED
+    assert (plan.threads == 1024) == (n <= sms)
+    assert (plan.faces > 1) == (n > 4 * sms)
     check_fused_against_twin(
         det, torch.from_numpy(stack).cuda(),
         torch.from_numpy(boxes[sel]).cuda(),
@@ -477,16 +540,20 @@ def test_sampler_probe_is_k2_fast_transposed(cuda):
     assert torch.equal(got.view(torch.int16), k2.view(torch.int16))
 
 
-def test_flatout_probe_equals_two_x(cuda):
+@pytest.mark.parametrize("offset", [0, 1, 3, 4])
+def test_flatout_probe_equals_two_x(cuda, offset):
+    # 37 tiles of 7 x 7 leave a tail of 1 float after the 16-byte words; an
+    # offset of 1 or 3 floats gives an input base off the 16-byte grid
     from superviseddescent_tpu_torch.probes.flatout import probe_flatout
     rng = np.random.default_rng(0)
-    for s in (55, 7, 96):
-        x = torch.from_numpy(rng.normal(size=(37, s, s))
-                             .astype(np.float32)).to(cuda)
+    for n, s in ((37, 55), (37, 7), (37, 96), (1, 1), (0, 5)):
+        buf = torch.from_numpy(rng.normal(size=offset + n * s * s)
+                               .astype(np.float32)).to(cuda)
+        x = buf[offset:].view(n, s, s)
         before = probe_flatout.launches
         got = probe_flatout(x)
-        assert probe_flatout.launches == before + 1
-        assert torch.equal(got, (x * 2.0).reshape(37, s * s))
+        assert probe_flatout.launches == before + (n > 0)
+        assert torch.equal(got, (x * 2.0).reshape(n, s * s))
 
 
 def test_dyn_probes_match_twin_and_emulation(cuda):
