@@ -48,6 +48,22 @@ before each launch, and K3 through its entry point at the batch sizes
 times only that, for RCR-22 and ibug-68: with ``--plans`` beside other
 launch plans, with ``--package-root`` the package of another checkout.
 
+Where K1 and K2 spend their time is read at each level of the RCR-22
+stepped detector, exact and fast (``k12_split``): each kernel beside a
+measurement build of its source (K1 without its splat, K2 without its
+stores) and thread 0's cycles per phase. The stepped phases print each
+level's K2 and K1 device time (torch.profiler) beside its bound and the
+recorded time of the kernels before their redesign (``K12_BEFORE_MS``,
+in the log only).
+
+    python3 chip_smoke.py --k12 [--sweep] [--package-root DIR]
+
+times only K2 and K1 per level of the stepped detector for RCR-22, COFW-29
+and ibug-68, exact and fast, through their entry points (and, for this
+checkout's package, ``k12_split``; with ``--sweep`` also at other numbers
+of patches per block); with ``--package-root`` the package of another
+checkout.
+
 It checks each path's launch counts, each kernel against its twin at the
 path's own inputs, the rows against the port's CPU path, the train-set IOD
 error and the fused rows against the exact stepped rows, the trained
@@ -191,10 +207,23 @@ SPLIT_BUILDS = (("CASCADE_SKIP_GEMV",), ("CASCADE_SKIP_BODY",),
                 ("CASCADE_PHASE_CLOCKS",))
 
 
+# measurement builds of K1's and K2's sources for k12_split, never entry
+# points: K1 without its splat, K2 without its stores, and each with thread
+# 0's cycles per phase
+K12_BUILDS = (("hog_flat", ("HOG_SKIP_SPLAT",)),
+              ("hog_flat", ("HOG_PHASE_CLOCKS",)),
+              ("patches_window", ("PATCHES_SKIP_STORE",)),
+              ("patches_window", ("PATCHES_PHASE_CLOCKS",)))
+K1_PHASES = ("staging", "gradients and bins", "splat", "energy", "channels")
+K2_PHASES = ("taps", "sampling", "write-out")
+
+
 def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
-    logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS])
-    log(f"[build] K1-K6, the probes and K3's measurement builds in "
+    logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
+                     + list(K12_BUILDS))
+    log(f"[build] K1-K6, the probes and K1's, K2's and K3's measurement "
+        f"builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -268,8 +297,8 @@ def load_data(torch):
 
 
 def phase_sampler(torch, data):
-    """K2 against its plain twin on .synth120 windows at roi 512."""
-    from superviseddescent_tpu_torch.models.rcr import align_mean, rows_shift
+    """K2 against its plain twin on .synth120 windows at roi 512, at each
+    level of the stepped detector on 256 faces, in both layouts."""
     from superviseddescent_tpu_torch.ops.patches_window import (
         _prepare, sample_patches_window, sample_patches_window_reference)
     model = data["model"]
@@ -279,13 +308,8 @@ def phase_sampler(torch, data):
         det = model.make_stepped_detector(
             n, roi=ROI, sampling=sampling, window_sampler=True,
             max_ied=data["max_ied"])
-        boxes = data["boxes"][:n]
-        windows, ox, oy = det.crop(data["images"][:n], boxes)
-        x = align_mean(model.mean[None], boxes) - rows_shift(
-            ox, oy, len(model.landmark_ids))
-        hog = det.transform(windows)
-        for li in range(len(model.hog_params)):
-            args, kw, _ = hog.window_args(x, li)
+        for li, windows, args, kw, _ in stepped_levels(
+                model, det, data["images"][:n], data["boxes"][:n]):
             w = kw["sub_window"] or windows.shape[1]
             wx = kw["sub_window_x"] or windows.shape[2]
             for transposed in (False, True):
@@ -390,8 +414,7 @@ def window_level_vs_twins(torch, label, li, windows, args, skw, hkw,
 
 
 def phase_main(torch, data):
-    from superviseddescent_tpu_torch.models.rcr import (
-        DetectionModel, align_mean, rows_shift)
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
     from superviseddescent_tpu_torch.models.rcr_training import (
         normalised_landmark_errors)
     from superviseddescent_tpu_torch.ops.hog_flat import (
@@ -445,12 +468,9 @@ def phase_main(torch, data):
                                  k1_err=0.0, k2_err=0.0, levels=[])
 
         # each kernel against its twin, and timed, at the main path's inputs
-        windows, ox, oy = det.crop(images, boxes)
-        x = align_mean(model.mean[None], boxes) - rows_shift(
-            ox, oy, len(model.landmark_ids))
-        hog = det.transform(windows)
-        for li, p in enumerate(model.hog_params):
-            args, skw, hkw = hog.window_args(x, li)
+        for li, windows, args, skw, hkw in stepped_levels(model, det, images,
+                                                          boxes):
+            p = model.hog_params[li]
             n, l, s = BATCH, len(model.landmark_ids), p.patch_size
             oxy, sp = _prepare(args[1], args[2], args[3], s)
             w = skw["sub_window"] or windows.shape[1]
@@ -476,22 +496,35 @@ def phase_main(torch, data):
             k1_b = k1_bound(n * l, p, patches.element_size())
             k2_b = k2_bound(torch, windows, oxy, sp, s, w, wx, skw)
             torch.cuda.empty_cache()
+            k2_dev, k1_dev = k12_device_ms(torch, args, skw, hkw)
+            before = k12_before("rcr22", sampling, li)
             level = dict(level=li, S=s, W=w, WX=wx,
                          k2_ms=k2_ms, k2_plain_ms=k2_plain,
+                         k2_device_ms=k2_dev, k2_before_ms=before[0],
                          k2_bound_bytes_ms=k2_b[0] * 1e3,
                          k2_bound_ops_ms=k2_b[1] * 1e3,
                          k1_ms=k1_ms, k1_plain_ms=k1_plain,
+                         k1_device_ms=k1_dev, k1_before_ms=before[1],
                          k1_bound_bytes_ms=k1_b[0] * 1e3,
-                         k1_bound_ops_ms=k1_b[1] * 1e3)
+                         k1_bound_ops_ms=k1_b[1] * 1e3,
+                         split=k12_split(torch, windows, args, skw, hkw))
             results[sampling]["levels"].append(level)
-            log(f"[level] {sampling} {li} S={s}: K2 {k2_ms:.4f} ms (plain "
-                f"{k2_plain:.3f}, bound {max(k2_b) * 1e3:.4f}) | K1 "
-                f"{k1_ms:.4f} ms (plain {k1_plain:.3f}, bound "
+            log(f"[level] {sampling} {li} S={s}: K2 {k2_ms:.4f} ms, device "
+                f"{k2_dev:.4f} (recorded before the redesign {before[0]}; "
+                f"plain {k2_plain:.3f}, bound {max(k2_b) * 1e3:.4f}) | K1 "
+                f"{k1_ms:.4f} ms, device {k1_dev:.4f} (recorded before the "
+                f"redesign {before[1]}; plain {k1_plain:.3f}, bound "
                 f"{max(k1_b) * 1e3:.4f})")
-            x = det.level(li, windows, x)
             del patches
         del windows
         torch.cuda.empty_cache()
+        levels = results[sampling]["levels"]
+        log(f"[main] {sampling}: per detect call K2 device "
+            f"{sum(lv['k2_device_ms'] for lv in levels):.4f} ms (recorded "
+            f"before the redesign "
+            f"{sum(lv['k2_before_ms'] for lv in levels):.4f}), K1 "
+            f"{sum(lv['k1_device_ms'] for lv in levels):.4f} ms (recorded "
+            f"before {sum(lv['k1_before_ms'] for lv in levels):.4f})")
 
     fast_vs_exact = float((outputs["fast"] - outputs["exact"]).abs().max())
     log(f"[main] fast vs exact: max px delta {fast_vs_exact:.4f}")
@@ -645,7 +678,7 @@ def k3_split(torch, det, frames, idx, oy, ox, window, x0, level_x):
     c = _check_config(l, det.weights, *window, det.levels, det.cell_sizes,
                       det.num_bins, det.dims, det.r_idx, det.l_idx)
 
-    def timed(defines):
+    def launch(defines):
         lib = load_library("cascade_fused", defines)
 
         def call():
@@ -654,26 +687,15 @@ def k3_split(torch, det, frames, idx, oy, ox, window, x0, level_x):
                                      *window, c, det.quantize, x0.device)
             _launch_frames(lib, frames, idx, oy, ox, args)
             return out
-        return cuda_time_ms(call)[0]
-    whole = timed(())
-    body = timed(SPLIT_BUILDS[0])
-    gemv = timed(SPLIT_BUILDS[1])
+        return call
+    whole = cuda_time_ms(launch(()))[0]
+    body = cuda_time_ms(launch(SPLIT_BUILDS[0]))[0]
+    gemv = cuda_time_ms(launch(SPLIT_BUILDS[1]))[0]
     # -DCASCADE_PHASE_CLOCKS: thread 0's cycles per phase, summed over the
     # blocks of one launch, as shares of the launch
-    clocks = SPLIT_BUILDS[2]
-    timed(clocks)
-    cycles = (ctypes.c_ulonglong * len(PHASE_NAMES))()
-    lib = load_library("cascade_fused", clocks)
-    lib.cascade_phase_cycles.argtypes = [ctypes.c_void_p]
-    check(lib.cascade_phase_cycles(ctypes.byref(cycles)) == 0, "phase clocks")
-    out, args = _launch_args(x0, det.weights, det.levels, det.cell_sizes,
-                             det.r_idx, det.l_idx, *window, c, det.quantize,
-                             x0.device)
-    _launch_frames(lib, frames, idx, oy, ox, args)
-    torch.cuda.synchronize()
-    check(lib.cascade_phase_cycles(ctypes.byref(cycles)) == 0, "phase clocks")
-    total = max(1, sum(cycles))
-    shares = {name: cycles[k] / total for k, name in enumerate(PHASE_NAMES)}
+    shares = phase_cycles(torch, "cascade_fused", "cascade_phase_cycles",
+                          SPLIT_BUILDS[2], launch(SPLIT_BUILDS[2]),
+                          PHASE_NAMES)
     k5 = sum(cuda_time_ms(
         extract_features_fused_frames, frames, idx, oy, ox, x, window,
         level, det.cell_sizes[li], det.num_bins, det.dims, det.r_idx,
@@ -1455,6 +1477,10 @@ def l2_flusher(torch):
     return lambda: buf.fill_(1.0)
 
 
+# profiler sessions device_ms takes before it gives up on a kernel
+PROFILE_TRIES = 3
+
+
 def device_ms(torch, call, reps=20, match=None, one_kernel=True,
               before=None):
     """Device time per call of the kernels that ``call`` launches, from
@@ -1466,28 +1492,35 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True,
     of them (a plain twin of several operations). Each kernel counts with
     its mean time over the launches recorded (the profiler may miss the
     first few) times its launches per call. before: ``l2_flusher``'s call,
-    made ahead of each ``call``; its kernel is not counted. The run fails
-    when the profiler holds no such record: no other clock stands in for
-    it."""
+    made ahead of each ``call``; its kernel is not counted. The profiler
+    has been seen to return a session without a single kernel record of a
+    few-microsecond kernel: such a session is profiled again, up to
+    ``PROFILE_TRIES`` times in all, and the run fails when none holds a
+    record: no other clock stands in for it."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if before is not None:
-                before()
-            call()
-        torch.cuda.synchronize()
-    found = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if ("CUDA" in str(ev.device_type) and dev_us > 0 and ev.count
-                and not ev.key.startswith(("Memcpy", "Memset"))
-                and (before is None or FLUSH_KERNEL not in ev.key)
-                and (match is None or match in ev.key)):
-            found.append((ev.key, max(1, round(ev.count / reps)),
-                          dev_us / ev.count))
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if before is not None:
+                    before()
+                call()
+            torch.cuda.synchronize()
+        found = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+            if ("CUDA" in str(ev.device_type) and dev_us > 0 and ev.count
+                    and not ev.key.startswith(("Memcpy", "Memset"))
+                    and (before is None or FLUSH_KERNEL not in ev.key)
+                    and (match is None or match in ev.key)):
+                found.append((ev.key, max(1, round(ev.count / reps)),
+                              dev_us / ev.count))
+        if found:
+            break
+        log(f"[profile] session {attempt} of {PROFILE_TRIES} recorded no "
+            f"kernel (match {match!r})")
     check(found, f"torch.profiler recorded no kernel (match {match!r})")
     if one_kernel:
         check(len(found) == 1 and found[0][1] == 1,
@@ -1662,26 +1695,32 @@ def phase_families(torch, data):
             expect_counts(read_counts(), f"{tag} stepped {sampling} detect",
                           hog_flat=4, patches_window=4)
             step_ms, _ = cuda_time_ms(sdet, images, boxes, reps=10, warmup=2)
-            windows, wox, woy = sdet.crop(images, boxes)
-            x = x_img - rows_shift(wox, woy, n_lm)
-            hog = sdet.transform(windows)
             k1_err = k2_err = 0.0
-            for li in range(len(model.hog_params)):
-                args, skw, hkw = hog.window_args(x, li)
+            device, final = [], []
+            for li, windows, args, skw, hkw in stepped_levels(
+                    model, sdet, images, boxes, final):
                 e2, e1, patches, _ = window_level_vs_twins(
                     torch, f"{tag} stepped {sampling}", li, windows, args,
                     skw, hkw, twin_faces=m)
                 k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
                 del patches
-                x = sdet.level(li, windows, x)
-            replayed = x + rows_shift(wox, woy, n_lm)
-            check(bool(torch.equal(replayed, rows[sampling])),
+                k2_dev, k1_dev = k12_device_ms(torch, args, skw, hkw)
+                before = k12_before(tag, sampling, li)
+                device.append(dict(level=li, k2_device_ms=k2_dev,
+                                   k1_device_ms=k1_dev,
+                                   k2_before_ms=before[0],
+                                   k1_before_ms=before[1]))
+                log(f"[level] {tag} {sampling} {li}: K2 device {k2_dev:.4f} "
+                    f"ms (recorded before the redesign {before[0]}) | K1 "
+                    f"device {k1_dev:.4f} ms (recorded before {before[1]})")
+            check(bool(torch.equal(final[0], rows[sampling])),
                   f"{tag} stepped {sampling}: the levels replayed against "
                   f"the twins give other rows than the detect call")
             stepped[sampling] = dict(k1_err=k1_err, k2_err=k2_err,
                                      detect_ms=step_ms,
-                                     faces_per_s=BATCH / step_ms * 1e3)
-            del sdet, windows, hog, x, replayed
+                                     faces_per_s=BATCH / step_ms * 1e3,
+                                     levels=device)
+            del sdet, windows, final
             torch.cuda.empty_cache()
         exact, fast = rows["exact"], rows["fast"]
 
@@ -2202,6 +2241,7 @@ def kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
             entries.append(dict(
                 name=f"{name}/{sampling}", route="cuda", source=source,
                 replaces=replaces,
+                device_ms=total(f"{key}_device_ms"),
                 launches=results[sampling]["launches"][name],
                 max_abs_err=max(
                     errs[sampling], results[sampling][f"{key}_err"],
@@ -2368,6 +2408,255 @@ def k3_batches(torch, data, families=(22,), plans=(), slices=()):
     return out
 
 
+# K1 and K2 on the stepped detector's path before their redesign: device ms
+# per level (torch.profiler) at 4,096 faces, family -> sampling -> (K2 ms,
+# K1 ms) per level, on an NVIDIA H100 80GB HBM3 at 700.00 W, the mean of two
+# runs of ``--k12 --package-root`` on a checkout of those kernels
+K12_BEFORE_MS = {
+    "rcr22": {"exact": [(1.2139, 4.3599), (1.0542, 3.7994),
+                        (0.7323, 2.7813), (0.4997, 1.9475)],
+              "fast": [(1.2764, 4.0379), (1.102, 3.5649),
+                       (0.7687, 2.6175), (0.5228, 1.8584)]},
+    "rcr29": {"exact": [(1.5989, 5.7007), (1.3712, 5.0066),
+                        (0.9656, 3.6656), (0.6597, 2.5773)],
+              "fast": [(1.6743, 5.3154), (1.4411, 4.6981),
+                       (1.0132, 3.4471), (0.6873, 2.4501)]},
+    "rcr68": {"exact": [(3.652, 13.3467), (3.1176, 11.7194),
+                        (2.1958, 8.581), (1.5079, 6.01)],
+              "fast": [(3.8805, 12.449), (3.314, 10.9886),
+                       (2.3255, 8.0345), (1.6062, 5.7356)]}}
+
+
+def stepped_levels(model, det, images, boxes, final=None):
+    """The stepped detector ``det``'s K2 and K1 arguments at each level on
+    these faces: yields (level, windows, sampler args, sampler kwargs, hog
+    kwargs), then advances the rows through the detector's own level. With
+    ``final`` (a list), appends the rows after the last level, in image
+    coordinates."""
+    from superviseddescent_tpu_torch.models.rcr import align_mean, rows_shift
+    n_lm = len(model.landmark_ids)
+    windows, ox, oy = det.crop(images, boxes)
+    x = align_mean(model.mean[None], boxes) - rows_shift(ox, oy, n_lm)
+    hog = det.transform(windows)
+    for li in range(len(model.hog_params)):
+        args, skw, hkw = hog.window_args(x, li)
+        yield li, windows, args, skw, hkw
+        x = det.level(li, windows, x)
+    if final is not None:
+        final.append(x + rows_shift(ox, oy, n_lm))
+
+
+def k12_device_ms(torch, args, skw, hkw):
+    """K2's and K1's device ms (torch.profiler) through their entry points
+    at one level's arguments, K1 on the patches that K2 returns."""
+    from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
+    from superviseddescent_tpu_torch.ops.patches_window import (
+        sample_patches_window)
+    n, l = args[1].shape
+    s = args[4]
+    patches = sample_patches_window(*args, **skw).reshape(n * l, s * s)
+    k2 = device_ms(torch, lambda: sample_patches_window(*args, **skw),
+                   match="patches_window")
+    k1 = device_ms(torch, lambda: hog_descriptor_flat(patches, **hkw),
+                   match="hog_flat")
+    return k2, k1
+
+
+def k12_before(tag, sampling, li):
+    """The recorded (K2, K1) device ms before the redesign, or None."""
+    levels = K12_BEFORE_MS.get(tag, {}).get(sampling)
+    return None if levels is None else levels[li]
+
+
+def phase_cycles(torch, name, symbol, defines, call, phases):
+    """Thread 0's cycles per phase of one launch of a measurement build,
+    as shares of their sum."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    fn = getattr(load_library(name, defines), symbol)
+    fn.argtypes = [ctypes.c_void_p]
+    cycles = (ctypes.c_ulonglong * len(phases))()
+    check(fn(ctypes.byref(cycles)) == 0, f"{symbol}")   # zero the sums
+    call()
+    torch.cuda.synchronize()
+    check(fn(ctypes.byref(cycles)) == 0, f"{symbol}")
+    total = max(1, sum(cycles))
+    return {phase: cycles[k] / total for k, phase in enumerate(phases)}
+
+
+def k12_split(torch, windows, args, skw, hkw):
+    """Where K2's and K1's time goes at one level's arguments (device ms,
+    torch.profiler): each kernel whole beside a measurement build of its
+    source (K2 computing every pixel but storing none, K1 skipping its
+    splat), and thread 0's cycles per phase. K1 runs on the patches K2
+    wrote. Measurement builds are launched here only; their launches do
+    not count."""
+    from superviseddescent_tpu_torch.ops import hog_flat as k1
+    from superviseddescent_tpu_torch.ops import patches_window as k2
+    from superviseddescent_tpu_torch.ops._build import load_library
+    n, l = args[1].shape
+    s = args[4]
+    oxy, sp = k2._prepare(args[1], args[2], args[3], s)
+    w = skw["sub_window"] or windows.shape[1]
+    wx = skw["sub_window_x"] or windows.shape[2]
+    patches = torch.empty((n, l, s, s), dtype=skw["out_dtype"],
+                          device=windows.device)
+    flat = patches.reshape(n * l, s * s)
+    c = k1.hog_num_cells(s, hkw["cell_size"])
+    desc = torch.empty((n * l, k1.hog_dimension(
+        hkw["variant"], hkw["num_orientations"]) * c * c),
+        dtype=torch.float32, device=windows.device)
+
+    def k2_call(defines=()):
+        lib = load_library("patches_window", defines)
+        return lambda: k2._launch(
+            lib, windows, oxy, sp, patches, w, wx, skw["quantize"],
+            skw["sampling"] == "fast", skw["transposed"])
+
+    def k1_call(defines=()):
+        lib = load_library("hog_flat", defines)
+        return lambda: k1._launch(
+            lib, flat, desc, hkw["size"], hkw["cell_size"],
+            hkw["num_orientations"], hkw["variant"], hkw["fast"],
+            hkw["transposed"])
+    split = dict(k2_ms=device_ms(torch, k2_call(), match="patches_window"))
+    split["k2_no_store_ms"] = device_ms(
+        torch, k2_call(K12_BUILDS[2][1]), match="patches_window")
+    split["k1_ms"] = device_ms(torch, k1_call(), match="hog_flat")
+    split["k1_no_splat_ms"] = device_ms(
+        torch, k1_call(K12_BUILDS[0][1]), match="hog_flat")
+    split["k2_phases"] = phase_cycles(
+        torch, "patches_window", "patches_phase_cycles", K12_BUILDS[3][1],
+        k2_call(K12_BUILDS[3][1]), K2_PHASES)
+    split["k1_phases"] = phase_cycles(
+        torch, "hog_flat", "hog_phase_cycles", K12_BUILDS[1][1],
+        k1_call(K12_BUILDS[1][1]), K1_PHASES)
+    log(f"[split] S={s} {skw['sampling']}: K2 {split['k2_ms']:.4f} ms, "
+        f"without its stores {split['k2_no_store_ms']:.4f} ms; K1 "
+        f"{split['k1_ms']:.4f} ms, without its splat "
+        f"{split['k1_no_splat_ms']:.4f} ms")
+    for key in ("k2_phases", "k1_phases"):
+        log(f"[split]   {key[:2].upper()} phase shares (thread 0's cycles): "
+            + ", ".join(f"{k} {100 * v:.1f}%" for k, v in split[key].items()))
+    return split
+
+
+# patches per block that ``--k12 --sweep`` times beside the launch plans
+K1_SWEEP = (1, 2, 3)
+K2_SWEEP = (1, 2, 4, 6, 8, 12, 16)
+
+
+def k12_sweep(torch, windows, args, skw, hkw):
+    """K2's and K1's device ms at one level's arguments for each number of
+    patches per block in K2_SWEEP / K1_SWEEP (through ``_launch``, whose
+    launches do not count); a block that exceeds the shared memory of the
+    card is left out."""
+    from superviseddescent_tpu_torch.ops import hog_flat as k1
+    from superviseddescent_tpu_torch.ops import patches_window as k2
+    from superviseddescent_tpu_torch.ops._build import load_library
+    n, l = args[1].shape
+    s = args[4]
+    oxy, sp = k2._prepare(args[1], args[2], args[3], s)
+    w = skw["sub_window"] or windows.shape[1]
+    wx = skw["sub_window_x"] or windows.shape[2]
+    patches = torch.empty((n, l, s, s), dtype=skw["out_dtype"],
+                          device=windows.device)
+    c = k1.hog_num_cells(s, hkw["cell_size"])
+    desc = torch.empty((n * l, 16 * c * c), dtype=torch.float32,
+                       device=windows.device)
+    lib2, lib1 = load_library("patches_window"), load_library("hog_flat")
+    times = {"k2": {}, "k1": {}}
+    for g in K2_SWEEP:
+        if k2._shared_bytes(s, g, skw["transposed"],
+                            patches.element_size()) > 200 * 1024:
+            continue
+        times["k2"][g] = device_ms(torch, lambda g=g: k2._launch(
+            lib2, windows, oxy, sp, patches, w, wx, skw["quantize"],
+            skw["sampling"] == "fast", skw["transposed"], g),
+            match="patches_window")
+    flat = patches.reshape(n * l, s * s)
+    for p in K1_SWEEP:
+        if k1._shared_bytes(s, hkw["cell_size"], hkw["num_orientations"], p,
+                            k1.separable(s, hkw["cell_size"],
+                                         hkw["num_orientations"], p,
+                                         hkw["fast"])) > 200 * 1024:
+            continue
+        times["k1"][p] = device_ms(torch, lambda p=p: k1._launch(
+            lib1, flat, desc, hkw["size"], hkw["cell_size"],
+            hkw["num_orientations"], hkw["variant"], hkw["fast"],
+            hkw["transposed"], p), match="hog_flat")
+    log(f"[sweep] S={s} {skw['sampling']}: K2 by patches per block " +
+        ", ".join(f"{g}: {ms:.4f}" for g, ms in times["k2"].items()) +
+        " | K1 " + ", ".join(f"{p}: {ms:.4f}" for p, ms in
+                             times["k1"].items()))
+    return times
+
+
+def k12_levels(torch, data, families=(22, 29, 68), split=False,
+               sweep=False):
+    """K2's and K1's device ms through their entry points at every level of
+    the stepped detector, exact and fast, on the 4,096 faces of each family,
+    beside their bounds and the times before the redesign; with ``split``,
+    ``k12_split`` at each RCR-22 level, with ``sweep``, ``k12_sweep``."""
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    from superviseddescent_tpu_torch.ops.patches_window import _prepare
+    from superviseddescent_tpu_torch.utils.timing import cuda_time_ms
+    out = {}
+    for n_lm in families:
+        tag = f"rcr{n_lm}"
+        model = data["model"] if n_lm == 22 else DetectionModel.load(
+            os.path.join(REPO, "pretrained", f"{tag}_lfpw5.bin"))
+        fam = family_data(torch, data, model)
+        for sampling in ("exact", "fast"):
+            det = model.make_stepped_detector(
+                BATCH, roi=ROI, sampling=sampling, window_sampler=True,
+                max_ied=fam["max_ied"])
+            detect_ms = cuda_time_ms(det, data["images"], fam["boxes"],
+                                     reps=10, warmup=2)[0]
+            log(f"[K12] {tag} {sampling}: stepped detect {detect_ms:.3f} ms "
+                f"(CUDA events, median of 10) -> "
+                f"{BATCH / detect_ms * 1e3:.0f} faces/s")
+            profile = None
+            if n_lm == 22 and sampling == "exact":
+                profile = phase_profile(
+                    torch, f"{tag} exact stepped detect", f"{BATCH} faces",
+                    lambda: det(data["images"], fam["boxes"]))
+            rows = []
+            for li, windows, args, skw, hkw in stepped_levels(
+                    model, det, data["images"], fam["boxes"]):
+                p = model.hog_params[li]
+                n, l, s = BATCH, n_lm, p.patch_size
+                k2_ms, k1_ms = k12_device_ms(torch, args, skw, hkw)
+                oxy, sp = _prepare(args[1], args[2], args[3], s)
+                k2_b = max(k2_bound(
+                    torch, windows, oxy, sp, s,
+                    skw["sub_window"] or windows.shape[1],
+                    skw["sub_window_x"] or windows.shape[2], skw)) * 1e3
+                in_bytes = 2 if skw["out_dtype"] == torch.bfloat16 else 4
+                k1_b = max(k1_bound(n * l, p, in_bytes)) * 1e3
+                row = dict(level=li, S=s, k2_ms=k2_ms, k1_ms=k1_ms,
+                           k2_bound_ms=k2_b, k1_bound_ms=k1_b)
+                before = k12_before(tag, sampling, li)
+                if split and n_lm == 22:
+                    row["split"] = k12_split(torch, windows, args, skw, hkw)
+                if sweep and n_lm == 22:
+                    row["sweep"] = k12_sweep(torch, windows, args, skw, hkw)
+                rows.append(row)
+                log(f"[K12] {tag} {sampling} level {li} S={s}: K2 "
+                    f"{k2_ms:.4f} ms (bound {k2_b:.4f}) | K1 {k1_ms:.4f} ms "
+                    f"(bound {k1_b:.4f})" + ("" if before is None else
+                                             f" | recorded before the "
+                                             f"redesign K2 {before[0]}, K1 "
+                                             f"{before[1]}"))
+                torch.cuda.empty_cache()
+            del det, windows
+            out.setdefault(tag, {})[sampling] = dict(
+                levels=rows, detect_ms=detect_ms, profile=profile)
+            log(f"[K12] {tag} {sampling} per detect call: K2 "
+                f"{sum(r['k2_ms'] for r in rows):.4f} ms, K1 "
+                f"{sum(r['k1_ms'] for r in rows):.4f} ms")
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2381,8 +2670,15 @@ def main():
     parser.add_argument("--slices", default="",
                         help="with --k3-batches: also time builds with "
                         "these GEMV slice counts, e.g. 5,11")
+    parser.add_argument("--k12", action="store_true",
+                        help="only time K2 and K1 per level of the stepped "
+                        "detector (RCR-22, COFW-29, ibug-68, exact and fast) "
+                        "and, for this checkout's package, k12_split")
+    parser.add_argument("--sweep", action="store_true",
+                        help="with --k12: also time K2 and K1 at other "
+                        "numbers of patches per block (RCR-22)")
     parser.add_argument("--package-root", default=REPO,
-                        help="with --k3-batches: the checkout whose "
+                        help="with --k3-batches or --k12: the checkout whose "
                         "superviseddescent_tpu_torch is timed (the data "
                         "stay this checkout's)")
     opts = parser.parse_args()
@@ -2397,7 +2693,17 @@ def main():
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, root if opts.k3_batches else REPO)
+    sys.path.insert(0, root if opts.k3_batches or opts.k12 else REPO)
+    if opts.k12:
+        phase_device(torch)
+        own = root == REPO
+        if own:
+            from superviseddescent_tpu_torch.ops._build import build_all
+            build_all(extra=K12_BUILDS)
+        times = k12_levels(torch, load_data(torch), split=own,
+                           sweep=own and opts.sweep)
+        print(json.dumps({"k12": times, "package_root": root}))
+        return 0
     if opts.k3_batches:
         phase_device(torch)
         slices = [int(k) for k in opts.slices.split(",") if k]

@@ -39,10 +39,10 @@ _CASCADE = [_P] * 7 + [_I] * 12 + [_P]
 _FEATURES = [_P] * 6 + [_I] * 6 + [_P]
 KERNELS = {
     "hog_flat": {"hog_flat_launch":
-                 [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+                 [_P, _I, _P, _P, _P] + [_I] * 9 + [_P]},
     "patches_window": {"patches_window_launch":
                        [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _P]},
+                        _I, _I, _I, _I, _I, _P]},
     "cascade_fused": {"cascade_fused_frames_launch":
                       [_P] * 4 + [_I] * 3 + _CASCADE,
                       "cascade_fused_launch": [_P] + _CASCADE},

@@ -9,22 +9,36 @@ mode (O=4 only for the sector compare) classifies orientations by two slope
 compares and rounds the gradient planes and tent weights to bfloat16 with
 float32 accumulation.
 
-The kernel (``csrc/hog_flat.cu``) runs one block per patch:
-  1. the patch is staged in shared memory as float32 (un-transposed);
+The kernel (``csrc/hog_flat.cu``) runs P patches per block (``launch_plan``):
+  1. the patches are staged in shared memory as float32 with 16-byte loads,
+     in their own layout (a transposed patch stays transposed: the kernel
+     works in storage coordinates), beside the (S, C) float64 tents;
   2. one thread per pixel computes the central-difference gradient, its
-     magnitude and its bin;
-  3. one warp per cell sums magnitude x tent weight over the cell's tent
-     support: each lane adds into its own (bin, lane) slot in shared
-     memory, then a fixed shuffle tree sums the lanes (no atomics, so runs
-     repeat bit for bit);
-  4. one thread per cell forms the four block factors and writes the
-     Uoctti / DalalTriggs channels.
+     magnitude and its bin, stepping the pixel's coordinates without a
+     division;
+  3. the splat. Exact mode: two separable float32 passes over the tents
+     rounded to float32 (``separable_cells`` is the same arithmetic in
+     plain PyTorch; it stays within K1's tolerance of the twin's 2-D
+     weights and takes half the (pixel, cell) pairs), one thread per
+     (patch, cell row, column) into its own bin slots, then one per
+     (patch, bin, cell). Fast mode, whose contract rounds each 2-D weight
+     to bf16 (and exact mode where the separable buffers exceed a block,
+     ``separable``): one warp per cell, for all P patches at once, the
+     lanes forming each weight in registers as float32(Wa * Wb) from the
+     float64 tents (``kernel_weights`` is the same formula in numpy: the
+     bits of ``_flat_weights``) and adding into their own (patch, bin,
+     lane) slots in shared memory, summed in a fixed order. No atomics,
+     so runs repeat bit for bit, for every P;
+  4. one thread per cell forms the energy and the four block factors;
+  5. one thread per output value writes the Uoctti / DalalTriggs
+     channels, the block's P descriptors as one contiguous run.
 What bounds it on the H100: memory. At the RCR-22 level-0 shape
 (90,112 patches of 55 x 55 float32) it must read 1.09 GB and write
 0.14 GB, ~0.37 ms at 3.35 TB/s, against ~11 GFLOP of float32 arithmetic
-(~0.16 ms at 67 TFLOP/s). The design reads each input pixel once and keeps
+(~0.16 ms at 67 TFLOP/s). The design reads each input pixel once, keeps
 every intermediate (gradients, bins, cell histograms) in shared memory,
-so device memory sees only the patch and the descriptor.
+and reads no weight table (an earlier design read a (C*C, S*S) float32
+table, 302 KB at S = 55, per (pixel, cell) pair, from L2).
 
 The kernel is compiled with -fmad=false so that every float operation
 rounds as PyTorch's separate elementwise operations do; the plain twin
@@ -73,12 +87,50 @@ def _flat_weights_on(size: int, cell_size: int,
     return torch.from_numpy(_flat_weights(size, cell_size)).to(device)
 
 
+def kernel_weights(size: int, cell_size: int,
+                   transposed: bool = False) -> np.ndarray:
+    """The kernel's tent weights, formed as it forms them, in the layout
+    of ``_flat_weights``: storage pixel (a, b) (row a of stride S, column
+    b) weighs on the cell (ca, cb) along those axes by
+    float32(W[a, ca] * W[b, cb]), from the float64 tents W; storage is
+    (y, x), or (x, y) when ``transposed``."""
+    w = _tent_1d(size, cell_size)
+    c = w.shape[1]
+    # [a, ca, b, cb]: each float64 product rounded once to float32
+    prod = (w[:, :, None, None] * w[None, None, :, :]).astype(np.float32)
+    # to [y, x, cx, cy]
+    table = prod.transpose((2, 0, 1, 3) if transposed else (0, 2, 3, 1))
+    return np.ascontiguousarray(table).reshape(size * size, c * c)
+
+
+def separable_cells(planes: torch.Tensor, size: int, cell_size: int,
+                    transposed: bool = False) -> torch.Tensor:
+    """The exact-mode kernel's splat in plain PyTorch: (B, 2O, S*S)
+    magnitude planes in storage order (one bin each) -> (B, 2O, C*C) cell
+    histograms in Matlab cell order, in the kernel's float32 arithmetic:
+    the tents rounded to float32, first along storage rows a (summed in
+    increasing a), then along columns b (in increasing b)."""
+    s = size
+    w = torch.from_numpy(_tent_1d(s, cell_size).astype(np.float32)).to(
+        planes.device)                                          # (S, C)
+    c = w.shape[1]
+    img = planes.reshape(*planes.shape[:2], s, s)               # [.., a, b]
+    part = torch.zeros(*planes.shape[:2], c, s, device=planes.device)
+    for a in range(s):                                          # [.., ca, b]
+        part = part + img[:, :, None, a, :] * w[a][None, None, :, None]
+    cells = torch.zeros(*planes.shape[:2], c, c, device=planes.device)
+    for b in range(s):                                          # [.., ca, cb]
+        cells = cells + part[:, :, :, b, None] * w[b][None, None, None, :]
+    if not transposed:
+        cells = cells.transpose(2, 3)     # storage (y, x): ca = cy, cb = cx
+    return cells.reshape(*planes.shape[:2], c * c)
+
+
 @functools.lru_cache(maxsize=None)
-def _flat_weights_by_cell_on(size: int, cell_size: int,
-                             device: torch.device) -> torch.Tensor:
-    """The kernel's layout of the same table: (C*C, S*S), so that the
-    lanes scanning one cell's support read neighbouring weights."""
-    return _flat_weights_on(size, cell_size, device).t().contiguous()
+def _tents_on(size: int, cell_size: int, device: torch.device) -> torch.Tensor:
+    """(S, C) float64 tents on ``device``, from which the kernel forms its
+    weights."""
+    return torch.from_numpy(_tent_1d(size, cell_size)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,6 +268,88 @@ def hog_descriptor_flat_reference(patches_flat: torch.Tensor, size: int,
     return torch.cat(channels, dim=1)
 
 
+# patches per block, by patch side, as a sweep on the H100 over 1-3 patches
+# at the four level shapes chose them (PERF.md section 6); more patches
+# share each splat weight between them, fewer leave more blocks on an SM.
+# Exact mode: 1 at S = 55 and 50, 2 at 40, 3 at 30; fast mode: 1 at 55, 2
+# at 50, 3 at 40 and 30. Fewer where a block would take more than
+# _PLAN_SHARED bytes of shared memory.
+_PER_BLOCK_BY_SIZE = {False: ((44, 1), (35, 2), (0, 3)),
+                      True: ((52, 1), (44, 2), (0, 3))}
+_PLAN_SHARED = 100 * 1024
+_MAX_SHARED = 232448  # shared memory one block may take on the H100
+_THREADS = 256  # of a K1 block
+_WARPS = _THREADS // 32
+
+
+def _align16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def _shared_bytes(size: int, cell_size: int, num_orientations: int,
+                  per_block: int, separable: bool) -> int:
+    """Dynamic shared memory of one K1 block: csrc/hog_flat.cu's Layout,
+    for the separable splat (exact mode) or the 2-D one."""
+    s, p, two_o = size, per_block, 2 * num_orientations
+    c = hog_num_cells(s, cell_size)
+    if separable:
+        splat = (s * c * 4, _THREADS * two_o * 4, p * two_o * c * s * 4)
+    else:
+        splat = (0, _WARPS * p * two_o * 32 * 4, _WARPS * p * two_o * 4 * 4)
+    return sum(_align16(n) for n in (
+        s * c * 8, splat[0], two_o * 4, p * s * s * 4, p * s * s * 4,
+        *splat[1:], p * two_o * c * c * 4, p * c * c * 4, p * 4 * c * c * 4,
+        p * s * s))
+
+
+def separable(size: int, cell_size: int, num_orientations: int,
+              per_block: int, fast: bool) -> bool:
+    """Whether the kernel splats in two separable passes: in exact mode,
+    where their buffers fit in a block. The launch passes this answer to
+    the kernel, which takes the form it is given."""
+    return not fast and _shared_bytes(size, cell_size, num_orientations,
+                                      per_block, True) <= _MAX_SHARED
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(size: int, cell_size: int, num_orientations: int,
+                fast: bool = False) -> int:
+    """Patches per K1 block for patches of side S (at least 1; a shape
+    whose one-patch block exceeds the card's shared memory is refused by
+    the launch)."""
+    per_block = next(p for least, p in _PER_BLOCK_BY_SIZE[fast]
+                     if size >= least)
+    while per_block > 1 and _shared_bytes(
+            size, cell_size, num_orientations, per_block,
+            separable(size, cell_size, num_orientations, per_block,
+                      fast)) > _PLAN_SHARED:
+        per_block -= 1
+    return per_block
+
+
+def _launch(lib, patches_flat, out, size, cell_size, num_orientations,
+            variant, fast, transposed, per_block=None):
+    """Launch K1 from ``lib`` (the entry point's library, or a measurement
+    build of the same source) on checked, contiguous CUDA patches, with
+    ``launch_plan``'s patches per block. ``per_block`` overrides the plan,
+    for ``chip_smoke.py``'s sweep and the plans-agree test only."""
+    tents = _tents_on(size, cell_size, patches_flat.device)
+    ov = _orientations_on(num_orientations, patches_flat.device)
+    if per_block is None:
+        per_block = launch_plan(size, cell_size, num_orientations, fast)
+    sep = separable(size, cell_size, num_orientations, per_block, fast)
+    err = lib.hog_flat_launch(
+        ctypes.c_void_p(patches_flat.data_ptr()),
+        int(patches_flat.dtype == torch.bfloat16),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(tents.data_ptr()),
+        ctypes.c_void_p(ov.data_ptr()),
+        patches_flat.shape[0], size, cell_size, num_orientations,
+        int(variant), int(fast), int(transposed), per_block, int(sep),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"hog_flat kernel launch failed: CUDA error {err}")
+
+
 def hog_descriptor_flat(patches_flat: torch.Tensor, size: int,
                         cell_size: int, num_orientations: int,
                         variant: HogVariant = HogVariant.Uoctti,
@@ -238,7 +372,6 @@ def hog_descriptor_flat(patches_flat: torch.Tensor, size: int,
     if not patches_flat.is_contiguous():
         raise ValueError("patches must be contiguous")
     from superviseddescent_tpu_torch.ops._build import load_library
-    lib = load_library("hog_flat")
     b = patches_flat.shape[0]
     c = hog_num_cells(size, cell_size)
     dims = hog_dimension(variant, num_orientations)
@@ -246,18 +379,8 @@ def hog_descriptor_flat(patches_flat: torch.Tensor, size: int,
                       device=patches_flat.device)
     if b == 0:
         return out
-    w2t = _flat_weights_by_cell_on(size, cell_size, patches_flat.device)
-    ov = _orientations_on(num_orientations, patches_flat.device)
-    err = lib.hog_flat_launch(
-        ctypes.c_void_p(patches_flat.data_ptr()),
-        int(patches_flat.dtype == torch.bfloat16),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(w2t.data_ptr()),
-        ctypes.c_void_p(ov.data_ptr()),
-        b, size, cell_size, num_orientations, int(variant), int(fast),
-        int(transposed),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"hog_flat kernel launch failed: CUDA error {err}")
+    _launch(load_library("hog_flat"), patches_flat, out, size, cell_size,
+            num_orientations, variant, fast, transposed)
     hog_descriptor_flat.launches += 1
     return out
 

@@ -18,18 +18,23 @@ The sub-window alignment (8 rows, 128 columns) is part of the contract:
 it decides which taps are truncated when a patch outgrows its sub-window,
 so the port keeps it even though the H100 needs no such alignment.
 
-The kernel (``csrc/patches_window.cu``) runs one block per
-(face, landmark). Only two taps per axis are non-zero, so it evaluates the
-bilinear sum over those taps directly instead of the TPU's dense tent
-products; it reads uint8, bfloat16 or float32 windows as they are (no
-float copy of the window stack). What bounds it on the H100: memory. At the
-RCR-22 level-0 shape it writes 90,112 x 55 x 55 float32 pixels (1.09 GB,
+The kernel (``csrc/patches_window.cu``) runs G (face, landmark) patches
+per block (``launch_plan``). Only two taps per axis are non-zero, so it
+evaluates the bilinear sum over those taps directly instead of the TPU's
+dense tent products; it reads uint8, bfloat16 or float32 windows as they are
+(no float copy of the window stack). What bounds it on the H100: memory. At
+the RCR-22 level-0 shape it writes 90,112 x 55 x 55 float32 pixels (1.09 GB,
 ~0.33 ms at 3.35 TB/s) and reads only the few KB of window under each
-patch, so its design goal is a write stream at full rate: the per-row and
-per-column taps are computed once per block into shared memory and
-neighbouring threads compute neighbouring columns (coalesced window reads);
-a transposed patch is staged in shared memory and written out
-contiguously.
+patch. An earlier design (one block per patch) took ~3.5x that: a measurement
+build that stores nothing ran as long as the kernel, so the time went to the
+per-patch tap prologue and to window reads one output at a time. So the
+block computes the taps of G patches at once, each thread computes one
+16-byte word of output (4 float32 or 8 bfloat16 values, their 4 x 4 or 4 x 8
+window reads in flight together), neighbouring threads take neighbouring
+columns (coalesced window reads), and the words go out as 16-byte stores on
+16-byte boundaries of the whole output. A transposed patch is computed in
+strips of 4 or 8 rows of one column, each a 16-byte word of a
+shared-memory tile in (x, y) order, which then goes out the same way.
 
 Compiled with -fmad=false so every float operation rounds as PyTorch's
 separate elementwise operations do: the kernel equals its plain twin
@@ -39,6 +44,7 @@ separate elementwise operations do: the kernel equals its plain twin
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,8 +52,49 @@ SUBLANE_ALIGN = 8
 LANE_ALIGN = 128
 _FIT_MARGIN = 2  # bilinear tent support around the outermost sample
 
-_MAX_SIZE = 96  # the kernel's per-block tap tables and output tile
+_MAX_SIZE = 96  # the kernel's largest output side
 _DTYPE_CODES = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
+# patches per block: the launch plan's choice, and the shared memory a
+# block of transposed output may take (its tile dominates); chosen by a
+# sweep on the H100 over 1-16 patches at the four level shapes (PERF.md
+# section 6)
+_PER_BLOCK = 8
+_PLAN_SHARED = 36 * 1024
+
+
+def _align16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def _tile_pitch(size: int, values_per_word: int) -> int:
+    """Values per column of the transposed tile (csrc/patches_window.cu's
+    tile_pitch): an odd number of 16-byte words."""
+    words = -(-size // values_per_word)
+    return (words + 1 - words % 2) * values_per_word
+
+
+def _shared_bytes(size: int, per_block: int, transposed: bool,
+                  out_itemsize: int) -> int:
+    """Dynamic shared memory of one K2 block: csrc/patches_window.cu's
+    Layout (six tap tables, the sub-window offsets, the transposed tile)."""
+    tables = 6 * _align16(per_block * size * 4) + _align16(per_block * 8)
+    tile = (per_block * size * _tile_pitch(size, 16 // out_itemsize)
+            * out_itemsize if transposed else 0)
+    return tables + _align16(tile)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(n_patches: int, size: int, transposed: bool,
+                out_itemsize: int) -> int:
+    """Patches per K2 block for N*L patches of side S: _PER_BLOCK, fewer
+    when a block of transposed output would take more than _PLAN_SHARED
+    bytes of shared memory, never more than the patches there are, at
+    least 1."""
+    g = max(1, min(_PER_BLOCK, n_patches))
+    while transposed and g > 1 and _shared_bytes(
+            size, g, transposed, out_itemsize) > _PLAN_SHARED:
+        g -= 1
+    return g
 
 
 def max_patch_half(sub_window: int, align: int = SUBLANE_ALIGN) -> float:
@@ -181,6 +228,30 @@ def sample_patches_window_reference(windows, oxy, sp, out_size, w, wx,
     return patch.to(out_dtype).contiguous()
 
 
+def _launch(lib, windows, oxy, sp, out, w, wx, quantize, fast, transposed,
+            per_block=None):
+    """Launch K2 from ``lib`` (the entry point's library, or a measurement
+    build of the same source) into ``out`` (N, L, S, S), with
+    ``launch_plan``'s patches per block. ``per_block`` overrides the plan,
+    for ``chip_smoke.py``'s sweep (which reaches past the plan's 8) and the
+    plans-agree test only."""
+    n, ry, rx = windows.shape
+    l, s = out.shape[1], out.shape[2]
+    if out.data_ptr() % 16:
+        raise ValueError("the output must start on a 16-byte boundary")
+    if per_block is None:
+        per_block = launch_plan(n * l, s, transposed, out.element_size())
+    err = lib.patches_window_launch(
+        ctypes.c_void_p(windows.data_ptr()), _DTYPE_CODES[windows.dtype],
+        ctypes.c_void_p(oxy.data_ptr()), ctypes.c_void_p(sp.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), int(out.dtype == torch.bfloat16),
+        n, l, ry, rx, s, w, wx, int(quantize), int(fast), int(transposed),
+        per_block, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(
+            f"patches_window kernel launch failed: CUDA error {err}")
+
+
 def sample_patches_window(windows: torch.Tensor, centers_x: torch.Tensor,
                           centers_y: torch.Tensor, patch_half: torch.Tensor,
                           out_size: int, sub_window: int = 0,
@@ -244,16 +315,8 @@ def sample_patches_window(windows: torch.Tensor, centers_x: torch.Tensor,
                       device=windows.device)
     if n * l == 0:
         return out
-    err = lib.patches_window_launch(
-        ctypes.c_void_p(windows.data_ptr()), _DTYPE_CODES[windows.dtype],
-        ctypes.c_void_p(oxy.data_ptr()), ctypes.c_void_p(sp.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), int(out_dtype == torch.bfloat16),
-        n, l, ry, rx, out_size, w, wx, int(quantize),
-        int(sampling == "fast"), int(transposed),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(
-            f"patches_window kernel launch failed: CUDA error {err}")
+    _launch(lib, windows, oxy, sp, out, w, wx, quantize, sampling == "fast",
+            transposed)
     sample_patches_window.launches += 1
     return out
 

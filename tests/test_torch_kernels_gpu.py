@@ -84,6 +84,151 @@ def test_window_kernel_equals_twin(cuda, window_dtype, sampling, transposed):
 
 
 # ------------------------------------------------------------------ #
+# K1 and K2 at the stepped detector's level shapes (RCR-22, COFW-29 and
+# ibug-68 share them), their edges, and their launch plans
+# ------------------------------------------------------------------ #
+LEVEL_SHAPES = [(55, 11), (50, 10), (40, 8), (30, 6)]
+K1_RTOL, K1_ATOL = 1e-4, 1e-5   # chip_smoke.py's: splat sums in another order
+
+
+def random_patches(cuda, b, s, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, 256, size=(b, s * s))
+                         .astype(np.float32)).to(cuda)
+    return x.to(dtype)
+
+
+def check_hog(patches, s, cs, o=4, variant=HogVariant.Uoctti, **kw):
+    before = hog_descriptor_flat.launches
+    got = hog_descriptor_flat(patches, s, cs, o, variant, **kw)
+    torch.cuda.synchronize()
+    assert hog_descriptor_flat.launches == before + (patches.shape[0] > 0)
+    ref = hog_descriptor_flat_reference(patches, s, cs, o, variant, **kw)
+    torch.testing.assert_close(got, ref, rtol=K1_RTOL, atol=K1_ATOL)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast,transposed", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+@pytest.mark.parametrize("s,cs", LEVEL_SHAPES)
+def test_hog_kernel_at_level_shapes(cuda, s, cs, fast, transposed, dtype):
+    from superviseddescent_tpu_torch.ops.hog_flat import launch_plan
+    # a batch that is not a multiple of the patches per block
+    per_block = launch_plan(s, cs, 4, fast)
+    b = 7 * per_block + 1 if per_block > 1 else 301
+    check_hog(random_patches(cuda, b, s, dtype, seed=s), s, cs, fast=fast,
+              transposed=transposed)
+
+
+@pytest.mark.parametrize("s,cs,o,variant,b", [
+    (3, 1, 4, HogVariant.Uoctti, 5), (3, 3, 4, HogVariant.Uoctti, 9),
+    (96, 8, 4, HogVariant.Uoctti, 3), (96, 12, 16, HogVariant.Uoctti, 2),
+    (16, 1, 4, HogVariant.Uoctti, 4), (24, 1, 9, HogVariant.DalalTriggs, 3),
+    (64, 8, 9, HogVariant.DalalTriggs, 11), (55, 11, 4, HogVariant.Uoctti, 1),
+    (30, 6, 4, HogVariant.Uoctti, 1)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_hog_kernel_edges(cuda, s, cs, o, variant, b, transposed):
+    check_hog(random_patches(cuda, b, s, torch.float32, seed=b), s, cs, o,
+              variant, transposed=transposed)
+
+
+def test_hog_kernel_empty_batch(cuda):
+    out = check_hog(random_patches(cuda, 0, 55, torch.float32), 55, 11)
+    assert out.shape == (0, 16 * 25)
+
+
+@pytest.mark.parametrize("fast,transposed", [(False, False), (True, True)])
+@pytest.mark.parametrize("s,cs", LEVEL_SHAPES)
+def test_hog_kernel_plans_agree(cuda, s, cs, fast, transposed):
+    from superviseddescent_tpu_torch.ops import hog_flat
+    from superviseddescent_tpu_torch.ops._build import load_library
+    x = random_patches(cuda, 37, s,
+                       torch.bfloat16 if transposed else torch.float32)
+    outs = []
+    for per_block in (1, 2, 3):
+        out = torch.empty((37, 16 * hog_flat.hog_num_cells(s, cs) ** 2),
+                          device=cuda)
+        hog_flat._launch(load_library("hog_flat"), x, out, s, cs, 4,
+                         HogVariant.Uoctti, fast, transposed, per_block)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        # the splat sums run in one order for every plan
+        assert torch.equal(out, outs[0])
+
+
+def window_case(cuda, window_dtype, n=7, l=5, ry=64, rx=384, seed=0):
+    rng = np.random.default_rng(seed)
+    wins = torch.from_numpy(rng.integers(0, 256, size=(n, ry, rx))
+                            .astype(np.uint8)).to(cuda).to(window_dtype)
+    cx = torch.from_numpy(rng.uniform(-4, rx + 4, (n, l))
+                          .astype(np.float32)).to(cuda)
+    cy = torch.from_numpy(rng.uniform(-4, ry + 4, (n, l))
+                          .astype(np.float32)).to(cuda)
+    phw = torch.from_numpy(rng.uniform(5, 30, (n,)).round()
+                           .astype(np.float32)).to(cuda)
+    return wins, cx, cy, phw
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("sampling", ["exact", "fast"])
+@pytest.mark.parametrize("window_dtype",
+                         [torch.uint8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [55, 50, 40, 30])
+def test_window_kernel_at_level_shapes(cuda, s, window_dtype, sampling,
+                                       transposed, out_dtype):
+    # 7 faces x 5 landmarks: the last block of every plan is ragged
+    wins, cx, cy, phw = window_case(cuda, window_dtype, seed=s)
+    for quantize in (False, True):
+        kw = dict(sub_window=40, sub_window_x=256, quantize=quantize,
+                  sampling=sampling, transposed=transposed,
+                  out_dtype=out_dtype)
+        before = sample_patches_window.launches
+        got = sample_patches_window(wins, cx, cy, phw, s, **kw)
+        torch.cuda.synchronize()
+        assert sample_patches_window.launches == before + 1
+        oxy, sp = _prepare(cx, cy, phw, s)
+        ref = sample_patches_window_reference(
+            wins, oxy, sp, s, 40, 256, quantize, sampling, transposed,
+            out_dtype)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [55, 30, 96, 1])
+def test_window_kernel_plans_agree(cuda, s, out_dtype, transposed):
+    from superviseddescent_tpu_torch.ops import patches_window
+    from superviseddescent_tpu_torch.ops._build import load_library
+    wins, cx, cy, phw = window_case(cuda, torch.uint8, n=9, l=7, ry=160,
+                                    rx=384, seed=s)
+    oxy, sp = _prepare(cx, cy, phw, s)
+    outs = []
+    for per_block in (1, 2, 3, 5, 8, 16):
+        if patches_window._shared_bytes(s, per_block, transposed,
+                                        out_dtype.itemsize) > 200 * 1024:
+            continue
+        out = torch.empty((9, 7, s, s), dtype=out_dtype, device=cuda)
+        patches_window._launch(load_library("patches_window"), wins, oxy, sp,
+                               out, 160, 384, True, False, transposed,
+                               per_block)
+        outs.append(out)
+    # through the entry point, whose plan is min(8, N*L): plans 1-8
+    for k in range(1, 9):
+        outs.append(sample_patches_window(
+            wins[:k], cx[:k, :1], cy[:k, :1], phw[:k], s, 160, 384,
+            quantize=True, sampling="exact", transposed=transposed,
+            out_dtype=out_dtype))
+    torch.cuda.synchronize()
+    ref = sample_patches_window_reference(wins, oxy, sp, s, 160, 384, True,
+                                          "exact", transposed, out_dtype)
+    for out in outs:
+        assert torch.equal(out, ref[:out.shape[0], :out.shape[1]])
+
+
+# ------------------------------------------------------------------ #
 # K3 / K4: the fused cascade against its plain twin
 # ------------------------------------------------------------------ #
 LEVEL_PX = 1e-3     # one level from equal rows: only the GEMV sums differ
@@ -534,7 +679,7 @@ def test_sampler_probe_is_k2_fast_transposed(cuda):
         ctypes.c_void_p(windows.data_ptr()), 1,
         ctypes.c_void_p(oxy2.data_ptr()), ctypes.c_void_p(sp2.data_ptr()),
         ctypes.c_void_p(k2.data_ptr()), 1, n, l, 512, 512, 40, 72, 256, 1, 1,
-        1, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        1, 8, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     assert err == 0
     got = probe_sampler(windows, oxy, sp, "full", 40, 72, 256)
     assert torch.equal(got.view(torch.int16), k2.view(torch.int16))

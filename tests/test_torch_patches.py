@@ -173,3 +173,21 @@ def test_stack_images_and_gray_match_jax():
         np.testing.assert_array_equal(sizes, ref_sizes)
     rgb = rng.integers(0, 256, size=(7, 9, 3)).astype(np.uint8)
     np.testing.assert_array_equal(rgb_to_gray_u8(rgb), jax_gray(rgb))
+
+
+@pytest.mark.parametrize("transposed,itemsize", [(False, 4), (False, 2),
+                                                 (True, 4), (True, 2)])
+def test_window_launch_plan_is_valid(transposed, itemsize):
+    from superviseddescent_tpu_torch.ops import patches_window as k2
+    for s in range(1, k2._MAX_SIZE + 1):
+        pitch = k2._tile_pitch(s, 16 // itemsize)
+        # whole 16-byte words, an odd number of them, covering a column
+        assert pitch >= s and pitch * itemsize % 32 == 16
+        for nl in (1, 2, 7, 8, 9, 4096 * 22 + 3, 4096 * 68):
+            g = k2.launch_plan(nl, s, transposed, itemsize)
+            assert 1 <= g <= min(k2._PER_BLOCK, nl)
+            if transposed:
+                assert g == 1 or k2._shared_bytes(
+                    s, g, transposed, itemsize) <= k2._PLAN_SHARED
+            else:
+                assert g == min(k2._PER_BLOCK, nl)
