@@ -64,6 +64,22 @@ checkout's package, ``k12_split``; with ``--sweep`` also at other numbers
 of patches per block); with ``--package-root`` the package of another
 checkout.
 
+Where K5 spends its time is read at each level of the training replay
+(``k5_split``): the kernel beside a measurement build of its source that
+stores no row, and thread 0's cycles per phase. The training phase also
+times the Cholesky solve of each level's normal equations beside the LU
+that training keeps, with the same float64 backward-error check.
+
+    python3 chip_smoke.py --k5 [--sweep] [--package-root DIR]
+
+times only K5 and K6: K5 at each level of the RCR-22 training replay
+(11,264 samples) and over the 4,096 faces of RCR-22, COFW-29 and ibug-68,
+K6 at each level of the 1,408-sample windows run, each held against its
+twin with the count of unequal entries, beside the warm ``train_rcr`` and
+its trained model's error (and, for this checkout's package, ``k5_split``;
+with ``--sweep`` also at the launch plans ``K5_SWEEP``); with
+``--package-root`` the package of another checkout.
+
 It checks each path's launch counts, each kernel against its twin at the
 path's own inputs, the rows against the port's CPU path, the train-set IOD
 error and the fused rows against the exact stepped rows, the trained
@@ -216,13 +232,24 @@ K12_BUILDS = (("hog_flat", ("HOG_SKIP_SPLAT",)),
               ("patches_window", ("PATCHES_PHASE_CLOCKS",)))
 K1_PHASES = ("staging", "gradients and bins", "splat", "energy", "channels")
 K2_PHASES = ("taps", "sampling", "write-out")
+# measurement builds of K5 / K6's source for k5_split, never entry points:
+# every channel computed and no row stored, and thread 0's cycles per phase
+K5_BUILDS = (("features_fused", ("FEATURES_SKIP_STORE",)),
+             ("features_fused", ("FEATURES_PHASE_CLOCKS",)))
+K5_PHASES = ("IED, tent and cell table", "taps", "sampling",
+             "gradients and x contraction", "y contraction and energy",
+             "channels", "row stores")
+# K5 launch plans (samples per block, landmarks per group, threads) that
+# ``--k5 --sweep`` times beside features_launch_plan's at each training level
+K5_SWEEP = ((1, 4, 256), (2, 2, 256), (1, 5, 256), (1, 6, 256), (1, 8, 256),
+            (1, 2, 128), (1, 3, 128), (1, 4, 128), (2, 2, 128))
 
 
 def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
     logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
-                     + list(K12_BUILDS))
-    log(f"[build] K1-K6, the probes and K1's, K2's and K3's measurement "
+                     + list(K12_BUILDS) + list(K5_BUILDS))
+    log(f"[build] K1-K6, the probes and K1's, K2's, K3's and K5's measurement "
         f"builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
@@ -665,14 +692,15 @@ def k3_split(torch, det, frames, idx, oy, ox, window, x0, level_x):
     landmark body runs and the update is zero, so each level repeats the
     rows it started from; ``-DCASCADE_SKIP_BODY``: no landmark body runs
     and the GEMV reads whatever the feature buffers hold), and K5 over the
-    same faces from the same per-level rows ``level_x`` (the body alone
-    under another mapping: one block per face and landmark). The rest is
+    same faces from the same per-level rows ``level_x`` (the landmark
+    bodies without a GEMV), each level held against its twin. The rest is
     the whole less the two parts. Measurement builds are launched here
     only; their launches do not count."""
     from superviseddescent_tpu_torch.ops._build import load_library
     from superviseddescent_tpu_torch.ops.cascade_fused import (
         _check_config, _launch_args, _launch_frames,
-        extract_features_fused_frames)
+        extract_features_fused_frames,
+        extract_features_fused_frames_reference)
     from superviseddescent_tpu_torch.utils.timing import cuda_time_ms
     l = x0.shape[1] // 2
     c = _check_config(l, det.weights, *window, det.levels, det.cell_sizes,
@@ -696,19 +724,26 @@ def k3_split(torch, det, frames, idx, oy, ox, window, x0, level_x):
     shares = phase_cycles(torch, "cascade_fused", "cascade_phase_cycles",
                           SPLIT_BUILDS[2], launch(SPLIT_BUILDS[2]),
                           PHASE_NAMES)
-    k5 = sum(cuda_time_ms(
-        extract_features_fused_frames, frames, idx, oy, ox, x, window,
-        level, det.cell_sizes[li], det.num_bins, det.dims, det.r_idx,
-        det.l_idx)[0] for li, (level, x) in enumerate(zip(det.levels,
-                                                          level_x)))
+    k5, k5_err, k5_unequal = 0.0, 0.0, 0
+    for li, (level, x) in enumerate(zip(det.levels, level_x)):
+        k5args = (frames, idx, oy, ox, x, window, level, det.cell_sizes[li])
+        k5 += cuda_time_ms(extract_features_fused_frames, *k5args,
+                           det.num_bins, det.dims, det.r_idx, det.l_idx)[0]
+        err, unequal = features_vs_twin(
+            torch, f"K5 at K3's rows, {l} landmarks, level {li}",
+            extract_features_fused_frames(*k5args, det.num_bins, det.dims,
+                                          det.r_idx, det.l_idx),
+            extract_features_fused_frames_reference(*k5args, det.r_idx,
+                                                    det.l_idx))
+        k5_err, k5_unequal = max(k5_err, err), k5_unequal + unequal
     split = dict(whole_ms=whole, body_ms=body, gemv_ms=gemv,
                  rest_ms=whole - body - gemv, k5_levels_ms=k5,
+                 k5_max_abs_err=k5_err, k5_unequal=k5_unequal,
                  faces=x0.shape[0], phase_shares=shares)
     log(f"[split] K3 on {x0.shape[0]} faces: whole {whole:.4f} ms; landmark "
         f"bodies alone (GEMV skipped) {body:.4f} ms; GEMV alone (bodies "
         f"skipped) {gemv:.4f} ms; rest {whole - body - gemv:.4f} ms; K5 over "
-        f"the same faces and levels (one block per face and landmark) "
-        f"{k5:.4f} ms")
+        f"the same faces and levels {k5:.4f} ms")
     log("[split] phase shares (thread 0's cycles between barriers, a build "
         "with a barrier after the GEMV): " + ", ".join(
             f"{name} {100 * v:.1f}%" for name, v in shares.items()))
@@ -921,11 +956,6 @@ def phase_train(torch, data, pretrained_iod):
     def iod(rows, gt):
         return float(normalised_landmark_errors(rows, gt, *eyes).mean())
 
-    def level_of(hog, li, window):
-        p = hog.hog_params[li]
-        return (p.patch_size, hog.sub_windows[li] or window[0],
-                hog.sub_windows_x[li] or window[1], p.relative_patch_size)
-
     def compare_rows(name, li, got, ref):
         check(bool(torch.isfinite(got).all()), f"{name}: NaN in the rows")
         diff = (got - ref).abs()
@@ -979,7 +1009,7 @@ def phase_train(torch, data, pretrained_iod):
     stages, k5 = [], dict(err=0.0, ms=0.0, plain_ms=0.0, bytes_ms=0.0,
                           ops_ms=0.0)
     for li, p in enumerate(cfg.hog_params):
-        level = level_of(hog, li, window)
+        level = train_level(hog, li, window)
         feats = hog(x, li)
         twin_args = (frames, fi, foy, fox, x, window, level, p.cell_size,
                      *eyes)
@@ -991,6 +1021,8 @@ def phase_train(torch, data, pretrained_iod):
                                    *twin_args, reps=2, warmup=1)
         b_bytes, b_ops, read = features_bound(torch, p, level, x, window, 1,
                                               eyes, feats.shape[1])
+        split = k5_split(torch, frames, fi, foy, fox, x, window, level,
+                         p.cell_size, eyes)
         torch.cuda.empty_cache()
         reg = trained.sdo.regressors[li]
         norm = prob.sdo.normalisation(x)
@@ -1002,6 +1034,13 @@ def phase_train(torch, data, pretrained_iod):
                                    warmup=1)
         again = _solve_from_normal(ata, atb, n, reg.regulariser, reg.method)
         resolve_delta = float((again - reg.weights).abs().max())
+        # Cholesky of the same regularised normal equations, timed beside
+        # the LU that training keeps (solver_method "lu")
+        chol_ms, _ = cuda_time_ms(_solve_from_normal, ata, atb, n,
+                                  reg.regulariser, "cholesky", reps=3,
+                                  warmup=1)
+        w_chol = _solve_from_normal(ata, atb, n, reg.regulariser,
+                                    "cholesky")
         del ata, atb, again
         upd_ms, _ = cuda_time_ms(lambda: x - reg.predict(feats) / norm,
                                  reps=10, warmup=2)
@@ -1018,7 +1057,11 @@ def phase_train(torch, data, pretrained_iod):
                  * float(torch.linalg.norm(w64)) + rhs_norm)
         residual, backward = r_norm / rhs_norm, r_norm / scale
         residual_limit = BACKWARD_ERROR_LIMIT * scale / rhs_norm
-        del lhs, rhs, w64
+        c64 = w_chol.double()
+        chol_backward = float(torch.linalg.norm(lhs @ c64 - rhs)) / (
+            float(torch.linalg.norm(lhs)) * float(torch.linalg.norm(c64))
+            + rhs_norm)
+        del lhs, rhs, w64, c64, w_chol
         x_next = x - reg.predict(feats) / norm
         replay_delta = float((x_next + prob.sample_shift
                               - epoch_rows[li]).abs().max())
@@ -1027,7 +1070,8 @@ def phase_train(torch, data, pretrained_iod):
             f"twin {plain_ms:.1f}, bound {max(b_bytes, b_ops) * 1e3:.4f}: "
             f"bytes {b_bytes * 1e3:.4f} with {read} window pixels, "
             f"operations {b_ops * 1e3:.4f}) | AtA + Atb {ne_ms:.3f} ms | "
-            f"{reg.method} solve {solve_ms:.3f} ms | update {upd_ms:.4f} ms")
+            f"{reg.method} solve {solve_ms:.3f} ms (cholesky {chol_ms:.3f}) | "
+            f"update {upd_ms:.4f} ms")
         log(f"[train] level {li}: relative residual of the regularised "
             f"normal equations in float64 {residual:.3e} (this level's "
             f"limit {residual_limit:.3e}), which is the normwise backward "
@@ -1036,15 +1080,22 @@ def phase_train(torch, data, pretrained_iod):
             f"{resolve_delta:.3e}; replayed rows vs the main "
             f"run's on_epoch rows {replay_delta:.3e} px; rows moved "
             f"{moved:.2f} px")
+        log(f"[train] level {li}: cholesky's normwise backward error "
+            f"{chol_backward:.3e} (limit {BACKWARD_ERROR_LIMIT})")
         check(residual <= residual_limit,
               f"level {li}: normal-equation residual {residual} over "
               f"{residual_limit} (backward error {backward})")
+        check(chol_backward <= BACKWARD_ERROR_LIMIT,
+              f"level {li}: cholesky's backward error {chol_backward}")
         check(replay_delta <= 1e-3, f"level {li}: the replay left the main "
               f"path's rows by {replay_delta} px")
         stages.append(dict(level=li, k5_ms=k5_ms, k5_plain_ms=plain_ms,
+                           k5_split=split,
                            k5_bound_bytes_ms=b_bytes * 1e3,
                            k5_bound_ops_ms=b_ops * 1e3, read_pixels=read,
                            normal_equations_ms=ne_ms, solve_ms=solve_ms,
+                           cholesky_ms=chol_ms,
+                           cholesky_backward_error=chol_backward,
                            update_ms=upd_ms, residual=residual,
                            residual_limit=residual_limit,
                            backward_error=backward,
@@ -1063,7 +1114,8 @@ def phase_train(torch, data, pretrained_iod):
     log(f"[train] stages sum to {staged:.1f} ms of the warm {warm_s * 1e3:.1f}"
         f" ms: K5 {k5['ms']:.2f}, AtA + Atb "
         f"{sum(st['normal_equations_ms'] for st in stages):.1f}, solve "
-        f"{sum(st['solve_ms'] for st in stages):.1f}, update "
+        f"{sum(st['solve_ms'] for st in stages):.1f} (cholesky "
+        f"{sum(st['cholesky_ms'] for st in stages):.1f}), update "
         f"{sum(st['update_ms'] for st in stages):.2f}")
     del prob, hog, x, epoch_rows
 
@@ -1121,7 +1173,7 @@ def phase_train(torch, data, pretrained_iod):
     k6 = dict(err=0.0, ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
               gather_ms=0.0)
     for li, p in enumerate(cfg6.hog_params):
-        level = level_of(hog, li, window)
+        level = train_level(hog, li, window)
         tail = (level, p.cell_size, p.num_bins, 16, *eyes)
         feats = hog(x, li)
         ref = extract_features_fused_reference(
@@ -2657,6 +2709,279 @@ def k12_levels(torch, data, families=(22, 29, 68), split=False,
     return out
 
 
+def train_level(hog, li, window):
+    """Level ``li`` of a training problem's feature transform as K5 / K6
+    take it: (S, W, WX, relative patch size), the full window's side where
+    a sub-window is not set."""
+    p = hog.hog_params[li]
+    return (p.patch_size, hog.sub_windows[li] or window[0],
+            hog.sub_windows_x[li] or window[1], p.relative_patch_size)
+
+
+def k5_call(torch, frames, idx, oy, ox, x, window, level, cell_size, eyes,
+            defines=(), plan=None):
+    """A K5 launch at one level's arguments from the entry point's library
+    or the measurement build ``defines``, with ``features_launch_plan``'s
+    plan or ``plan``. A measurement of this script only: the launch does
+    not count."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        _check_level, _features_launch_args, _launch_features_frames)
+    lv, c, f = _check_level(x.shape[1] // 2, *window, level, cell_size, 4,
+                            16, *eyes)
+    lib = load_library("features_fused", tuple(defines))
+
+    def launch():
+        out, args = _features_launch_args(x, lv, cell_size, *eyes, *window,
+                                          c, f, plan)
+        _launch_features_frames(lib, frames, idx, oy, ox, args)
+        return out
+    return launch
+
+
+def k5_split(torch, *args):
+    """Where K5's time goes at one level's arguments (``k5_call``'s; device
+    ms, torch.profiler): the kernel whole beside a measurement build of its
+    source that computes every channel and stores no row, and thread 0's
+    cycles per phase (``K5_PHASES``)."""
+    split = dict(ms=device_ms(torch, k5_call(torch, *args),
+                              match="features_kernel"))
+    split["no_store_ms"] = device_ms(
+        torch, k5_call(torch, *args, defines=K5_BUILDS[0][1]),
+        match="features_kernel")
+    split["phases"] = phase_cycles(
+        torch, "features_fused", "features_phase_cycles", K5_BUILDS[1][1],
+        k5_call(torch, *args, defines=K5_BUILDS[1][1]), K5_PHASES)
+    log(f"[split] K5 S={args[6][0]} on {args[4].shape[0]} samples: whole "
+        f"{split['ms']:.4f} ms, without its row stores "
+        f"{split['no_store_ms']:.4f} ms; phase shares (thread 0's cycles): "
+        + ", ".join(f"{k} {100 * v:.1f}%" for k, v in split["phases"].items()))
+    return split
+
+
+def k5_sweep(torch, *args, windows=None):
+    """K5's device ms at one level's arguments (``k5_call``'s) for each
+    launch plan of K5_SWEEP that fits in a block; with ``windows`` (a list
+    of (bf16 windows, rows) chunks), K6's over the chunks instead."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        _MAX_SHARED, _check_level, _features_launch_args,
+        _features_shared_bytes, _launch_features, features_launch_plan,
+        hog_num_cells)
+    level, cs, eyes = args[6], args[7], args[8]
+    c = hog_num_cells(level[0], cs)
+    l = args[4].shape[1] // 2
+    n = args[4].shape[0] if windows is None else windows[0][1].shape[0]
+    chosen = features_launch_plan(
+        n, l, c, level[0],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    lib = load_library("features_fused")
+
+    def k6(plan):
+        def launch():
+            for w, x in windows:
+                lv, _, f = _check_level(l, *w.shape[1:], level, cs, 4, 16,
+                                        *eyes)
+                _out, largs = _features_launch_args(
+                    x, lv, cs, *eyes, *w.shape[1:], c, f, plan)
+                _launch_features(lib, w, largs)
+        return launch
+    times = {}
+    for plan in K5_SWEEP:
+        if plan[1] > l or _features_shared_bytes(
+                c, level[0], *plan) > _MAX_SHARED:
+            continue
+        call = (k5_call(torch, *args, plan=plan) if windows is None
+                else k6(plan))
+        times[",".join(map(str, plan))] = device_ms(
+            torch, call, match="features_kernel", one_kernel=windows is None)
+    log(f"[sweep] {'K5' if windows is None else 'K6'} S={level[0]} (plan "
+        f"{tuple(chosen[:3])}): " + ", ".join(
+            f"{k}: {ms:.4f}" for k, ms in times.items()))
+    return times
+
+
+def features_vs_twin(torch, label, got, ref):
+    """K5 / K6 rows against their twin's: max abs error and the count of
+    unequal entries, logged; fails beyond FEATURES_ATOL."""
+    check(bool(torch.isfinite(got).all()), f"{label}: NaN in the rows")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    unequal = int((got != ref).sum())
+    log(f"[K5] {label} vs twin on {got.shape[0]} samples x {got.shape[1]} "
+        f"features: max abs {err:.3e}, {unequal} unequal entries of "
+        f"{got.numel()} (tolerance {FEATURES_ATOL})")
+    check(err <= FEATURES_ATOL, f"{label} disagrees with its twin")
+    return err, unequal
+
+
+def k5_levels(torch, data, split=False, sweep=False):
+    """K5 and K6 through their entry points, device ms (torch.profiler):
+    K5 at each level of the RCR-22 training replay (11,264 samples, the
+    levels' rows advanced by the trained regressors as ``phase_train``
+    does), K6 at each level of the 1,408-sample windows run (chunks of
+    512), and K5 over the 4,096 faces of RCR-22, COFW-29 and ibug-68 at
+    K3's per-level rows (``k3_split``'s K5); every call held against its
+    twin with the count of unequal entries. Beside them the warm
+    ``train_rcr`` (three calls, host clock), its profile and the trained
+    model's train-set IOD error (fused detector, 4,096 faces). With
+    ``split``, ``k5_split`` at each training level, with ``sweep``,
+    ``k5_sweep``."""
+    import numpy as np
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, normalised_landmark_errors, train_rcr,
+        training_problem)
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        detect_cascade_fused_frames, extract_features_fused,
+        extract_features_fused_frames,
+        extract_features_fused_frames_reference,
+        extract_features_fused_reference, prepare_weights)
+    model, frames = data["model"], data["frames"]
+    ids = (model.landmark_ids, model.right_eye_ids, model.left_eye_ids)
+    eyes = (data["r_idx"], data["l_idx"])
+    mean = model.mean.cpu().numpy()
+    n_img = frames.shape[0]
+    out = {}
+
+    # ---- training: warm wall time, profile, the trained model's error ----
+    cfg = RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                         solver_method="lu")
+    sel = np.arange(TRAIN_FACES) % n_img
+    args = (frames, data["image_gt"][sel], data["image_boxes"][sel], *ids,
+            mean, cfg)
+    trained = train_rcr(*args, image_indices=sel)
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_rcr(*args, image_indices=sel)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    profile = phase_profile(torch, "train_rcr (fused, K5)",
+                            f"{TRAIN_FACES * 11} samples",
+                            lambda: train_rcr(*args, image_indices=sel))
+    rows = trained.make_fused_detector(roi=ROI, max_ied=data["max_ied"])(
+        frames, data["boxes"], image_indices=data["sel_dev"])
+    iod = float(normalised_landmark_errors(rows, data["gt"], *eyes).mean())
+    log(f"[K5] warm train_rcr: {', '.join(f'{t:.4f}' for t in warm)} s; "
+        f"trained model's train-set IOD error (fused, {BATCH} faces) "
+        f"{iod!r}")
+    out["train"] = dict(warm_s=warm, iod=iod, profile=profile)
+
+    # ---- K5 at each level of the training replay ----
+    prob = training_problem(*args, image_indices=sel)
+    hog, x = prob.hog, prob.x0
+    window = hog.frame_window
+    fi, foy, fox = (t[hog.image_indices.long()] for t in hog.frame_table)
+    levels = []
+    for li, p in enumerate(cfg.hog_params):
+        level = train_level(hog, li, window)
+        k5args = (frames, fi, foy, fox, x, window, level, p.cell_size,
+                  p.num_bins, 16, *eyes)
+        feats = extract_features_fused_frames(*k5args)
+        ref = extract_features_fused_frames_reference(
+            frames, fi, foy, fox, x, window, level, p.cell_size, *eyes)
+        err, unequal = features_vs_twin(torch, f"K5 training level {li}",
+                                        feats, ref)
+        del ref
+        ms = device_ms(torch, lambda: extract_features_fused_frames(*k5args),
+                       match="features_kernel")
+        b_bytes, b_ops, _ = features_bound(torch, p, level, x, window, 1,
+                                           eyes, feats.shape[1])
+        row = dict(level=li, S=p.patch_size, ms=ms, max_abs_err=err,
+                   unequal=unequal, bound_ms=max(b_bytes, b_ops) * 1e3)
+        log(f"[K5] training level {li} S={p.patch_size}: {ms:.4f} ms "
+            f"(bound {row['bound_ms']:.4f})")
+        call = (frames, fi, foy, fox, x, window, level, p.cell_size, eyes)
+        if split:
+            row["split"] = k5_split(torch, *call)
+        if sweep:
+            row["sweep"] = k5_sweep(torch, *call)
+        levels.append(row)
+        reg = trained.sdo.regressors[li]
+        x = x - reg.predict(feats) / prob.sdo.normalisation(x)
+        del feats
+        torch.cuda.empty_cache()
+    out["k5_train"] = levels
+    log(f"[K5] per train_rcr: {sum(r['ms'] for r in levels):.4f} ms")
+    del prob, hog, x
+
+    # ---- K6 at each level of the windows run ----
+    sel_s = np.arange(TRAIN_FACES_SMALL) % n_img
+    cfg6 = RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                          solver_method="lu", feature_chunk_size=TRAIN_CHUNK)
+    args6 = (frames.float(), data["image_gt"][sel_s],
+             data["image_boxes"][sel_s], *ids, mean, cfg6)
+    trained6 = train_rcr(*args6, image_indices=sel_s)
+    prob = training_problem(*args6, image_indices=sel_s)
+    hog, x = prob.hog, prob.x0
+    sample_idx = hog.image_indices.long()
+    window = tuple(hog.images.shape[1:])
+    n_s = x.shape[0]
+    spans = [slice(a, a + TRAIN_CHUNK) for a in range(0, n_s, TRAIN_CHUNK)]
+    levels6 = []
+    for li, p in enumerate(cfg6.hog_params):
+        level = train_level(hog, li, window)
+        tail = (level, p.cell_size, p.num_bins, 16, *eyes)
+        gathered = [(hog.images[sample_idx[sp]], x[sp]) for sp in spans]
+        feats = torch.cat([extract_features_fused(w, xc, *tail)
+                           for w, xc in gathered])
+        ref = extract_features_fused_reference(
+            hog.images[sample_idx], x, level, p.cell_size, *eyes)
+        err, unequal = features_vs_twin(torch, f"K6 level {li}", feats, ref)
+        del ref
+        ms = device_ms(torch, lambda: [extract_features_fused(w, xc, *tail)
+                                       for w, xc in gathered],
+                       match="features_kernel", one_kernel=False)
+        levels6.append(dict(level=li, S=p.patch_size, ms=ms,
+                            launches=len(spans), max_abs_err=err,
+                            unequal=unequal))
+        if sweep:
+            levels6[-1]["sweep"] = k5_sweep(
+                torch, frames, None, None, None, x, window, level,
+                p.cell_size, eyes, windows=gathered)
+        log(f"[K5] K6 level {li} S={p.patch_size}: {len(spans)} launches "
+            f"{ms:.4f} ms")
+        x = trained6.sdo.step(li, x, feats)
+        del feats, gathered
+    out["k6_train"] = levels6
+    log(f"[K5] K6 per train_rcr: {sum(r['ms'] for r in levels6):.4f} ms")
+    del prob, hog, x, trained6
+    torch.cuda.empty_cache()
+
+    # ---- K5 over the 4,096 faces of each family at K3's per-level rows ----
+    idx = data["sel_dev"]
+    for n_lm in (22, 29, 68):
+        det, oy, ox, window, x = k3_inputs(torch, data, n_lm)
+        consts = (det.num_bins, det.dims, det.r_idx, det.l_idx)
+        fam = []
+        for li, level in enumerate(det.levels):
+            cs = det.cell_sizes[li]
+            k5args = (frames, idx, oy, ox, x, window, level, cs, *consts)
+            feats = extract_features_fused_frames(*k5args)
+            ref = extract_features_fused_frames_reference(
+                frames, idx, oy, ox, x, window, level, cs, det.r_idx,
+                det.l_idx)
+            err, unequal = features_vs_twin(
+                torch, f"K5 rcr{n_lm} level {li}", feats, ref)
+            del feats, ref
+            ms = device_ms(torch,
+                           lambda: extract_features_fused_frames(*k5args),
+                           match="features_kernel")
+            fam.append(dict(level=li, S=level[0], ms=ms, max_abs_err=err,
+                            unequal=unequal))
+            w1 = prepare_weights([det.model.sdo.regressors[li].weights],
+                                 frames.device)
+            x = detect_cascade_fused_frames(
+                frames, idx, oy, ox, x, w1, window, (level,), (cs,),
+                *consts, quantize=det.quantize)
+            torch.cuda.empty_cache()
+        out[f"k5_rcr{n_lm}"] = fam
+        log(f"[K5] rcr{n_lm} {BATCH} faces: "
+            + ", ".join(f"{r['ms']:.4f}" for r in fam)
+            + f" ms; sum {sum(r['ms'] for r in fam):.4f} ms")
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2676,9 +3001,16 @@ def main():
                         "and, for this checkout's package, k12_split")
     parser.add_argument("--sweep", action="store_true",
                         help="with --k12: also time K2 and K1 at other "
-                        "numbers of patches per block (RCR-22)")
+                        "numbers of patches per block (RCR-22); with --k5: "
+                        "K5 at other launch plans (K5_SWEEP)")
+    parser.add_argument("--k5", action="store_true",
+                        help="only time K5 and K6 per level of training "
+                        "and K5 over the families' 4,096 faces, with the "
+                        "warm train_rcr, and, for this checkout's package, "
+                        "k5_split")
     parser.add_argument("--package-root", default=REPO,
-                        help="with --k3-batches or --k12: the checkout whose "
+                        help="with --k3-batches, --k12 or --k5: the "
+                        "checkout whose "
                         "superviseddescent_tpu_torch is timed (the data "
                         "stay this checkout's)")
     opts = parser.parse_args()
@@ -2693,7 +3025,18 @@ def main():
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, root if opts.k3_batches or opts.k12 else REPO)
+    sys.path.insert(0, root if opts.k3_batches or opts.k12 or opts.k5
+                    else REPO)
+    if opts.k5:
+        phase_device(torch)
+        own = root == REPO
+        if own:
+            from superviseddescent_tpu_torch.ops._build import build_all
+            build_all(extra=K5_BUILDS)
+        times = k5_levels(torch, load_data(torch), split=own,
+                          sweep=own and opts.sweep)
+        print(json.dumps({"k5": times, "package_root": root}))
+        return 0
     if opts.k12:
         phase_device(torch)
         own = root == REPO

@@ -1,17 +1,11 @@
 // The fused RCR kernels' shared pieces: the window sources, the level's IED
 // and patch half, K2's taps, the cell tent supports and a cell's block
-// factors and Uoctti channels (used by the cascade kernels K3 / K4,
-// cascade_fused.cu, and the feature extractors K5 / K6, features_fused.cu),
-// and the per-landmark body of K5 / K6: for one
-// landmark, sampling -> gradients -> separable cell splat -> block energies
-// -> Uoctti channels, with float32 buffers. The caller says where the
-// 16 * C * C channel values go and as what type. See ops/cascade_fused.py
-// for the numerics.
+// factors and Uoctti channels, used by the cascade kernels K3 / K4
+// (cascade_fused.cu) and the feature extractors K5 / K6
+// (features_fused.cu). See ops/cascade_fused.py for the numerics.
 //
 // Built with -fmad=false: every float operation rounds on its own, as
-// PyTorch's separate elementwise operations do. Both splat contractions sum
-// in increasing pixel order, as the plain twins do, so partials and cell
-// histograms equal the twins' bit for bit.
+// PyTorch's separate elementwise operations do.
 
 #pragma once
 
@@ -21,7 +15,6 @@
 
 namespace fused {
 
-constexpr int kThreads = 256;
 constexpr int kOrient = 4;             // sector binning: 8 directed bins
 constexpr int kBins = 2 * kOrient;
 constexpr int kDims = 3 * kOrient + 4;  // Uoctti channels
@@ -29,14 +22,6 @@ constexpr int kLevelInts = 5;          // S, W, WX, cell size, tent offset
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float load_pixel(const uint8_t* p, int64_t i) {
-  return (float)p[i];
-}
-__device__ __forceinline__ float load_pixel(const __nv_bfloat16* p,
-                                            int64_t i) {
-  return __bfloat162float(p[i]);
 }
 
 __device__ __forceinline__ void store_channel(__nv_bfloat16* p, float v) {
@@ -80,58 +65,6 @@ __host__ __device__ inline int take(int* at, int bytes) {
   *at += (bytes + 15) / 16 * 16;
   return here;
 }
-
-// Shared buffers of one landmark's body, each 16-byte aligned, laid out
-// from byte offset `at` on; the wrappers' _shared_bytes counts the same.
-struct BodyLayout {
-  int ytap, xtap, yw0, yw1, xw0, xw1, tent, img, mag, part, cells, energy,
-      bin;
-  __host__ __device__ BodyLayout(int* at, int c, int s) {
-    ytap = take(at, s * 4);
-    xtap = take(at, s * 4);
-    yw0 = take(at, s * 4);
-    yw1 = take(at, s * 4);
-    xw0 = take(at, s * 4);
-    xw1 = take(at, s * 4);
-    tent = take(at, s * c * 4);
-    img = take(at, s * s * 4);
-    mag = take(at, s * s * 4);
-    part = take(at, kBins * c * s * 4);
-    cells = take(at, kBins * c * c * 4);
-    energy = take(at, c * c * 4);
-    bin = take(at, s * s);
-  }
-};
-
-struct BodyBuffers {
-  int* ytap;
-  int* xtap;
-  float* yw0;
-  float* yw1;
-  float* xw0;
-  float* xw1;
-  float* tent;
-  float* img;
-  float* mag;
-  float* part;
-  float* cells;
-  float* energy;
-  int8_t* bin;
-  __device__ BodyBuffers(unsigned char* smem, const BodyLayout& lay)
-      : ytap(reinterpret_cast<int*>(smem + lay.ytap)),
-        xtap(reinterpret_cast<int*>(smem + lay.xtap)),
-        yw0(reinterpret_cast<float*>(smem + lay.yw0)),
-        yw1(reinterpret_cast<float*>(smem + lay.yw1)),
-        xw0(reinterpret_cast<float*>(smem + lay.xw0)),
-        xw1(reinterpret_cast<float*>(smem + lay.xw1)),
-        tent(reinterpret_cast<float*>(smem + lay.tent)),
-        img(reinterpret_cast<float*>(smem + lay.img)),
-        mag(reinterpret_cast<float*>(smem + lay.mag)),
-        part(reinterpret_cast<float*>(smem + lay.part)),
-        cells(reinterpret_cast<float*>(smem + lay.cells)),
-        energy(reinterpret_cast<float*>(smem + lay.energy)),
-        bin(reinterpret_cast<int8_t*>(smem + lay.bin)) {}
-};
 
 // One level's static configuration and the scalars of one face's row.
 struct LevelGeometry {
@@ -250,131 +183,6 @@ __device__ __forceinline__ void cell_channels(int q, int c,
   const float scale_t = 1.f / sqrtf(18.f);  // computed in float32
   for (int i = 0; i < 4; ++i)
     store_channel(dst + (3 * kOrient + i) * cc + q, t_acc[i] * scale_t);
-}
-
-// The body of one landmark at (cx, cy) in window coordinates: the whole
-// block samples the S x S patch from `win`, then computes its Uoctti
-// channels and stores them at dst[d * C * C + cx * C + cy]. k.tent holds
-// the level's (S, C) tent. Ends without a barrier after the channel stores:
-// a following call first rewrites the taps, which nothing here reads any
-// more, and rewrites cells and energy only after three more barriers.
-template <typename Pixel, typename Out>
-__device__ void landmark_channels(const Pixel* win, int64_t stride, float cx,
-                                  float cy, const LevelGeometry& g,
-                                  const BodyBuffers& k, Out* dst) {
-  const int s = g.s, w = g.w, wx = g.wx, c = g.c, cs = g.cs;
-  const int cc = c * c;
-  // ---- sub-window origins and taps (K2's tap plan) ----
-  const float by = rintf(cy) - g.phw;
-  const float bx = rintf(cx) - g.phw;
-  int oyw = (int)fminf(fmaxf(floorf(by + g.src0), 0.f), (float)(g.ry - w));
-  oyw = (oyw / 8) * 8;
-  int oxw = 0;
-  if (wx != g.rx) {
-    oxw = (int)fminf(fmaxf(floorf(bx + g.src0), 0.f), (float)(g.rx - wx));
-    oxw = (oxw / 128) * 128;
-  }
-  for (int j = threadIdx.x; j < s; j += blockDim.x) {
-    float sj = fminf(fmaxf(((float)j + 0.5f) * g.st - 0.5f, 0.f), g.hi);
-    tap(by, sj, (float)oyw, w, &k.ytap[j], &k.yw0[j], &k.yw1[j]);
-    tap(bx, sj, (float)oxw, wx, &k.xtap[j], &k.xw0[j], &k.xw1[j]);
-  }
-  __syncthreads();
-
-  // ---- sampling: the x pass first, its partials rounded to bf16 ----
-  const Pixel* sub = win + oyw * stride + oxw;
-  for (int p = threadIdx.x; p < s * s; p += blockDim.x) {
-    const int j = p / s, i = p % s;  // y, x
-    const int v = k.ytap[j], u = k.xtap[i];
-    const float ty0 = k.yw0[j], ty1 = k.yw1[j];
-    const float tx0 = k.xw0[i], tx1 = k.xw1[i];
-    // a pixel is read only where its weight is non-zero: a zero-weight
-    // tap may lie outside the window
-    const int64_t r0 = (int64_t)v * stride, r1 = r0 + stride;
-    float p00 = ty0 * tx0 != 0.f ? load_pixel(sub, r0 + u) : 0.f;
-    float p01 = ty0 * tx1 != 0.f ? load_pixel(sub, r0 + u + 1) : 0.f;
-    float p10 = ty1 * tx0 != 0.f ? load_pixel(sub, r1 + u) : 0.f;
-    float p11 = ty1 * tx1 != 0.f ? load_pixel(sub, r1 + u + 1) : 0.f;
-    float q0 = round_bf16(tx0 * p00 + tx1 * p01);
-    float q1 = round_bf16(tx0 * p10 + tx1 * p11);
-    float val = q0 * ty0 + q1 * ty1;
-    if (g.quantize) val = fminf(fmaxf(floorf(val + 0.5f), 0.f), 255.f);
-    k.img[p] = val;  // (y, x)
-  }
-  __syncthreads();
-
-  // ---- gradients, bf16 magnitudes and sector bins (interior) ----
-  for (int p = threadIdx.x; p < s * s; p += blockDim.x) {
-    const int y = p / s, x = p % s;
-    float m = 0.f;
-    int b = -1;
-    if (y >= 1 && y <= s - 2 && x >= 1 && x <= s - 2) {
-      const float gx = k.img[p + 1] - k.img[p - 1];
-      const float gy = k.img[p + s] - k.img[p - s];
-      m = round_bf16(sqrtf(gx * gx + gy * gy));
-      const float ax = fabsf(gx), ay = fabsf(gy);
-      const bool px = gx >= 0.f, py = gy >= 0.f;
-      if (ay < ax * 0.41421356237f) {
-        b = px ? 0 : 4;
-      } else if (ay > ax * 2.41421356237f) {
-        b = py ? 2 : 6;
-      } else {
-        b = (px == py) ? (px ? 1 : 5) : (py ? 3 : 7);
-      }
-    }
-    k.mag[p] = m;
-    k.bin[p] = (int8_t)b;
-  }
-  __syncthreads();
-
-  // ---- x contraction: part[bin][cx][y], summed in increasing x ----
-  for (int t = threadIdx.x; t < c * s; t += blockDim.x) {
-    const int ccx = t / s, y = t % s;
-    int lo, hi_x;
-    support(ccx, cs, s, &lo, &hi_x);
-    float acc[kBins];
-#pragma unroll
-    for (int o = 0; o < kBins; ++o) acc[o] = 0.f;
-    for (int x = lo; x <= hi_x; ++x) {
-      const int p = y * s + x;
-      const int b = k.bin[p];
-      const float v = k.tent[x * c + ccx] * k.mag[p];
-#pragma unroll
-      for (int o = 0; o < kBins; ++o)
-        if (o == b) acc[o] = acc[o] + v;
-    }
-#pragma unroll
-    for (int o = 0; o < kBins; ++o)
-      k.part[(o * c + ccx) * s + y] = round_bf16(acc[o]);
-  }
-  __syncthreads();
-
-  // ---- y contraction: cells[bin][cx][cy], summed in increasing y ----
-  for (int t = threadIdx.x; t < kBins * cc; t += blockDim.x) {
-    const int row = t / c, ccy = t % c;  // row = bin * C + cx
-    int lo, hi_y;
-    support(ccy, cs, s, &lo, &hi_y);
-    const float* a = k.part + row * s;
-    float acc = 0.f;
-    for (int y = lo; y <= hi_y; ++y) acc = acc + a[y] * k.tent[y * c + ccy];
-    k.cells[t] = acc;
-  }
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < cc; t += blockDim.x) {
-    float e = 0.f;
-    for (int q = 0; q < kOrient; ++q) {
-      const float f = k.cells[q * cc + t] + k.cells[(q + kOrient) * cc + t];
-      e = e + f * f;
-    }
-    k.energy[t] = e;
-  }
-  __syncthreads();
-
-  // ---- block factors and Uoctti channels ----
-  for (int t = threadIdx.x; t < cc; t += blockDim.x)
-    cell_channels(t, c, k.cells, [&](int cell) { return k.energy[cell]; },
-                  dst);
 }
 
 }  // namespace fused

@@ -35,8 +35,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # landmarks per group, threads per block; stream
 _CASCADE = [_P] * 7 + [_I] * 12 + [_P]
 # the feature extractors' common tail: x, out, level tables, tents, eyes;
-# n, L, C, RY, RX, S; stream
-_FEATURES = [_P] * 6 + [_I] * 6 + [_P]
+# n, L, C, RY, RX, S, samples per block, landmarks per group, threads per
+# block; stream
+_FEATURES = [_P] * 6 + [_I] * 9 + [_P]
 KERNELS = {
     "hog_flat": {"hog_flat_launch":
                  [_P, _I, _P, _P, _P] + [_I] * 9 + [_P]},

@@ -63,22 +63,29 @@ weights and the two rows, and a detect call is one launch.
 
 K5 and K6 replace ``cascade_pallas.py::extract_features_fused_frames``
 (K5, ``_features_frames_kernel``) and ``extract_features_fused`` (K6,
-``_features_kernel``): the per-landmark arithmetic of K3/K4 (here the
-``__device__`` function in ``csrc/cascade_body.cuh``, with float32 buffers,
-one block per landmark) for ONE level,
+``_features_kernel``): the per-landmark arithmetic of K3/K4 for ONE level,
 with the patches always quantised, and the float32 channels written to
 device memory *before* the bf16 rounding that K3/K4 apply for their GEMV.
 Rows are exactly (N, L*D*C*C + 1) float32 in the reference's Matlab order,
 bias 1 last: no lane segments, no padded width, no compact column order, so
-a solve on these rows gives regressors in the reference's order. One thread
-block per (sample, landmark) (``csrc/features_fused.cu``): there is no GEMV
-and no dependence between landmarks, so a block need not hold a face; that
-gives L times the blocks, needs no feature row in shared memory (any
-landmark count fits) and costs one IED per block. What bounds them on the
-H100: the float32 operations of sampling and HOG (the bytes are the tapped
-window pixels plus the N x F float32 rows written once, 397 MB at 11,264
-RCR-22 samples); every intermediate stays in shared memory, so device
-memory sees only those.
+a solve on these rows gives regressors in the reference's order. What
+bounds them on the H100: the float32 operations of sampling and HOG (the
+bytes are the tapped window pixels plus the N x F float32 rows written
+once, 397 MB at 11,264 RCR-22 samples). The design
+(``csrc/features_fused.cu``): a block holds F samples and runs their
+landmarks in groups of GL, each phase over all F x GL bodies with one
+barrier after it (taps, sampling, gradients with the x contraction, y
+contraction, channels, row stores), so a sample's IED and patch half are
+computed once and the level's tent staged once per block, and the small
+phases fill the block. Buffers are compact and exact (uint8 patches, bf16 x
+partials, aliased where their lives do not overlap). The gradients are
+formed where the x contraction needs them, a thread per patch row, and go
+straight into per-bin accumulators; a group's channels are staged and
+stored as 16-byte words where the odd row width allows.
+``features_launch_plan`` picks F, GL and the block size from the patch
+side, the shared memory, the blocks an SM holds and the batch. Every
+intermediate stays in shared memory, so device memory sees only the pixels
+and the rows.
 
 Intended differences from the JAX kernels: any number of levels (the JAX
 ops take at most 4); a face whose frame index or window origin lies outside
@@ -471,14 +478,6 @@ def _aligned_sum(sizes):
     return sum(_aligned(b) for b in sizes)
 
 
-def _body_shared_bytes(c, s):
-    """Shared memory of one K5 / K6 block, as csrc/cascade_body.cuh lays
-    it out (every buffer 16-byte aligned), after 4 scalars."""
-    return _aligned_sum([4 * 4, s * 4, s * 4, s * 4, s * 4, s * 4, s * 4,
-                         s * c * 4, s * s * 4, s * s * 4, 8 * c * s * 4,
-                         8 * c * c * 4, c * c * 4, s * s])
-
-
 def _shared_bytes(l, c, s, quantize, faces, group, threads=_THREADS):
     """Dynamic shared memory of one K3 / K4 block of ``threads`` threads,
     ``faces`` faces and ``faces * group`` landmark bodies, as
@@ -731,6 +730,86 @@ detect_cascade_fused.launches = 0
 # ------------------------------------------------------------------ #
 # K5 / K6: one level's feature rows
 # ------------------------------------------------------------------ #
+_FEATURES_THREADS = (128, _THREADS)  # block sizes K5 / K6 are built for
+_X_ACCUMULATORS = 16  # a thread's x contraction sums: 2 cell slots x 8 bins
+
+
+def _features_shared_bytes(c, s, faces, group, threads):
+    """Dynamic shared memory of one K5 / K6 block of ``threads`` threads,
+    ``faces`` samples and ``faces * group`` landmark bodies, as
+    csrc/features_fused.cu's Layout lays it out (every buffer 16-byte
+    aligned): the level's tent, the cell table of the pixel columns
+    (accumulator offsets, last flags and weights), one flag, per sample its
+    patch half, window and stride, per body its sub-window origin, the x
+    contraction's accumulators (16 per thread); per body its taps (an
+    offset and two weights per row and column), then its bf16 x partials, and its uint8 patch, then
+    its cell histograms, energy terms and float32 channels."""
+    cc, bodies = c * c, faces * group
+    block = _aligned_sum([s * c * 4, s * 16, s * 8, 4, faces * 4, faces * 8,
+                          faces * 8, bodies * 8,
+                          _X_ACCUMULATORS * threads * 4])
+    taps = 2 * _aligned(s * 16)
+    stage = _aligned_sum([8 * cc * 4, 4 * cc * 4, 16 * cc * 4])
+    body = (_aligned(max(taps, 8 * c * s * 2))
+            + _aligned(max(s * s, stage)))
+    return block + bodies * body
+
+
+def features_blocks_per_sm(plan: LaunchPlan) -> int:
+    """Blocks of a K5 / K6 ``plan`` that one SM holds at once: 1,024
+    threads (the kernel's register budget of 64 a thread), fewer where
+    their shared memory (and the 1 KB the card reserves per block) exceeds
+    the SM's."""
+    return min(1024 // plan.threads,
+               _SM_SHARED // (plan.shared_bytes + _BLOCK_RESERVED))
+
+
+def _even_groups(l, s, c, threads):
+    """The landmark groups of at most one round (``group * s <= threads``)
+    that cut L as evenly as their count allows and fit in a block, widest
+    first."""
+    groups = []
+    for rounds in range(-(-l // max(1, min(l, threads // s))), l + 1):
+        group = -(-l // rounds)
+        if groups and group >= groups[-1]:
+            continue
+        if _features_shared_bytes(c, s, 1, group, threads) <= _MAX_SHARED:
+            groups.append(group)
+    return groups
+
+
+@functools.lru_cache(maxsize=4096)
+def features_launch_plan(n, l, c, s, sms) -> LaunchPlan:
+    """K5 / K6's launch plan for N samples of L landmarks at patch side S
+    with C cells on a card of ``sms`` SMs: one sample per block and its
+    landmarks in even groups of at most one round (a group's patch rows fit
+    in the block's threads, so the x contraction takes one task per thread).
+    Blocks of 128 threads where they hold three patch rows or more and the
+    batch fills every SM with them, else of 256; the widest group, unless
+    the batch fits the card in one wave only with a narrower one (as the
+    windows path's chunks of 512 samples at S = 30 do). Raises ValueError
+    when not even one body fits in a block."""
+    def plans(threads):
+        return [LaunchPlan(1, g, threads,
+                           _features_shared_bytes(c, s, 1, g, threads))
+                for g in _even_groups(l, s, c, threads)]
+
+    def waves(plan):
+        return -(-n // (features_blocks_per_sm(plan) * sms))
+    small = plans(128) if 128 // s >= 3 else []
+    candidates = small if small and waves(small[0]) > 1 else plans(_THREADS)
+    if not candidates:
+        raise ValueError(
+            f"patch size {s} with {c} cells needs "
+            f"{_features_shared_bytes(c, s, 1, 1, _THREADS)} bytes of shared "
+            f"memory for one landmark body; one block has {_MAX_SHARED}")
+    if waves(candidates[0]) > 1:
+        for plan in candidates[1:]:
+            if waves(plan) == 1:
+                return plan
+    return candidates[0]
+
+
 def _check_level(n_landmarks, ry, rx, level, cell_size, num_orientations,
                  dims, r_idx, l_idx):
     """Validate one level's static configuration; returns the level as
@@ -746,24 +825,37 @@ def _check_level(n_landmarks, ry, rx, level, cell_size, num_orientations,
     _check_geometry(level, ry, rx)
     _check_eyes(n_landmarks, r_idx, l_idx)
     c = hog_num_cells(s, cell_size)
-    if _body_shared_bytes(c, s) > _MAX_SHARED:
+    if _features_shared_bytes(c, s, 1, 1, min(_FEATURES_THREADS)) \
+            > _MAX_SHARED:
         raise ValueError(f"patch size {s} with {c} cells needs more shared "
                          "memory than one block has")
     return level, c, n_landmarks * dims * c * c + 1
 
 
-def _features_launch_args(x, level, cell_size, r_idx, l_idx, ry, rx, c, f):
+def _features_launch_args(x, level, cell_size, r_idx, l_idx, ry, rx, c, f,
+                          plan=None):
+    """The C entry points' arguments after the window source: x, out, the
+    tables, the shapes and ``features_launch_plan``'s (samples per block,
+    landmarks per group, threads). ``plan`` overrides it, for
+    ``chip_smoke.py``'s sweep and the plan tests only."""
     dev = x.device
     level_i, level_rel, tents, eyes = _level_tables(
         (level,), (int(cell_size),), tuple(int(i) for i in r_idx),
         tuple(int(i) for i in l_idx), dev)
-    out = torch.empty((x.shape[0], f), dtype=torch.float32, device=dev)
+    n, l = x.shape[0], x.shape[1] // 2
+    if plan is None:
+        plan = features_launch_plan(n, l, c, level[0], _sm_count(dev))
+    faces, group, threads = plan[:3]
+    if threads not in _FEATURES_THREADS or not (faces >= 1 and
+                                                 1 <= group <= l):
+        raise ValueError(f"no K5 / K6 launch plan {tuple(plan[:3])}")
+    out = torch.empty((n, f), dtype=torch.float32, device=dev)
     args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(level_i.data_ptr()),
             ctypes.c_void_p(level_rel.data_ptr()),
             ctypes.c_void_p(tents.data_ptr()),
             ctypes.c_void_p(eyes.data_ptr()),
-            x.shape[0], x.shape[1] // 2, c, ry, rx, level[0],
+            n, l, c, ry, rx, level[0], faces, group, threads,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
     return out, args
 
@@ -820,7 +912,16 @@ def extract_features_fused_frames(frames: torch.Tensor, image_indices, oy,
     if n == 0:
         return out
     from superviseddescent_tpu_torch.ops._build import load_library
-    lib = load_library("features_fused")
+    _launch_features_frames(load_library("features_fused"), frames, idx, oy,
+                            ox, args)
+    extract_features_fused_frames.launches += 1
+    return out
+
+
+def _launch_features_frames(lib, frames, idx, oy, ox, args):
+    """K5's launch from ``lib`` (the entry point's build, or a measurement
+    build of the same source) with ``_features_launch_args``' arguments."""
+    n_img, h, w = frames.shape
     err = lib.features_fused_frames_launch(
         ctypes.c_void_p(frames.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
         ctypes.c_void_p(oy.data_ptr()), ctypes.c_void_p(ox.data_ptr()),
@@ -828,8 +929,6 @@ def extract_features_fused_frames(frames: torch.Tensor, image_indices, oy,
     if err != 0:
         raise RuntimeError(
             f"features_fused_frames kernel launch failed: CUDA error {err}")
-    extract_features_fused_frames.launches += 1
-    return out
 
 
 extract_features_fused_frames.launches = 0
@@ -862,14 +961,18 @@ def extract_features_fused(windows: torch.Tensor, x: torch.Tensor, level,
     if x.shape[0] == 0:
         return out
     from superviseddescent_tpu_torch.ops._build import load_library
-    lib = load_library("features_fused")
+    _launch_features(load_library("features_fused"), windows, args)
+    extract_features_fused.launches += 1
+    return out
+
+
+def _launch_features(lib, windows, args):
+    """K6's launch from ``lib`` with ``_features_launch_args``' arguments."""
     err = lib.features_fused_launch(ctypes.c_void_p(windows.data_ptr()),
                                     *args)
     if err != 0:
         raise RuntimeError(
             f"features_fused kernel launch failed: CUDA error {err}")
-    extract_features_fused.launches += 1
-    return out
 
 
 extract_features_fused.launches = 0

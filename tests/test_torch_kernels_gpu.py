@@ -545,6 +545,205 @@ def test_features_out_of_range_index_gives_nan_row_and_empty(cuda,
     assert extract_features_fused_frames.launches == before
 
 
+# K5 / K6 launch plans (samples per block, landmarks per group, threads):
+# every block size, one and several samples per block, groups that leave
+# RCR-22's last group ragged, and features_launch_plan's
+FEATURE_PLANS = (None, (1, 1, 128), (1, 4, 128), (1, 5, 256), (1, 7, 256),
+                 (2, 3, 256), (3, 2, 128), (1, 22, 256))
+
+
+def features_plan_case(cuda, model, stack, boxes, idx, n, spread=1.0,
+                       jitter_px=3.0):
+    """n samples (the faces repeated) of a family at every level: the K5
+    arguments (frames, indices, origins, rows, window) and K6's (bf16
+    windows, rows), per level. The rows are the aligned mean, spread about
+    each face's centre by ``spread`` and moved by up to ``jitter_px``."""
+    from superviseddescent_tpu_torch.models.rcr import align_mean, rows_shift
+    sel = torch.arange(n, device=cuda) % boxes.shape[0]
+    boxes, idx = boxes[sel], idx[sel]
+    det = model.make_fused_detector(roi=512)
+    n_lm = len(model.landmark_ids)
+    rng = np.random.default_rng(n)
+    jitter = torch.from_numpy(rng.uniform(-jitter_px, jitter_px,
+                                          (n, 2 * n_lm)).astype(
+        np.float32)).to(cuda)
+    mean = align_mean(model.mean[None], boxes)
+    centre = torch.cat([mean[:, :n_lm].mean(1, keepdim=True).expand(-1, n_lm),
+                        mean[:, n_lm:].mean(1, keepdim=True).expand(-1, n_lm)],
+                       dim=1)
+    x_img = centre + spread * (mean - centre) + jitter
+    oy, ox, window = det.aligned_origins(stack, boxes)
+    windows, wox, woy = det.crop(stack.float(), boxes, idx)
+    return (det, (stack, idx, oy, ox,
+                  x_img - rows_shift(ox.float(), oy.float(), n_lm), window),
+            (windows, x_img - rows_shift(wox, woy, n_lm)))
+
+
+def features_at_plan(frames_args, windows_args, level, cs, eyes, plan):
+    """K5 and K6 at ``plan`` through the entry point's library (these
+    launches do not count)."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        _check_level, _features_launch_args, _launch_features,
+        _launch_features_frames)
+    lib = load_library("features_fused")
+    frames, idx, oy, ox, x, window = frames_args
+    lv, c, f = _check_level(x.shape[1] // 2, *window, level, cs, 4, 16,
+                            *eyes)
+    out5, args = _features_launch_args(x, lv, cs, *eyes, *window, c, f,
+                                       plan)
+    _launch_features_frames(lib, frames, idx, oy, ox, args)
+    windows, x6 = windows_args
+    lv6, _, _ = _check_level(x.shape[1] // 2, *windows.shape[1:], level, cs,
+                             4, 16, *eyes)
+    out6, args = _features_launch_args(x6, lv6, cs, *eyes,
+                                       *windows.shape[1:], c, f, plan)
+    _launch_features(lib, windows, args)
+    return out5, out6
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4099])
+def test_features_kernels_every_plan(cuda, rcr22_faces, n):
+    """K5 and K6 against their twins at every launch plan and level, at
+    batches whose rows start off 16-byte boundaries (the row width 8,801 is
+    odd) and that leave the last block of a many-sample plan part empty:
+    the same bits for every plan."""
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        extract_features_fused_frames_reference,
+        extract_features_fused_reference)
+    model, stack, boxes, idx = rcr22_faces
+    det, frames_args, windows_args = features_plan_case(
+        cuda, model, stack, boxes, idx, n)
+    eyes = (det.r_idx, det.l_idx)
+    for li, level in enumerate(det.levels):
+        cs = det.cell_sizes[li]
+        ref5 = extract_features_fused_frames_reference(
+            *frames_args, level, cs, *eyes)
+        ref6 = extract_features_fused_reference(*windows_args, level, cs,
+                                                *eyes)
+        first = None
+        for plan in FEATURE_PLANS:
+            got5, got6 = features_at_plan(frames_args, windows_args, level,
+                                          cs, eyes, plan)
+            assert float((got5 - ref5).abs().max()) <= FEATURES_ATOL, plan
+            assert float((got6 - ref6).abs().max()) <= FEATURES_ATOL, plan
+            assert bool((got5[:, -1] == 1).all())
+            if first is None:
+                first = got5
+            assert torch.equal(got5, first), plan
+
+
+@pytest.mark.parametrize("spread,jitter_px", [(0.4, 3.0), (1.8, 40.0)])
+def test_features_kernels_where_taps_leave_the_sub_window(
+        cuda, rcr22_faces, spread, jitter_px):
+    """Landmarks drawn together (patches narrower than their side, output
+    rows sharing source rows) or spread out and moved by up to 40 px
+    (patches that reach past their sub-windows, whose outer taps have
+    weight 0 and are moved inside with their weights): K5 and K6 equal
+    their twins at every level and plan."""
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        extract_features_fused_frames_reference,
+        extract_features_fused_reference)
+    model, stack, boxes, idx = rcr22_faces
+    det, frames_args, windows_args = features_plan_case(
+        cuda, model, stack, boxes, idx, 64, spread, jitter_px)
+    eyes = (det.r_idx, det.l_idx)
+    for li, level in enumerate(det.levels):
+        cs = det.cell_sizes[li]
+        ref5 = extract_features_fused_frames_reference(
+            *frames_args, level, cs, *eyes)
+        ref6 = extract_features_fused_reference(*windows_args, level, cs,
+                                                *eyes)
+        for plan in (None, (1, 4, 128), (2, 3, 256)):
+            got5, got6 = features_at_plan(frames_args, windows_args, level,
+                                          cs, eyes, plan)
+            assert float((got5 - ref5).abs().max()) <= FEATURES_ATOL, \
+                (li, plan)
+            assert float((got6 - ref6).abs().max()) <= FEATURES_ATOL, \
+                (li, plan)
+
+
+def test_features_kernels_68_landmarks_ragged_group(cuda, rcr22_faces):
+    """ibug-68 (27,201 features) at the entry point's plan and at two whose
+    last landmark group is ragged (68 = 13 x 5 + 3 = 22 x 3 + 2)."""
+    import os
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        extract_features_fused_frames_reference,
+        extract_features_fused_reference)
+    _, stack, boxes, idx = rcr22_faces
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = DetectionModel.load(
+        os.path.join(repo, "pretrained", "rcr68_lfpw5.bin"), device="cuda")
+    n = 37
+    det, frames_args, windows_args = features_plan_case(
+        cuda, model, stack, boxes, idx, n)
+    eyes = (det.r_idx, det.l_idx)
+    for li, level in enumerate(det.levels):
+        cs = det.cell_sizes[li]
+        ref5 = extract_features_fused_frames_reference(
+            *frames_args, level, cs, *eyes)
+        ref6 = extract_features_fused_reference(*windows_args, level, cs,
+                                                *eyes)
+        assert ref5.shape == (n, 27201)
+        for plan in (None, (1, 5, 256), (2, 3, 256)):
+            got5, got6 = features_at_plan(frames_args, windows_args, level,
+                                          cs, eyes, plan)
+            assert float((got5 - ref5).abs().max()) <= FEATURES_ATOL, plan
+            assert float((got6 - ref6).abs().max()) <= FEATURES_ATOL, plan
+
+
+@pytest.mark.parametrize("plan", [None, (2, 3, 256), (3, 2, 128)])
+def test_features_nan_rows_share_blocks_with_good_ones(cuda, rcr22_faces,
+                                                       plan):
+    """Samples whose frame index or origin lies outside the stack get rows
+    of NaN, bias included, beside good samples of the same block; N = 0
+    launches nothing."""
+    from superviseddescent_tpu_torch.ops.cascade_fused import (
+        extract_features_fused_frames)
+    model, stack, boxes, idx = rcr22_faces
+    det, frames_args, windows_args = features_plan_case(
+        cuda, model, stack, boxes, idx, 12)
+    frames, idx, oy, ox, x, window = frames_args
+    eyes = (det.r_idx, det.l_idx)
+    level, cs = det.levels[0], det.cell_sizes[0]
+    good, _ = features_at_plan(frames_args, windows_args, level, cs, eyes,
+                               plan)
+    bad_idx, bad_ox = idx.clone(), ox.clone()
+    bad_idx[4] = stack.shape[0]
+    bad_ox[7] = -128
+    rows, _ = features_at_plan((frames, bad_idx, oy, bad_ox, x, window),
+                               windows_args, level, cs, eyes, plan)
+    assert bool(torch.isnan(rows[[4, 7]]).all())
+    keep = torch.ones(12, dtype=torch.bool, device=cuda)
+    keep[[4, 7]] = False
+    assert torch.equal(rows[keep], good[keep])
+    before = extract_features_fused_frames.launches
+    empty = extract_features_fused_frames(frames, idx[:0], oy[:0], ox[:0],
+                                          x[:0], window, level, cs, 4, 16,
+                                          *eyes)
+    assert empty.shape == (0, 8801)
+    assert extract_features_fused_frames.launches == before
+
+
+def test_features_whole_number_square_root_is_sqrtf(cuda):
+    """K5 / K6's gradient magnitude takes sqrtf's fast path without its
+    range check: the same bits as sqrtf for every squared gradient length
+    a uint8 patch gives (whole numbers from 1 to 2 * 255^2)."""
+    import ctypes
+    from superviseddescent_tpu_torch.ops._build import load_library
+    fn = load_library("features_fused",
+                      ("FEATURES_SQRT_TABLE",)).features_sqrt_table
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = 2 * 255 ** 2 + 1
+    whole = torch.empty(n, device=cuda)
+    ref = torch.empty_like(whole)
+    assert fn(whole.data_ptr(), ref.data_ptr(), n) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(whole[1:], ref[1:])
+
+
 # ------------------------------------------------------------------ #
 # the ridge solver on the card: true float32 whatever the TF32 flag says
 # ------------------------------------------------------------------ #
