@@ -80,6 +80,22 @@ its trained model's error (and, for this checkout's package, ``k5_split``;
 with ``--sweep`` also at the launch plans ``K5_SWEEP``); with
 ``--package-root`` the package of another checkout.
 
+The probes' phase prints each P1-P3 variant's and ABDE's device time
+(torch.profiler) beside its bound, its twin's time and the recorded time
+of the kernel before its redesign (``PROBE_BEFORE_MS``, in the log only),
+and the device time of an empty kernel, the launch floor under C and C4.
+
+    python3 chip_smoke.py --probes [--sweep] [--package-root DIR]
+
+times only the probes: every P1-P3 variant, G and pre at the probe
+scripts' shapes and the three P5 kernels, through their entry points,
+each held against its twin, with P1 ``full``'s split (``probe_split``:
+measurement builds without stores and without window reads, thread 0's
+cycles per phase) and the launch floor; with ``--package-root`` also
+another checkout's package, in a child process, in the order other, this,
+this, other, side by side; with ``--sweep`` also P1 ``full`` at other
+launch plans (``PROBE_SWEEP``).
+
 It checks each path's launch counts, each kernel against its twin at the
 path's own inputs, the rows against the port's CPU path, the train-set IOD
 error and the fused rows against the exact stepped rows, the trained
@@ -1308,7 +1324,8 @@ def phase_probes(torch, seed):
     against ``2 * x`` and P5 against its twins and the numpy emulation."""
     import numpy as np
     from superviseddescent_tpu_torch import probes
-    from superviseddescent_tpu_torch.ops.patches_window import _tap_plan
+    from superviseddescent_tpu_torch.ops.patches_window import (
+        _tap_plan, _taps)
     from superviseddescent_tpu_torch.probes.dyn import (
         ABDE_RTOL, probe_abde, probe_abde_reference, probe_c, probe_c4,
         probe_c_reference)
@@ -1367,7 +1384,11 @@ def phase_probes(torch, seed):
     def same_bits(a, b):
         return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
 
-    kernels = []
+    def label_probe(tag):
+        return "P2" if tag.startswith("G=") else (
+            "P3" if tag.startswith("pre=") else "P1")
+
+    kernels, device_times = [], {}
     # ---- P1-P3 against the twin and against each other ----
     windows = probes.sampler_windows(seed, batch, roi, "cuda")
     cx, cy = probes.sampler_centres(seed, batch, n_lm, roi)
@@ -1402,30 +1423,62 @@ def phase_probes(torch, seed):
         log(f"[probes] {head}: G = 1, 2, 4 and pre = 0, 1 give the bits of "
             f"full")
         del outs, got
+        # each label's device time beside its bound, its twin's time and
+        # the kernel's recorded time before its redesign (PROBE_BEFORE_MS)
+        st, ph = sp.reshape(batch, 2).unbind(1)
+        full_plan = _tap_plan(roi, roi, oxy.reshape(batch, -1),
+                              sp.reshape(batch, 2), s, w, wx, True, True)
+        j = torch.arange(s, dtype=torch.float32, device="cuda")[None, :]
+        src = torch.minimum(torch.clamp((j + 0.5) * st[:, None] - 0.5,
+                                        min=0.0), 2.0 * ph[:, None] - 1.0)
+        zero = torch.zeros((batch, n_lm), device="cuda")
+        shared_plan = full_plan[:2] + (_taps(zero, src, zero, w, True, True),
+                                       _taps(zero, src, zero, wx, True, True))
+        torch.cuda.empty_cache()
+        out_bytes = batch * n_lm * s * s * 2 + (oxy.numel() + sp.numel()) * 4
+        b_ops = batch * n_lm * s * s * 15 / F32_OPS_PER_S
+        reads = {"full": read_pixels(torch, (roi, roi), [full_plan]),
+                 "shared": read_pixels(torch, (roi, roi), [shared_plan]),
+                 "nodot": 0}
+        del full_plan, shared_plan
+        torch.cuda.empty_cache()
+        twin_ms = {v: cuda_time_ms(probe_sampler_reference, windows, oxy, sp,
+                                   s, w, wx, v, reps=2, warmup=1)[0]
+                   for v in VARIANTS}
+        calls = {variant: (lambda v=variant: probe_sampler(
+            windows, oxy, sp, v, s, w, wx)) for variant in VARIANTS}
+        calls.update({f"G={g}": (lambda g=g: probe_sampler_g(
+            windows, oxy, sp, g, s, w, wx)) for g in (1, 2, 4)})
+        calls.update({f"pre={p}": (lambda p=p: probe_sampler_pre(
+            windows, oxy, sp, oo, p, s, w, wx)) for p in (0, 1)})
+        for tag, call in calls.items():
+            label = f"{head} {tag}"
+            variant = tag if tag in VARIANTS else "full"
+            extra = oo.numel() * 4 if tag == "pre=1" else 0
+            bytes_ms = (out_bytes + reads[variant] * 2 + extra) \
+                / MEM_BYTES_PER_S * 1e3
+            bound = max(bytes_ms, b_ops * 1e3 if variant != "nodot" else 0.0)
+            ms = device_ms(torch, call, match="probe_")
+            device_times[label] = dict(ms=ms, bound_ms=bound,
+                                       bytes_ms=bytes_ms,
+                                       plain_ms=twin_ms[variant])
+            log(f"[probes] {label}: {ms:.4f} ms device time (run_all's CUDA "
+                f"events {by_label[(label_probe(tag), label)]['ms']:.4f}); "
+                f"bound {bound:.4f} ms (bytes, {reads[variant]} window "
+                f"pixels); plain twin {twin_ms[variant]:.2f} ms; before the "
+                f"redesign {PROBE_BEFORE_MS[label]} ms")
         if si:
             continue
-        # the kernels' line: the first (the larger) shape
-        plain_ms, _ = cuda_time_ms(probe_sampler_reference, windows, oxy, sp,
-                                   s, w, wx, "full", reps=2, warmup=1)
-        torch.cuda.empty_cache()
-        read = read_pixels(torch, (roi, roi), [_tap_plan(
-            roi, roi, oxy.reshape(batch, -1), sp.reshape(batch, 2), s, w, wx,
-            True, True)])
-        torch.cuda.empty_cache()
-        b_bytes = (batch * n_lm * s * s * 2 + read * 2
-                   + (oxy.numel() + sp.numel()) * 4) / MEM_BYTES_PER_S
-        b_ops = batch * n_lm * s * s * 15 / F32_OPS_PER_S
-        log(f"[probes] {head} full: bound {max(b_bytes, b_ops) * 1e3:.4f} ms "
-            f"(bytes {b_bytes * 1e3:.4f} with {read} window pixels, "
-            f"operations {b_ops * 1e3:.4f}); plain twin {plain_ms:.2f} ms")
-        for name, key in (("probe_sampler", ("P1", f"{head} full")),
-                          ("probe_sampler_g/G=4", ("P2", f"{head} G=4")),
-                          ("probe_sampler_pre/pre=1",
-                           ("P3", f"{head} pre=1"))):
-            # pre = 1 also reads the int32 origins
-            extra = oo.numel() * 4 / MEM_BYTES_PER_S if "pre" in name else 0.0
-            kernels.append(entry(name, by_label[key]["ms"], err, plain_ms,
-                                 b_bytes + extra, b_ops))
+        # the kernels' line: the first (the larger) shape, ms between CUDA
+        # events (run_all's): the profiler sessions above have read 0.48x
+        # to 2.2x the events' time in some runs (PERF.md section 7)
+        for name, label in (("probe_sampler", f"{head} full"),
+                            ("probe_sampler_g/G=4", f"{head} G=4"),
+                            ("probe_sampler_pre/pre=1", f"{head} pre=1")):
+            t = device_times[label]
+            kernels.append(entry(
+                name, by_label[(label_probe(label.split()[-1]), label)]["ms"],
+                err, t["plain_ms"], t["bytes_ms"] / 1e3, b_ops))
     del windows, full
     torch.cuda.empty_cache()
 
@@ -1493,6 +1546,10 @@ def phase_probes(torch, seed):
                          call=lambda: probe_abde(xd, win, *shape),
                          plain_call=lambda: probe_abde_reference(
                              xd, win, *shape)))
+    log(f"[probes] ABDE: {kernels[-1]['ms']:.4f} ms device time; bound "
+        f"{max(abde_bytes, abde_ops) * 1e3:.5f} ms; plain twin's kernels "
+        f"{kernels[-1]['plain_ms']:.4f} ms; before the redesign "
+        f"{PROBE_BEFORE_MS['ABDE']} ms")
     ref_c = probe_c_reference(v, g_n, d["br"])
     got_c, got_c4 = probe_c(v, g_n, d["br"]), probe_c4(v, g_n, d["br"])
     same = bool(torch.equal(got_c, ref_c)) and bool(torch.equal(got_c4,
@@ -1514,7 +1571,12 @@ def phase_probes(torch, seed):
             float((out - ref_c).abs().max()), plain_ms, c_bytes, c_ops,
             call=lambda fn=fn: fn(v, g_n, d["br"]),
             plain_call=lambda: probe_c_reference(v, g_n, d["br"])))
-    return dict(records=records, launches=launches, kernels=kernels)
+    floor_ms = launch_floor_ms(torch)
+    log(f"[probes] an empty kernel (one 256-thread block): {floor_ms:.4f} ms "
+        f"device time, the floor under C ({kernels[-2]['ms']:.4f} ms) and "
+        f"C4 ({kernels[-1]['ms']:.4f} ms)")
+    return dict(records=records, launches=launches, kernels=kernels,
+                device_times=device_times, launch_floor_ms=floor_ms)
 
 
 # the kernel of l2_flusher's call, which device_ms leaves out
@@ -2982,6 +3044,220 @@ def k5_levels(torch, data, split=False, sweep=False):
     return out
 
 
+# measurement builds of the P1-P3 source for probe_split, never entry
+# points: every pixel computed and none stored; every tap taken from an
+# arithmetic stand-in instead of the window (no window read); thread 0's
+# cycles per phase
+PROBE_BUILDS = (("probe_sampler", ("PROBE_SKIP_STORE",)),
+                ("probe_sampler", ("PROBE_NO_GATHER",)),
+                ("probe_sampler", ("PROBE_PHASE_CLOCKS",)))
+PROBE_PHASES = ("origins and tables", "taps, products and tile", "stores")
+# P1-P3 and P5 before their redesign: device ms (torch.profiler) at the
+# probe scripts' shapes, on an NVIDIA H100 80GB HBM3 at 700.00 W, the mean
+# of two runs of ``--probes --package-root`` on a checkout of those kernels
+PROBE_BEFORE_MS = {
+    "S=55 W=160 WX=384 full": 0.45527, "S=55 W=160 WX=384 shared": 0.43654,
+    "S=55 W=160 WX=384 nodot": 0.19831, "S=55 W=160 WX=384 G=1": 0.4556,
+    "S=55 W=160 WX=384 G=2": 0.45999, "S=55 W=160 WX=384 G=4": 0.66305,
+    "S=55 W=160 WX=384 pre=0": 0.45562, "S=55 W=160 WX=384 pre=1": 0.47117,
+    "S=40 W=72 WX=256 full": 0.22975, "S=40 W=72 WX=256 shared": 0.2149,
+    "S=40 W=72 WX=256 nodot": 0.12519, "S=40 W=72 WX=256 G=1": 0.22823,
+    "S=40 W=72 WX=256 G=2": 0.24146, "S=40 W=72 WX=256 G=4": 0.35261,
+    "S=40 W=72 WX=256 pre=0": 0.22813, "S=40 W=72 WX=256 pre=1": 0.22797,
+    "ABDE": 0.31954, "C": 0.00344, "C4": 0.00658}
+# the threads a P1-P3 plan aims at, which ``--probes --sweep`` times beside
+# launch_plan's at every G
+PROBE_SWEEP = (256, 384, 512, 640, 768, 896, 1024)
+
+
+def probe_cases(torch, seed, batch=1024, roi=512, n_lm=22):
+    """The sampler probes' inputs at the probe scripts' shapes: yields
+    (head, windows, oxy, sp, oo, s, w, wx), ``run_all``'s inputs."""
+    from superviseddescent_tpu_torch import probes
+    from superviseddescent_tpu_torch.probes.sampler import sub_window_origins
+    windows = probes.sampler_windows(seed, batch, roi, "cuda")
+    cx, cy = probes.sampler_centres(seed, batch, n_lm, roi)
+    for s, w, wx, ph in probes.SAMPLER_SHAPES:
+        oxy, sp = probes.sampler_inputs(cx, cy, s, ph, "cuda")
+        oo = sub_window_origins(oxy, sp, roi, roi, s, w, wx)
+        yield f"S={s} W={w} WX={wx}", windows, oxy, sp, oo, s, w, wx
+
+
+def probe_times(torch, seed):
+    """Device ms (torch.profiler, mean of 20 launches) of every P1-P3
+    variant, G and pre at the probe scripts' shapes and of the three P5
+    kernels, through their entry points, each output held against its twin:
+    {label: dict(ms, unequal)} (P1 variants against the twin, G and pre
+    against P1 full, in unequal entries; ABDE's relative error against its
+    twin; C / C4 unequal entries). Times the package on ``sys.path``."""
+    from superviseddescent_tpu_torch import probes
+    from superviseddescent_tpu_torch.probes.dyn import (
+        probe_abde, probe_abde_reference, probe_c, probe_c4,
+        probe_c_reference)
+    from superviseddescent_tpu_torch.probes.sampler import (
+        VARIANTS, probe_sampler, probe_sampler_g, probe_sampler_pre,
+        probe_sampler_reference)
+
+    def unequal(a, b):
+        return int((a.view(torch.int16) != b.view(torch.int16)).sum())
+
+    out = {}
+    for head, windows, oxy, sp, oo, s, w, wx in probe_cases(torch, seed):
+        full = probe_sampler(windows, oxy, sp, "full", s, w, wx)
+        for variant in VARIANTS:
+            got = probe_sampler(windows, oxy, sp, variant, s, w, wx)
+            ref = probe_sampler_reference(windows, oxy, sp, s, w, wx, variant)
+            out[f"{head} {variant}"] = dict(ms=device_ms(
+                torch, lambda v=variant: probe_sampler(windows, oxy, sp, v, s,
+                                                       w, wx),
+                match="probe_"), unequal=unequal(got, ref))
+            del got, ref
+        for g in (1, 2, 4):
+            got = probe_sampler_g(windows, oxy, sp, g, s, w, wx)
+            out[f"{head} G={g}"] = dict(ms=device_ms(
+                torch, lambda g=g: probe_sampler_g(windows, oxy, sp, g, s, w,
+                                                   wx),
+                match="probe_"), unequal=unequal(got, full))
+        for pre in (0, 1):
+            got = probe_sampler_pre(windows, oxy, sp, oo, pre, s, w, wx)
+            out[f"{head} pre={pre}"] = dict(ms=device_ms(
+                torch, lambda p=pre: probe_sampler_pre(windows, oxy, sp, oo,
+                                                       p, s, w, wx),
+                match="probe_"), unequal=unequal(got, full))
+        del full, got
+    del windows
+    torch.cuda.empty_cache()
+    d = probes.DYN
+    xd, win, v = probes.dyn_inputs(seed, "cuda", **d)
+    shape = (d["s"], d["w"], d["wx"], d["seg"])
+    got = probe_abde(xd, win, *shape)
+    ref = probe_abde_reference(xd, win, *shape)
+    out["ABDE"] = dict(ms=device_ms(torch, lambda: probe_abde(xd, win, *shape),
+                                    match="probe_"),
+                       rel=float(((got - ref).abs() / ref.abs()).max()))
+    ref_c = probe_c_reference(v, d["g"], d["br"])
+    for tag, fn in (("C", probe_c), ("C4", probe_c4)):
+        out[tag] = dict(ms=device_ms(torch, lambda fn=fn: fn(v, d["g"],
+                                                            d["br"]),
+                                     match="probe_"),
+                        unequal=int((fn(v, d["g"], d["br"]) != ref_c).sum()))
+    return out
+
+
+def launch_floor_ms(torch):
+    """Device ms (torch.profiler) of an empty kernel of one 256-thread
+    block: the floor under every launch, C's and C4's included."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    lib = load_library("probe_dyn")
+    return device_ms(torch, lambda: check(lib.probe_empty_launch(
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)) == 0,
+        "the empty kernel's launch"), match="probe_")
+
+
+def probe_split(torch, seed):
+    """Where P1 ``full``'s time goes at each probe shape (device ms,
+    torch.profiler): the kernel whole, without its stores and without its
+    window reads (measurement builds, launched here only), and thread 0's
+    cycles per phase."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.probes import sampler
+    out = {}
+    for head, windows, oxy, sp, oo, s, w, wx in probe_cases(torch, seed):
+        n, l = oxy.shape[0], oxy.shape[2] // 2
+        dst = torch.empty((n, l, s, s), dtype=torch.bfloat16, device="cuda")
+
+        def call(defines=()):
+            lib = load_library("probe_sampler", defines)
+            return lambda: sampler._launch(lib, windows, oxy, sp, oo, dst,
+                                           "full", 1, False, s, w, wx)
+        split = dict(ms=device_ms(torch, call(), match="probe_"),
+                     no_store_ms=device_ms(torch, call(PROBE_BUILDS[0][1]),
+                                           match="probe_"),
+                     no_gather_ms=device_ms(torch, call(PROBE_BUILDS[1][1]),
+                                            match="probe_"))
+        split["phases"] = phase_cycles(
+            torch, "probe_sampler", "probe_phase_cycles", PROBE_BUILDS[2][1],
+            call(PROBE_BUILDS[2][1]), PROBE_PHASES)
+        log(f"[split] P1 {head} full: whole {split['ms']:.4f} ms, without "
+            f"its stores {split['no_store_ms']:.4f} ms, without its window "
+            f"reads {split['no_gather_ms']:.4f} ms; thread 0's cycles: "
+            + ", ".join(f"{k} {100 * v:.1f}%"
+                        for k, v in split["phases"].items()))
+        out[head] = split
+        del dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe_sweep(torch, seed):
+    """P1 ``full``'s device ms at each probe shape and G = 1, 2, 4 for the
+    plans that aim at each number of threads in PROBE_SWEEP (through
+    ``_launch``, whose launches do not count)."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.probes import sampler
+    lib = load_library("probe_sampler")
+    out = {}
+    for head, windows, oxy, sp, oo, s, w, wx in probe_cases(torch, seed):
+        n, l = oxy.shape[0], oxy.shape[2] // 2
+        dst = torch.empty((n, l, s, s), dtype=torch.bfloat16, device="cuda")
+        for g in (1, 2, 4):
+            times = {}
+            for target in PROBE_SWEEP + PROBE_SWEEP[::-1]:
+                plan = sampler.launch_plan(l, s, target)
+                ms = device_ms(torch, lambda: sampler._launch(
+                    lib, windows, oxy, sp, oo, dst, "full", g, False, s, w,
+                    wx, plan), reps=60, match="probe_")
+                times.setdefault(f"{plan.group}x{plan.threads}",
+                                 []).append(round(ms, 4))
+            out[f"{head} G={g}"] = times
+            log(f"[sweep] P1 {head} full G={g}, ms by plan (patches in "
+                f"flight x threads; the sweep forward, then back): "
+                + ", ".join(f"{k}: {v}" for k, v in times.items()))
+        del dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe_levels(torch, seed, root, sweep=False):
+    """``--probes``: ``probe_times`` of this checkout's package and, with
+    another checkout's (``root``), of that package in a child process, in
+    the order other, this, this, other; the per-variant lines side by side;
+    ``probe_split``, the launch floor and, with ``sweep``, ``probe_sweep``
+    for this checkout's package."""
+    runs = {"this": [], "other": []}
+    order = ["other", "this", "this", "other"] if root != REPO else ["this"]
+    for who in order:
+        if who == "this":
+            runs["this"].append(probe_times(torch, seed))
+            continue
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--probes",
+             "--probe-times", "--package-root", root, "--seed", str(seed)],
+            capture_output=True, text=True)
+        check(child.returncode == 0, "the other package's probe times: "
+              + child.stdout[-2000:] + child.stderr[-2000:])
+        runs["other"].append(json.loads(child.stdout.strip().splitlines()[-1]))
+    for label in runs["this"][0]:
+        def fmt(who):
+            return " / ".join(f"{r[label]['ms']:.4f}" for r in runs[who])
+        errs = " / ".join(str(r[label].get("unequal", r[label].get("rel")))
+                          for r in runs["this"])
+        line = f"[probes] {label}: this tree {fmt('this')} ms"
+        if runs["other"]:
+            ratio = (min(r[label]["ms"] for r in runs["other"])
+                     / max(r[label]["ms"] for r in runs["this"]))
+            line += f" | other {fmt('other')} ms (x{ratio:.2f})"
+        log(line + f" | against the twin: {errs}")
+    out = dict(this=runs["this"], other=runs["other"],
+               split=probe_split(torch, seed),
+               launch_floor_ms=launch_floor_ms(torch))
+    log(f"[probes] an empty kernel (one 256-thread block): "
+        f"{out['launch_floor_ms']:.4f} ms device time")
+    if sweep:
+        out["sweep"] = probe_sweep(torch, seed)
+    return out
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3008,6 +3284,14 @@ def main():
                         "and K5 over the families' 4,096 faces, with the "
                         "warm train_rcr, and, for this checkout's package, "
                         "k5_split")
+    parser.add_argument("--probes", action="store_true",
+                        help="only time P1-P3 (every variant, G and pre) "
+                        "and P5 through their entry points, with the split "
+                        "of P1 full and the launch floor; with "
+                        "--package-root also another checkout's package, "
+                        "side by side")
+    parser.add_argument("--probe-times", action="store_true",
+                        help=argparse.SUPPRESS)   # --probes' child process
     parser.add_argument("--package-root", default=REPO,
                         help="with --k3-batches, --k12 or --k5: the "
                         "checkout whose "
@@ -3026,7 +3310,17 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, root if opts.k3_batches or opts.k12 or opts.k5
-                    else REPO)
+                    or opts.probe_times else REPO)
+    if opts.probe_times:
+        print(json.dumps(probe_times(torch, seed)))
+        return 0
+    if opts.probes:
+        phase_device(torch)
+        from superviseddescent_tpu_torch.ops._build import build_all
+        build_all(extra=PROBE_BUILDS)
+        times = probe_levels(torch, seed, root, sweep=opts.sweep)
+        print(json.dumps({"probes": times, "package_root": root}))
+        return 0
     if opts.k5:
         phase_device(torch)
         own = root == REPO

@@ -51,10 +51,11 @@ KERNELS = {
                        [_P] * 4 + [_I] * 3 + _FEATURES,
                        "features_fused_launch": [_P] + _FEATURES},
     # the probes (probes/sampler.py, flatout.py, dyn.py)
-    "probe_sampler": {"probe_sampler_launch": [_P] * 5 + [_I] * 10 + [_P]},
+    "probe_sampler": {"probe_sampler_launch": [_P] * 5 + [_I] * 12 + [_P]},
     "probe_flatout": {"probe_flatout_launch": [_P, _P, _I, _I, _P]},
-    "probe_dyn": {"probe_abde_launch": [_P] * 3 + [_I] * 8 + [_P],
-                  "probe_c_launch": [_P, _P] + [_I] * 4 + [_P]},
+    "probe_dyn": {"probe_abde_launch": [_P] * 3 + [_I] * 10 + [_P],
+                  "probe_c_launch": [_P, _P] + [_I] * 4 + [_P],
+                  "probe_empty_launch": [_P]},
 }
 
 

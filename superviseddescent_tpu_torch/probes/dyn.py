@@ -24,7 +24,13 @@ row offset of a 2-D scratch (C) or at ``[k, f]`` of a 4-D one (C4). Rows
 that are never stored are zero. C4 gives C's bits.
 
 Kernels in ``csrc/probe_dyn.cu``; nothing of the card bounds them (a few
-hundred KB and MFLOP): their time is the launch. The float32 sums of ABDE
+hundred KB and MFLOP): their time is the launch and, for ABDE, a chain of
+dependent products. The ABDE kernel runs a face per block and its
+landmarks side by side, one warp each (``abde_plan``: up to 16 in flight,
+a warp taking several where L is larger): the sub-window staged in shared
+memory by 16-byte copies (in slices of rows where it is too tall), both
+products on the tensor cores (bf16 in, float32 sums), each warp summing
+its own output columns. Its float32 sums
 run over 128 and 32 terms, so kernel, twin and the numpy emulation sum in
 different orders and agree to a rounding of the bf16 intermediates (see
 ``ABDE_RTOL``); C and C4 are exact.
@@ -33,15 +39,21 @@ different orders and agree to a rounding of the bf16 intermediates (see
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from superviseddescent_tpu_torch.ops.cascade_fused import _MAX_SHARED
 from superviseddescent_tpu_torch.ops.solver import float32_matmul
 
 #: kernel, twin and emulation of ABDE differ by at most one bf16 rounding of
 #: the patch (2**-8 relative), summed over S rows of equal sign
 ABDE_RTOL = 2.0 ** -7
+#: the ABDE kernel's largest block (landmarks in flight, one warp each) and
+#: the most sub-window rows a warp holds (q's fragments); csrc/probe_dyn.cu
+ABDE_MAX_WARPS = 16
+ABDE_MAX_ROWS = 128
 
 
 def _bf16(a: np.ndarray) -> np.ndarray:
@@ -126,8 +138,53 @@ def probe_c_reference(v, g_n, br):
     return out.reshape(2 * g_n * br, seg)
 
 
-def _abde_shared_bytes(s, w, wx, l, seg):
-    return s * w * 4 + 2 * (s * wx + seg * w + l * s * seg + s * l * s)
+class AbdePlan(NamedTuple):
+    """A launch of the ABDE kernel: warps (landmarks in flight) per block,
+    sub-window rows a warp stages at a time, the block's shared memory."""
+    warps: int
+    rows: int
+    shared_bytes: int
+
+
+def abde_shared_bytes(s: int, wx: int, warps: int, rows: int) -> int:
+    """Dynamic shared memory of an ABDE block: each warp's ``rows`` staged
+    sub-window rows in bf16, padded by 8 values, and its S column sums."""
+    return warps * (rows * (wx + 8) * 2 + s * 4)
+
+
+def abde_check(s: int, w: int, wx: int, l: int, seg: int, ry: int,
+               rx: int) -> None:
+    """Raise ValueError, naming the limit, where ABDE's contract does not
+    take the shapes (the kernel's launch checks the same)."""
+    if not (s <= seg and 2 * l <= l * s):
+        raise ValueError(f"need S <= SEG and 2L <= L*S, got S={s}, SEG={seg}, "
+                         f"L={l}")
+    if not (0 <= w <= ry and w % 8 == 0):
+        raise ValueError(f"W must be a multiple of 8 up to RY, got W={w}, "
+                         f"RY={ry}")
+    if not (0 <= wx <= rx and wx % 128 == 0):
+        raise ValueError(f"WX must be a multiple of 128 up to RX, got "
+                         f"WX={wx}, RX={rx}")
+
+
+def abde_plan(s: int, w: int, wx: int, l: int) -> AbdePlan:
+    """The ABDE kernel's plan for L >= 1 landmarks within the shared memory
+    of a block: the whole sub-window a warp where it fits (at most
+    ABDE_MAX_ROWS rows), else the most rows, a multiple of 8, that one warp
+    can stage; then as many landmarks in flight as fit (at most
+    ABDE_MAX_WARPS), spread evenly over the warps. Raises ValueError where
+    not even 8 rows of one landmark fit."""
+    rows = min(max(w, 8), ABDE_MAX_ROWS)
+    while rows > 8 and abde_shared_bytes(s, wx, 1, rows) > _MAX_SHARED:
+        rows -= 8
+    per_warp = abde_shared_bytes(s, wx, 1, rows)
+    if per_warp > _MAX_SHARED:
+        raise ValueError(f"one landmark's 8 staged rows and S sums need "
+                         f"{per_warp} bytes of shared memory; one block has "
+                         f"{_MAX_SHARED}")
+    warps = min(l, ABDE_MAX_WARPS, _MAX_SHARED // per_warp)
+    warps = -(-l // -(-l // warps))  # the same rounds, landmarks spread evenly
+    return AbdePlan(warps, rows, abde_shared_bytes(s, wx, warps, rows))
 
 
 def probe_abde(x: torch.Tensor, win: torch.Tensor, s: int, w: int, wx: int,
@@ -142,13 +199,8 @@ def probe_abde(x: torch.Tensor, win: torch.Tensor, s: int, w: int, wx: int,
     if win.ndim != 3 or win.shape[0] != g_n or win.dtype != torch.bfloat16:
         raise ValueError("win must be (G, RY, RX) bfloat16")
     _, ry, rx = win.shape
-    if not (s <= seg and l2 <= l * s and w <= ry and wx <= rx
-            and w % 8 == 0 and wx % 128 == 0):
-        raise ValueError("need S <= SEG, 2L <= L*S, W <= RY a multiple of 8 "
-                         "and WX <= RX a multiple of 128")
-    if _abde_shared_bytes(s, w, wx, l, seg) > 48 * 1024:
-        raise ValueError("the tents and patches exceed a block's 48 KB of "
-                         "shared memory")
+    abde_check(s, w, wx, l, seg, ry, rx)
+    plan = abde_plan(s, w, wx, l) if l else None
     if x.device.type == "cpu":
         return probe_abde_reference(x, win, s, w, wx, seg)
     if x.device.type != "cuda" or win.device != x.device:
@@ -158,11 +210,12 @@ def probe_abde(x: torch.Tensor, win: torch.Tensor, s: int, w: int, wx: int,
     from superviseddescent_tpu_torch.ops._build import load_library
     lib = load_library("probe_dyn")
     out = torch.empty_like(x)
-    if g_n == 0:
+    if g_n * l == 0:
         return out
     err = lib.probe_abde_launch(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(win.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), g_n, ry, rx, s, w, wx, l, seg,
+        plan.warps, plan.rows,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"probe_abde kernel launch failed: CUDA error {err}")

@@ -26,9 +26,15 @@ flooring of the origin is part of the function: it decides which taps fall
 outside ``[0, W) x [0, WX)`` and count as zero.
 
 The kernel (``csrc/probe_sampler.cu``, one template for the three) is bound
-by memory, the bf16 output stream. A tent row has at most two non-zero taps,
-so every float32 sum has at most two non-zero terms and no summation order
-changes it: kernel and twin agree bit for bit. The plain twin
+by memory, the bf16 output stream, and held back by its window gathers. A
+block takes the G * L patches of its G faces, face by face, in groups of
+a face's patches in flight (``launch_plan``: up to 1,024 threads, two
+blocks an SM, so that few faces are in flight and their windows stay in
+L2), phase by phase: tap tables,
+samples into a bf16 tile that holds the group's outputs as they lie in the
+output, 16-byte stores. A tent row has at most two non-zero taps, so every
+float32 sum has at most two non-zero terms and no summation order changes
+it: kernel and twin agree bit for bit, for every plan. The plain twin
 ``probe_sampler_reference`` forms the dense tents and both products as
 matrix products, as the scripts do; nothing on the card calls it but the
 checks.
@@ -37,16 +43,74 @@ checks.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
+from superviseddescent_tpu_torch.ops.cascade_fused import (
+    _BLOCK_RESERVED, _SM_SHARED)
 from superviseddescent_tpu_torch.ops.patches_window import (
     LANE_ALIGN, SUBLANE_ALIGN)
 from superviseddescent_tpu_torch.ops.solver import float32_matmul
 
 VARIANTS = ("full", "shared", "nodot")
-_MAX_SIZE = 96     # the kernel's per-block tap tables and output tile
+_MAX_SIZE = 96     # the kernel's largest output side S
+_MAX_THREADS = 1024  # the kernel's largest block
+#: the most threads a plan's block takes: two blocks an SM
+PLAN_THREADS = 1024
+#: the shared memory a plan's block may take: half of an SM's, less what
+#: the card reserves per block
+PLAN_SHARED = (_SM_SHARED - 2 * _BLOCK_RESERVED) // 2
 _CHUNK = 16        # faces per step of the plain twin
+
+
+class SamplerPlan(NamedTuple):
+    """A launch of the P1-P3 kernel: patches of a face in flight per block
+    (a group), threads per block (one per output column of the group) and
+    the block's dynamic shared memory."""
+    group: int
+    threads: int
+    shared_bytes: int
+
+
+def _align16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def shared_bytes(s: int, group: int) -> int:
+    """Dynamic shared memory of one block (csrc/probe_sampler.cu's
+    Layout): the row and column tap tables (16 bytes an entry), the
+    sub-window offsets, the bf16 tile of the group's outputs from the
+    16-byte boundary before the first."""
+    return (2 * _align16(group * s * 16) + _align16(group * 8)
+            + _align16((group * s * s + 16) * 2))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(l: int, s: int, target: int = PLAN_THREADS) -> SamplerPlan:
+    """The P1-P3 kernel's plan for faces of L landmarks at side S, whatever
+    the faces per block (a block works its faces one after another): each
+    face's patches in the fewest rounds (groups as even as they allow) whose
+    group has at most ``target`` output columns, a thread each, and fits in
+    PLAN_SHARED bytes, so that two blocks share an SM and the few faces in
+    flight keep their windows in L2 (at least one patch a group); threads:
+    the group's columns in whole warps. The choices were measured fastest by
+    ``chip_smoke.py --probes --sweep``."""
+    if not 1 <= s <= _MAX_SIZE:
+        raise ValueError(f"S must be 1..{_MAX_SIZE}, got {s}")
+    if l < 1:
+        raise ValueError(f"need L >= 1, got L={l}")
+    if not 32 <= target <= _MAX_THREADS:
+        raise ValueError(f"target threads must be 32..{_MAX_THREADS}, got "
+                         f"{target}")
+    for rounds in range(1, l + 1):
+        group = -(-l // rounds)
+        if group * s <= target and shared_bytes(s, group) <= PLAN_SHARED \
+                or group == 1:
+            break
+    return SamplerPlan(group, max(32, -(-group * s // 32) * 32),
+                       shared_bytes(s, group))
 
 
 def sub_window_origins(oxy: torch.Tensor, sp: torch.Tensor, ry: int, rx: int,
@@ -167,22 +231,33 @@ def _run(counted, windows, oxy, sp, oo, variant, g, pre, s, w, wx):
     if any(t.device != dev or not t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous and on one device")
     from superviseddescent_tpu_torch.ops._build import load_library
-    lib = load_library("probe_sampler")
     out = torch.empty((n, l, s, s), dtype=torch.bfloat16, device=dev)
     if n * l == 0:
         return out
+    _launch(load_library("probe_sampler"), windows, oxy, sp, oo, out,
+            variant, g, pre, s, w, wx)
+    counted.launches += 1
+    return out
+
+
+def _launch(lib, windows, oxy, sp, oo, out, variant, g, pre, s, w, wx,
+            plan=None):
+    """One launch of ``lib``'s kernel (the entry points' build or a
+    measurement build) into ``out``, with ``launch_plan``'s plan unless
+    ``plan`` is given; raises if it is refused."""
+    n, ry, rx = windows.shape
+    l = oxy.shape[2] // 2
+    plan = plan or launch_plan(l, s)
     err = lib.probe_sampler_launch(
         ctypes.c_void_p(windows.data_ptr()), ctypes.c_void_p(oxy.data_ptr()),
         ctypes.c_void_p(sp.data_ptr()),
         ctypes.c_void_p(oo.data_ptr() if pre else 0),
         ctypes.c_void_p(out.data_ptr()), n, l, ry, rx, s, w, wx,
-        VARIANTS.index(variant), g, int(pre),
+        VARIANTS.index(variant), g, int(pre), plan.group, plan.threads,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(
             f"probe_sampler kernel launch failed: CUDA error {err}")
-    counted.launches += 1
-    return out
 
 
 def probe_sampler(windows: torch.Tensor, oxy: torch.Tensor, sp: torch.Tensor,

@@ -884,6 +884,84 @@ def test_sampler_probe_is_k2_fast_transposed(cuda):
     assert torch.equal(got.view(torch.int16), k2.view(torch.int16))
 
 
+@pytest.mark.parametrize("centres", ["middle", "border"])
+@pytest.mark.parametrize("s,w,wx,ph", [(1, 8, 128, 2.5), (17, 24, 128, 7.0),
+                                       (96, 96, 128, 40.0),
+                                       (55, 160, 384, 72.0)])
+def test_sampler_probes_at_odd_sizes_and_plans(cuda, s, w, wx, ph, centres):
+    """S = 1, 17, 96 with W = S or the next multiple of 8 and WX = 128, at
+    middle and border centres: every variant, G and pre equal their twin,
+    and so do plans of other sizes, blocks of at most 768 threads (40
+    registers a thread) and larger (the launches of ``_launch`` do not
+    count)."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.probes import sampler
+    windows, oxy, sp, origins = sampler_probe_case(cuda, s, ph, centres)
+    n, ry, rx = windows.shape
+    l = oxy.shape[2] // 2
+    oo = origins(oxy, sp, ry, rx, s, w, wx)
+    full = sampler.probe_sampler_reference(windows, oxy, sp, s, w, wx)
+    for variant in sampler.VARIANTS:
+        got = sampler.probe_sampler(windows, oxy, sp, variant, s, w, wx)
+        ref = sampler.probe_sampler_reference(windows, oxy, sp, s, w, wx,
+                                              variant)
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    for g in (1, 2, 4):
+        got = sampler.probe_sampler_g(windows, oxy, sp, g, s, w, wx)
+        assert torch.equal(got.view(torch.int16), full.view(torch.int16))
+    for pre in (False, True):
+        got = sampler.probe_sampler_pre(windows, oxy, sp, oo, pre, s, w, wx)
+        assert torch.equal(got.view(torch.int16), full.view(torch.int16))
+    lib = load_library("probe_sampler")
+    for g in (1, 2, 4):
+        for target in (32, 192, 768, 1024):
+            plan = sampler.launch_plan(l, s, target)
+            got = torch.full_like(full, float("nan"))
+            sampler._launch(lib, windows, oxy, sp, oo, got, "full", g, True,
+                            s, w, wx, plan)
+            assert torch.equal(got.view(torch.int16),
+                               full.view(torch.int16)), (g, plan)
+
+
+@pytest.mark.parametrize("s,l,w,wx,seg,ry,rx,shift", [
+    (8, 1, 32, 128, 128, 64, 256, 0), (8, 8, 32, 128, 20, 64, 256, 0),
+    (128, 1, 32, 128, 128, 64, 256, 0), (128, 8, 32, 128, 136, 64, 256, 0),
+    (16, 3, 128, 256, 40, 128, 384, 0), (16, 16, 40, 128, 128, 64, 264, 0),
+    # L past the 16 warps of a block: warps take several landmarks
+    (16, 22, 32, 128, 16, 64, 256, 0), (16, 40, 32, 128, 128, 64, 256, 0),
+    # 40 output columns of landmark 0: two passes of the second product
+    (40, 40, 32, 128, 40, 64, 256, 0),
+    # W past 128 rows, or WX too wide for 128 staged rows: the sub-window
+    # in slices
+    (8, 2, 160, 128, 8, 192, 256, 0), (16, 2, 256, 384, 16, 256, 384, 0),
+    (16, 2, 128, 1024, 16, 128, 1024, 0),
+    # rows off 16-byte boundaries: staged value by value
+    (16, 6, 32, 128, 128, 64, 250, 0), (16, 6, 32, 128, 128, 64, 256, 3),
+    # an empty sub-window: every sum is 0
+    (16, 6, 0, 0, 16, 64, 256, 0)])
+def test_abde_probe_at_other_shapes(cuda, s, l, w, wx, seg, ry, rx, shift):
+    """ABDE at L = 1 to 40, S = 8 to 128, W up to 256, a W that is no
+    multiple of 16, SEG that is no multiple of 16, sub-windows staged in
+    slices, windows whose rows are off 16-byte boundaries (RX no multiple
+    of 8, or the window ``shift`` values past one), against its twin and
+    the numpy emulation."""
+    from superviseddescent_tpu_torch.probes.dyn import (
+        ABDE_RTOL, abde_emulation, probe_abde, probe_abde_reference)
+    rng = np.random.default_rng(s + l + w)
+    g = 3
+    x = torch.from_numpy(rng.uniform(-20, rx + 20, (g, 1, 2 * l))
+                         .astype(np.float32)).to(cuda)
+    flat = torch.from_numpy(rng.uniform(0, 255, g * ry * rx + shift)
+                            .astype(np.float32)).to(cuda).bfloat16()
+    win = flat[shift:].view(g, ry, rx)
+    got = probe_abde(x, win, s, w, wx, seg)
+    ref = probe_abde_reference(x, win, s, w, wx, seg)
+    torch.testing.assert_close(got, ref, rtol=ABDE_RTOL, atol=0)
+    emu = abde_emulation(x.cpu().numpy(), win.float().cpu().numpy(), s, w,
+                         wx, seg)
+    np.testing.assert_allclose(got.cpu().numpy(), emu, rtol=ABDE_RTOL, atol=0)
+
+
 @pytest.mark.parametrize("offset", [0, 1, 3, 4])
 def test_flatout_probe_equals_two_x(cuda, offset):
     # 37 tiles of 7 x 7 leave a tail of 1 float after the 16-byte words; an
