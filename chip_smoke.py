@@ -34,7 +34,16 @@ Then the later phases:
 * tracking: RCR-22 over a 256-frame clip in which one ``.synth120`` face
   drifts a few pixels per frame, through ``make_fused_track_scan``,
   ``make_fused_track_stream`` (chunk 1 and 8, depth 4) and the sequential
-  detector / tracker chain with a read-back per frame.
+  detector / tracker chain with a read-back per frame;
+* face detection (``models/facedetect.HaarCascadeDetector`` with the
+  carried stock ``haarcascade_frontalface_alt2.xml`` and the apps'
+  parameters) over all 120 images, ``detect_batch`` per size class: the
+  card's raw and grouped boxes against the port's CPU path on one image per
+  class, the overflow fallbacks forced once, ``check_face`` against the
+  ``.pts`` files, ms per call and frames/s per class, ``detect`` at batch 1
+  and ``detect_stream`` on the largest class, its profiled split
+  (``record_function`` ranges) and peak memory. It runs no hand-written
+  kernel: its products are ``torch.matmul``.
 
 Where K3 spends its time is read at 4,096 faces of each family and at
 batch 1 (``k3_split``): the kernel beside measurement builds of its source
@@ -83,7 +92,9 @@ with ``--sweep`` also at the launch plans ``K5_SWEEP``); with
 The probes' phase prints each P1-P3 variant's and ABDE's device time
 (torch.profiler) beside its bound, its twin's time and the recorded time
 of the kernel before its redesign (``PROBE_BEFORE_MS``, in the log only),
-and the device time of an empty kernel, the launch floor under C and C4.
+and the device time of an empty kernel, the launch floor under C and C4
+(one kernel for both since their redesign: no scratch, one 16-byte word a
+thread).
 
     python3 chip_smoke.py --probes [--sweep] [--package-root DIR]
 
@@ -1573,8 +1584,11 @@ def phase_probes(torch, seed):
             plain_call=lambda: probe_c_reference(v, g_n, d["br"])))
     floor_ms = launch_floor_ms(torch)
     log(f"[probes] an empty kernel (one 256-thread block): {floor_ms:.4f} ms "
-        f"device time, the floor under C ({kernels[-2]['ms']:.4f} ms) and "
-        f"C4 ({kernels[-1]['ms']:.4f} ms)")
+        f"device time, the floor under C ({kernels[-2]['ms']:.4f} ms; before "
+        f"the redesign {PROBE_BEFORE_MS['C']}) and C4 "
+        f"({kernels[-1]['ms']:.4f} ms; {PROBE_BEFORE_MS['C4']}); bound "
+        f"{max(c_bytes, c_ops) * 1e3:.5f} ms: these sizes can reach the "
+        f"floor, not the bound")
     return dict(records=records, launches=launches, kernels=kernels,
                 device_times=device_times, launch_floor_ms=floor_ms)
 
@@ -1987,6 +2001,184 @@ def make_clip(torch, data, seed):
     gt = data["image_gt"][i][None] + shift.astype(np.float32)
     box = data["image_boxes"][i] + np.float32([offs[0, 1], offs[0, 0], 0, 0])
     return clip, torch.from_numpy(gt).cuda(), box, i, offs
+
+
+# face detection: the apps' parameters (apps/rcr_detect.py:53)
+FACE_PARAMS = dict(scale_factor=1.2, min_neighbors=2, min_size=(50, 50))
+FACE_REPS, FACE_WARMUP = 20, 3
+FACE_STREAM_DEPTH = 4
+# record_function ranges of models/facedetect.py, in the order of a call
+FACE_RANGES = ("facedetect.resize", "facedetect.unfold", "facedetect.norm",
+               "facedetect.products", "facedetect.stages",
+               "facedetect.compaction", "facedetect.decode")
+
+
+def face_split(torch, call):
+    """One profiled call: wall (host clock, ending in a synchronise), the
+    kernels' busy time and the device's idle share, and per
+    ``facedetect.*`` range the device time of the kernels it launched and
+    its host time."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: the ranges' own device-side annotations repeat them
+    busy_ms = sum(getattr(ev, "self_device_time_total", 0.0)
+                  for ev in prof.key_averages()
+                  if "CUDA" in str(ev.device_type)
+                  and ev.key not in FACE_RANGES) / 1e3
+    split = {name: dict(device_ms=0.0, host_ms=0.0, count=0)
+             for name in FACE_RANGES}
+    for ev in prof.events():
+        if ev.name in split and "CPU" in str(ev.device_type):
+            split[ev.name]["device_ms"] += ev.device_time_total / 1e3
+            split[ev.name]["host_ms"] += ev.cpu_time_total / 1e3
+            split[ev.name]["count"] += 1
+    check(busy_ms > 0, "the profiler recorded no kernel of the face detector")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms, split=split)
+
+
+def dense_frames(det, frames):
+    """Frames of one detect_batch call that go to the dense fallback (a
+    survivor buffer or the candidate buffer overflowed)."""
+    pend = det._dispatch(det._frames(frames, 3))
+    pend.event.synchronize()
+    packed = pend.packed.numpy()
+    return int(((packed[:, -2] > det.MAX_CANDIDATES)
+                | (packed[:, -1] != 0)).sum())
+
+
+def phase_facedetect(torch, data):
+    """Face detection (``models/facedetect.HaarCascadeDetector``, the
+    carried stock ``haarcascade_frontalface_alt2.xml``, the apps'
+    parameters) over the 120 .synth120 images, ``detect_batch`` per size
+    class: the card's raw and grouped boxes against the port's CPU path on
+    the first image of each class, the overflow fallbacks once, check_face
+    against the .pts ground truth, ms per call and frames/s per class, ms
+    per ``detect`` at batch 1 and per frame of ``detect_stream`` on the
+    largest class, the profiled split of its call and the peak memory. No
+    hand-written kernel runs on this path."""
+    import statistics
+    import numpy as np
+    from superviseddescent_tpu_torch.io.haar import (
+        STOCK_FRONTAL_ALT2, parse_opencv_cascade)
+    from superviseddescent_tpu_torch.models.facedetect import (
+        HaarCascadeDetector, group_rectangles)
+    from superviseddescent_tpu_torch.utils.landmarks import check_face
+    from superviseddescent_tpu_torch.utils.timing import cuda_time_ms
+    cascade = parse_opencv_cascade(STOCK_FRONTAL_ALT2)
+    det = HaarCascadeDetector(cascade, device="cuda", **FACE_PARAMS)
+    raw_det = HaarCascadeDetector(cascade, device="cuda", **dict(
+        FACE_PARAMS, min_neighbors=0))
+    cpu_raw = HaarCascadeDetector(cascade, device="cpu", **dict(
+        FACE_PARAMS, min_neighbors=0))
+    check(det.exact, "the cascade's bank products are not exact")
+    classes = {}
+    for i, (h, w) in enumerate(data["image_shapes"]):
+        classes.setdefault((h, w), []).append(i)
+    check(len(classes) == 5 and all(len(v) == 24 for v in classes.values()),
+          f"expected five size classes of 24 images, got "
+          f"{ {k: len(v) for k, v in classes.items()} }")
+    out = dict(classes={})
+    grouped_all, hits = {}, 0
+    zero_counts()
+    for (h, w), idx in sorted(classes.items(), key=lambda kv: kv[0][0] *
+                              kv[0][1]):
+        frames = data["frames"][torch.tensor(idx, device="cuda"), :h, :w]
+        frames = frames.contiguous()
+        grouped = det.detect_batch(frames)
+        raw = raw_det.detect_batch(frames)
+        first = data["stack"][idx[0], :h, :w]
+        want_raw = cpu_raw.detect(first)
+        want_grouped = group_rectangles(want_raw, FACE_PARAMS["min_neighbors"])
+        same = (np.array_equal(raw[0], want_raw)
+                and np.array_equal(grouped[0], want_grouped))
+        log(f"[face] {w}x{h}: image {idx[0]} on the card vs the CPU path: "
+            f"{len(raw[0])} raw / {len(grouped[0])} grouped boxes, "
+            f"{'equal' if same else 'DIFFERENT'} (tolerance: equal)")
+        check(same, f"face boxes of image {idx[0]} differ from the CPU path")
+        for i, boxes in zip(idx, grouped):
+            grouped_all[i] = boxes
+            hits += check_face(boxes, data["pts"][i])
+        ms, runs = cuda_time_ms(det.detect_batch, frames, reps=FACE_REPS,
+                                warmup=FACE_WARMUP)
+        dense = dense_frames(det, frames)
+        out["classes"][f"{w}x{h}"] = dict(
+            frames=len(idx), ms=ms, frames_per_s=len(idx) / ms * 1e3,
+            runs=runs, dense_fallback_frames=dense,
+            raw_boxes=sum(len(r) for r in raw),
+            grouped_boxes=sum(len(g) for g in grouped))
+        log(f"[face] {w}x{h}: detect_batch of {len(idx)} frames "
+            f"{ms:.3f} ms median of {len(runs)} (min {min(runs):.3f}, max "
+            f"{max(runs):.3f}; CUDA events around the whole call, read-back "
+            f"and grouping included), {len(idx) / ms * 1e3:.1f} frames/s; "
+            f"{dense} frames to the dense fallback")
+    launches = read_counts()
+    expect_counts(launches, "face detection")
+    out["check_face_share"] = hits / len(grouped_all)
+    log(f"[face] check_face (landmarks 37, 46, 58 inside the first box): "
+        f"{hits} of {len(grouped_all)} images "
+        f"({100 * out['check_face_share']:.1f}%)")
+    # the overflow fallbacks, forced, on the smallest class
+    (h, w), idx = min(classes.items(), key=lambda kv: kv[0][0] * kv[0][1])
+    frames = data["frames"][torch.tensor(idx, device="cuda"), :h, :w]
+    frames = frames.contiguous()
+    forced = HaarCascadeDetector(cascade, device="cuda", **FACE_PARAMS)
+    forced.SURVIVOR_DIV, forced.MAX_CANDIDATES = 1 << 20, 4
+    n_dense = dense_frames(forced, frames)
+    same = all(np.array_equal(a, grouped_all[i])
+               for a, i in zip(forced.detect_batch(frames), idx))
+    log(f"[face] {w}x{h} with 128 survivor slots and 4 candidate slots: "
+        f"{n_dense} of {len(idx)} frames to the dense fallback, boxes "
+        f"{'equal' if same else 'DIFFERENT'} to the default's")
+    check(n_dense == len(idx) and same, "the forced overflow fallback")
+    out["overflow"] = dict(frames=len(idx), dense_fallback_frames=n_dense)
+    # the largest class: peak memory, batch 1, stream, profiled split
+    (h, w), idx = max(classes.items(), key=lambda kv: kv[0][0] * kv[0][1])
+    frames = data["frames"][torch.tensor(idx, device="cuda"), :h, :w]
+    frames = frames.contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    det.detect_batch(frames)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    single = frames[0]
+    for _ in range(FACE_WARMUP):
+        det.detect(single)
+    runs = []
+    for _ in range(FACE_REPS):
+        t0 = time.perf_counter()
+        det.detect(single)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    out["batch1_ms"] = statistics.median(runs)
+    list(det.detect_stream(frames, depth=FACE_STREAM_DEPTH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = list(det.detect_stream(frames, depth=FACE_STREAM_DEPTH))
+    out["stream_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(idx)
+    check(all(np.array_equal(a, grouped_all[i])
+              for a, i in zip(streamed, idx)), "detect_stream's boxes")
+    log(f"[face] {w}x{h}: peak memory of detect_batch({len(idx)}) "
+        f"{out['peak_bytes'] / 2 ** 30:.2f} GiB; detect at batch 1 "
+        f"{out['batch1_ms']:.3f} ms median of {len(runs)} (host clock, a "
+        f"frame on the card, read-back and grouping included); "
+        f"detect_stream depth {FACE_STREAM_DEPTH} "
+        f"{out['stream_ms_per_frame']:.3f} ms per frame")
+    split = face_split(torch, lambda: det.detect_batch(frames))
+    out["profile"] = split
+    log(f"[face] {w}x{h} detect_batch({len(idx)}) profiled: wall "
+        f"{split['wall_ms']:.3f} ms, kernels busy {split['busy_ms']:.3f} ms, "
+        f"device idle {100 * split['idle_share']:.1f}%; by range (device ms "
+        f"of its kernels / host ms): " + ", ".join(
+            f"{k.split('.')[1]} {v['device_ms']:.3f} / {v['host_ms']:.3f}"
+            for k, v in split["split"].items()))
+    return out
 
 
 def phase_tracking(torch, data, seed):
@@ -3375,6 +3567,7 @@ def main():
     families = phase_families(torch, data)
     tracking = phase_tracking(torch, data, seed)
     batches = k3_batches(torch, data)
+    facedetect = phase_facedetect(torch, data)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                              families)
     k3_shapes = {
@@ -3397,7 +3590,7 @@ def main():
                        fused=fused, train=train, probes=probes,
                        families=families, tracking=tracking, seed=seed,
                        kernels=entries, k3_shapes=k3_shapes,
-                       k3_batches=batches,
+                       k3_batches=batches, facedetect=facedetect,
                        seconds=time.perf_counter() - t0), f, indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")
     log(f"[done] {time.perf_counter() - t0:.1f} s")

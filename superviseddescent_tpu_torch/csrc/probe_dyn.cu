@@ -1,4 +1,4 @@
-// P5: the dynamic-indexing probes, three small kernels.
+// P5: the dynamic-indexing probes, two small kernels (C and C4 share one).
 //
 // Replaces scripts/probe_dyn.py::probe_abde (kernel_abde), probe_c
 // (kernel_c) and probe_c4 (kernel_c4), which asked the TPU compiler for
@@ -206,52 +206,53 @@ probe_abde_kernel(const float* __restrict__ x,
   }
 }
 
-// C: for every face g and k in {0, 1}, rows v[0:4] + g + 10 k stored at row
-// offset k * G * BR + g * BR of a (2 * G * BR, SEG) scratch, then the
-// scratch copied out. Rows never stored are zero.
-__global__ void __launch_bounds__(kThreads)
-probe_c_kernel(const float* __restrict__ v, float* __restrict__ out, int g_n,
-               int br, int seg) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* bscr = reinterpret_cast<float*>(smem);         // (2 * G * BR, SEG)
-  const int gb = g_n * br;
-  for (int i = threadIdx.x; i < 2 * gb * seg; i += blockDim.x) bscr[i] = 0.f;
-  __syncthreads();
-  for (int g = 0; g < g_n; ++g)
-    for (int k = 0; k < 2; ++k) {
-      int off = k * gb + g * br;
-      for (int i = threadIdx.x; i < 4 * seg; i += blockDim.x)
-        bscr[off * seg + i] = (v[i] + (float)g) + 10.0f * (float)k;
-    }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * gb * seg; i += blockDim.x)
-    out[i] = bscr[i];
+// C and C4: for every face g < G and k in {0, 1}, rows v[0:4] + g + 10 k at
+// rows k * G * BR + g * BR + [0, 4) of the (2 * G * BR, SEG) output, every
+// other row zero. The TPU kernels stored the rows into a 2-D (C) or 4-D (C4)
+// scratch and copied it out; the function is the same, so both entry points
+// launch this kernel. Nothing is staged: each thread works out one 16-byte
+// word of the output from its position alone (the row of its first value,
+// and for each row which k, g and i it belongs to, a stored row or a zero
+// row), reads the v values it needs (none for a zero row) and writes one
+// float4; a scalar head reaches the first 16-byte boundary of `out` and a
+// scalar tail ends it. No shared memory, no barrier. What bounds it: the
+// launch (16 blocks write 32 KB at the probe script's shape).
+constexpr int kCThreads = 128;
+
+__device__ __forceinline__ float c_value(const float* __restrict__ v, int seg,
+                                         int gb, int br, int row, int col) {
+  const int k = row >= gb;  // row < 2 * G * BR
+  const int r = row - k * gb;
+  const int g = r / br;
+  const int i = r - g * br;
+  return i < 4 ? (v[i * seg + col] + (float)g) + 10.0f * (float)k : 0.f;
 }
 
-// C4: the same rows stored at [k, g, 0:4, :] of a (2, G, BR, SEG) scratch,
-// read back block by block as (G * BR, SEG).
-__global__ void __launch_bounds__(kThreads)
-probe_c4_kernel(const float* __restrict__ v, float* __restrict__ out,
-                int g_n, int br, int seg) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* bscr4 = reinterpret_cast<float*>(smem);        // (2, G, BR, SEG)
-  const int gb = g_n * br;
-  auto at = [&](int k, int g, int r, int c) -> float& {
-    return bscr4[((k * g_n + g) * br + r) * seg + c];
-  };
-  for (int i = threadIdx.x; i < 2 * gb * seg; i += blockDim.x) bscr4[i] = 0.f;
-  __syncthreads();
-  for (int g = 0; g < g_n; ++g)
-    for (int k = 0; k < 2; ++k)
-      for (int i = threadIdx.x; i < 4 * seg; i += blockDim.x)
-        at(k, g, i / seg, i % seg) = (v[i] + (float)g) + 10.0f * (float)k;
-  __syncthreads();
-  for (int k = 0; k < 2; ++k)
-    for (int i = threadIdx.x; i < gb * seg; i += blockDim.x) {
-      int row = i / seg;
-      out[(int64_t)(k * gb + row) * seg + i % seg] =
-          at(k, row / br, row % br, i % seg);
+__global__ void __launch_bounds__(kCThreads)
+probe_c_kernel(const float* __restrict__ v, float* __restrict__ out, int gb,
+               int br, int seg, int head, long long words, int tail) {
+  const long long t = (long long)blockIdx.x * kCThreads + threadIdx.x;
+  if (t < words) {
+    const long long e = head + 4 * t;  // the word's first value
+    int row = (int)(e / seg);
+    int col = (int)(e - (long long)row * seg);
+    float q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      q[j] = c_value(v, seg, gb, br, row, col);
+      if (++col == seg) {
+        col = 0;
+        ++row;
+      }
     }
+    reinterpret_cast<float4*>(out + head)[t] =
+        make_float4(q[0], q[1], q[2], q[3]);
+  } else if (t < words + head + tail) {
+    const long long j = t - words;
+    const long long e = j < head ? j : 4 * words + j;
+    const int row = (int)(e / seg);
+    out[e] = c_value(v, seg, gb, br, row, (int)(e - (long long)row * seg));
+  }
 }
 
 // Nothing: the device time of a launch that does no work, the floor under
@@ -302,16 +303,24 @@ extern "C" int probe_abde_launch(const void* x, const void* win, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int probe_c_launch(const void* v, void* out, int four_d, int g,
-                              int br, int seg, void* stream) {
-  size_t bytes = (size_t)2 * g * br * seg * 4;
-  if (bytes > 48 * 1024 || br < 4) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (four_d)
-    probe_c4_kernel<<<1, kThreads, bytes, st>>>(
-        static_cast<const float*>(v), static_cast<float*>(out), g, br, seg);
-  else
-    probe_c_kernel<<<1, kThreads, bytes, st>>>(
-        static_cast<const float*>(v), static_cast<float*>(out), g, br, seg);
+// The contract (checked here, cudaErrorInvalidValue otherwise; probes/
+// dyn.py::c_check raises the same by name): G >= 1, BR >= 4, SEG >= 1 and
+// 2 * G * BR * SEG within int32; v holds at least 4 rows of SEG values.
+extern "C" int probe_c_launch(const void* v, void* out, int g, int br,
+                              int seg, void* stream) {
+  const long long n = 2LL * g * br * seg;
+  if (g < 1 || br < 4 || seg < 1 || n > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  // values before the first 16-byte boundary of out (out is float-aligned)
+  const int lead =
+      (int)((16 - reinterpret_cast<uintptr_t>(out) % 16) % 16 / 4);
+  const int head = lead < n ? lead : (int)n;
+  const long long words = (n - head) / 4;
+  const int tail = (int)(n - head - 4 * words);
+  const long long items = words + head + tail;
+  probe_c_kernel<<<(unsigned)((items + kCThreads - 1) / kCThreads), kCThreads,
+                   0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(v), static_cast<float*>(out), g * br, br, seg,
+      head, words, tail);
   return (int)cudaGetLastError();
 }

@@ -54,7 +54,7 @@ KERNELS = {
     "probe_sampler": {"probe_sampler_launch": [_P] * 5 + [_I] * 12 + [_P]},
     "probe_flatout": {"probe_flatout_launch": [_P, _P, _I, _I, _P]},
     "probe_dyn": {"probe_abde_launch": [_P] * 3 + [_I] * 10 + [_P],
-                  "probe_c_launch": [_P, _P] + [_I] * 4 + [_P],
+                  "probe_c_launch": [_P, _P] + [_I] * 3 + [_P],
                   "probe_empty_launch": [_P]},
 }
 

@@ -1,4 +1,4 @@
-"""P5: the dynamic-indexing probes, three small CUDA kernels.
+"""P5: the dynamic-indexing probes, two small CUDA kernels (C and C4 share one).
 
 Replace ``scripts/probe_dyn.py::probe_abde`` (``kernel_abde``), ``probe_c``
 (``kernel_c``) and ``probe_c4`` (``kernel_c4``). The TPU probes asked whether
@@ -17,11 +17,14 @@ under its landmark index; the first S columns of every landmark's patch
 laid side by side as (S, L*S); the column sums of that, of which the first
 2L leave.
 
-``probe_c(v, g, br)`` / ``probe_c4(v, g, br)``: v (8, SEG) float32 ->
+``probe_c(v, g, br)`` / ``probe_c4(v, g, br)``: v (R >= 4, SEG) float32 ->
 (2*G*BR, SEG) float32 whose rows ``k*G*BR + f*BR + [0, 4)`` hold
-``v[0:4] + f + 10 k`` for face f < G and k in {0, 1}, stored at a computed
-row offset of a 2-D scratch (C) or at ``[k, f]`` of a 4-D one (C4). Rows
-that are never stored are zero. C4 gives C's bits.
+``(v[0:4] + f) + 10 k`` for face f < G and k in {0, 1}; every other row is
+zero. The TPU kernels stored the rows at a computed row offset of a 2-D
+scratch (C) or at ``[k, f]`` of a 4-D one (C4); the function is the same, so
+both launch one kernel, which stages nothing: each thread writes one 16-byte
+word of the output, worked out from its position (``c_check``: G >= 1,
+BR >= 4, SEG >= 1, at most ``C_MAX_ELEMENTS`` values).
 
 Kernels in ``csrc/probe_dyn.cu``; nothing of the card bounds them (a few
 hundred KB and MFLOP): their time is the launch and, for ABDE, a chain of
@@ -39,7 +42,7 @@ different orders and agree to a rounding of the bf16 intermediates (see
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,6 +57,8 @@ ABDE_RTOL = 2.0 ** -7
 #: the most sub-window rows a warp holds (q's fragments); csrc/probe_dyn.cu
 ABDE_MAX_WARPS = 16
 ABDE_MAX_ROWS = 128
+#: the most elements a C / C4 output may hold (int32 offsets in the kernel)
+C_MAX_ELEMENTS = 2 ** 31 - 1
 
 
 def _bf16(a: np.ndarray) -> np.ndarray:
@@ -226,43 +231,69 @@ def probe_abde(x: torch.Tensor, win: torch.Tensor, s: int, w: int, wx: int,
 probe_abde.launches = 0
 
 
-def _run_c(counted, four_d, v, g_n, br):
-    if v.ndim != 2 or v.shape[0] < 4 or v.dtype != torch.float32:
+def c_check(g_n: int, br: int, seg: int, rows: int) -> None:
+    """Raise ValueError, naming the limit, where C's contract does not take
+    the shapes (the kernel's launch checks the same; ``rows``: v's rows)."""
+    if rows < 4:
+        raise ValueError(f"v needs at least 4 rows, got {rows}")
+    if g_n < 1:
+        raise ValueError(f"need G >= 1, got G={g_n}")
+    if br < 4:
+        raise ValueError(f"need BR >= 4, got BR={br}")
+    if seg < 1:
+        raise ValueError(f"need SEG >= 1, got SEG={seg}")
+    if 2 * g_n * br * seg > C_MAX_ELEMENTS:
+        raise ValueError(f"the output's 2*G*BR*SEG = {2 * g_n * br * seg} "
+                         f"elements exceed int32")
+
+
+def _run_c(counted, v, g_n, br, out):
+    if v.ndim != 2 or v.dtype != torch.float32:
         raise ValueError("v must be (R >= 4, SEG) float32")
     seg = v.shape[1]
-    if g_n < 1 or br < 4 or 2 * g_n * br * seg * 4 > 48 * 1024:
-        raise ValueError("need G >= 1, BR >= 4 and a scratch of at most 48 KB")
+    c_check(g_n, br, seg, v.shape[0])
+    shape = (2 * g_n * br, seg)
+    if out is not None and (out.shape != shape or out.dtype != torch.float32
+                            or out.device != v.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {shape} float32 tensor "
+                         f"on {v.device}")
     if v.device.type == "cpu":
-        return probe_c_reference(v, g_n, br)
+        ref = probe_c_reference(v, g_n, br)
+        return ref if out is None else out.copy_(ref)
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
     if not v.is_contiguous():
         raise ValueError("v must be contiguous")
     from superviseddescent_tpu_torch.ops._build import load_library
     lib = load_library("probe_dyn")
-    out = torch.empty((2 * g_n * br, seg), dtype=torch.float32,
-                      device=v.device)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=v.device)
     err = lib.probe_c_launch(
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        int(four_d), g_n, br, seg,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        g_n, br, seg, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"probe_c kernel launch failed: CUDA error {err}")
     counted.launches += 1
     return out
 
 
-def probe_c(v: torch.Tensor, g_n: int, br: int) -> torch.Tensor:
-    """C: rows stored at a computed offset of a 2-D scratch."""
-    return _run_c(probe_c, False, v, g_n, br)
+def probe_c(v: torch.Tensor, g_n: int, br: int,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C: the rows that the TPU kernel stored at a computed offset of a 2-D
+    scratch. ``out``: the (2*G*BR, SEG) float32 tensor to write (any
+    float32 alignment), else a new one."""
+    return _run_c(probe_c, v, g_n, br, out)
 
 
 probe_c.launches = 0
 
 
-def probe_c4(v: torch.Tensor, g_n: int, br: int) -> torch.Tensor:
-    """C4: the same rows stored at [k, face] of a 4-D scratch."""
-    return _run_c(probe_c4, True, v, g_n, br)
+def probe_c4(v: torch.Tensor, g_n: int, br: int,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C4: the same rows, which the TPU kernel stored at [k, face] of a 4-D
+    scratch; the same kernel as C, counted apart."""
+    return _run_c(probe_c4, v, g_n, br, out)
 
 
 probe_c4.launches = 0

@@ -134,3 +134,23 @@ def get_ied(landmarks: LandmarkCollection, right_eye_ids: Sequence[str],
     right = np.mean([landmarks[n] for n in right_eye_ids], axis=0)
     left = np.mean([landmarks[n] for n in left_eye_ids], axis=0)
     return float(np.linalg.norm(right - left))
+
+
+def check_face(detected_faces, groundtruth: LandmarkCollection) -> bool:
+    """True-positive filter: ground-truth landmarks "37", "46", "58" must be
+    inside the first detected facebox (reference: helpers.hpp:106-131).
+
+    detected_faces: sequence of (x, y, w, h) boxes.
+    """
+    if len(detected_faces) == 0:
+        return False
+    x, y, w, h = detected_faces[0]
+    for name in ("37", "46", "58"):
+        if name in groundtruth.names:
+            px, py = groundtruth[name]
+            # cv::Rect::contains uses half-open [x, x+w) x [y, y+h);
+            # the reference converts to integer cv::Point first.
+            ipx, ipy = int(px), int(py)
+            if not (x <= ipx < x + w and y <= ipy < y + h):
+                return False
+    return True

@@ -6,6 +6,8 @@ inside the fixture, never at import). On the card:
 (the repository's conftest imports JAX, which the card's machine lacks).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1006,6 +1008,36 @@ def test_dyn_probes_match_twin_and_emulation(cuda):
             out.cpu().numpy(), c_emulation(v.cpu().numpy(), d["g"], d["br"]))
 
 
+@pytest.mark.parametrize("g", [1, 4, 37])
+@pytest.mark.parametrize("br", [4, 8, 13])
+def test_c_probes_equal_twin_at_every_shape(cuda, g, br):
+    """C and C4 (one kernel, no scratch, 16-byte words with a scalar head
+    and tail) bit-equal to the twin at every SEG, into a new output and
+    into one a float (4 bytes) off the 16-byte grid; each launch counted on
+    its own wrapper."""
+    from superviseddescent_tpu_torch.probes.dyn import (
+        probe_c, probe_c4, probe_c_reference)
+    rng = np.random.default_rng(g * 100 + br)
+    for seg in (1, 3, 128, 129, 1000):
+        v = torch.from_numpy(rng.normal(size=(5, seg)).astype(np.float32)
+                             ).to(cuda)
+        ref = probe_c_reference(v, g, br)
+        for fn in (probe_c, probe_c4):
+            before = (probe_c.launches, probe_c4.launches)
+            got = fn(v, g, br)
+            buf = torch.full((ref.numel() + 1,), float("nan"), device=cuda)
+            out = buf[1:].view(ref.shape)
+            assert out.data_ptr() % 16 == 4
+            assert fn(v, g, br, out=out) is out
+            torch.cuda.synchronize()
+            counts = (probe_c.launches, probe_c4.launches)
+            assert counts == ((before[0] + 2, before[1]) if fn is probe_c
+                              else (before[0], before[1] + 2))
+            assert torch.equal(got, ref), (fn.__name__, seg)
+            assert torch.equal(out, ref), (fn.__name__, seg)
+            assert bool(torch.isnan(buf[0]))
+
+
 # ------------------------------------------------------------------ #
 # tracking on the card: stream and scan give the chain
 # ------------------------------------------------------------------ #
@@ -1036,3 +1068,77 @@ def test_tracking_stream_and_scan_equal_the_chain(cuda):
                                                depth=depth)
         got = np.stack(list(stream(iter(clip), box)))
         np.testing.assert_array_equal(got, chain.cpu().numpy())
+
+
+# ------------------------------------------------------------------ #
+# face detection on the card: the CPU path's boxes
+# ------------------------------------------------------------------ #
+SYNTH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), ".synth120")
+
+
+def synth_gray(name):
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    return load_gray_image(os.path.join(SYNTH, name + ".png"))
+
+
+@pytest.mark.parametrize("name", ["synth_0000", "synth_0001", "synth_0002",
+                                  "synth_0003", "synth_0004"])
+def test_face_detector_on_the_card_equals_cpu(cuda, name):
+    """One image of each .synth120 size class at its own size: raw and
+    grouped boxes of detect, and of detect_batch on the image beside its
+    mirror, equal on the card and on the CPU."""
+    from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
+    from superviseddescent_tpu_torch.models.facedetect import (
+        HaarCascadeDetector)
+    img = synth_gray(name)
+    stack = np.stack([img, img[:, ::-1]])
+    for mn in (0, 2):
+        on_card = HaarCascadeDetector(STOCK_FRONTAL_ALT2, min_neighbors=mn,
+                                      device=cuda)
+        on_cpu = HaarCascadeDetector(STOCK_FRONTAL_ALT2, min_neighbors=mn,
+                                     device="cpu")
+        assert on_card.exact
+        want = on_cpu.detect(img)
+        np.testing.assert_array_equal(on_card.detect(img), want)
+        np.testing.assert_array_equal(
+            on_card.detect(torch.from_numpy(img).to(cuda)), want)
+        for got, ref in zip(on_card.detect_batch(stack),
+                            on_cpu.detect_batch(stack)):
+            np.testing.assert_array_equal(got, ref)
+        if mn and name != "synth_0004":
+            assert len(want) == 1
+
+
+def test_face_detector_overflow_on_the_card(cuda):
+    """A 128-slot survivor buffer and a 4-slot candidate buffer each
+    overflow (the flags read back) and fall back to the dense evaluation,
+    with the default's boxes; detect_stream gives detect's."""
+    from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
+    from superviseddescent_tpu_torch.models.facedetect import (
+        HaarCascadeDetector)
+    img = synth_gray("synth_0003")
+    ref = HaarCascadeDetector(STOCK_FRONTAL_ALT2, min_neighbors=0,
+                              device=cuda)
+    want = ref.detect(img)
+    assert len(want) > 4
+    tiny = HaarCascadeDetector(STOCK_FRONTAL_ALT2, min_neighbors=0,
+                               device=cuda)
+    tiny.SURVIVOR_DIV = 1 << 20
+    pend = tiny.detect_begin(img)
+    got = tiny.detect_end(pend)
+    assert int(pend.packed[0, -1]) == 1
+    np.testing.assert_array_equal(got, want)
+    few = HaarCascadeDetector(STOCK_FRONTAL_ALT2, min_neighbors=0,
+                              device=cuda)
+    few.MAX_CANDIDATES = 4
+    pend = few.detect_begin(img)
+    got = few.detect_end(pend)
+    assert int(pend.packed[0, -2]) == len(want)
+    np.testing.assert_array_equal(got, want)
+    frames = [img, img[:, ::-1], np.zeros_like(img), img[:600, :500]]
+    singles = [ref.detect(f) for f in frames]
+    for depth in (1, 3):
+        for got, want_f in zip(ref.detect_stream(frames, depth=depth),
+                               singles):
+            np.testing.assert_array_equal(got, want_f)

@@ -6,7 +6,8 @@ patches in flight per block and the threads. ``probes/dyn.py``:
 ``abde_shared_bytes`` mirrors the ABDE kernel's staged sub-windows,
 ``abde_plan`` picks the landmarks in flight and the rows a warp stages, and
 ``abde_check`` raises, by name, every limit of the contract that the
-kernel's launch checks.
+kernel's launch checks; ``c_check`` does the same for C and C4, whose
+contract has no scratch to bound it.
 The kernels themselves run on the card only
 (``tests/test_torch_kernels_gpu.py``).
 """
@@ -18,8 +19,8 @@ import torch
 from superviseddescent_tpu_torch.ops.cascade_fused import _MAX_SHARED
 from superviseddescent_tpu_torch.probes import DYN, dyn_inputs, sampler
 from superviseddescent_tpu_torch.probes.dyn import (
-    ABDE_MAX_ROWS, ABDE_MAX_WARPS, abde_check, abde_plan, abde_shared_bytes,
-    probe_abde)
+    ABDE_MAX_ROWS, ABDE_MAX_WARPS, C_MAX_ELEMENTS, abde_check, abde_plan,
+    abde_shared_bytes, c_check, c_emulation, probe_abde, probe_c, probe_c4)
 
 TARGETS = (32, 64, 128, 256, 512, 768, 1024)
 
@@ -221,3 +222,56 @@ def test_abde_wrapper_takes_the_wider_contract(l, w):
     np.testing.assert_allclose(got, abde_emulation(x, win.float().numpy(), 16,
                                                    w, 128, 16),
                                rtol=ABDE_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((4, 8, 128, 3), "at least 4 rows"),
+    ((0, 8, 128, 8), "G >= 1"),
+    ((-1, 8, 128, 8), "G >= 1"),
+    ((4, 3, 128, 8), "BR >= 4"),
+    ((4, 8, 0, 8), "SEG >= 1"),
+    ((1 << 14, 1 << 10, 1 << 6, 8), "exceed int32"),
+    ((1, 4, (C_MAX_ELEMENTS + 1) // 8 + 1, 4), "exceed int32"),
+])
+def test_c_errors(args, match):
+    """Every limit of C's contract, by name, as the kernel's launch checks
+    them (the 48 KB scratch limit went with the scratch)."""
+    with pytest.raises(ValueError, match=match):
+        c_check(*args)
+
+
+@pytest.mark.parametrize("fn", [probe_c, probe_c4])
+def test_c_wrapper_raises_the_same(fn):
+    """Both wrappers check the contract on every device, so the CPU twin
+    refuses what the kernel would."""
+    with pytest.raises(ValueError, match="at least 4 rows"):
+        fn(torch.zeros((3, 128)), 4, 8)
+    with pytest.raises(ValueError, match="BR >= 4"):
+        fn(torch.zeros((8, 128)), 4, 2)
+    with pytest.raises(ValueError, match="G >= 1"):
+        fn(torch.zeros((8, 128)), 0, 8)
+    with pytest.raises(ValueError, match="out must be"):
+        fn(torch.zeros((8, 128)), 4, 8, out=torch.zeros((64, 127)))
+
+
+@pytest.mark.parametrize("g,br,seg,rows", [
+    (4, 8, 128, 8),       # the script's shape
+    (1, 4, 1, 4), (37, 13, 3, 4), (4, 8, 129, 9), (2, 4, 1000, 5),
+    (96, 8, 128, 8),      # past the old 48 KB scratch: 768 KB
+    (4, 64, 1024, 8)])    # 2 MB
+def test_c_wrapper_takes_the_wider_contract(g, br, seg, rows):
+    """Shapes that the scratch kept out (past 48 KB), odd SEG and BR, and v
+    with more than 4 rows go through both wrappers (here their twin), into
+    a new tensor or a given one off the 16-byte grid, and agree with the
+    numpy emulation bit for bit."""
+    rng = np.random.default_rng(g * br + seg)
+    v = torch.from_numpy(rng.normal(size=(rows, seg)).astype(np.float32))
+    want = c_emulation(v.numpy(), g, br)
+    assert want.shape == (2 * g * br, seg)
+    for fn in (probe_c, probe_c4):
+        np.testing.assert_array_equal(fn(v, g, br).numpy(), want)
+        buf = torch.full((want.size + 1,), np.nan)
+        out = buf[1:].view(2 * g * br, seg)
+        assert fn(v, g, br, out=out) is out
+        np.testing.assert_array_equal(out.numpy(), want)
+        assert np.isnan(float(buf[0]))
