@@ -43,7 +43,22 @@ Then the later phases:
   ``.pts`` files, ms per call and frames/s per class, ``detect`` at batch 1
   and ``detect_stream`` on the largest class, its profiled split
   (``record_function`` ranges) and peak memory. It runs no hand-written
-  kernel: its products are ``torch.matmul``.
+  kernel: its products are ``torch.matmul``;
+* the apps and examples (``phase_apps``), each through its ``main(argv)``
+  on the card with inputs written to a temporary directory: ``rcr_train``
+  on the 96 .synth120 pairs of identities 0-3 with ``--roi 512
+  --patch-backend window --facebox-source cascade:<carried xml>`` and the
+  24 of identity 4 as ``-t`` (K2 and K1 once per level; the held-out error
+  below the mean initialisation's), ``rcr_detect -f -o`` on one image of
+  each size class (landmarks against the CPU run), ``rcr_track
+  --face-detector`` over a 64-frame clip with one frame that loses the face,
+  at depth 1 and 4 and with ``--scan`` (K3 launches = the fused fits the app
+  reports; rows equal ``make_fused_track_stream``'s), and the three
+  examples with their tests' checks.
+
+    python3 chip_smoke.py --apps
+
+runs only that phase after the builds.
 
 Where K3 spends its time is read at 4,096 faces of each family and at
 batch 1 (``k3_split``): the kernel beside measurement builds of its source
@@ -3450,6 +3465,433 @@ def probe_levels(torch, seed, root, sweep=False):
     return out
 
 
+# ------------------------------------------------------------------ apps
+# the apps and examples of the port, each through its main(argv) on the
+# card (superviseddescent_tpu_torch/apps, .../examples)
+APP_TRAIN_LEVELS = 4
+APP_HELD_OUT_IDENTITY = 4     # .synth120 image i shows identity i % 5
+APP_DETECT_PX = 1e-3          # tests/test_torch_rcr.py's exact tolerance
+APP_CLIP_FRAMES = 64
+APP_CLIP_IMAGE = 3            # the first image of the 728 x 1023 class
+APP_CLIP_ORIGIN = (260, 40)   # its row and column offset in frame 0
+APP_CLIP_SHAPE = (1024, 768)
+APP_LOSS_FRAME = 20
+APP_LOSS_SIDE = 520           # the lost frame is its top-left corner
+APP_TRACK_DEPTHS = (1, 4)
+APP_TRACK_COPIES = 8
+SIMPLE_FUNCTION_PIN, SIMPLE_FUNCTION_TOL = 0.026157, 5e-6   # reference pin
+POSE_TRUTH, POSE_TOL_DEG = (11.0, -25.0, -10.0), 1.0
+LANDMARK_EXAMPLE_IOD = 0.05
+
+
+def run_app_main(module, argv):
+    """(return code, standard output, wall seconds) of an app's or an
+    example's ``main(argv)``, run in this process."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+class recorded:
+    """Within the block, ``owner.name`` is wrapped so that every call's
+    ``pick(args, result)`` is appended to ``store``."""
+
+    def __init__(self, owner, name, store, pick):
+        self.owner, self.name, self.store, self.pick = (owner, name, store,
+                                                        pick)
+
+    def __enter__(self):
+        self.original = original = getattr(self.owner, self.name)
+
+        def wrapper(*args, **kwargs):
+            out = original(*args, **kwargs)
+            self.store.append(self.pick(args, out))
+            return out
+        setattr(self.owner, self.name, wrapper)
+        return self.store
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.original)
+
+
+def synchronize(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def printed_value(text, label):
+    """The number after ``label`` on its line of an app's output."""
+    for line in text.splitlines():
+        if line.startswith(label):
+            return float(line[len(label):].split()[0].rstrip("s"))
+    raise SmokeFailure(f"no '{label}' line in:\n{text}")
+
+
+def app_config_files(root):
+    """The training app's inputs, written from the repository's files: the
+    68-point mean CSV (pretrained ibug-68's mean), the INFO training config
+    with RCR-22's landmark ids and the eye config."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io.cereal import load_detection_model
+    m68 = load_detection_model(os.path.join(REPO, "pretrained",
+                                            "rcr68_lfpw5.bin"))
+    m22 = load_detection_model(os.path.join(REPO, "pretrained",
+                                            "rcr22_lfpw5.bin"))
+    mean = os.path.join(root, "mean_68.txt")
+    with open(mean, "w") as f:
+        f.write(",".join(repr(float(v))
+                         for v in np.asarray(m68.mean).ravel()) + "\n")
+    config = os.path.join(root, "rcr_training_22.cfg")
+    with open(config, "w") as f:
+        f.write("modelLandmarks\n{\n    landmarks\n    {\n"
+                + "".join(f"        {i}\n" for i in m22.landmark_ids)
+                + "    }\n}\n")
+    evaluation = os.path.join(root, "rcr_eval.cfg")
+    with open(evaluation, "w") as f:
+        f.write("interEyeDistance\n{\n"
+                f'    rightEye "{" ".join(m22.right_eye_ids)}"\n'
+                f'    leftEye "{" ".join(m22.left_eye_ids)}"\n}}\n')
+    return mean, config, evaluation
+
+
+def apps_train(torch, root, device):
+    """rcr_train on the card: the 96 .synth120 pairs of identities 0-3,
+    every level's features through K2 + K1 (--roi 512 --patch-backend
+    window), faceboxes from the face detector with check_face, tested on the
+    24 pairs of identity 4 (-t)."""
+    import shutil
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_train
+    from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
+    mean, config, evaluation = app_config_files(root)
+    dirs = {split: os.path.join(root, split) for split in ("train", "test")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i, png in enumerate(sorted(glob.glob(os.path.join(
+            REPO, ".synth120", "*.png")))):
+        d = dirs["test" if i % 5 == APP_HELD_OUT_IDENTITY else "train"]
+        shutil.copy(png, d)
+        shutil.copy(png[:-4] + ".pts", d)
+    n_test = len(glob.glob(os.path.join(dirs["test"], "*.png")))
+    n_train = len(glob.glob(os.path.join(dirs["train"], "*.png")))
+    out = os.path.join(root, "rcr22_app.bin")
+    argv = ["-d", dirs["train"], "-t", dirs["test"], "-m", mean, "-c",
+            config, "-e", evaluation, "-o", out, "--levels",
+            str(APP_TRAIN_LEVELS), "--roi", str(ROI), "--patch-backend",
+            "window", "--facebox-source", f"cascade:{STOCK_FRONTAL_ALT2}",
+            "--device", device]
+    zero_counts()
+    rc, text, wall = run_app_main(rcr_train, argv)
+    synchronize(torch, device)
+    launches = read_counts()
+    check(rc == 0, f"rcr_train exited {rc}:\n{text}")
+    # K2 then K1 once per level over all samples; face detection and the
+    # test set's detect_batch run plain torch operations
+    expect_counts(launches, "rcr_train --patch-backend window",
+                  hog_flat=APP_TRAIN_LEVELS, patches_window=APP_TRAIN_LEVELS)
+    kept = int(printed_value(text, "Kept "))
+    kept_test = [l for l in text.splitlines() if l.endswith("test images.")]
+    err0 = printed_value(text, "Normalised LM-error test from mean init: ")
+    err = printed_value(text, "Normalised LM-error test: ")
+    train_s = printed_value(text, "Training took ")
+    train_errs = [float(l.split(":")[1]) for l in text.splitlines()
+                  if l.startswith("Normalised LM-error train:")]
+    check(len(train_errs) == APP_TRAIN_LEVELS, "rcr_train: one train error "
+          f"per level expected, got {train_errs}")
+    check(err < err0, f"rcr_train: test IOD error {err} not below the mean "
+          f"initialisation's {err0}")
+    error_file = os.path.splitext(out)[0] + ".error.txt"
+    with open(error_file) as f:
+        columns = [float(v) for v in f.read().split(",")]
+    check(len(columns) == 22 and all(math.isfinite(v) for v in columns),
+          f"rcr_train: bad .error.txt {columns}")
+    log(f"[apps] rcr_train --levels {APP_TRAIN_LEVELS} --roi {ROI} "
+        f"--patch-backend window --facebox-source cascade: {kept} of "
+        f"{n_train} training images kept (check_face), "
+        f"{kept_test[0].split()[1]} of {n_test} test images; launches K2 "
+        f"{launches['patches_window']}, K1 {launches['hog_flat']} (one each "
+        f"per level); train IOD error by level "
+        + ", ".join(f"{e:.5f}" for e in train_errs)
+        + f"; test (identity {APP_HELD_OUT_IDENTITY}, held out) {err:.5f} "
+        f"against {err0:.5f} from the mean; train_rcr {train_s:.1f} s, the "
+        f"app {wall:.2f} s wall")
+    return dict(kept=kept, train_iod=train_errs, test_iod=err,
+                mean_init_iod=err0, train_s=train_s, wall_s=wall,
+                launches=launches, error_columns=columns), out
+
+
+def apps_detect(torch, root, model_path, device):
+    """rcr_detect -f -o on the card, on the first image of each size class
+    in which the face detector finds a face: the landmarks against the
+    port's CPU run within APP_DETECT_PX, the drawn PNG at the image's size,
+    ms per call (the second of two)."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_detect
+    from superviseddescent_tpu_torch.io.png import read_png
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    files = sorted(glob.glob(os.path.join(REPO, ".synth120", "*.png")))
+    out = []
+    for cls in range(5):
+        for png in files[cls::5]:
+            argv = ["-m", model_path, "-i", png, "-f", "-o",
+                    os.path.join(root, "detect.png")]
+            runs = {}
+            for dev in (device, device, "cpu"):
+                coords = []
+                zero_counts()
+                with recorded(DetectionModel, "detect", coords,
+                              lambda a, lms: np.asarray(lms.coordinates)):
+                    rc, text, wall = run_app_main(
+                        rcr_detect, argv + ["--device", dev])
+                if dev == device:
+                    expect_counts(read_counts(), "rcr_detect -f")
+                runs[dev] = (rc, coords, wall, text)
+            if runs[device][0] == 1 and "No face" in runs[device][3]:
+                check(runs["cpu"][0] == 1, f"{png}: a face on the CPU only")
+                continue
+            (rc, coords, wall, text), cpu = runs[device], runs["cpu"]
+            check(rc == 0 and cpu[0] == 0, f"rcr_detect failed:\n{text}")
+            delta = float(np.abs(coords[0] - cpu[1][0]).max())
+            check(delta <= APP_DETECT_PX, f"rcr_detect {png}: the card's "
+                  f"landmarks {delta} px from the CPU's")
+            image = read_png(os.path.join(root, "detect.png"))
+            h, w = read_png(png).shape[:2]
+            check(image.shape == (h, w, 3), f"rcr_detect -o: {image.shape}")
+            out.append(dict(image=os.path.basename(png), shape=[h, w],
+                            cpu_delta_px=delta, ms=wall * 1e3))
+            log(f"[apps] rcr_detect -f -o {os.path.basename(png)} ({w} x "
+                f"{h}): {wall * 1e3:.1f} ms a call (model load, PNG "
+                f"decode, face detection, fit, PNG encode), landmarks "
+                f"{delta:.2e} px from the CPU run")
+            break
+        else:
+            raise SmokeFailure(f"rcr_detect -f: no face in size class {cls}")
+    return out
+
+
+def app_clip(torch, data, seed, root):
+    """Two directories of APP_CLIP_FRAMES PNG frames of APP_CLIP_SHAPE: one
+    .synth120 face at offsets drifting by up to CLIP_STEP_PX a frame; in
+    ``loss/``, frame APP_LOSS_FRAME is cut to its top-left APP_LOSS_SIDE
+    corner, which the face lies below. Returns (dirs, offsets, truth row of
+    frame 0)."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io.png import write_png
+    i = APP_CLIP_IMAGE
+    h, w = data["image_shapes"][i]
+    image = data["stack"][i, :h, :w]
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(-CLIP_STEP_PX, CLIP_STEP_PX + 1,
+                         size=(APP_CLIP_FRAMES, 2))
+    steps[0] = 0
+    offs = np.maximum(np.asarray(APP_CLIP_ORIGIN) + np.cumsum(steps, 0), 0)
+    truth = data["image_gt"][i]
+    n_lm = truth.shape[0] // 2
+    face_top = float(truth[n_lm:].min()) + offs[APP_LOSS_FRAME, 0]
+    check(face_top > APP_LOSS_SIDE + 16, "the clip's lost frame would hold "
+          "the face")
+    dirs = {k: os.path.join(root, k) for k in ("loss", "same")}
+    ch, cw = APP_CLIP_SHAPE
+    for d in dirs.values():
+        os.makedirs(d)
+    for k, (oy, ox) in enumerate(offs):
+        frame = np.zeros(APP_CLIP_SHAPE, np.uint8)
+        src = image[:ch - oy, :cw - ox]
+        frame[oy:oy + src.shape[0], ox:ox + src.shape[1]] = src
+        name = f"f{k:03d}.png"
+        write_png(os.path.join(dirs["same"], name), frame)
+        if k == APP_LOSS_FRAME:
+            frame = frame[:APP_LOSS_SIDE, :APP_LOSS_SIDE]
+        write_png(os.path.join(dirs["loss"], name), frame)
+    row0 = truth + np.concatenate([np.full(n_lm, offs[0, 1]),
+                                   np.full(n_lm, offs[0, 0])]).astype(
+                                       np.float32)
+    return dirs, offs, row0
+
+
+def apps_track(torch, data, seed, root, device):
+    """rcr_track --face-detector on the card over a drifting clip with one
+    lost frame, at depth 1 and 4 (the same rows; K3 launches = the fused
+    fits the app reports, refits of the frames in flight at the loss
+    included; the rows before the loss = make_fused_track_stream's), and
+    --scan over the clip without the lost frame (= the stream's rows);
+    ms per frame, PNG decoding included."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_track
+    from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
+    from superviseddescent_tpu_torch.models.facedetect import (
+        HaarCascadeDetector)
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, train_rcr)
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    dirs, offs, row0 = app_clip(torch, data, seed, root)
+    n = APP_CLIP_FRAMES
+    same = sorted(glob.glob(os.path.join(dirs["same"], "*.png")))
+    frames = [load_gray_image(p).astype(np.uint8) for p in same]
+    det = HaarCascadeDetector(STOCK_FRONTAL_ALT2, device=device,
+                              **FACE_PARAMS)
+    box = det.detect(frames[0])[0]
+    # a tracking model: RCR-22 trained on the card on frame 0's face, its
+    # own shape in the detector's box as the mean (the pretrained models
+    # drift as trackers; phase_tracking)
+    pretrained = data["model"]
+    n_lm = row0.shape[0] // 2
+    mean = np.concatenate([(row0[:n_lm] - box[0]) / box[2] - 0.5,
+                           (row0[n_lm:] - box[1]) / box[3] - 0.5]).astype(
+                               np.float32)
+    model = train_rcr(
+        torch.from_numpy(frames[0][None]).to(device),
+        np.repeat(row0[None], APP_TRACK_COPIES, 0),
+        np.repeat(box[None], APP_TRACK_COPIES, 0), pretrained.landmark_ids,
+        pretrained.right_eye_ids, pretrained.left_eye_ids, mean,
+        RcrTrainConfig(roi=ROI, patch_backend="fused", seed=seed),
+        image_indices=np.zeros(APP_TRACK_COPIES, np.int64),
+        device=device)
+    model_path = os.path.join(root, "track.bin")
+    model.save(model_path)
+    ref = np.stack(list(model.make_fused_track_stream(ROI, depth=4)(
+        frames, box)))
+
+    def bits(a):
+        return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+    def run(directory, *extra):
+        rows = []
+        zero_counts()
+        with recorded(rcr_track, "estimate_ok", rows,
+                      lambda a, ok: (np.array(a[0]), ok)):
+            rc, text, wall = run_app_main(rcr_track, [
+                "-m", model_path, "-f", directory, "--face-detector",
+                "--device", device, *extra])
+        synchronize(torch, device)
+        launches = read_counts()
+        check(rc == 0, f"rcr_track {extra} exited {rc}:\n{text}")
+        summary = [l for l in text.splitlines() if l.startswith("tracked ")]
+        check(len(summary) == 1, f"rcr_track {extra}: no summary:\n{text}")
+        words = summary[0].replace("(", " ").split()
+        fused, refits, exact = int(words[3]), int(words[6]), int(words[8])
+        expect_counts(launches, f"rcr_track {' '.join(extra)}",
+                      cascade_fused_frames=fused)
+        reported = [int(l.split()[1]) for l in text.splitlines()
+                    if l.startswith("frame ") and "bbox" in l]
+        lost = [int(l.split()[1].rstrip(":")) for l in text.splitlines()
+                if "tracking lost" in l]
+        check(reported == list(range(n)), f"rcr_track {extra}: frames "
+              f"reported {reported}")
+        return dict(rows=np.stack([r for r, _ in rows]), fused=fused,
+                    refits=refits, exact=exact, lost=lost,
+                    ms_per_frame=wall * 1e3 / n, wall_s=wall)
+
+    out = {}
+    for depth in APP_TRACK_DEPTHS:
+        r = run(dirs["loss"], "--depth", str(depth))
+        in_flight = min(depth, n - 1 - APP_LOSS_FRAME)
+        check(r["lost"] == [APP_LOSS_FRAME], f"rcr_track depth {depth}: "
+              f"losses at {r['lost']}, expected frame {APP_LOSS_FRAME}")
+        check(r["refits"] == in_flight and r["exact"] == 0
+              and r["fused"] == n + in_flight, f"rcr_track depth {depth}: "
+              f"{r['fused']} fused fits, {r['refits']} refits, {r['exact']} "
+              "exact")
+        check(np.array_equal(bits(r["rows"][:APP_LOSS_FRAME]),
+                             bits(ref[:APP_LOSS_FRAME])),
+              f"rcr_track depth {depth}: rows before the loss differ from "
+              "make_fused_track_stream's")
+        out[f"depth{depth}"] = r
+    check(np.array_equal(bits(out["depth1"]["rows"]),
+                         bits(out[f"depth{APP_TRACK_DEPTHS[-1]}"]["rows"])),
+          "rcr_track: the rows depend on --depth")
+    scan = run(dirs["same"], "--scan")
+    check(scan["fused"] == n and not scan["lost"], "rcr_track --scan: "
+          f"{scan['fused']} fits, losses {scan['lost']}")
+    check(np.array_equal(bits(scan["rows"]), bits(ref)),
+          "rcr_track --scan: rows differ from make_fused_track_stream's")
+    out["scan"] = scan
+    # the apps decode every frame with the port's numpy PNG decoder
+    # (io/png.py): its time per frame, decoded again after the runs
+    t0 = time.perf_counter()
+    for p in same:
+        load_gray_image(p)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n
+    for k, r in out.items():
+        log(f"[apps] rcr_track {k} over {n} frames of {APP_CLIP_SHAPE[1]} x "
+            f"{APP_CLIP_SHAPE[0]}: {r['ms_per_frame']:.2f} ms a frame "
+            f"(the PNG decoder alone {decode_ms:.2f} ms a frame over the "
+            f"same files, decoded again afterwards), {r['fused']} K3 "
+            f"launches = fused fits ({r['refits']} refits of the frames in "
+            f"flight at the loss of frame {APP_LOSS_FRAME}), rows equal "
+            "make_fused_track_stream's")
+        del r["rows"]
+    out["decode_ms_per_frame"] = decode_ms
+    return out
+
+
+def apps_examples(torch, device):
+    """The three examples on the card, with the checks of their CPU
+    tests."""
+    import re
+    from superviseddescent_tpu_torch.examples import (
+        landmark_detection, pose_estimation, simple_function)
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    out = {}
+    zero_counts()
+    rc, text, wall = run_app_main(simple_function, ["--device", device])
+    residual = printed_value(text, "test residual: ")
+    check(rc == 0 and abs(residual - SIMPLE_FUNCTION_PIN)
+          <= SIMPLE_FUNCTION_TOL, f"simple_function: residual {residual}")
+    out["simple_function"] = dict(test_residual=residual, wall_s=wall)
+    rc, text, wall = run_app_main(pose_estimation, ["--device", device])
+    line = [l for l in text.splitlines() if l.startswith("Predicted pose")]
+    pose = [float(v) for v in re.findall(r"-?\d+\.\d+", line[0])][:3]
+    check(rc == 0 and all(abs(a - b) < POSE_TOL_DEG
+                          for a, b in zip(pose, POSE_TRUTH)),
+          f"pose_estimation: {pose}")
+    out["pose_estimation"] = dict(pose=pose, wall_s=wall)
+    rc, text, wall = run_app_main(landmark_detection, ["--device", device])
+    err = float([l for l in text.splitlines()
+                 if "IOD-normalised" in l][0].rsplit(":", 1)[1])
+    saved = [l for l in text.splitlines() if l.startswith("Saved ")][0][6:]
+    model = DetectionModel.load(saved, device=device)
+    os.remove(saved)
+    check(rc == 0 and err < LANDMARK_EXAMPLE_IOD
+          and model.landmark_ids == landmark_detection.LANDMARKS,
+          f"landmark_detection: IOD error {err}")
+    out["landmark_detection"] = dict(iod=err, wall_s=wall)
+    expect_counts(read_counts(), "the examples")
+    log(f"[apps] examples: simple_function test residual {residual:.6f} "
+        f"(pin {SIMPLE_FUNCTION_PIN}), pose_estimation "
+        + " / ".join(f"{v:.1f}" for v in pose)
+        + f" (truth 11 / -25 / -10), landmark_detection IOD error {err:.4f};"
+        " " + ", ".join(f"{k} {v['wall_s']:.2f} s" for k, v in out.items()))
+    return out
+
+
+def phase_apps(torch, data, seed, name, smi):
+    """The port's three apps and three examples through their ``main`` on
+    the card, with their inputs written to a temporary directory: rcr_train
+    (K2 + K1), rcr_detect -f -o, rcr_track (K3) at two depths and --scan,
+    and the examples."""
+    import shutil
+    import tempfile
+    device = "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    t0 = time.perf_counter()
+    try:
+        train, model_path = apps_train(torch, root, device)
+        detect = apps_detect(torch, root, model_path, device)
+        track = apps_track(torch, data, seed, root, device)
+        examples = apps_examples(torch, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[apps] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, train=train, detect=detect,
+                track=track, examples=examples, seconds=seconds)
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3482,6 +3924,9 @@ def main():
                         "of P1 full and the launch floor; with "
                         "--package-root also another checkout's package, "
                         "side by side")
+    parser.add_argument("--apps", action="store_true",
+                        help="only run the apps and examples phase "
+                        "(phase_apps) after the builds")
     parser.add_argument("--probe-times", action="store_true",
                         help=argparse.SUPPRESS)   # --probes' child process
     parser.add_argument("--package-root", default=REPO,
@@ -3544,6 +3989,12 @@ def main():
                            K3_PLANS if opts.plans else (), slices)
         print(json.dumps({"k3_batches": times, "package_root": root}))
         return 0
+    if opts.apps:
+        name, smi = phase_device(torch)
+        phase_build()
+        apps = phase_apps(torch, load_data(torch), seed, name, smi)
+        print(json.dumps({"apps": apps}))
+        return 0
     t0 = time.perf_counter()
     name, smi = phase_device(torch)
     phase_build()
@@ -3568,6 +4019,7 @@ def main():
     tracking = phase_tracking(torch, data, seed)
     batches = k3_batches(torch, data)
     facedetect = phase_facedetect(torch, data)
+    apps = phase_apps(torch, data, seed, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                              families)
     k3_shapes = {
@@ -3591,7 +4043,8 @@ def main():
                        families=families, tracking=tracking, seed=seed,
                        kernels=entries, k3_shapes=k3_shapes,
                        k3_batches=batches, facedetect=facedetect,
-                       seconds=time.perf_counter() - t0), f, indent=1)
+                       apps=apps, seconds=time.perf_counter() - t0), f,
+                  indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -17,7 +17,10 @@ Third slice: RCR training, ``train_rcr`` (``models/rcr_training.py``), with
 the ridge solvers (``ops/solver.py``) and the fused feature extractors
 ``extract_features_fused_frames`` / ``extract_features_fused``
 (``csrc/features_fused.cu``, sharing the cascade kernel's per-landmark body
-in ``csrc/cascade_body.cuh``).
+in ``csrc/cascade_body.cuh``). Later: the probes (``probes/``), the Haar
+face detector (``models/facedetect.py``), the command-line apps
+``rcr_train``, ``rcr_detect`` and ``rcr_track`` (``apps/``), pose estimation
+(``models/pose.py``) and the examples (``examples/``).
 """
 
 from superviseddescent_tpu_torch.core.cascade import (  # noqa: F401

@@ -1,7 +1,10 @@
-"""PNG decoder on the standard library's zlib (no PIL, no OpenCV).
+"""PNG decoder and writer on the standard library's zlib (no PIL, no
+OpenCV).
 
-Covers 8-bit, non-interlaced PNGs of colour type 0 (grey), 2 (RGB),
-4 (grey + alpha) and 6 (RGBA), and raises on anything else.
+The decoder covers 8-bit, non-interlaced PNGs of colour type 0 (grey),
+2 (RGB), 4 (grey + alpha) and 6 (RGBA), and raises on anything else. The
+writer writes 8-bit grey (H, W) and RGB (H, W, 3) images, every row with
+filter type 0.
 
 Rows are un-filtered as a wavefront: pixel (r, x) depends only on
 (r, x-1), (r-1, x) and (r-1, x-1), so all pixels on one anti-diagonal
@@ -90,3 +93,38 @@ def decode_png(data: bytes) -> np.ndarray:
 def read_png(path) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(pixels) -> bytes:
+    """(H, W) grey or (H, W, 3) RGB uint8 array -> PNG bytes."""
+    pixels = np.asarray(pixels)
+    if pixels.dtype != np.uint8:
+        raise ValueError(f"PNG pixels must be uint8, got {pixels.dtype}")
+    if pixels.ndim == 2:
+        colour = 0
+    elif pixels.ndim == 3 and pixels.shape[2] == 3:
+        colour = 2
+    else:
+        raise ValueError("PNG pixels must be (H, W) grey or (H, W, 3) RGB, "
+                         f"got shape {pixels.shape}")
+    height, width = pixels.shape[:2]
+    if height == 0 or width == 0:
+        raise ValueError("PNG image must not be empty")
+    rows = pixels.reshape(height, -1)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
+    header = struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, pixels) -> None:
+    """Write an (H, W) grey or (H, W, 3) RGB uint8 array as a PNG file."""
+    data = encode_png(pixels)
+    with open(path, "wb") as f:
+        f.write(data)

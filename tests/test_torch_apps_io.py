@@ -1,0 +1,187 @@
+"""The apps' io and ``rcr_detect``, the port against the JAX package, on
+the CPU.
+
+io: ``load_mean``, ``read_landmarks_list_to_train`` and
+``read_ied_definition`` equal JAX's on the files the app tests write
+(``torch_apps_helpers.write_config_files``), and a malformed file raises
+the same exception in both; ``write_png`` round-trips bit-equal through the
+port's ``read_png`` and through PIL; the drawing helper of ``-o``.
+
+``rcr_detect`` with pretrained RCR-22 on one ``.synth120`` image, the box
+from ``--facebox``, ``--pts`` or the face detector (``-f``, the carried
+stock cascade): the landmarks within 1e-3 px of JAX's
+(``tests/test_torch_rcr.py``). The app prints them to two decimals, so
+the test records the unrounded coordinates ``DetectionModel.detect``
+returns in each package, holds the two within 1e-3, and holds each
+printed line to its own package's coordinates within half a print step.
+"""
+
+import io
+import os
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from superviseddescent_tpu import io as jax_io
+from superviseddescent_tpu.apps import rcr_detect as jax_detect
+from superviseddescent_tpu.models import rcr as jax_rcr
+from superviseddescent_tpu_torch import io as port_io
+from superviseddescent_tpu_torch.apps import _draw, rcr_detect
+from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
+from superviseddescent_tpu_torch.io.png import encode_png, read_png, write_png
+from superviseddescent_tpu_torch.models import rcr as port_rcr
+from torch_apps_helpers import (  # noqa: F401 (one_torch_thread)
+    PRETRAINED, SYNTH, detect_lines, one_torch_thread, run_app,
+    write_config_files)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+EXACT_PX = 1e-3
+IMAGE = "synth_0001"         # the 300 x 450 class
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    return write_config_files(str(tmp_path_factory.mktemp("apps_io")))
+
+
+def test_config_readers_equal_jax(files):
+    mean, config, evaluation = files
+    got, want = port_io.load_mean(mean), jax_io.load_mean(mean)
+    assert got.dtype == want.dtype == np.float32 and got.shape == (136,)
+    np.testing.assert_array_equal(got, want)
+    ids = port_io.read_landmarks_list_to_train(config)
+    assert ids == jax_io.read_landmarks_list_to_train(config)
+    assert len(ids) == 22
+    eyes = port_io.read_ied_definition(evaluation)
+    assert eyes == jax_io.read_ied_definition(evaluation)
+    assert eyes == (["37", "40"], ["43", "46"])
+    text = open(config).read()
+    assert port_io.parse_info(text) == jax_io.parse_info(text)
+
+
+@pytest.mark.parametrize("reader,content,error", [
+    ("load_mean", "0.1,0.2,abc\n", ValueError),
+    ("read_landmarks_list_to_train", "other\n{\n a 1\n}\n", KeyError),
+    ("read_landmarks_list_to_train",
+     "modelLandmarks\n{\n landmarks all\n}\n", NotImplementedError),
+    ("read_landmarks_list_to_train",
+     "modelLandmarks\n{\n landmarks some\n}\n", ValueError),
+    ("read_ied_definition", "interEyeDistance\n{\n rightEye \"37\"\n}\n",
+     KeyError),
+    ("read_ied_definition", "interEyeDistance\n{\n rightEye \"37\n}\n",
+     ValueError),
+])
+def test_malformed_files_raise_alike(tmp_path, reader, content, error):
+    path = tmp_path / "bad.txt"
+    path.write_text(content)
+    with pytest.raises(error) as want:
+        getattr(jax_io, reader)(str(path))
+    with pytest.raises(error) as got:
+        getattr(port_io, reader)(str(path))
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 5), (31, 17, 3), (2, 9, 3)])
+def test_write_png_round_trips(tmp_path, shape):
+    pixels = np.random.default_rng(len(shape)).integers(
+        0, 256, size=shape).astype(np.uint8)
+    path = tmp_path / "x.png"
+    write_png(path, pixels)
+    back = read_png(path)
+    np.testing.assert_array_equal(back.reshape(shape), pixels)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), pixels)
+    with open(path, "rb") as f:
+        assert f.read() == encode_png(pixels)
+
+
+@pytest.mark.parametrize("pixels", [np.zeros((2, 2), np.float32),
+                                    np.zeros((2, 2, 4), np.uint8),
+                                    np.zeros((0, 3), np.uint8)])
+def test_write_png_refuses_what_it_cannot_write(pixels):
+    with pytest.raises(ValueError):
+        encode_png(pixels)
+
+
+def test_drawing_marks_rings_and_box():
+    rgb = np.zeros((20, 30, 3), np.uint8)
+    _draw.draw_landmarks(rgb, [[10.4, 9.6], [0.0, 0.0], [np.nan, 3.0]])
+    green = (rgb == _draw.GREEN).all(axis=2)
+    # a radius-2 ring around (10, 10), and the part of the one at (0, 0)
+    # that lies inside the image
+    assert green[10, 12] and green[8, 10] and not green[10, 10]
+    assert green[2, 0] and green[0, 2] and not green[0, 0]
+    assert green.sum() == 12 + 4
+    _draw.draw_box(rgb, (3.0, 4.0, 10.0, 40.0))
+    red = (rgb == _draw.RED).all(axis=2)
+    assert red[4, 3:14].all() and red[4:, 3].all() and red[4:, 13].all()
+    assert red.sum() == 11 + 2 * 15
+
+
+# ------------------------------------------------------------ rcr_detect
+def record_detect(monkeypatch, cls, store):
+    fit = cls.detect
+
+    def recording(self, image, facebox):
+        lms = fit(self, image, facebox)
+        store.append((tuple(float(v) for v in facebox),
+                      np.asarray(lms.coordinates, np.float64)))
+        return lms
+    monkeypatch.setattr(cls, "detect", recording)
+
+
+@pytest.mark.parametrize("mode", ["facebox", "pts", "face_detector"])
+def test_rcr_detect_matches_jax(monkeypatch, tmp_path, mode):
+    png = os.path.join(SYNTH, IMAGE + ".png")
+    common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i", png]
+    if mode == "facebox":
+        jax_extra = port_extra = ["--facebox", "60.5,120.25,170,175"]
+    elif mode == "pts":
+        jax_extra = port_extra = ["--pts", png[:-4] + ".pts"]
+    else:
+        jax_extra, port_extra = ["-f", STOCK_FRONTAL_ALT2], ["-f"]
+    want, got = [], []
+    record_detect(monkeypatch, jax_rcr.DetectionModel, want)
+    record_detect(monkeypatch, port_rcr.DetectionModel, got)
+    out_png = tmp_path / "out.png"
+    rc, jax_text = run_app(monkeypatch, jax_detect, common + jax_extra)
+    assert rc == 0
+    rc, text = run_app(monkeypatch, rcr_detect, common + port_extra + [
+        "-o", str(out_png), "--device", "cpu"])
+    assert rc == 0
+    (box, coords), (jax_box, jax_coords) = got[0], want[0]
+    assert len(got) == len(want) == 1 and coords.shape == (22, 2)
+    np.testing.assert_allclose(box, jax_box, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(coords, jax_coords, atol=EXACT_PX, rtol=0)
+    for printed, values in ((detect_lines(text), coords),
+                            (detect_lines(jax_text), jax_coords)):
+        assert len(printed) == 22
+        np.testing.assert_allclose(np.float64(list(printed.values())),
+                                   values, atol=0.005 + 1e-9, rtol=0)
+    assert list(detect_lines(text)) == list(detect_lines(jax_text))
+    written = read_png(out_png)
+    assert written.shape == (450, 300, 3)
+    assert (written == _draw.GREEN).all(axis=2).sum() > 0
+    assert (written == _draw.RED).all(axis=2).sum() > 0
+
+
+def test_rcr_detect_without_a_box_says_so(monkeypatch):
+    argv = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
+            os.path.join(SYNTH, IMAGE + ".png"), "--device", "cpu"]
+    rc, text = run_app(monkeypatch, rcr_detect, argv)
+    assert rc == 1 and "facebox" in text
+    rc, text = run_app(monkeypatch, rcr_detect,
+                       ["-m", os.path.join(SYNTH, IMAGE + ".png")]
+                       + argv[2:])
+    assert rc == 1 and "Error loading the model" in text
+
+
+def test_apps_need_a_card_unless_told(monkeypatch):
+    """No CUDA device and no --device: the app raises, it does not carry
+    on on the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rcr_detect.main(["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"),
+                         "-i", os.path.join(SYNTH, IMAGE + ".png"),
+                         "--facebox", "1,2,3,4"])
