@@ -58,6 +58,23 @@ Then the later phases:
 
     python3 chip_smoke.py --apps
 
+runs only that phase after the builds. Last, the phase of the port's last
+slice (``phase_remainder``): ``train_rcr`` with the dense sampler and K1
+on the 1,408 samples of the window run in exact, high and fast sampling
+(chunks sized by memory, the peak printed, K1 4 launches a call and each
+level's K1 against its twin on the run's own patches, the sampler's
+precision contracts at each level's rows, every model against the
+gather-trained model and the pretrained one); ``rcr_train
+--patch-backend dense --sampling high`` on the apps' inputs; data parallel
+on the one card: a 1-rank NCCL group through ``train_rcr(mesh=)`` (the
+single-process weights), then two gloo ranks sharing cuda:0, spawned after
+the builds, for ``train_rcr(mesh=)`` on the fused backend (K5 per rank)
+and the window backend (K2 + K1 per rank), an all-reduce of the 8,801^2
+AtA and ``sharded_detect_fused`` over the 4,096 faces (K3 per rank); and a
+checkpointed fused run resumed after its second level.
+
+    python3 chip_smoke.py --remainder
+
 runs only that phase after the builds.
 
 Where K3 spends its time is read at 4,096 faces of each family and at
@@ -2532,7 +2549,7 @@ def phase_profile(torch, label, size, call):
 
 
 def kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
-                   families):
+                   families, remainder):
     """One entry per kernel (K1 and K2 per sampling mode). max_abs_err is,
     for K1 and K2, the largest of the twin checks at the stepped detector's
     inputs, those of the kernel phases and, in the sampling mode it ran,
@@ -2548,9 +2565,14 @@ def kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
     it computes, and null for the others. ms_source says which clock gave
     an entry's ms, plain_ms and library_ms: CUDA events around the call, or,
     for the four probe kernels that run for microseconds, the kernels'
-    device time from torch.profiler (all three from that one clock)."""
+    device time from torch.profiler (all three from that one clock).
+    K1's exact entry also takes the errors of the dense training runs'
+    patches (K1 in exact mode in every sampling mode) and their launches
+    per call, ``dense_train_launches``."""
     entries = []
     trained = train["window_backend"]
+    dense = remainder["dense"]["modes"]
+    dense_k1 = max(lv["k1_err"] for m in dense.values() for lv in m["levels"])
     for name, key, errs in (("hog_flat", "k1", k1_errs),
                             ("patches_window", "k2", k2_errs)):
         source, replaces = SOURCES[name]
@@ -2567,6 +2589,8 @@ def kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                 max_abs_err=max(
                     errs[sampling], results[sampling][f"{key}_err"],
                     trained[f"{key}_err"] if trained["sampling"] == sampling
+                    else 0.0,
+                    dense_k1 if (name, sampling) == ("hog_flat", "exact")
                     else 0.0,
                     *(fam["stepped"][sampling][f"{key}_err"]
                       for fam in families.values())),
@@ -2611,6 +2635,8 @@ def kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                if k in r}))
     for e in entries:
         e.setdefault("ms_source", "cuda_events")
+        if e["name"] == "hog_flat/exact":
+            e["dense_train_launches"] = dense["exact"]["launches"]["hog_flat"]
     return entries
 
 
@@ -3558,11 +3584,12 @@ def app_config_files(root):
     return mean, config, evaluation
 
 
-def apps_train(torch, root, device):
+def apps_train(torch, root, device, backend="window", extra=()):
     """rcr_train on the card: the 96 .synth120 pairs of identities 0-3,
     every level's features through K2 + K1 (--roi 512 --patch-backend
-    window), faceboxes from the face detector with check_face, tested on the
-    24 pairs of identity 4 (-t)."""
+    window) or the dense sampler and K1 (``backend="dense"``, with the
+    flags ``extra``), faceboxes from the face detector with check_face,
+    tested on the 24 pairs of identity 4 (-t)."""
     import shutil
     import numpy as np
     from superviseddescent_tpu_torch.apps import rcr_train
@@ -3570,7 +3597,7 @@ def apps_train(torch, root, device):
     mean, config, evaluation = app_config_files(root)
     dirs = {split: os.path.join(root, split) for split in ("train", "test")}
     for d in dirs.values():
-        os.makedirs(d)
+        os.makedirs(d, exist_ok=True)
     for i, png in enumerate(sorted(glob.glob(os.path.join(
             REPO, ".synth120", "*.png")))):
         d = dirs["test" if i % 5 == APP_HELD_OUT_IDENTITY else "train"]
@@ -3578,21 +3605,22 @@ def apps_train(torch, root, device):
         shutil.copy(png[:-4] + ".pts", d)
     n_test = len(glob.glob(os.path.join(dirs["test"], "*.png")))
     n_train = len(glob.glob(os.path.join(dirs["train"], "*.png")))
-    out = os.path.join(root, "rcr22_app.bin")
+    out = os.path.join(root, f"rcr22_app_{backend}.bin")
     argv = ["-d", dirs["train"], "-t", dirs["test"], "-m", mean, "-c",
             config, "-e", evaluation, "-o", out, "--levels",
             str(APP_TRAIN_LEVELS), "--roi", str(ROI), "--patch-backend",
-            "window", "--facebox-source", f"cascade:{STOCK_FRONTAL_ALT2}",
-            "--device", device]
+            backend, "--facebox-source", f"cascade:{STOCK_FRONTAL_ALT2}",
+            "--device", device, *extra]
     zero_counts()
     rc, text, wall = run_app_main(rcr_train, argv)
     synchronize(torch, device)
     launches = read_counts()
     check(rc == 0, f"rcr_train exited {rc}:\n{text}")
-    # K2 then K1 once per level over all samples; face detection and the
-    # test set's detect_batch run plain torch operations
-    expect_counts(launches, "rcr_train --patch-backend window",
-                  hog_flat=APP_TRAIN_LEVELS, patches_window=APP_TRAIN_LEVELS)
+    # K2 (window) then K1 once per level over all samples; face detection
+    # and the test set's detect_batch run plain torch operations
+    expect_counts(launches, f"rcr_train --patch-backend {backend}",
+                  hog_flat=APP_TRAIN_LEVELS,
+                  patches_window=APP_TRAIN_LEVELS * (backend == "window"))
     kept = int(printed_value(text, "Kept "))
     kept_test = [l for l in text.splitlines() if l.endswith("test images.")]
     err0 = printed_value(text, "Normalised LM-error test from mean init: ")
@@ -3610,7 +3638,8 @@ def apps_train(torch, root, device):
     check(len(columns) == 22 and all(math.isfinite(v) for v in columns),
           f"rcr_train: bad .error.txt {columns}")
     log(f"[apps] rcr_train --levels {APP_TRAIN_LEVELS} --roi {ROI} "
-        f"--patch-backend window --facebox-source cascade: {kept} of "
+        f"--patch-backend {' '.join((backend, *extra))} --facebox-source "
+        f"cascade: {kept} of "
         f"{n_train} training images kept (check_face), "
         f"{kept_test[0].split()[1]} of {n_test} test images; launches K2 "
         f"{launches['patches_window']}, K1 {launches['hog_flat']} (one each "
@@ -3892,6 +3921,522 @@ def phase_apps(torch, data, seed, name, smi):
                 track=track, examples=examples, seconds=seconds)
 
 
+# ---------------------------------------------------------------- #
+# The last slice: dense training, data parallel, checkpoints
+# ---------------------------------------------------------------- #
+DENSE_SAMPLINGS = ("exact", "high", "fast")
+# device memory that the dense sampler's images, tents and products may
+# take at once; the chunk follows from it (``dense_chunk``)
+DENSE_BUDGET_BYTES = 12 << 30
+# the contracts of the dense sampler's precisions (the JAX package's
+# ``sampling`` docstring): high within 0.006 grey levels of exact before
+# rounding, fast within one; quantised, exact within one grey level of the
+# gather sampler, whose truncating fixed-point shifts it does not copy
+DENSE_HIGH_GREY = 0.006
+DENSE_FAST_GREY = 1.0
+DENSE_VS_GATHER_GREY = 1.0
+# samples of each level on which those contracts are checked
+DENSE_CONTRACT_SAMPLES = 256
+# a dense-trained model's rows against the gather-trained model's on their
+# training faces: the fused-vs-exact bound of the detectors
+DENSE_VS_GATHER_PX = FUSED_WHOLE_MAX_PX
+# tests/test_parallel.py:111-116: a mesh run's weights against the
+# single-process run's; sharded fused rows against the single-process ones
+MESH_RTOL, MESH_ATOL = 2e-2, 2e-4
+SHARDED_PX = 1e-4
+MESH_RANKS = 2
+ALLREDUCE_REPS = 5
+
+
+def dense_chunk(hog, factor):
+    """Samples per dense chunk within DENSE_BUDGET_BYTES: per sample its
+    gathered image, the row and column tents, the row products and the
+    patches in float32 at the largest level, times ``factor`` for the
+    bfloat16 parts of the high and fast products."""
+    h, w = hog.images.shape[1:]
+    l = len(hog.model_landmarks)
+    s = max(p.patch_size for p in hog.hog_params)
+    per = 4 * (h * w + l * s * (h + 2 * w) + l * s * s) * factor
+    return max(1, DENSE_BUDGET_BYTES // per)
+
+
+def dense_contracts(torch, hog, ids, x, li):
+    """The dense sampler's precisions against each other and against the
+    gather sampler at one level's rows (the first DENSE_CONTRACT_SAMPLES):
+    high and fast against exact before rounding, exact against gather
+    after it (max and share of unequal pixels) and before it."""
+    from superviseddescent_tpu_torch.models.rcr import HogTransform
+    n = min(DENSE_CONTRACT_SAMPLES, x.shape[0])
+    x, idx = x[:n], hog.image_indices[:n]
+
+    def patches(backend, sampling, quantize):
+        t = HogTransform(hog.images, hog.hog_params, *ids,
+                         image_indices=idx, quantize=quantize,
+                         backend=backend, sampling=sampling)
+        return t.sample_patches(x, li, idx)
+
+    exact = patches("dense", "exact", False)
+    out = dict(
+        high=float((patches("dense", "high", False) - exact).abs().max()),
+        fast=float((patches("dense", "fast", False) - exact).abs().max()),
+        vs_gather_unquantised=float(
+            (patches("gather", "exact", False) - exact).abs().max()))
+    dq = patches("dense", "exact", True) - patches("gather", "exact", True)
+    out["vs_gather"] = float(dq.abs().max())
+    out["vs_gather_unequal"] = float((dq != 0).float().mean())
+    check(out["high"] <= DENSE_HIGH_GREY and out["fast"] <= DENSE_FAST_GREY
+          and out["vs_gather"] <= DENSE_VS_GATHER_GREY,
+          f"level {li}: the dense sampler broke a contract: {out}")
+    return out
+
+
+def dense_replay(torch, label, prob, trained, epoch_rows, chunk, ids,
+                 contracts):
+    """Each level of a dense run replayed at its own rows: K1 against its
+    twin on the level's own patches, timed beside the twin and its bound;
+    the replayed rows against the run's on_epoch rows; with ``contracts``
+    also the sampler's precision contracts at the level's rows."""
+    from superviseddescent_tpu_torch.models.rcr import _with_bias
+    from superviseddescent_tpu_torch.ops.hog_flat import (
+        hog_descriptor_flat, hog_descriptor_flat_reference)
+    from superviseddescent_tpu_torch.utils.timing import cuda_time_ms
+    hog, x = prob.hog, prob.x0
+    n = x.shape[0]
+    idx = hog.image_indices
+    levels = []
+    for li, p in enumerate(hog.hog_params):
+        s = p.patch_size
+        level = dict(level=li)
+        if contracts:
+            level["contracts"] = dense_contracts(torch, hog, ids, x, li)
+        patches = torch.cat([hog.sample_patches(x[a:a + chunk], li,
+                                                idx[a:a + chunk])
+                             for a in range(0, n, chunk)])
+        flat = patches.reshape(-1, s * s)
+        del patches
+        kw = dict(size=s, cell_size=p.cell_size, num_orientations=p.num_bins,
+                  variant=p.variant)
+        desc = hog_descriptor_flat(flat, **kw)
+        ref = hog_descriptor_flat_reference(flat, **kw)
+        diff = (desc - ref).abs()
+        err = float(diff.max())
+        bad = int((diff > K1_ATOL + K1_RTOL * ref.abs()).sum())
+        del ref, diff
+        check(bad == 0, f"{label} level {li}: K1 disagrees with its twin "
+              f"on the dense patches ({bad} outside)")
+        ms, _ = cuda_time_ms(hog_descriptor_flat, flat, **kw, reps=10,
+                             warmup=2)
+        plain_ms, _ = cuda_time_ms(hog_descriptor_flat_reference, flat,
+                                   **kw, reps=2, warmup=1)
+        b_bytes, b_ops = k1_bound(flat.shape[0], p, 4)
+        x = trained.sdo.step(li, x, _with_bias(desc.reshape(n, -1)))
+        replay = float((x + prob.sample_shift - epoch_rows[li]).abs().max())
+        check(replay <= 1e-3, f"{label} level {li}: the replay left the "
+              f"run's rows by {replay} px")
+        level.update(k1_err=err, k1_ms=ms, k1_plain_ms=plain_ms,
+                     k1_bound_bytes_ms=b_bytes * 1e3,
+                     k1_bound_ops_ms=b_ops * 1e3, replay_px=replay)
+        log(f"[remainder] {label} level {li} S={s}: K1 on {flat.shape[0]} "
+            f"dense patches vs twin max abs {err:.3e} (rtol {K1_RTOL} + atol "
+            f"{K1_ATOL}); K1 {ms:.4f} ms (twin {plain_ms:.1f} ms, bound "
+            f"{max(b_bytes, b_ops) * 1e3:.4f}); replay {replay:.2e} px"
+            + ("" if not contracts else
+               "; sampler contracts: high - exact {high:.2e}, fast - exact "
+               "{fast:.3f} grey levels (limits {hl}, {fl}); exact - gather "
+               "{vs_gather:.0f} quantised on {share:.2%} of pixels, "
+               "{vs_gather_unquantised:.2e} unquantised".format(
+                   hl=DENSE_HIGH_GREY, fl=DENSE_FAST_GREY,
+                   share=level["contracts"]["vs_gather_unequal"],
+                   **level["contracts"])))
+        levels.append(level)
+        del flat, desc
+        torch.cuda.empty_cache()
+    return levels
+
+
+def remainder_dense(torch, data):
+    """train_rcr with the dense sampler + K1 at full RCR-22 width on the
+    1,408 samples of the window run, in exact, high and fast: launches,
+    peak memory, cold and warm seconds, each level replayed (K1 against its
+    twin, the sampler's contracts in the exact run), and the models against
+    the gather-trained model and the pretrained one."""
+    import numpy as np
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, normalised_landmark_errors, train_rcr,
+        training_problem)
+    model, frames = data["model"], data["frames"]
+    ids = (model.landmark_ids, model.right_eye_ids, model.left_eye_ids)
+    eyes = (data["r_idx"], data["l_idx"])
+    mean = model.mean.cpu().numpy()
+    sel = np.arange(TRAIN_FACES_SMALL) % frames.shape[0]
+    gt, bx = data["image_gt"][sel], data["image_boxes"][sel]
+    boxes = torch.from_numpy(bx).cuda()
+    gt_dev = torch.from_numpy(gt).cuda()
+    images = frames[torch.from_numpy(sel).cuda()]
+    levels = len(model.hog_params)
+
+    def iod(m):
+        rows = m.make_stepped_detector(
+            TRAIN_FACES_SMALL, roi=ROI, sampling="exact",
+            window_sampler=True, max_ied=data["max_ied"])(images, boxes)
+        return rows, float(normalised_landmark_errors(
+            rows, gt_dev, *eyes).mean())
+
+    ref_rows, pretrained_iod = iod(model)
+    gather = train_rcr(frames, gt, bx, *ids, mean, RcrTrainConfig(
+        roi=ROI, patch_backend="gather", seed=0, solver_method="lu"),
+        image_indices=sel)
+    gather_rows, gather_iod = iod(gather)
+    del gather
+    out = dict(pretrained_iod=pretrained_iod, gather_iod=gather_iod,
+               modes={})
+    for sampling in DENSE_SAMPLINGS:
+        cfg = RcrTrainConfig(roi=ROI, patch_backend="dense",
+                             sampling=sampling, seed=0, solver_method="lu")
+        prob = training_problem(frames, gt, bx, *ids, mean, cfg,
+                                image_indices=sel)
+        n = prob.x0.shape[0]
+        chunk = min(n, dense_chunk(prob.hog, 1 if sampling == "exact"
+                                   else 3))
+        cfg.feature_chunk_size = chunk
+        args = (frames, gt, bx, *ids, mean, cfg)
+        epoch_rows = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        trained = train_rcr(*args, image_indices=sel,
+                            on_epoch=epoch_rows.append)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expect_counts(launches, f"train_rcr(dense, {sampling})",
+                      hog_flat=levels)
+        t0 = time.perf_counter()
+        train_rcr(*args, image_indices=sel)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        rows, err = iod(trained)
+        vs_gather = float((rows - gather_rows).abs().max())
+        log(f"[remainder] train_rcr(dense, {sampling}, roi {ROI}) on {n} "
+            f"samples in chunks of {chunk}: launches {launches}; "
+            f"{cold_s:.3f} s first call, {warm_s:.3f} s warm; peak memory "
+            f"{peak / 2**30:.2f} GiB; IOD error on its {TRAIN_FACES_SMALL} "
+            f"faces (exact stepped) {err:.6f} (gather-trained "
+            f"{gather_iod:.6f}, pretrained {pretrained_iod:.6f}); rows vs "
+            f"the gather-trained model's {vs_gather:.4f} px")
+        check(err < pretrained_iod, f"the dense {sampling} model is no "
+              "better than the pretrained one on its training faces")
+        if sampling == "exact":
+            check(vs_gather <= DENSE_VS_GATHER_PX, "the exact dense model "
+                  f"detects {vs_gather} px from the gather model")
+        replay = dense_replay(torch, f"train_rcr(dense, {sampling})",
+                              prob, trained, epoch_rows, chunk, ids,
+                              contracts=sampling == "exact")
+        out["modes"][sampling] = dict(
+            samples=n, chunk=chunk, launches=launches, cold_s=cold_s,
+            warm_s=warm_s, peak_bytes=peak, iod=err,
+            vs_gather_px=vs_gather, levels=replay)
+        del prob, trained, epoch_rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def allreduce_ms(torch, mesh, n_features):
+    """Host-clock ms of one all_reduce of an (F, F) float32 matrix, the
+    size of a level's AtA, over the mesh's group (synchronised before and
+    after; the median of ALLREDUCE_REPS after one warm-up)."""
+    import statistics
+    import torch.distributed as dist
+    ata = torch.ones((n_features, n_features), device=mesh.device)
+    times = []
+    for rep in range(ALLREDUCE_REPS + 1):
+        dist.barrier(group=mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(ata, group=mesh.group)
+        torch.cuda.synchronize()
+        if rep:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rank_inputs(torch, data):
+    """What every rank of the data-parallel runs trains and detects on."""
+    import numpy as np
+    model = data["model"]
+    sel = np.arange(TRAIN_FACES_SMALL) % data["frames"].shape[0]
+    return dict(
+        frames=data["stack"], gt=data["image_gt"][sel],
+        boxes=data["image_boxes"][sel], sel=sel,
+        mean=model.mean.cpu().numpy(), det_boxes=data["boxes_np"],
+        det_sel=data["sel"], max_ied=np.float64(data["max_ied"]))
+
+
+def mesh_rank(rank, world, init, inputs, out):
+    """One rank of the gloo group that shares cuda:0: train_rcr(mesh=) on
+    the fused backend (K5 on this rank's shard), an all_reduce of AtA's
+    size, train_rcr(mesh=) on the window backend (K2 + K1 on the shard),
+    sharded_detect_fused over the 4,096 faces (K3 on this rank's shard).
+    Writes its results to ``out % rank``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, train_rcr)
+    from superviseddescent_tpu_torch.parallel import (
+        make_mesh, sharded_detect_fused)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        mesh = make_mesh(world, share_device=True)
+        d = dict(np.load(inputs))
+        frames = torch.from_numpy(d["frames"]).cuda()
+        model = DetectionModel.load(os.path.join(REPO, "pretrained",
+                                                 "rcr22_lfpw5.bin"))
+        ids = (model.landmark_ids, model.right_eye_ids, model.left_eye_ids)
+        cfg = RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                             solver_method="lu")
+        args = (frames, d["gt"], d["boxes"], *ids, d["mean"], cfg)
+        zero_counts()
+        train_rcr(*args, image_indices=d["sel"], mesh=mesh)
+        torch.cuda.synchronize()
+        train_launches = read_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        trained = train_rcr(*args, image_indices=d["sel"], mesh=mesh)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        ar_ms = allreduce_ms(torch, mesh, trained.sdo.regressors[0]
+                             .weights.shape[0])
+        # the window backend through ShardedHogTransform: K2 + K1 a level
+        cfg_w = RcrTrainConfig(roi=ROI, patch_backend="window", seed=0,
+                               solver_method="lu")
+        zero_counts()
+        window = train_rcr(*args[:-1], cfg_w, image_indices=d["sel"],
+                           mesh=mesh)
+        torch.cuda.synchronize()
+        window_launches = read_counts()
+        det = dict(roi=ROI, max_ied=float(d["max_ied"]),
+                   image_indices=d["det_sel"])
+        zero_counts()
+        rows = sharded_detect_fused(model, frames, d["det_boxes"], mesh,
+                                    **det)
+        torch.cuda.synchronize()
+        det_launches = read_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        sharded_detect_fused(model, frames, d["det_boxes"], mesh, **det)
+        torch.cuda.synchronize()
+        det_ms = (time.perf_counter() - t0) * 1e3
+        np.savez(out % rank, rows=rows.cpu().numpy(),
+                 allreduce_ms=ar_ms, train_s=train_s, detect_ms=det_ms,
+                 train_launches=json.dumps(train_launches),
+                 window_launches=json.dumps(window_launches),
+                 detect_launches=json.dumps(det_launches),
+                 **{f"w{i}": r.weights.cpu().numpy()
+                    for i, r in enumerate(trained.sdo.regressors)},
+                 **{f"window_w{i}": r.weights.cpu().numpy()
+                    for i, r in enumerate(window.sdo.regressors)})
+    finally:
+        dist.destroy_process_group()
+
+
+def remainder_parallel(torch, data):
+    """Data parallel on the one card: the single-process fused run on the
+    1,408 samples; the same through a 1-rank NCCL group (equal weights);
+    two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one device):
+    train_rcr(mesh=) with K5 on each rank's shard, and with the window
+    backend (K2 + K1 through ShardedHogTransform), weights within
+    tests/test_parallel.py's tolerance, and sharded_detect_fused with K3
+    on each rank's 2,048 faces, rows within SHARDED_PX of the
+    single-process fused detector's. The kernels were built before the
+    ranks start. A correctness check: two ranks on one card do not scale."""
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, train_rcr)
+    from superviseddescent_tpu_torch.parallel import make_mesh
+    inputs = rank_inputs(torch, data)
+    model = data["model"]
+    ids = (model.landmark_ids, model.right_eye_ids, model.left_eye_ids)
+    cfg = RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                         solver_method="lu")
+    args = (data["frames"], inputs["gt"], inputs["boxes"], *ids,
+            inputs["mean"], cfg)
+    single = [r.weights for r in train_rcr(
+        *args, image_indices=inputs["sel"]).sdo.regressors]
+    single_window = [r.weights for r in train_rcr(
+        *args[:-1], RcrTrainConfig(roi=ROI, patch_backend="window", seed=0,
+                                   solver_method="lu"),
+        image_indices=inputs["sel"]).sdo.regressors]
+    det = model.make_fused_detector(roi=ROI, max_ied=data["max_ied"])
+    single_rows = det(data["frames"], data["boxes"],
+                      image_indices=data["sel_dev"])
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        zero_counts()
+        one = train_rcr(*args, image_indices=inputs["sel"], mesh=mesh)
+        torch.cuda.synchronize()
+        one_launches = read_counts()
+        nccl_ms = allreduce_ms(torch, mesh, single[0].shape[0])
+    finally:
+        dist.destroy_process_group()
+    one_delta = max(float((r.weights - w).abs().max())
+                    for r, w in zip(one.sdo.regressors, single))
+    expect_counts(one_launches, "train_rcr(mesh=1 rank, fused)",
+                  features_fused_frames=len(single))
+    log(f"[remainder] 1-rank NCCL group: train_rcr(mesh=) launches "
+        f"{one_launches}; weights vs the single-process run max abs "
+        f"{one_delta:.3e}; all_reduce of the {single[0].shape[0]}^2 float32 "
+        f"AtA {nccl_ms:.3f} ms (one rank: nothing crosses a link)")
+    check(one_delta == 0.0, "a 1-rank mesh trains other weights than the "
+          "single-process run")
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "remainder_ranks.npz")
+    np.savez(path, **inputs)
+    out = os.path.join(build, "remainder_rank%d.npz")
+    t0 = time.perf_counter()
+    try:
+        # join=True: a failed rank raises here, after the others are stopped
+        mp.start_processes(mesh_rank, args=(
+            MESH_RANKS, f"tcp://localhost:{free_port()}", path, out),
+            nprocs=MESH_RANKS, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(out % r)) for r in range(MESH_RANKS)]
+    finally:
+        for f in [path] + [out % r for r in range(MESH_RANKS)]:
+            if os.path.exists(f):
+                os.remove(f)
+    n_levels = len(single)
+    for r, res in enumerate(ranks):
+        expect_counts(json.loads(str(res["train_launches"])),
+                      f"rank {r}: train_rcr(mesh=2 ranks, fused)",
+                      features_fused_frames=n_levels)
+        expect_counts(json.loads(str(res["window_launches"])),
+                      f"rank {r}: train_rcr(mesh=2 ranks, window)",
+                      patches_window=n_levels, hog_flat=n_levels)
+        expect_counts(json.loads(str(res["detect_launches"])),
+                      f"rank {r}: sharded_detect_fused",
+                      cascade_fused_frames=1)
+        for key in [f"{b}w{i}" for b in ("", "window_")
+                    for i in range(n_levels)]:
+            check(np.array_equal(res[key], ranks[0][key]),
+                  f"rank {r} ends with other weights than rank 0 ({key})")
+    errs = {}
+    for backend, weights in (("", single), ("window_", single_window)):
+        errs[backend] = 0.0
+        for i, w in enumerate(weights):
+            w = w.cpu().numpy()
+            got = ranks[0][f"{backend}w{i}"]
+            errs[backend] = max(errs[backend], float(np.abs(got - w).max()))
+            check(np.allclose(got, w, rtol=MESH_RTOL, atol=MESH_ATOL),
+                  f"level {i}: 2-rank {backend or 'fused '}weights outside "
+                  f"rtol {MESH_RTOL} + atol {MESH_ATOL} of the "
+                  "single-process run")
+    w_err = errs[""]
+    rows_err = float(np.abs(ranks[0]["rows"]
+                            - single_rows.cpu().numpy()).max())
+    check(rows_err <= SHARDED_PX, f"sharded fused rows {rows_err} px from "
+          "the single-process detector's")
+    res = ranks[0]
+    log(f"[remainder] 2 gloo ranks sharing cuda:0 (a correctness check, not "
+        f"a scaling number): train_rcr(mesh=) K5 {n_levels} launches a "
+        f"rank, same weights on both ranks, max abs {w_err:.3e} from the "
+        f"single-process run (rtol {MESH_RTOL} + atol {MESH_ATOL}); the "
+        f"window backend K2 + K1 {n_levels} + {n_levels} launches a rank, "
+        f"max abs {errs['window_']:.3e}; warm fused "
+        f"train_rcr {float(res['train_s']):.3f} s; all_reduce of AtA over "
+        f"gloo {float(res['allreduce_ms']):.3f} ms; sharded_detect_fused of "
+        f"{BATCH} faces, K3 once a rank, {float(res['detect_ms']):.3f} ms "
+        f"(host clock), rows {rows_err:.2e} px from make_fused_detector's; "
+        f"the spawned ranks {wall:.1f} s wall")
+    return dict(one_rank=dict(launches=one_launches, delta=one_delta,
+                              nccl_allreduce_ms=nccl_ms),
+                two_ranks=dict(weights_err=w_err,
+                               window_weights_err=errs["window_"],
+                               rows_err_px=rows_err,
+                               gloo_allreduce_ms=float(res["allreduce_ms"]),
+                               train_s=float(res["train_s"]),
+                               detect_ms=float(res["detect_ms"]),
+                               wall_s=wall))
+
+
+def remainder_checkpoint(torch, data):
+    """A checkpointed fused run of the 1,408 samples, its last two levels
+    removed and resumed: the same weights as the uninterrupted run."""
+    import shutil
+    import tempfile
+    from superviseddescent_tpu_torch.io.checkpoint import TrainCheckpointer
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, train_rcr)
+    inputs = rank_inputs(torch, data)
+    model = data["model"]
+    args = (data["frames"], inputs["gt"], inputs["boxes"], model.landmark_ids,
+            model.right_eye_ids, model.left_eye_ids, inputs["mean"],
+            RcrTrainConfig(roi=ROI, patch_backend="fused", seed=0,
+                           solver_method="lu"))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        full = train_rcr(*args, image_indices=inputs["sel"],
+                         checkpointer=TrainCheckpointer(root))
+        n = len(full.sdo.regressors)
+        for lvl in (n - 2, n - 1):
+            os.remove(os.path.join(root, f"level_{lvl:02d}.npz"))
+        zero_counts()
+        resumed = train_rcr(*args, image_indices=inputs["sel"],
+                            checkpointer=TrainCheckpointer(root))
+        launches = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    expect_counts(launches, "resumed train_rcr", features_fused_frames=2)
+    delta = max(float((a.weights - b.weights).abs().max())
+                for a, b in zip(full.sdo.regressors, resumed.sdo.regressors))
+    log(f"[remainder] checkpointed fused train_rcr, levels {n - 2}-{n - 1} "
+        f"removed and resumed (K5 {launches['features_fused_frames']} "
+        f"launches): weights vs the uninterrupted run max abs {delta:.3e}")
+    check(delta == 0.0, "the resumed run trained other weights")
+    return dict(launches=launches, delta=delta)
+
+
+def phase_remainder(torch, data, name, smi):
+    """The last slice on the card: dense training (K1), rcr_train
+    --patch-backend dense, data parallel on one card (K5 and K3 per rank)
+    and a checkpointed resume."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    dense = remainder_dense(torch, data)
+    root = tempfile.mkdtemp(prefix="chip_smoke_remainder_")
+    try:
+        app, _ = apps_train(torch, root, "cuda", backend="dense",
+                            extra=("--sampling", "high"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    parallel = remainder_parallel(torch, data)
+    checkpoint = remainder_checkpoint(torch, data)
+    seconds = time.perf_counter() - t0
+    log(f"[remainder] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, dense=dense, app=app,
+                parallel=parallel, checkpoint=checkpoint, seconds=seconds)
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3927,6 +4472,11 @@ def main():
     parser.add_argument("--apps", action="store_true",
                         help="only run the apps and examples phase "
                         "(phase_apps) after the builds")
+    parser.add_argument("--remainder", action="store_true",
+                        help="only run the last slice's phase "
+                        "(phase_remainder: dense training, data parallel "
+                        "on one card, a checkpointed resume) after the "
+                        "builds")
     parser.add_argument("--probe-times", action="store_true",
                         help=argparse.SUPPRESS)   # --probes' child process
     parser.add_argument("--package-root", default=REPO,
@@ -3995,6 +4545,12 @@ def main():
         apps = phase_apps(torch, load_data(torch), seed, name, smi)
         print(json.dumps({"apps": apps}))
         return 0
+    if opts.remainder:
+        name, smi = phase_device(torch)
+        phase_build()
+        remainder = phase_remainder(torch, load_data(torch), name, smi)
+        print(json.dumps({"remainder": remainder}))
+        return 0
     t0 = time.perf_counter()
     name, smi = phase_device(torch)
     phase_build()
@@ -4020,8 +4576,9 @@ def main():
     batches = k3_batches(torch, data)
     facedetect = phase_facedetect(torch, data)
     apps = phase_apps(torch, data, seed, name, smi)
+    remainder = phase_remainder(torch, data, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
-                             families)
+                             families, remainder)
     k3_shapes = {
         "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
         "rcr22_batch1": tracking["k3_batch1_ms"],
@@ -4043,7 +4600,8 @@ def main():
                        families=families, tracking=tracking, seed=seed,
                        kernels=entries, k3_shapes=k3_shapes,
                        k3_batches=batches, facedetect=facedetect,
-                       apps=apps, seconds=time.perf_counter() - t0), f,
+                       apps=apps, remainder=remainder,
+                       seconds=time.perf_counter() - t0), f,
                   indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -20,7 +20,14 @@ the ridge solvers (``ops/solver.py``) and the fused feature extractors
 in ``csrc/cascade_body.cuh``). Later: the probes (``probes/``), the Haar
 face detector (``models/facedetect.py``), the command-line apps
 ``rcr_train``, ``rcr_detect`` and ``rcr_track`` (``apps/``), pose estimation
-(``models/pose.py``) and the examples (``examples/``).
+(``models/pose.py``) and the examples (``examples/``). The last slice: the
+dense patch sampler (``ops/patches.extract_patches_dense``) and the HOG of
+multi-channel, bilinear, transposed and polar inputs (``ops/hog.py``,
+``ops/hog_viz.py``), data-parallel training and detection over
+``torch.distributed`` (``parallel/``), model files and per-level training
+checkpoints (``io/checkpoint.py``), the boost matrix archive
+(``io/boost_mat.py``), profiling, timing and the float64 parity mode
+(``utils/``).
 """
 
 from superviseddescent_tpu_torch.core.cascade import (  # noqa: F401

@@ -9,14 +9,24 @@ seeds the perturbations. Runs on the card unless ``--device cpu`` is given.
 
 With ``--roi R --patch-backend window`` each level's features come from the
 hand-written window sampler (K2, ``csrc/patches_window.cu``) and HOG kernel
-(K1, ``csrc/hog_flat.cu``); the default ``gather`` backend is plain
-PyTorch. Not in the port yet: ``--mesh`` (data-parallel training, ROADMAP
-Queue 1 item 5) and ``--patch-backend dense`` (Queue 1 item 3); both exit
-with a message. ``--sampling high`` is refused as the port's
-``HogTransform`` refuses it (``exact`` or ``fast``).
+(K1, ``csrc/hog_flat.cu``); with ``--patch-backend dense`` from the dense
+sampler (two tent products, ``--sampling exact | high | fast``) and K1; the
+default ``gather`` backend is plain PyTorch.
+
+``--mesh N`` trains data-parallel over a ``torch.distributed`` group of N
+ranks (``parallel/``), one process per rank, each given the same
+arguments; a group of any other size is refused. The group is the one
+already initialised in the process, else one that the app starts from the
+environment that ``torchrun`` sets, with ``--dist-backend`` (nccl, or gloo
+for ``--device cpu``); rank r trains on cuda:r. Rank 0 writes the model
+and the error file.
 
     python -m superviseddescent_tpu_torch.apps.rcr_train -d train/ \\
         -m mean_68.txt -c rcr_training_22.cfg -e rcr_eval.cfg -o model.bin
+    torchrun --nproc-per-node 4 -m superviseddescent_tpu_torch.apps.rcr_train \\
+        --mesh 4 -d train/ -m mean_68.txt -c rcr_training_22.cfg \\
+        -e rcr_eval.cfg --roi 512 --patch-backend dense --sampling high \\
+        --feature-chunk-size 512
 """
 
 from __future__ import annotations
@@ -133,8 +143,13 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--levels", type=int, default=4)
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel training over this many devices: not "
-                        "in the port yet (ROADMAP Queue 1 item 5)")
+                   help="data-parallel training over a torch.distributed "
+                        "group of this many ranks (one process per rank)")
+    p.add_argument("--dist-backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="with --mesh, the backend of the group the app "
+                        "starts from torchrun's environment (gloo for "
+                        "--device cpu)")
     p.add_argument("--feature-chunk-size", type=int, default=None,
                    help="bound per-level feature-extraction memory by"
                         " processing the sample axis in chunks")
@@ -143,12 +158,12 @@ def main(argv=None):
     p.add_argument("--patch-backend", default=None,
                    choices=["dense", "gather", "window"],
                    help="patch sampler ('window' = the K2 + K1 kernels, "
-                        "requires --roi; 'dense' is not in the port yet, "
-                        "ROADMAP Queue 1 item 3)")
+                        "requires --roi; 'dense' = two tent products + K1)")
     p.add_argument("--sampling", default="exact",
                    choices=["exact", "high", "fast"],
-                   help="patch sampling precision of the window backend "
-                        "(the port offers exact and fast)")
+                   help="patch sampling precision of the dense backend "
+                        "(exact, high, fast) and the window backend "
+                        "(exact, fast)")
     p.add_argument("--sigma-rotation", type=float, default=0.0,
                    help="in-plane rotation jitter (radians) on the"
                         " perturbed initialisations (0 = reference"
@@ -162,16 +177,35 @@ def main(argv=None):
                         "the plain PyTorch path)")
     args = p.parse_args(argv)
 
-    if args.mesh:
-        raise SystemExit("--mesh: data-parallel training is not in the port "
-                         "yet (ROADMAP Queue 1 item 5)")
-    if args.patch_backend == "dense":
-        raise SystemExit("--patch-backend dense: the dense patch sampler is "
-                         "not in the port yet (ROADMAP Queue 1 item 3)")
-    if args.sampling == "high":
-        raise SystemExit("--sampling high is not offered by the port's "
-                         "HogTransform: use exact or fast")
+    from superviseddescent_tpu_torch.utils.device import resolve_device
+    device = resolve_device(args.device)
+    if args.sampling == "high" and args.patch_backend == "window":
+        raise SystemExit("--sampling high is a mode of the dense sampler: "
+                         "use --patch-backend dense, or exact or fast")
+    if not args.mesh:
+        return _train(args, device, None)
+    import torch.distributed as dist
+    from superviseddescent_tpu_torch.parallel import make_mesh
+    started = not dist.is_initialized()
+    if started and device.type == "cpu" and args.dist_backend == "nccl":
+        raise SystemExit("--mesh on the CPU: NCCL needs CUDA devices, pass "
+                         "--dist-backend gloo")
+    if started and "RANK" not in os.environ:
+        raise SystemExit("--mesh: no process group is initialised and the "
+                         "environment names none; start the app with "
+                         "torchrun --nproc-per-node N")
+    if started:
+        dist.init_process_group(backend=args.dist_backend,
+                                init_method="env://")
+    try:
+        mesh = make_mesh(args.mesh, device=device)
+        return _train(args, mesh.device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _train(args, device, mesh):
     import torch
 
     from superviseddescent_tpu_torch.core.regulariser import (
@@ -183,12 +217,12 @@ def main(argv=None):
     from superviseddescent_tpu_torch.models.rcr_training import (
         RcrTrainConfig, normalised_landmark_errors, train_rcr)
     from superviseddescent_tpu_torch.ops.patches import stack_images
-    from superviseddescent_tpu_torch.utils.device import resolve_device
     from superviseddescent_tpu_torch.utils.landmarks import (
         mirror_permutation, resolve_eye_indices, to_landmark_collection,
         to_row)
 
-    device = resolve_device(args.device)
+    # rank 0 alone writes files; every rank prints its own progress
+    writes = mesh is None or mesh.rank == 0
     model_landmarks = read_landmarks_list_to_train(args.config)
     print(f"Loaded a list of {len(model_landmarks)} landmarks to train "
           "the model.")
@@ -253,10 +287,11 @@ def main(argv=None):
     t0 = time.time()
     model = train_rcr(stack, gt_rows, boxes, model_landmarks,
                       right_ids, left_ids, mean, cfg, on_epoch=on_epoch,
-                      device=device)
+                      mesh=mesh, device=device)
     print(f"Training took {time.time() - t0:.1f}s")
-    model.save(args.output)
-    print(f"Saved model to {args.output}")
+    if writes:
+        model.save(args.output)
+        print(f"Saved model to {args.output}")
 
     if args.test_data:
         t_images, t_rows, t_full = load_dataset(args.test_data,
@@ -286,10 +321,12 @@ def main(argv=None):
         print(f"Normalised LM-error test: {float(per_lm.mean()):.6f}")
 
         # per-landmark error file for plotting (rcr-train.cpp:526-538)
-        error_file = os.path.splitext(args.output)[0] + ".error.txt"
-        with open(error_file, "w") as f:
-            f.write(", ".join(f"{v:g}" for v in per_lm.mean(axis=0)) + "\n")
-        print(f"Wrote per-landmark errors to {error_file}")
+        if writes:
+            error_file = os.path.splitext(args.output)[0] + ".error.txt"
+            with open(error_file, "w") as f:
+                f.write(", ".join(f"{v:g}" for v in per_lm.mean(axis=0))
+                        + "\n")
+            print(f"Wrote per-landmark errors to {error_file}")
     return 0
 
 

@@ -7,6 +7,13 @@ contract: ``h(x: (N, P), level) -> (N, F)``. Per level:
 ``h(x) - templates``; training learns ``W`` from
 ``b = (x - x*) * norm(x)`` by a ridge solve on ``observed``, which is
 extracted once per level and used for both the solve and the update.
+
+``batch_projection`` adapts a per-sample projection to the batched
+contract (``torch.func.vmap``); ``make_predict_fn`` returns the cascade's
+inference as a function of (x0, projection). With the process-wide check
+on (``set_nan_checks``, ``utils.profiling.enable_nan_checks``), ``train``
+and ``test`` raise ``FloatingPointError`` after the first level whose rows
+are not all finite.
 """
 
 from __future__ import annotations
@@ -16,6 +23,32 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from superviseddescent_tpu_torch.core.regressor import LinearRegressor
+
+# process-wide, like the JAX package's jax_debug_nans
+_nan_checks = False
+
+
+def set_nan_checks(enable: bool = True) -> None:
+    """Check every cascade level's rows for NaN and infinity (one device
+    synchronisation per level while on)."""
+    global _nan_checks
+    _nan_checks = bool(enable)
+
+
+def _check_level(x: torch.Tensor, level: int) -> None:
+    if _nan_checks and not bool(torch.isfinite(x).all()):
+        raise FloatingPointError(
+            f"cascade level {level} produced non-finite rows")
+
+
+def batch_projection(per_sample_fn: Callable) -> Callable:
+    """Adapt a per-sample projection ``f(x_row (P,), level) -> row`` to the
+    batched contract ``h(x (N, P), level) -> (N, F)`` with
+    ``torch.func.vmap`` (a scalar result becomes a one-element row)."""
+    def batched(x, level):
+        return torch.func.vmap(
+            lambda row: torch.atleast_1d(per_sample_fn(row, level)))(x)
+    return batched
 
 
 class NoNormalisation:
@@ -81,6 +114,7 @@ class SupervisedDescentOptimiser:
                 self.regressors[level] = self.regressors[level].learn(
                     observed, b)
             x = x - self.regressors[level].predict(observed) / norm
+            _check_level(x, level)
             history.append(x)
             if on_training_epoch_callback is not None:
                 on_training_epoch_callback(x)
@@ -101,9 +135,18 @@ class SupervisedDescentOptimiser:
         x = initialisations
         for level in range(len(self.regressors)):
             x = self.step(level, x, projection(x, level), templates)
+            _check_level(x, level)
             if on_regressor_iteration_callback is not None:
                 on_regressor_iteration_callback(x)
         return x
+
+    def make_predict_fn(self, templates=None) -> Callable:
+        """``f(x0, projection) -> final rows``: the cascade's inference over
+        the current weights, with the projection bound at call time (the
+        JAX package's jit adapter; here a plain function)."""
+        def fn(x0, projection):
+            return self.test(x0, templates, projection)
+        return fn
 
     def predict(self, initialisations: torch.Tensor, templates, projection):
         """Like test, also accepting a single (P,) row."""

@@ -1,4 +1,7 @@
-from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
+from superviseddescent_tpu_torch.io.pts import (
+    read_pts_landmarks,
+    write_pts_landmarks,
+)
 from superviseddescent_tpu_torch.io.meanshape import load_mean
 from superviseddescent_tpu_torch.io.infocfg import (
     parse_info,
@@ -12,6 +15,7 @@ from superviseddescent_tpu_torch.io.cereal import (
 
 __all__ = [
     "read_pts_landmarks",
+    "write_pts_landmarks",
     "load_mean",
     "parse_info",
     "read_landmarks_list_to_train",

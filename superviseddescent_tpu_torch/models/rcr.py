@@ -4,10 +4,13 @@ Counterpart of ``superviseddescent_tpu/models/rcr.py`` (reference:
 rcr/model.hpp, rcr/adaptive_vlhog.hpp): 22-landmark face alignment with
 IED-adaptive HOG features and inter-eye-distance normalisation.
 
-Two feature backends per cascade level (``HogTransform``):
+Feature backends per cascade level (``HogTransform``):
   * ``gather``: plain PyTorch, ``ops/patches.extract_patches`` (the
     bit-exact cv::resize emulation) + ``ops/hog.hog_descriptor``; the path
     of ``DetectionModel.detect_batch``;
+  * ``dense``: ``ops/patches.extract_patches_dense`` (two tent products,
+    exact / high / fast) + the HOG kernel K1 (``ops/hog_flat``); a training
+    backend;
   * ``window``: the two CUDA kernels, K2 (``ops/patches_window``) then K1
     (``ops/hog_flat``), on per-face ROI windows; the path of
     ``make_stepped_detector(window_sampler=True)``.
@@ -46,7 +49,8 @@ from superviseddescent_tpu_torch.ops.cascade_fused import (
 from superviseddescent_tpu_torch.ops.hog import (
     HogVariant, hog_descriptor, hog_dimension, hog_num_cells)
 from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
-from superviseddescent_tpu_torch.ops.patches import extract_patches
+from superviseddescent_tpu_torch.ops.patches import (
+    SAMPLINGS, extract_patches, extract_patches_dense)
 from superviseddescent_tpu_torch.ops.solver import float32_matmul
 from superviseddescent_tpu_torch.ops.patches_window import (
     max_patch_half, max_patch_half_x, min_sub_window, min_sub_window_x,
@@ -123,6 +127,10 @@ class HogTransform:
     image map (default: one image for all, or image i for sample i).
     backend:
       * ``gather``: plain PyTorch (exact cv::resize emulation + HOG);
+      * ``dense``: the sampler as two tent products over each sample's
+        image (``ops/patches.extract_patches_dense``), in the precision of
+        ``sampling`` (``exact``, ``high`` or ``fast``); chunk it, since it
+        gathers each sample's image and builds (S, H) and (S, W) tents;
       * ``window``: K2 then K1 on per-sample ROI windows
         (``images[image_indices]``; the gather is skipped when sample i
         provably reads window i);
@@ -131,8 +139,14 @@ class HogTransform:
         out of the uint8 frame stack itself. Fast-class numerics; requires
         ``quantize=True`` and the same cells, bins and variant at every
         level.
-    sampling (``window`` only): ``exact`` or ``fast`` (bf16 sampling,
-    sector-binned bf16 HOG, transposed patch hand-off). sub_windows /
+    sampling: ``dense``: ``exact``, ``high`` or ``fast``; ``window``:
+    ``exact`` or ``fast`` (bf16 sampling, sector-binned bf16 HOG,
+    transposed patch hand-off); the other backends take none. hog_backend:
+    the HOG of the ``gather`` and ``dense`` patches, ``kernel`` (K1, exact
+    mode; its plain twin for CPU tensors), ``plain`` (``ops/hog``) or
+    ``auto`` (K1 for ``dense``, plain for ``gather``, which stays the exact
+    reference that the other paths are held against); the ``window`` and
+    ``fused`` backends always run their kernels. sub_windows /
     sub_windows_x: per-level sampler sub-window sides (0 = the whole
     window). chunk_size: process the samples in chunks of this many, one
     after the other, so that only one chunk's windows and patches exist at
@@ -154,12 +168,24 @@ class HogTransform:
                  sub_windows_x: Optional[Sequence[int]] = None,
                  chunk_size: Optional[int] = None,
                  frame_table=None,
-                 frame_window: Optional[Sequence[int]] = None):
-        if backend not in ("gather", "window", "fused"):
+                 frame_window: Optional[Sequence[int]] = None,
+                 hog_backend: str = "auto"):
+        if backend not in ("gather", "dense", "window", "fused"):
             raise ValueError(f"unknown feature backend: {backend!r}")
-        if sampling not in ("exact", "fast"):
+        if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling mode: {sampling!r} "
-                             "(expected 'exact' or 'fast')")
+                             f"(expected one of {SAMPLINGS})")
+        if sampling == "high" and backend == "window":
+            raise ValueError("sampling='high' is a dense-sampler mode: the "
+                             "window sampler offers 'exact' or 'fast'")
+        if hog_backend not in ("auto", "kernel", "plain"):
+            raise ValueError(f"unknown HOG backend: {hog_backend!r}")
+        if hog_backend == "plain" and backend in ("window", "fused"):
+            raise ValueError(f"the {backend} backend runs its own HOG "
+                             "kernel: hog_backend='plain' needs the gather "
+                             "or dense sampler")
+        if hog_backend == "auto":
+            hog_backend = "kernel" if backend == "dense" else "plain"
         self.images = images if images.ndim == 3 else images[None]
         self.hog_params = tuple(hog_params)
         self.model_landmarks = list(model_landmarks)
@@ -172,6 +198,7 @@ class HogTransform:
         self.quantize = quantize
         self.backend = backend
         self.sampling = sampling
+        self.hog_backend = hog_backend
         levels = len(self.hog_params)
         self.sub_windows = tuple(sub_windows or (0,) * levels)
         self.sub_windows_x = tuple(sub_windows_x or (0,) * levels)
@@ -278,17 +305,33 @@ class HogTransform:
 
     def __call__(self, x: torch.Tensor, level: int) -> torch.Tensor:
         n = x.shape[0]
-        indices = self._indices_for(n)
-        identity = self._identity_for(n)
+        return self.call_with_indices(x, level, self._indices_for(n),
+                                      identity=self._identity_for(n))
+
+    def call_with_indices(self, x: torch.Tensor, level: int,
+                          image_indices: torch.Tensor,
+                          identity: bool = False) -> torch.Tensor:
+        """``__call__`` with an explicit (N,) sample -> image map, the
+        entry point of ``parallel.dist.ShardedHogTransform``: each rank
+        passes its shard of the rows and of the map. identity: sample i
+        provably reads image i (no gather of windows)."""
+        n = x.shape[0]
         gathers_nothing = self.backend == "fused" and (
             identity or self.frame_table is not None)
         c = self.chunk_size
+        if c is not None and n > c and self.backend == "dense":
+            # chunks bound the images and tents; the patches are small, so
+            # the HOG runs once over all of them
+            return self._describe(torch.cat([
+                self.sample_patches(x[a:a + c], level, image_indices[a:a + c])
+                for a in range(0, n, c)]), level)
         if c is not None and n > c and not gathers_nothing:
-            # only one chunk's window gather and patches exist at a time
+            # only one chunk's gathered windows and patches exist at a time
             return torch.cat([
-                self._call_block(x[a:a + c], level, indices[a:a + c], False)
+                self._call_block(x[a:a + c], level, image_indices[a:a + c],
+                                 False)
                 for a in range(0, n, c)])
-        return self._call_block(x, level, indices, identity)
+        return self._call_block(x, level, image_indices, identity)
 
     def _fused_block(self, x, level, indices, identity):
         p = self.hog_params[level]
@@ -309,6 +352,18 @@ class HogTransform:
               p.relative_patch_size)
         return extract_features_fused(windows, x, lv, *tail)
 
+    def sample_patches(self, x: torch.Tensor, level: int,
+                       indices: torch.Tensor) -> torch.Tensor:
+        """The ``gather`` or ``dense`` backend's (N, L, S, S) patches for
+        one level, before HOG."""
+        l = x.shape[1] // 2
+        args = (self.images, indices, x[:, :l], x[:, l:],
+                self._patch_half(x, level), self.hog_params[level].patch_size)
+        if self.backend == "dense":
+            return extract_patches_dense(*args, quantize=self.quantize,
+                                         sampling=self.sampling)
+        return extract_patches(*args, quantize=self.quantize)
+
     def _call_block(self, x: torch.Tensor, level: int, indices: torch.Tensor,
                     identity: bool) -> torch.Tensor:
         p = self.hog_params[level]
@@ -321,17 +376,29 @@ class HogTransform:
             args, sampler_kwargs, hog_kwargs = self.window_args(
                 x, level, windows)
             patches = sample_patches_window(*args, **sampler_kwargs)
-            desc = hog_descriptor_flat(patches.reshape(n * l, s * s),
-                                       **hog_kwargs)
+            return _with_bias(hog_descriptor_flat(
+                patches.reshape(n * l, s * s), **hog_kwargs).reshape(n, -1))
+        return self._describe(self.sample_patches(x, level, indices), level)
+
+    def _describe(self, patches: torch.Tensor, level: int) -> torch.Tensor:
+        """(N, L, S, S) patches -> (N, F) rows: HOG per patch in Matlab
+        order, the landmarks concatenated, a bias 1 last."""
+        p = self.hog_params[level]
+        n, l, s = patches.shape[:3]
+        if self.hog_backend == "kernel":
+            desc = hog_descriptor_flat(
+                patches.reshape(n * l, s * s), size=s, cell_size=p.cell_size,
+                num_orientations=p.num_bins, variant=p.variant)
         else:
-            patches = extract_patches(
-                self.images, indices, x[:, :l], x[:, l:],
-                self._patch_half(x, level), s, quantize=self.quantize)
             desc = hog_descriptor(patches.reshape(n * l, s, s), p.cell_size,
                                   p.num_bins, p.variant)
-        desc = desc.reshape(n, -1)
-        return torch.cat([desc, torch.ones((n, 1), dtype=desc.dtype,
-                                           device=desc.device)], dim=1)
+        return _with_bias(desc.reshape(n, -1))
+
+
+def _with_bias(desc: torch.Tensor) -> torch.Tensor:
+    """(N, F - 1) descriptors -> (N, F) feature rows, a bias 1 last."""
+    return torch.cat([desc, torch.ones((desc.shape[0], 1), dtype=desc.dtype,
+                                       device=desc.device)], dim=1)
 
 
 class SteppedDetector:

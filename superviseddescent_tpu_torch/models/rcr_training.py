@@ -25,6 +25,10 @@ from superviseddescent_tpu_torch.models.rcr import (
     crop_windows, frames_path_ok, level_sub_windows, rows_shift)
 from superviseddescent_tpu_torch.ops.cascade_fused import (
     FRAME_COL_ALIGN, _check_host_indices, _on_host)
+from superviseddescent_tpu_torch.parallel.dist import (
+    ShardedHogTransform, sharded_learn)
+from superviseddescent_tpu_torch.parallel.mesh import (
+    gather_rows, shard_bounds)
 from superviseddescent_tpu_torch.utils.device import resolve_device
 from superviseddescent_tpu_torch.utils.landmarks import (
     ied_from_rows, mirror_permutation, resolve_eye_indices)
@@ -115,12 +119,14 @@ class RcrTrainConfig:
 
     roi: cut a roi x roi window per face and train in window coordinates
     (exact as long as every patch stays inside the window). patch_backend:
-    None / ``gather`` (plain PyTorch), ``window`` (K2 + K1) or ``fused``
-    (K5 / K6, fast class); the last two require roi. sampling: ``exact`` or
-    ``fast``, for the window backend (fast also switches K1 to its bf16
-    sector-binned mode). feature_chunk_size: extract each level's features
-    in chunks of this many samples, so that only one chunk's window gather
-    exists at a time. mirror_augmentation: double the set with horizontally
+    None / ``gather`` (plain PyTorch), ``dense`` (two tent products + K1),
+    ``window`` (K2 + K1) or ``fused`` (K5 / K6, fast class); the last two
+    require roi. sampling: ``exact``, ``high`` (dense only) or ``fast``,
+    for the dense and window backends (fast also switches the window
+    backend's K1 to its bf16 sector-binned mode). feature_chunk_size:
+    extract each level's features in chunks of this many samples, so that
+    only one chunk's images, tents and patches (dense) or window gather
+    exist at a time. mirror_augmentation: double the set with horizontally
     flipped images and mirror-permuted ground truth.
     """
     hog_params: Sequence[HogParams] = RCR22_HOG_PARAMS
@@ -156,13 +162,22 @@ class TrainingProblem:
     feature transform ``hog(x, level) -> (N, F)``, the (N, 2L)
     initialisations ``x0`` and ground truth ``x_gt`` in the coordinates the
     transform samples in, the (N, 2L) ``sample_shift`` that takes rows back
-    to image coordinates (None without roi), and the untrained cascade."""
+    to image coordinates (None without roi), the untrained cascade, and
+    the number of samples before any padding."""
     hog: HogTransform
     x0: torch.Tensor
     x_gt: torch.Tensor
     sample_shift: Optional[torch.Tensor]
     sdo: SupervisedDescentOptimiser
     mean: np.ndarray
+    num_samples: int
+
+
+def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """t with ``pad`` copies of its first row appended."""
+    if not pad:
+        return t
+    return torch.cat([t, t[:1].expand((pad,) + tuple(t.shape[1:]))])
 
 
 def training_problem(images, groundtruth_rows, faceboxes,
@@ -170,10 +185,12 @@ def training_problem(images, groundtruth_rows, faceboxes,
                      right_eye_ids: Sequence[str],
                      left_eye_ids: Sequence[str], mean,
                      config: RcrTrainConfig, image_indices=None,
-                     device=None) -> TrainingProblem:
+                     device=None, pad_multiple: int = 1) -> TrainingProblem:
     """The set-up half of ``train_rcr`` (same arguments): mirror
     augmentation, the per-face windows or the frame table, the perturbed
-    initialisations and the feature transform.
+    initialisations and the feature transform. pad_multiple: append copies
+    of sample 0 up to a multiple of this many samples (a mesh's ranks);
+    ``num_samples`` counts the samples without them.
 
     Internal: ``train_rcr`` is the entry point. This half stands alone only
     so that ``chip_smoke.py`` can replay a run level by level at the very
@@ -248,6 +265,13 @@ def training_problem(images, groundtruth_rows, faceboxes,
         sigma_rotation=config.sigma_rotation)
     sample_to_box = sample_to_box.long()
     sample_shift = None if shift_rows is None else shift_rows[sample_to_box]
+    n_real = x0.shape[0]
+    # the copies keep the extraction on valid coordinates; train_rcr masks
+    # them out of the normal equations
+    pad = (-n_real) % pad_multiple
+    x0 = _pad_rows(x0, pad)
+    x_gt = _pad_rows(gt[sample_to_box], pad)
+    sample_indices = _pad_rows(image_indices[sample_to_box], pad)
 
     sub_windows = sub_windows_x = None
     if backend in ("window", "fused"):
@@ -263,7 +287,7 @@ def training_problem(images, groundtruth_rows, faceboxes,
 
     hog = HogTransform(images, config.hog_params, model_landmarks,
                        right_eye_ids, left_eye_ids,
-                       image_indices=image_indices[sample_to_box],
+                       image_indices=sample_indices,
                        quantize=config.quantize_patches, backend=backend,
                        sampling=config.sampling, sub_windows=sub_windows,
                        sub_windows_x=sub_windows_x,
@@ -275,16 +299,15 @@ def training_problem(images, groundtruth_rows, faceboxes,
         [LinearRegressor(regulariser=config.regularisation,
                          method=config.solver_method)
          for _ in config.hog_params], norm)
-    return TrainingProblem(hog, x0, gt[sample_to_box], sample_shift, sdo,
-                           mean_np)
+    return TrainingProblem(hog, x0, x_gt, sample_shift, sdo, mean_np, n_real)
 
 
 def train_rcr(images, groundtruth_rows, faceboxes,
               model_landmarks: Sequence[str],
               right_eye_ids: Sequence[str], left_eye_ids: Sequence[str],
               mean, config: RcrTrainConfig = RcrTrainConfig(),
-              image_indices=None, on_epoch=None,
-              device=None) -> DetectionModel:
+              image_indices=None, on_epoch=None, checkpointer=None,
+              mesh=None, device=None) -> DetectionModel:
     """Train an RCR detection model (the rcr-train pipeline).
 
     images: (I, H, W) gray stack, uint8 or float32, zero-padded.
@@ -296,6 +319,20 @@ def train_rcr(images, groundtruth_rows, faceboxes,
     CUDA unless the caller passes one (``device="cpu"`` trains through the
     kernels' plain twins).
 
+    checkpointer: an ``io.checkpoint.TrainCheckpointer``. Each level's
+    weights and rows are written when its solve completes (in the
+    reference's feature order, tagged ``"std"``), and a call on a directory
+    that holds completed levels resumes after the last of them.
+
+    mesh: a ``parallel.mesh.Mesh``; every rank calls ``train_rcr`` with the
+    same arguments. The samples are padded to a multiple of the ranks with
+    copies of sample 0, which add nothing to the normal equations, each
+    rank extracts the features of its shard, and each level's normal
+    equations are summed over the group before the solve
+    (``parallel.dist.distributed_train_level``). Every rank returns the
+    same model, on its ``mesh.device``; rank 0 alone writes the
+    checkpoints.
+
     With ``patch_backend="fused"`` and roi, a uint8 stack whose height is a
     multiple of 32 and whose width and roi are multiples of 128 trains in
     frames mode: K5 reads each sample's window straight from the stack and
@@ -305,17 +342,66 @@ def train_rcr(images, groundtruth_rows, faceboxes,
     Returns the trained DetectionModel on the device, its regressors in the
     reference's feature order.
     """
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     p = training_problem(images, groundtruth_rows, faceboxes, model_landmarks,
                          right_eye_ids, left_eye_ids, mean, config,
-                         image_indices, device)
-    epoch_cb = None
-    if on_epoch is not None:
-        def epoch_cb(current_x):
-            on_epoch(current_x if p.sample_shift is None
-                     else current_x + p.sample_shift)
+                         image_indices, device,
+                         pad_multiple=1 if mesh is None else mesh.size)
+    n_real = p.num_samples
+    hog, x0, x_gt, learn_fn = p.hog, p.x0, p.x_gt, None
+    start_level = 0
+    if checkpointer is not None:
+        start_level = min(checkpointer.completed_levels(),
+                          len(config.hog_params))
+        for lvl in range(start_level):
+            w, rows = checkpointer.load_level(lvl)
+            if rows.shape != (n_real, x0.shape[1]):
+                raise ValueError(
+                    f"checkpoint level {lvl} holds rows of shape "
+                    f"{rows.shape}, this run trains {n_real} samples of "
+                    f"{x0.shape[1]} values")
+            p.sdo.regressors[lvl] = LinearRegressor(
+                weights=torch.as_tensor(w, device=x0.device),
+                regulariser=config.regularisation,
+                method=config.solver_method)
+        if start_level:
+            x0 = _pad_rows(torch.as_tensor(rows, device=x0.device),
+                           x0.shape[0] - n_real)
+    if mesh is not None:
+        a, b = shard_bounds(x0.shape[0], mesh)
+        valid = (torch.arange(x0.shape[0], device=x0.device)
+                 < n_real).float()[a:b]
+        x0, x_gt = x0[a:b], x_gt[a:b]
+        hog = ShardedHogTransform(hog, mesh)
+        learn_fn = sharded_learn(mesh, num_samples=n_real, valid=valid)
 
-    p.sdo.train(p.x_gt, p.x0, None, p.hog,
-                on_training_epoch_callback=epoch_cb)
+    level = [start_level]
+
+    def epoch_cb(current_x):
+        """The rows of every sample, unpadded: to the checkpoint in the
+        transform's coordinates, to on_epoch in the image's."""
+        rows = current_x if mesh is None else gather_rows(current_x, mesh)
+        rows = rows[:n_real]
+        if checkpointer is not None and (mesh is None or mesh.rank == 0):
+            checkpointer.save_level(
+                level[0], p.sdo.regressors[level[0]].weights, rows)
+        level[0] += 1
+        if on_epoch is not None:
+            on_epoch(rows if p.sample_shift is None
+                     else rows + p.sample_shift)
+
+    p.sdo.train(x_gt, x0, None, hog,
+                on_training_epoch_callback=(
+                    None if on_epoch is None and checkpointer is None
+                    else epoch_cb),
+                start_level=start_level, learn_fn=learn_fn)
+    if mesh is not None and checkpointer is not None:
+        # no rank returns before rank 0 has written the last level
+        torch.distributed.barrier(group=mesh.group)
     return DetectionModel(p.sdo, p.mean, list(model_landmarks),
                           tuple(config.hog_params), list(right_eye_ids),
                           list(left_eye_ids),

@@ -8,6 +8,12 @@ clamp((d + 0.5) * 2*phw/S - 0.5, 0, 2*phw - 1); pixels outside the image
 are 0. Landmark centres round half to even (cvRound, and torch.round).
 ``quantize=True`` reproduces cv::resize's 8U fixed-point pipeline bit for
 bit (11-bit coefficients, truncating shifts).
+
+``extract_patches_dense`` computes the same bilinear samples as two dense
+tent products over the image rows and columns, in three precisions
+(``sampling``): exact float32, ``high`` (three bfloat16 products, as JAX's
+``Precision.HIGH``) and ``fast`` (bfloat16 operands, float32 sums, as
+JAX's ``Precision.DEFAULT``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,12 @@ import numpy as np
 import torch
 
 from superviseddescent_tpu_torch.io.png import read_png
+from superviseddescent_tpu_torch.ops.solver import (
+    float32_matmul, tf32_matmul)
+
+# cv::resize's 8U INTER_LINEAR coefficients are 11-bit fixed point
+_CV_RESIZE_COEF = 2048.0
+SAMPLINGS = ("exact", "high", "fast")
 
 
 def extract_patches(images: torch.Tensor, image_indices: torch.Tensor,
@@ -88,6 +100,98 @@ def extract_patches(images: torch.Tensor, image_indices: torch.Tensor,
     h1 = c10 * ax0 + c11 * ax1
     t = (((h0 >> 4) * ay0) >> 16) + (((h1 >> 4) * ay1) >> 16)
     return torch.clamp((t + 2) >> 2, 0, 255).float()
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to bfloat16, held in float32."""
+    return t.bfloat16().float()
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor,
+                   b_rounded: bool = False) -> torch.Tensor:
+    """a @ b from bfloat16 parts, a = a_hi + a_lo and b = b_hi + b_lo:
+    a_hi b_lo + a_lo b_hi + a_hi b_hi (JAX's bfloat16 x 3; the a_hi b_lo
+    term is dropped when ``b`` already holds bfloat16 values). Each part is
+    held in float32 and multiplied on the TF32 tensor cores, which take a
+    bfloat16 value exactly, so the products are exact and only the float32
+    sums round; the CPU forms the same products in float32.
+    (``torch.matmul`` on bfloat16 tensors would round the sums to bfloat16
+    as well.)"""
+    a_hi = _bf16(a)
+    b_hi = b if b_rounded else _bf16(b)
+    with tf32_matmul():
+        out = torch.matmul(_bf16(a - a_hi), b_hi)
+        if not b_rounded:
+            out += torch.matmul(a_hi, _bf16(b - b_hi))
+        return out + torch.matmul(a_hi, b_hi)
+
+
+def extract_patches_dense(images: torch.Tensor, image_indices: torch.Tensor,
+                          centers_x: torch.Tensor, centers_y: torch.Tensor,
+                          patch_half: torch.Tensor, out_size: int,
+                          quantize: bool = True,
+                          sampling: str = "exact") -> torch.Tensor:
+    """Sample (N, L, S, S) float32 patches as two dense tent products.
+
+    The bilinear sample at coordinate a is sum_r tent(a - r) * img[r], and
+    rows / columns outside the image carry no tent, which gives the zero
+    border; so each patch is Ty @ img @ Tx^T with (S, H) and (S, W) tent
+    matrices. Arguments as for ``extract_patches``; the image of each sample
+    is gathered whole (N x H x W float32), so chunk large batches.
+
+    quantize: 11-bit tent coefficients and a rounded, clamped result, the
+    float form of the uint8 resize (not its truncating shifts, which
+    ``extract_patches`` reproduces: the two differ by one grey level on
+    some pixels). sampling: ``exact``, ``high`` (within 0.006 grey levels
+    of exact before rounding) or ``fast`` (bfloat16 tents, which hold no
+    11-bit grid, and images; within one grey level).
+    """
+    if sampling not in SAMPLINGS:
+        raise ValueError(f"unknown sampling mode: {sampling!r} "
+                         f"(expected one of {SAMPLINGS})")
+    n, l = centers_x.shape
+    h, w = images.shape[1], images.shape[2]
+    s = out_size
+    dev = centers_x.device
+    d = torch.arange(s, dtype=torch.float32, device=dev)
+    # a tensor divisor: a true quotient on CUDA too, as in JAX
+    scale = 2.0 * patch_half / torch.tensor(float(s), device=dev)
+    src = (d[None, :] + 0.5) * scale[:, None] - 0.5
+    src = torch.minimum(torch.clamp(src, min=0.0),
+                        2.0 * patch_half[:, None] - 1.0)        # (N, S)
+    ax = (torch.round(centers_x) - patch_half[:, None])[:, :, None] \
+        + src[:, None, :]                                        # (N, L, S)
+    ay = (torch.round(centers_y) - patch_half[:, None])[:, :, None] \
+        + src[:, None, :]
+
+    def tents(coords, size):
+        iota = torch.arange(size, dtype=torch.float32, device=dev)
+        t = torch.clamp(1.0 - (coords[..., None] - iota).abs(), min=0.0)
+        if sampling == "fast":
+            return _bf16(t)
+        if quantize:
+            return torch.round(t * _CV_RESIZE_COEF) * (1.0 / _CV_RESIZE_COEF)
+        return t
+
+    ty = tents(ay, h).reshape(n, l * s, h)                       # (N, LS, H)
+    txt = tents(ax, w).transpose(-1, -2)                         # (N, L, W, S)
+    imgs = images[image_indices.long()].float()                  # (N, H, W)
+    if sampling == "exact":
+        with float32_matmul():
+            rows = torch.matmul(ty, imgs).reshape(n, l, s, w)
+            out = torch.matmul(rows, txt)
+    elif sampling == "high":
+        rows = _split_product(ty, imgs).reshape(n, l, s, w)
+        out = _split_product(rows, txt)
+    else:
+        # bfloat16 tents and pixels, one exact product; the float32 rows
+        # then meet the bfloat16 column tents in two
+        with tf32_matmul():
+            rows = torch.matmul(ty, _bf16(imgs)).reshape(n, l, s, w)
+        out = _split_product(rows, txt, b_rounded=True)
+    if quantize:
+        out = torch.clamp(torch.floor(out + 0.5), 0.0, 255.0)
+    return out
 
 
 def rgb_to_gray_u8(rgb) -> np.ndarray:

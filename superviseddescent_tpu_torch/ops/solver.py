@@ -39,6 +39,21 @@ def float32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+@contextlib.contextmanager
+def tf32_matmul():
+    """Run the enclosed CUDA matrix products on the TF32 tensor cores, and
+    restore the caller's setting afterwards. Exact for operands that are
+    bfloat16 values held in float32: every such value is a TF32 value, so
+    the products are exact and only the float32 sums round (no effect on
+    the CPU, whose products stay float32)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def normal_equations(data: torch.Tensor, labels: torch.Tensor):
     """``(A^T A, A^T B)`` of an (N, F) design matrix and (N, L) labels, in
     the tensors' own precision."""

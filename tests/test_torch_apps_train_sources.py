@@ -5,9 +5,10 @@ JAX package's, on the CPU (inputs and tolerances as in
 ``--facebox-source cascade:<xml>`` with the stock cascade carried in the
 port: the same images kept (``check_face`` on the first detection) and the
 same trained model as JAX's; ``file:<json>`` with a null entry: the same
-images dropped. The flags whose modules the port does not have yet exit by
-name, and ``--roi --patch-backend window`` (K2 + K1, their plain twins
-here) trains.
+images dropped. Flag combinations the app cannot run exit by name
+(``--mesh`` on the CPU without gloo or outside torchrun, ``--sampling high``
+on the window sampler, an unknown facebox source), and ``--roi
+--patch-backend window`` (K2 + K1, their plain twins here) trains.
 """
 
 import glob
@@ -66,9 +67,10 @@ def test_file_facebox_source_matches_jax(monkeypatch, case, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mesh", "2"], "Queue 1 item 5"),
-    (["--patch-backend", "dense"], "Queue 1 item 3"),
-    (["--sampling", "high"], "exact or fast"),
+    (["--mesh", "2"], "--dist-backend gloo"),
+    (["--mesh", "2", "--dist-backend", "gloo"], "torchrun"),
+    (["--roi", "256", "--patch-backend", "window", "--sampling", "high"],
+     "dense sampler"),
     (["--facebox-source", "boxes.json"], "unknown --facebox-source"),
 ])
 def test_refused_flags_exit_by_name(case, tmp_path, extra, match):

@@ -269,7 +269,7 @@ def test_hog_transform_fused_named_errors(rcr22):
         HogTransform(c["frames"], m.hog_params, *ids, backend="window",
                      frame_table=table, frame_window=c["window"])
     with pytest.raises(ValueError, match="unknown feature backend"):
-        HogTransform(c["frames"], m.hog_params, *ids, backend="dense")
+        HogTransform(c["frames"], m.hog_params, *ids, backend="sparse")
     hog = make(frame_table=table, frame_window=c["window"])
     assert hog.feature_dim() == hog.feature_dim(3) == 8801
 
