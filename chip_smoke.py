@@ -58,6 +58,22 @@ Then the later phases:
 
     python3 chip_smoke.py --apps
 
+runs only that phase after the builds. Then the JPEG phase
+(``phase_jpeg``): the committed fixtures of ``tests/torch_jpeg`` (the card
+has no PIL; PIL's sha256 digests in their manifest) through the host C++
+entropy decoder and J1 (``csrc/jpeg_decode.cu``): every still's grey and
+RGB against PIL's digests and bit for bit against J1's twin, the host
+coefficients against the Python twin's on a grey and a 4:2:0 restart
+still, per 768 x 1024 frame of the 16-frame clip the host entropy ms,
+J1's device ms (torch.profiler) beside its bound and its twin's,
+``load_gray_image`` of the JPEG against the PNG of the same pixels;
+``rcr_track`` on the JPEG clip and on those PNG frames at depth 1 and 4
+and ``--scan`` (rows equal; K3 launches = fused fits, J1 launches = JPEG
+frames), and ``rcr_detect -i still.jpg -f -o`` (J1 twice, the drawing
+written as PNG).
+
+    python3 chip_smoke.py --jpeg
+
 runs only that phase after the builds. Last, the phase of the port's last
 slice (``phase_remainder``): ``train_rcr`` with the dense sampler and K1
 on the 1,408 samples of the window run in exact, high and fast sampling
@@ -245,6 +261,9 @@ SOURCES = {
     "probe_abde": (_CSRC + "probe_dyn.cu", "scripts/probe_dyn.py:94"),
     "probe_c": (_CSRC + "probe_dyn.cu", "scripts/probe_dyn.py:126"),
     "probe_c4": (_CSRC + "probe_dyn.cu", "scripts/probe_dyn.py:153"),
+    # J1 replaces no pallas_call: the JAX package's image reader
+    "jpeg_decode": (_CSRC + "jpeg_decode.cu",
+                    "superviseddescent_tpu/ops/patches.py:279"),
 }
 
 
@@ -308,8 +327,8 @@ def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
     logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
                      + list(K12_BUILDS) + list(K5_BUILDS))
-    log(f"[build] K1-K6, the probes and K1's, K2's, K3's and K5's measurement "
-        f"builds in "
+    log(f"[build] K1-K6, J1, the probes and K1's, K2's, K3's and K5's "
+        f"measurement builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -685,6 +704,7 @@ def counted_ops():
         detect_cascade_fused, detect_cascade_fused_frames,
         extract_features_fused, extract_features_fused_frames)
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
+    from superviseddescent_tpu_torch.ops.jpeg import jpeg_pixels
     from superviseddescent_tpu_torch.ops.patches_window import (
         sample_patches_window)
     from superviseddescent_tpu_torch.probes.dyn import (
@@ -702,7 +722,8 @@ def counted_ops():
             "probe_sampler_g": probe_sampler_g,
             "probe_sampler_pre": probe_sampler_pre,
             "probe_flatout": probe_flatout, "probe_abde": probe_abde,
-            "probe_c": probe_c, "probe_c4": probe_c4}
+            "probe_c": probe_c, "probe_c4": probe_c4,
+            "jpeg_decode": jpeg_pixels}
 
 
 def zero_counts():
@@ -2797,6 +2818,7 @@ def k12_device_ms(torch, args, skw, hkw):
     """K2's and K1's device ms (torch.profiler) through their entry points
     at one level's arguments, K1 on the patches that K2 returns."""
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
+    from superviseddescent_tpu_torch.ops.jpeg import jpeg_pixels
     from superviseddescent_tpu_torch.ops.patches_window import (
         sample_patches_window)
     n, l = args[1].shape
@@ -3922,6 +3944,327 @@ def phase_apps(torch, data, seed, name, smi):
 
 
 # ---------------------------------------------------------------- #
+# The io slice: baseline JPEG, the host entropy decoder and J1
+# ---------------------------------------------------------------- #
+JPEG_DIR = os.path.join(REPO, "tests", "torch_jpeg")
+# the stills whose host C++ coefficients are held to the Python twin's:
+# one grey, one 4:2:0 with restart markers
+JPEG_ENTROPY_STILLS = ("s07_grey_q95_restart.jpg",
+                       "s04_420_q95_restart.jpg")
+JPEG_DETECT_STILL = "s04_420_q95_restart.jpg"   # a 728 x 1023 face
+JPEG_TRACK_DEPTHS = (1, 4)
+JPEG_TRACK_COPIES = 8
+# J1's integer operations: per 8x8 block 16 one-dimensional islow
+# transforms of ~44 operations, 64 dequantising products and 64 range
+# limits of ~4; per output pixel ~40 (upsampling, conversion, grey)
+JPEG_OPS_PER_BLOCK = 16 * 44 + 64 + 64 * 4
+JPEG_OPS_PER_PIXEL = 40
+OPS_PER_S = 67e12          # the card's float32 rate, the operations' yardstick
+
+
+def jpeg_bound(f, channels):
+    """J1's least time: the int16 coefficients read once and the output
+    written once at the memory rate, or its integer operations at 67
+    TOP/s, whichever is longer."""
+    in_bytes = f.blocks * 64 * 2
+    out_bytes = f.width * f.height * channels
+    ops = (f.blocks * JPEG_OPS_PER_BLOCK
+           + f.width * f.height * JPEG_OPS_PER_PIXEL)
+    return dict(bytes_ms=(in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3,
+                ops_ms=ops / OPS_PER_S * 1e3, in_bytes=in_bytes,
+                out_bytes=out_bytes)
+
+
+def sha256_of(t):
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def jpeg_stills(torch, manifest):
+    """Every committed still through the host decoder and J1: PIL's grey
+    and RGB digests, J1 bit-equal to its twin on the same coefficients,
+    ``read_jpeg`` equal to both, and the host coefficients equal to the
+    Python twin's on JPEG_ENTROPY_STILLS."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels, read_jpeg)
+    worst, out = 0, {}
+    for name, want in sorted(manifest["stills"].items()):
+        with open(os.path.join(JPEG_DIR, name), "rb") as fh:
+            data = fh.read()
+        f = jpeg.parse_jpeg(data)
+        host = entropy_decode_native(f)
+        if name in JPEG_ENTROPY_STILLS:
+            check(np.array_equal(host.numpy(), jpeg.entropy_decode(f)),
+                  f"{name}: the host decoder's coefficients differ from "
+                  "the Python twin's")
+        coef = host.cuda()
+        for channels, key in ((1, "grey_sha256"), (3, "rgb_sha256")):
+            got = jpeg_pixels(coef, f, channels)
+            twin = jpeg.pixels_reference(coef, f, channels)
+            torch.cuda.synchronize()
+            err = int((got.int() - twin.int()).abs().max())
+            worst = max(worst, err)
+            check(err == 0, f"{name}: J1 differs from its twin by {err}")
+            check(sha256_of(got) == want[key], f"{name}: J1's "
+                  f"{'grey' if channels == 1 else 'RGB'} digest differs "
+                  "from PIL's")
+            check(torch.equal(read_jpeg(data, channels), got),
+                  f"{name}: read_jpeg differs from J1 on the same stream")
+        out[name] = dict(kind=want["kind"], quality=want["quality"],
+                         shape=want["shape"])
+    log(f"[jpeg] {len(out)} stills (grey, 4:4:4, 4:2:2, 4:2:0; q 50 / 75 "
+        "/ 95; restart markers, optimised tables, 301 x 451): J1's grey "
+        "and RGB equal PIL's digests and the twin bit for bit; the host "
+        "coefficients equal the Python twin's on "
+        + ", ".join(JPEG_ENTROPY_STILLS))
+    return out, worst
+
+
+def jpeg_clip_times(torch, manifest, png_dir):
+    """Per 1024 x 768 frame of the clip: the host entropy decoder (host
+    clock), J1 and its twin (device time, torch.profiler), J1's bound,
+    ``load_gray_image`` of the JPEG (the card) against the PNG of the same
+    pixels (the host's numpy decoder); each frame's grey against PIL's
+    digest. Writes those PNG frames to ``png_dir``. Returns the times and
+    the largest J1 - twin difference."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.io.png import write_png
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels)
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    frames = manifest["clip"]["frames"]
+    entropy_s, worst, parsed = 0.0, 0, []
+    for fr in frames:
+        with open(os.path.join(JPEG_DIR, fr["name"]), "rb") as fh:
+            data = fh.read()
+        f = jpeg.parse_jpeg(data)
+        t0 = time.perf_counter()
+        host = entropy_decode_native(f)
+        entropy_s += time.perf_counter() - t0
+        coef = host.cuda()
+        grey = jpeg_pixels(coef, f, 1)
+        check(sha256_of(grey) == fr["grey_sha256"],
+              f"{fr['name']}: J1's grey digest differs from PIL's")
+        worst = max(worst, int((grey.int() - jpeg.pixels_reference(
+            coef, f, 1).int()).abs().max()))
+        write_png(os.path.join(png_dir, os.path.basename(fr["name"])[:-4]
+                               + ".png"), grey.cpu().numpy())
+        parsed.append((f, coef))
+    check(worst == 0, f"the clip: J1 differs from its twin by {worst}")
+    f, coef = parsed[0]
+    j1_ms = device_ms(torch, lambda: jpeg_pixels(coef, f, 1), match="jpeg",
+                      one_kernel=False)
+    twin_ms = device_ms(torch, lambda: jpeg.pixels_reference(coef, f, 1),
+                        one_kernel=False)
+    bound = jpeg_bound(f, 1)
+    jpgs = [os.path.join(JPEG_DIR, fr["name"]) for fr in frames]
+    pngs = sorted(glob.glob(os.path.join(png_dir, "*.png")))
+    times = {}
+    for label, paths in (("jpeg", jpgs), ("png", pngs)) * 2:
+        t0 = time.perf_counter()
+        for p in paths:
+            load_gray_image(p)
+        times.setdefault(label, []).append(
+            (time.perf_counter() - t0) * 1e3 / len(paths))
+    out = dict(frames=len(frames), entropy_ms=entropy_s * 1e3 / len(frames),
+               j1_device_ms=j1_ms, twin_device_ms=twin_ms,
+               bound_ms=max(bound["bytes_ms"], bound["ops_ms"]),
+               bound_by=("bytes" if bound["bytes_ms"] >= bound["ops_ms"]
+                         else "operations"), bound=bound,
+               load_gray_jpeg_ms=times["jpeg"], load_gray_png_ms=times["png"])
+    log(f"[jpeg] per {f.width} x {f.height} 4:2:0 frame ({len(frames)} "
+        f"frames): host entropy {out['entropy_ms']:.3f} ms; J1 "
+        f"{j1_ms:.4f} ms device (torch.profiler, both launches), bound "
+        f"{out['bound_ms']:.5f} ms ({out['bound_by']}: "
+        f"{bound['in_bytes'] / 1e6:.2f} MB in, "
+        f"{bound['out_bytes'] / 1e6:.2f} MB out; operations "
+        f"{bound['ops_ms']:.5f} ms), twin {twin_ms:.4f} ms device; "
+        "load_gray_image " + " / ".join(f"{v:.2f}" for v in times["jpeg"])
+        + " ms (JPEG, J1) against " + " / ".join(
+            f"{v:.2f}" for v in times["png"]) + " ms (PNG of the same "
+        "pixels, io/png.py), in turns")
+    return out, worst
+
+
+def jpeg_track(torch, manifest, png_dir, root):
+    """rcr_track on the JPEG clip and on PNG frames of the same pixels, at
+    JPEG_TRACK_DEPTHS and --scan, with a tracking model trained on the
+    card on frame 0: the rows equal in every run, K3 launches = fused fits,
+    J1 launches = the JPEG frames (0 on PNG)."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_track
+    from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
+    from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
+    from superviseddescent_tpu_torch.models.facedetect import (
+        HaarCascadeDetector)
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    from superviseddescent_tpu_torch.models.rcr_training import (
+        RcrTrainConfig, train_rcr)
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    from superviseddescent_tpu_torch.utils.landmarks import to_row
+    clip = manifest["clip"]
+    n = len(clip["frames"])
+    jpg_dir = os.path.join(JPEG_DIR, "clip")
+    frame0 = load_gray_image(os.path.join(jpg_dir, "f000.jpg"))
+    det = HaarCascadeDetector(STOCK_FRONTAL_ALT2, device="cuda",
+                              **FACE_PARAMS)
+    box = det.detect(frame0)[0]
+    pretrained = DetectionModel.load(os.path.join(
+        REPO, "pretrained", "rcr22_lfpw5.bin"))
+    truth = to_row(read_pts_landmarks(os.path.join(
+        REPO, ".synth120", clip["source"] + ".pts")).filter(
+            pretrained.landmark_ids))
+    n_lm = truth.shape[0] // 2
+    oy, ox = clip["offsets"][0]
+    row0 = (truth + np.float32([ox] * n_lm + [oy] * n_lm)).astype(
+        np.float32)
+    mean = np.concatenate([(row0[:n_lm] - box[0]) / box[2] - 0.5,
+                           (row0[n_lm:] - box[1]) / box[3] - 0.5]).astype(
+                               np.float32)
+    model = train_rcr(
+        torch.from_numpy(frame0.astype(np.uint8)[None]).cuda(),
+        np.repeat(row0[None], JPEG_TRACK_COPIES, 0),
+        np.repeat(box[None], JPEG_TRACK_COPIES, 0), pretrained.landmark_ids,
+        pretrained.right_eye_ids, pretrained.left_eye_ids, mean,
+        RcrTrainConfig(roi=ROI, patch_backend="fused"),
+        image_indices=np.zeros(JPEG_TRACK_COPIES, np.int64), device="cuda")
+    model_path = os.path.join(root, "track.bin")
+    model.save(model_path)
+    box_arg = ",".join(repr(float(v)) for v in box)
+
+    def run(directory, jpeg, *extra):
+        rows = []
+        zero_counts()
+        with recorded(rcr_track, "estimate_ok", rows,
+                      lambda a, ok: np.array(a[0])):
+            rc, text, wall = run_app_main(rcr_track, [
+                "-m", model_path, "-f", directory, "--facebox", box_arg,
+                "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(rc == 0, f"rcr_track {extra} exited {rc}:\n{text}")
+        summary = [l for l in text.splitlines() if l.startswith("tracked ")]
+        check(summary == [f"tracked {n} frames: {n} fused fits (0 refits), "
+                          "0 exact fits"], f"rcr_track {extra} on "
+              f"{'JPEG' if jpeg else 'PNG'}: {summary}")
+        expect_counts(launches, f"rcr_track {' '.join(extra)} on "
+                      f"{'JPEG' if jpeg else 'PNG'} frames",
+                      cascade_fused_frames=n, jpeg_decode=n * jpeg)
+        check(len(rows) == n, f"rcr_track {extra}: {len(rows)} rows")
+        return np.stack(rows).astype(np.float32), wall * 1e3 / n, launches
+
+    def bits(a):
+        return a.view(np.int32)
+
+    modes = [("--depth", str(d)) for d in JPEG_TRACK_DEPTHS] + [("--scan",)]
+    out, ref = {}, None
+    for mode in modes:
+        key = " ".join(mode)
+        jrows, jms, jl = run(jpg_dir, True, *mode)
+        prows, pms, _ = run(png_dir, False, *mode)
+        ref = jrows if ref is None else ref
+        check(np.array_equal(bits(jrows), bits(prows)), f"rcr_track {key}: "
+              "rows on JPEG frames differ from those on PNG frames of the "
+              "same pixels")
+        check(np.array_equal(bits(jrows), bits(ref)), f"rcr_track {key}: "
+              "the rows depend on the mode")
+        out[key] = dict(jpeg_ms_per_frame=jms, png_ms_per_frame=pms,
+                        k3_launches=jl["cascade_fused_frames"],
+                        j1_launches=jl["jpeg_decode"])
+        log(f"[jpeg] rcr_track {key} over {n} frames of 768 x 1024: "
+            f"{jms:.2f} ms a frame on JPEG (J1 {jl['jpeg_decode']} "
+            f"launches, K3 {jl['cascade_fused_frames']} = fused fits), "
+            f"{pms:.2f} ms a frame on PNG of the same pixels; rows equal")
+    return out
+
+
+def jpeg_detect(torch, root):
+    """rcr_detect -i <still>.jpg -f -o out.jpg on the card: J1 twice (grey
+    for the fit, RGB for the drawing), the drawing written as out.png, the
+    landmarks within APP_DETECT_PX of the CPU run's."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_detect
+    from superviseddescent_tpu_torch.io.png import read_png
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    argv = ["-m", os.path.join(REPO, "pretrained", "rcr22_lfpw5.bin"), "-i",
+            os.path.join(JPEG_DIR, JPEG_DETECT_STILL), "-f", "-o",
+            os.path.join(root, "detect.jpg")]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        coords = []
+        zero_counts()
+        with recorded(DetectionModel, "detect", coords,
+                      lambda a, lms: np.asarray(lms.coordinates)):
+            rc, text, wall = run_app_main(rcr_detect,
+                                          argv + ["--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            expect_counts(read_counts(), "rcr_detect -i still.jpg -f -o",
+                          jpeg_decode=2)
+        check(rc == 0 and len(coords) == 1, f"rcr_detect {dev}:\n{text}")
+        runs[dev] = (coords[0], wall, text)
+    delta = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
+    check(delta <= APP_DETECT_PX, f"rcr_detect on a JPEG: the card's "
+          f"landmarks {delta} px from the CPU's")
+    written = os.path.join(root, "detect.png")
+    check(f"Wrote {written}" in runs["cuda"][2]
+          and not os.path.exists(os.path.join(root, "detect.jpg")),
+          "rcr_detect -o detect.jpg did not write detect.png")
+    drawn = read_png(written)
+    check(drawn.shape == (1023, 728, 3), f"rcr_detect -o: {drawn.shape}")
+    log(f"[jpeg] rcr_detect -i {JPEG_DETECT_STILL} -f -o detect.jpg: "
+        f"{runs['cuda'][1] * 1e3:.1f} ms (J1 2 launches; written as "
+        f"detect.png), landmarks {delta:.2e} px from the CPU run")
+    return dict(ms=runs["cuda"][1] * 1e3, cpu_delta_px=delta)
+
+
+def phase_jpeg(torch, name, smi):
+    """The io slice on the card: the committed JPEG fixtures
+    (``tests/torch_jpeg``, PIL's digests in its manifest) through the host
+    entropy decoder and J1, rcr_track over the JPEG clip against PNG frames
+    of the same pixels, rcr_detect on a JPEG still."""
+    import shutil
+    import tempfile
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_jpeg_")
+    try:
+        png_dir = os.path.join(root, "png")
+        os.makedirs(png_dir)
+        stills, err_stills = jpeg_stills(torch, manifest)
+        times, err_clip = jpeg_clip_times(torch, manifest, png_dir)
+        track = jpeg_track(torch, manifest, png_dir, root)
+        detect = jpeg_detect(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[jpeg] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, stills=stills, times=times,
+                track=track, detect=detect, seconds=seconds,
+                max_abs_err=max(err_stills, err_clip))
+
+
+def jpeg_entry(jpeg):
+    """The kernels line's entry of J1: times per 1024 x 768 4:2:0 frame,
+    launches of the depth-1 rcr_track run on the JPEG clip."""
+    source, replaces = SOURCES["jpeg_decode"]
+    t = jpeg["times"]
+    return dict(
+        name="jpeg_decode", route="cuda", source=source, replaces=replaces,
+        replaces_note="no pallas_call: the JAX package decodes images with "
+        "PIL on the host; J1 is a hand kernel of the io slice",
+        launches=jpeg["track"][f"--depth {JPEG_TRACK_DEPTHS[0]}"][
+            "j1_launches"],
+        max_abs_err=jpeg["max_abs_err"], ms=t["j1_device_ms"],
+        plain_ms=t["twin_device_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler")
+
+
+# ---------------------------------------------------------------- #
 # The last slice: dense training, data parallel, checkpoints
 # ---------------------------------------------------------------- #
 DENSE_SAMPLINGS = ("exact", "high", "fast")
@@ -4472,6 +4815,12 @@ def main():
     parser.add_argument("--apps", action="store_true",
                         help="only run the apps and examples phase "
                         "(phase_apps) after the builds")
+    parser.add_argument("--jpeg", action="store_true",
+                        help="only run the JPEG phase (phase_jpeg: the "
+                        "committed fixtures through the host decoder and J1, "
+                        "rcr_track on the JPEG clip against PNG frames of the "
+                        "same pixels, rcr_detect on a JPEG still) after the "
+                        "builds")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
@@ -4545,6 +4894,12 @@ def main():
         apps = phase_apps(torch, load_data(torch), seed, name, smi)
         print(json.dumps({"apps": apps}))
         return 0
+    if opts.jpeg:
+        name, smi = phase_device(torch)
+        phase_build()
+        jpeg = phase_jpeg(torch, name, smi)
+        print(json.dumps({"jpeg": jpeg, "kernels": [jpeg_entry(jpeg)]}))
+        return 0
     if opts.remainder:
         name, smi = phase_device(torch)
         phase_build()
@@ -4576,9 +4931,10 @@ def main():
     batches = k3_batches(torch, data)
     facedetect = phase_facedetect(torch, data)
     apps = phase_apps(torch, data, seed, name, smi)
+    jpeg = phase_jpeg(torch, name, smi)
     remainder = phase_remainder(torch, data, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
-                             families, remainder)
+                             families, remainder) + [jpeg_entry(jpeg)]
     k3_shapes = {
         "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
         "rcr22_batch1": tracking["k3_batch1_ms"],
@@ -4600,7 +4956,7 @@ def main():
                        families=families, tracking=tracking, seed=seed,
                        kernels=entries, k3_shapes=k3_shapes,
                        k3_batches=batches, facedetect=facedetect,
-                       apps=apps, remainder=remainder,
+                       apps=apps, jpeg=jpeg, remainder=remainder,
                        seconds=time.perf_counter() - t0), f,
                   indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")

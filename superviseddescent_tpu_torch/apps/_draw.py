@@ -5,14 +5,19 @@ The JAX apps draw with PIL (``ImageDraw.ellipse`` of radius 2 per landmark,
 draws with numpy: each landmark a circle outline of radius 2 around its
 rounded position (the pixels whose distance from the centre rounds to 2),
 the box a one-pixel rectangle outline. The pixels are the port's own and
-are not held to PIL's rasteriser.
+are not held to PIL's rasteriser. A JPEG input is read as RGB through
+kernel J1 (``ops/jpeg.read_jpeg``). The port has no JPEG encoder: every
+annotated image is written as PNG, and a ``.jpg`` / ``.jpeg`` output name
+gets the suffix ``.png`` (``png_path``).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from superviseddescent_tpu_torch.io.png import read_png, write_png
+from superviseddescent_tpu_torch.io.png import decode_png, write_png
 
 GREEN = (0, 255, 0)
 RED = (255, 0, 0)
@@ -23,7 +28,7 @@ RING_DY, RING_DX = (a - 2 for a in np.nonzero(_RING))
 
 
 def to_rgb(pixels: np.ndarray) -> np.ndarray:
-    """(H, W, C) uint8 as read by ``read_png`` -> (H, W, 3) RGB (grey is
+    """(H, W, C) uint8 as decoded by ``io/png`` -> (H, W, 3) RGB (grey is
     repeated, alpha dropped)."""
     if pixels.shape[2] <= 2:
         return np.repeat(pixels[..., :1], 3, axis=2)
@@ -57,10 +62,33 @@ def draw_box(rgb: np.ndarray, box, colour=RED) -> None:
             rgb[cy0:cy1 + 1, x] = colour
 
 
-def annotate(image_path, out_path, coordinates, box=None) -> None:
-    """Write ``image_path`` as RGB with the landmarks (and the box) drawn."""
-    rgb = to_rgb(read_png(image_path))
+def read_rgb(image_path, device=None) -> np.ndarray:
+    """A PNG or JPEG file as (H, W, 3) uint8 RGB; a JPEG's pixels are
+    computed on ``device`` (the card unless the caller names one)."""
+    with open(image_path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
+        return read_jpeg(data, 3, device).cpu().numpy()
+    return to_rgb(decode_png(data))
+
+
+def png_path(out_path) -> str:
+    """The name an annotated image is written under: a ``.jpg`` / ``.jpeg``
+    name with the suffix ``.png``, any other name as it is."""
+    root, ext = os.path.splitext(os.fspath(out_path))
+    return root + ".png" if ext.lower() in (".jpg", ".jpeg") else os.fspath(
+        out_path)
+
+
+def annotate(image_path, out_path, coordinates, box=None,
+             device=None) -> str:
+    """Write ``image_path`` as RGB PNG with the landmarks (and the box)
+    drawn, under ``png_path(out_path)``; returns that name."""
+    rgb = read_rgb(image_path, device)
     draw_landmarks(rgb, coordinates)
     if box is not None:
         draw_box(rgb, box)
-    write_png(out_path, rgb)
+    path = png_path(out_path)
+    write_png(path, rgb)
+    return path

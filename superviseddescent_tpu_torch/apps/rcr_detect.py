@@ -7,12 +7,14 @@ detector (``-f``; with no file named, the stock
 ``haarcascade_frontalface_alt2.xml`` carried in
 ``superviseddescent_tpu_torch/data/``). ``-o`` writes the image with the
 landmarks and the box drawn (``apps/_draw.py``, PNG by the port's own
-writer). Runs on the card unless ``--device cpu`` is given; the landmark
-fit (``DetectionModel.detect``) and the face detector are plain PyTorch
-operations on that device.
+writer; a ``.jpg`` output name is written as ``.png``, as the port has no
+JPEG encoder). The image is a PNG or a baseline JPEG, whose pixel stage
+runs on the device (kernel J1). Runs on the card unless ``--device cpu``
+is given; the landmark fit (``DetectionModel.detect``) and the face
+detector are plain PyTorch operations on that device.
 
     python -m superviseddescent_tpu_torch.apps.rcr_detect -m model.bin \\
-        -i face.png -f -o out.png
+        -i face.jpg -f -o out.png
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ def main(argv=None):
                     "(PyTorch port)")
     p.add_argument("-m", "--model", required=True, help="trained model file")
     p.add_argument("-i", "--image", required=True,
-                   help="PNG image to detect in")
+                   help="PNG or JPEG image to detect in")
     p.add_argument("--facebox", default=None, help="x,y,w,h")
     p.add_argument("--pts", default=None,
                    help="derive the facebox from this ground-truth .pts file")
@@ -37,7 +39,8 @@ def main(argv=None):
                         " (with no file: the carried "
                         "haarcascade_frontalface_alt2.xml)")
     p.add_argument("-o", "--output", default=None,
-                   help="output PNG with drawn landmarks")
+                   help="output PNG with drawn landmarks (a .jpg / .jpeg "
+                        "name is written with the suffix .png)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain PyTorch path)")
@@ -55,7 +58,7 @@ def main(argv=None):
         print(f"Error loading the model: {e}")
         return 1
 
-    image = load_gray_image(args.image)
+    image = load_gray_image(args.image, device=device)
 
     if args.facebox:
         box = tuple(float(v) for v in args.facebox.split(","))
@@ -85,8 +88,9 @@ def main(argv=None):
 
     if args.output:
         from superviseddescent_tpu_torch.apps._draw import annotate
-        annotate(args.image, args.output, landmarks.coordinates, box)
-        print(f"Wrote {args.output}")
+        written = annotate(args.image, args.output, landmarks.coordinates,
+                           box, device=device)
+        print(f"Wrote {written}")
     return 0
 
 

@@ -1,7 +1,9 @@
 """rcr-track: track landmarks over a frame sequence.
 
 The port of ``superviseddescent_tpu/apps/rcr_track.py`` (reference:
-rcr-track.cpp). Reads a directory of PNG frames (sorted), fits the first
+rcr-track.cpp). Reads a directory of PNG and baseline JPEG frames
+(``*.png``, ``*.jpg``, sorted; a JPEG's pixel stage runs on the device,
+kernel J1), fits the first
 from a facebox (``--facebox`` or the port's face detector,
 ``--face-detector``) and every later frame from its predecessor's
 landmarks, and re-initialises from a facebox when an estimate is lost
@@ -34,7 +36,9 @@ Differences from the JAX app, by intent:
     the new chain's first row is read, the face-size rule uses the facebox;
   * the JAX app hands aligned float32 frames to its fused detector; the
     port always hands uint8 frames, so fused tracking runs on K3;
-  * ``*.jpg`` frames are refused by name: the port decodes PNG only.
+  * ``-o`` writes every annotated frame as PNG: a ``.jpg`` frame's is
+    named with the suffix ``.png`` (the port has no JPEG encoder), and the
+    name is printed.
 
     python -m superviseddescent_tpu_torch.apps.rcr_track -m model.bin \\
         -f frames/ --face-detector
@@ -113,13 +117,17 @@ def bbox_text(row):
     return str(tuple(round(v, 1) for v in enclosing_bbox(row)))
 
 
-def annotate_row(output_dir, path, row):
-    """With an output directory, write the frame with the row drawn."""
+def annotate_row(output_dir, path, row, device=None):
+    """With an output directory, write the frame with the row drawn (as
+    PNG; a renamed JPEG frame's file name is printed)."""
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
         l = row.shape[0] // 2
-        annotate(path, os.path.join(output_dir, os.path.basename(path)),
-                 np.stack([row[:l], row[l:]], axis=1))
+        target = os.path.join(output_dir, os.path.basename(path))
+        written = annotate(path, target, np.stack([row[:l], row[l:]], axis=1),
+                           device=device)
+        if written != target:
+            print(f"wrote {written}")
 
 
 class Tracker:
@@ -127,8 +135,9 @@ class Tracker:
     good row and the fit counts."""
 
     def __init__(self, model, frames, box, face_det, depth, output_dir,
-                 fused):
+                 fused, device=None):
         self.model = model
+        self.device = device
         self.paths = frames
         self.box = box
         self.face_det = face_det
@@ -145,8 +154,8 @@ class Tracker:
 
     def frame(self, i) -> Frame:
         if self._peek is None or self._peek[0] != i:
-            self._peek = (i, Frame(i, self.paths[i],
-                                   load_gray_image(self.paths[i])))
+            self._peek = (i, Frame(i, self.paths[i], load_gray_image(
+                self.paths[i], device=self.device)))
         return self._peek[1]
 
     def face_size(self):
@@ -193,7 +202,7 @@ class Tracker:
         self.t_iter = time.time()
         print(f"frame {frame.index} ({os.path.basename(frame.path)}): fit "
               f"{wall_ms:.1f} ms{tag}, bbox {bbox_text(row)}")
-        annotate_row(self.output_dir, frame.path, row)
+        annotate_row(self.output_dir, frame.path, row, self.device)
         if not estimate_ok(row, frame.shape):
             self.lost(frame)
             return False
@@ -246,7 +255,7 @@ class Tracker:
             self.prev_row = row
         else:
             self.lost(frame)
-        annotate_row(self.output_dir, frame.path, row)
+        annotate_row(self.output_dir, frame.path, row, self.device)
 
     def run(self):
         refit = []
@@ -261,10 +270,10 @@ class Tracker:
               f"fits ({self.refits} refits), {self.exact_fits} exact fits")
 
 
-def track_scan(model, frames, box, output_dir):
+def track_scan(model, frames, box, output_dir, device=None):
     """--scan: the whole clip through ``make_fused_track_scan``, the loss
     checks afterwards (no mid-clip re-initialisation)."""
-    images = [load_gray_image(p) for p in frames]
+    images = [load_gray_image(p, device=device) for p in frames]
     padded = [pad_align(im.astype(np.uint8)) for im in images]
     if len({im.shape for im in padded}) != 1:
         raise SystemExit("--scan requires same-shape frames")
@@ -281,7 +290,7 @@ def track_scan(model, frames, box, output_dir):
         if not estimate_ok(row, images[i].shape):
             print(f"frame {i}: tracking lost (no mid-clip re-init "
                   "in --scan mode)")
-        annotate_row(output_dir, path, row)
+        annotate_row(output_dir, path, row, device)
     print(f"tracked {len(frames)} frames: {len(frames)} fused fits "
           "(0 refits), 0 exact fits")
 
@@ -292,7 +301,7 @@ def main(argv=None):
                     "(PyTorch port)")
     p.add_argument("-m", "--model", required=True)
     p.add_argument("-f", "--frames", required=True,
-                   help="directory of PNG frames (sorted; *.jpg is refused)")
+                   help="directory of *.png and *.jpg frames (sorted)")
     p.add_argument("--facebox", default=None,
                    help="initial facebox x,y,w,h for the first frame")
     p.add_argument("--face-detector", nargs="?", default=None, const="",
@@ -302,7 +311,8 @@ def main(argv=None):
                         "initial facebox, and re-detect on tracking loss, "
                         "like the reference app (rcr-track.cpp:141)")
     p.add_argument("-o", "--output-dir", default=None,
-                   help="write annotated frames here")
+                   help="write annotated frames here (as PNG: a .jpg "
+                        "frame's gets the suffix .png)")
     p.add_argument("--no-fused", action="store_true",
                    help="track with the exact fit instead of the fused "
                         "whole-cascade kernel")
@@ -332,10 +342,6 @@ def main(argv=None):
                     + glob.glob(os.path.join(args.frames, "*.jpg")))
     if not frames:
         raise SystemExit(f"no frames in {args.frames}")
-    jpgs = [f for f in frames if f.endswith(".jpg")]
-    if jpgs:
-        raise SystemExit(f"{jpgs[0]}: JPEG frames are not supported (the "
-                         "port decodes PNG only)")
 
     face_det = None
     if args.face_detector is not None:
@@ -348,7 +354,7 @@ def main(argv=None):
     if args.facebox:
         box = tuple(float(v) for v in args.facebox.split(","))
     elif face_det is not None:
-        boxes = face_det.detect(load_gray_image(frames[0]))
+        boxes = face_det.detect(load_gray_image(frames[0], device=device))
         if len(boxes) == 0:
             raise SystemExit("no face detected in the first frame")
         box = tuple(float(v) for v in boxes[0])
@@ -358,10 +364,10 @@ def main(argv=None):
     if args.scan:
         if args.no_fused:
             raise SystemExit("--scan requires the fused kernel")
-        track_scan(model, frames, box, args.output_dir)
+        track_scan(model, frames, box, args.output_dir, device)
         return 0
     Tracker(model, frames, box, face_det, args.depth, args.output_dir,
-            fused=not args.no_fused).run()
+            fused=not args.no_fused, device=device).run()
     return 0
 
 

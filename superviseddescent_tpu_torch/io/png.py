@@ -1,10 +1,15 @@
 """PNG decoder and writer on the standard library's zlib (no PIL, no
 OpenCV).
 
-The decoder covers 8-bit, non-interlaced PNGs of colour type 0 (grey),
-2 (RGB), 4 (grey + alpha) and 6 (RGBA), and raises on anything else. The
-writer writes 8-bit grey (H, W) and RGB (H, W, 3) images, every row with
-filter type 0.
+The decoder reads every PNG the standard allows: colour types 0 (grey, bit
+depths 1, 2, 4, 8, 16), 2 (RGB, 8 or 16), 3 (palette, 1, 2, 4, 8), 4 (grey
++ alpha, 8 or 16) and 6 (RGBA, 8 or 16), non-interlaced or Adam7. It
+returns the 8-bit pixels that PIL's reader gives (and its
+``convert('RGB')`` where PIL's mode is not 8-bit): grey of 1, 2 or 4 bits
+scaled to 0-255, a palette expanded to RGB (entries past the PLTE chunk
+black, ``tRNS`` dropped), 16-bit grey clipped to 255 (PIL's ``I;16`` to
+RGB), other 16-bit samples their high byte. The writer writes 8-bit grey
+(H, W) and RGB (H, W, 3) images, every row with filter type 0.
 
 Rows are un-filtered as a wavefront: pixel (r, x) depends only on
 (r, x-1), (r-1, x) and (r-1, x-1), so all pixels on one anti-diagonal
@@ -19,12 +24,17 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7 passes: first row, first column, row step, column step
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _chunks(data: bytes):
-    pos = len(_SIGNATURE)
+    pos = len(SIGNATURE)
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -35,8 +45,9 @@ def _chunks(data: bytes):
     raise ValueError("PNG stream ends without an IEND chunk")
 
 
-def _unfilter(raw: bytes, height: int, width: int, bpp: int) -> np.ndarray:
-    stride = width * bpp
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """(height, stride) un-filtered bytes of rows ``stride`` bytes long
+    whose filters step ``bpp`` bytes back."""
     if len(raw) != height * (stride + 1):
         raise ValueError("PNG image data has the wrong length")
     data = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
@@ -44,6 +55,7 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int) -> np.ndarray:
     if kinds.max(initial=0) > 4:
         raise ValueError(f"unknown PNG filter type {kinds.max()}")
     filt = data[:, 1:].astype(np.int32)
+    width = stride // bpp
     # padded reconstruction: row 0 and the first bpp columns are the zero
     # "previous" neighbours the PNG filters assume
     out = np.zeros((height + 1, stride + bpp), np.int32)
@@ -65,29 +77,74 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int) -> np.ndarray:
     return out[1:, bpp:].astype(np.uint8)
 
 
+def _unpack(rows: np.ndarray, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """Un-filtered rows -> (h, width, channels) samples (uint16 at 16
+    bits, else uint8 at their own depth)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    if depth == 16:
+        pairs = rows.reshape(h, width * channels, 2).astype(np.uint16)
+        return ((pairs[..., 0] << 8) | pairs[..., 1]).reshape(
+            h, width, channels)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[
+        :, :width * channels].reshape(h, width, channels)
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8 array, C = 1, 2, 3 or 4."""
-    if data[:8] != _SIGNATURE:
+    """PNG bytes -> (H, W, C) uint8 array, C = 1, 2, 3 or 4 (3 for a
+    palette image), as PIL reads it (see the module's docstring)."""
+    if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
-    header, idat = None, []
+    header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError("PNG has no IHDR chunk")
     width, height, depth, colour, compression, filtering, interlace = header
-    if (depth != 8 or colour not in _CHANNELS or compression != 0
-            or filtering != 0 or interlace != 0):
+    if (colour not in _DEPTHS or depth not in _DEPTHS[colour]
+            or compression != 0 or filtering != 0 or interlace > 1):
         raise ValueError(
-            f"unsupported PNG: bit depth {depth}, colour type {colour}, "
-            f"interlace {interlace} (8-bit non-interlaced grey, grey+alpha, "
-            f"RGB or RGBA only)")
+            f"invalid PNG: bit depth {depth}, colour type {colour}, "
+            f"compression {compression}, filter method {filtering}, "
+            f"interlace {interlace}")
+    if colour == 3 and palette is None:
+        raise ValueError("PNG palette image has no PLTE chunk")
     channels = _CHANNELS[colour]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width,
-                       channels)
-    return pixels.reshape(height, width, channels)
+    bpp = max(1, channels * depth // 8)
+    raw = zlib.decompress(b"".join(idat))
+    samples = np.zeros((height, width, channels),
+                       np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for sy, sx, dy, dx in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        ph, pw = -(-(height - sy) // dy), -(-(width - sx) // dx)
+        if ph <= 0 or pw <= 0:
+            continue                      # an empty pass has no rows
+        stride = -(-pw * channels * depth // 8)
+        rows = _unfilter(raw[pos:pos + ph * (stride + 1)], ph, stride, bpp)
+        pos += ph * (stride + 1)
+        samples[sy::dy, sx::dx] = _unpack(rows, pw, channels, depth)
+    if pos != len(raw):
+        raise ValueError("PNG image data has the wrong length")
+    if colour == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette) // 3] = palette.reshape(-1, 3)
+        return table[samples[..., 0]]
+    if depth == 16:
+        if colour == 0:
+            return np.minimum(samples, 255).astype(np.uint8)
+        return (samples >> 8).astype(np.uint8)
+    if depth < 8:
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    return samples
 
 
 def read_png(path) -> np.ndarray:
@@ -118,7 +175,7 @@ def encode_png(pixels) -> bytes:
     rows = pixels.reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
     header = struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", header)
+    return (SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))
 

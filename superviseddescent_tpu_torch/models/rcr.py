@@ -91,14 +91,28 @@ def rows_shift(ox: torch.Tensor, oy: torch.Tensor, n_lm: int) -> torch.Tensor:
                       oy[:, None].expand(-1, n_lm)], dim=1)
 
 
-def align_mean(mean: torch.Tensor, facebox: torch.Tensor) -> torch.Tensor:
+def align_mean(mean: torch.Tensor, facebox: torch.Tensor,
+               scaling_x: float = 1.0, scaling_y: float = 1.0,
+               translation_x: float = 0.0,
+               translation_y: float = 0.0) -> torch.Tensor:
     """Place the mean shape ([-0.5, 0.5]^2 facebox space) into pixel
-    faceboxes (x, y, w, h). mean: (..., 2L); facebox: (..., 4)."""
+    faceboxes (x, y, w, h), scaled and translated in that space first
+    (reference: model.hpp:64-76). mean: (..., 2L); facebox: (..., 4)."""
     x, y, w, h = (facebox[..., i] for i in range(4))
     l = mean.shape[-1] // 2
-    mx = (mean[..., :l] + 0.5) * w[..., None] + x[..., None]
-    my = (mean[..., l:] + 0.5) * h[..., None] + y[..., None]
-    return torch.cat([mx, my], dim=-1)
+
+    def place(m, scaling, translation, origin, size):
+        # JAX's order, (m * s + 0.5 + t) * size + origin; the identity
+        # steps are skipped (the same bits) to spare the tracker launches
+        if scaling != 1.0:
+            m = m * scaling
+        m = m + 0.5
+        if translation != 0.0:
+            m = m + translation
+        return m * size[..., None] + origin[..., None]
+    return torch.cat([place(mean[..., :l], scaling_x, translation_x, x, w),
+                      place(mean[..., l:], scaling_y, translation_y, y, h)],
+                     dim=-1)
 
 
 class InterEyeDistanceNormalisation:

@@ -56,6 +56,9 @@ KERNELS = {
     "probe_dyn": {"probe_abde_launch": [_P] * 3 + [_I] * 10 + [_P],
                   "probe_c_launch": [_P, _P] + [_I] * 3 + [_P],
                   "probe_empty_launch": [_P]},
+    # JPEG (ops/jpeg.py): the host entropy decoder and J1
+    "jpeg_decode": {"jpeg_entropy_decode": [_P, _I, _P, _P, _P],
+                    "jpeg_pixels_launch": [_P] * 6},
 }
 
 

@@ -1,0 +1,146 @@
+"""Kernel J1, the JPEG pixel stage on the card, and ``read_jpeg``.
+
+``read_jpeg`` parses the stream (``io/jpeg.py``), decodes its entropy-coded
+data on the host and runs the pixel stage where the caller asks: on the
+card, the host C++ entropy decoder of ``csrc/jpeg_decode.cu`` writes the
+coefficients into pinned memory, they go to the card asynchronously and
+J1 (``jpeg_pixels``) turns them into uint8 grey or RGB there; on the CPU,
+the plain twins of both stages run (``io/jpeg.entropy_decode`` and
+``io/jpeg.pixels_reference``). A failed build or launch raises; nothing
+falls back to the twins.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from superviseddescent_tpu_torch.io.jpeg import (
+    ERRORS, JpegFrame, entropy_decode, parse_jpeg, pixels_reference)
+from superviseddescent_tpu_torch.utils.device import resolve_device
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _plane_bytes(f: JpegFrame):
+    return [c.nbx * c.nby * 64 for c in f.components]
+
+
+def _check_sizes(f: JpegFrame, channels: int) -> None:
+    """The kernels index with int32: refuse what does not fit."""
+    if channels not in (1, 3):
+        raise ValueError(f"channels must be 1 or 3, got {channels}")
+    if max(f.blocks * 64, sum(_plane_bytes(f)),
+           f.width * f.height * channels) > _INT32_MAX:
+        raise ValueError(f"JPEG of {f.width} x {f.height} is too large for "
+                         "the decoder's int32 indices")
+
+
+def entropy_params(f: JpegFrame):
+    """The host decoder's int32 parameters and its Huffman tables: 8 rows
+    (DC 0-3, AC 0-3) of 16 length counts and 256 symbols."""
+    params = [len(f.components), f.mcux, f.mcuy, f.restart_interval,
+              f.blocks]
+    for c in f.components:
+        params += [c.h, c.v, c.nbx, c.offset, c.td, c.ta]
+    huff = np.zeros((8, 272), np.uint8)
+    for (tc, th), (bits, vals) in f.huffman.items():
+        huff[4 * tc + th, :16] = bits
+        huff[4 * tc + th, 16:16 + len(vals)] = vals
+    return np.asarray(params, np.int32), huff
+
+
+def entropy_decode_native(f: JpegFrame) -> torch.Tensor:
+    """The host C++ entropy decoder: (blocks, 64) int16 coefficients in
+    pinned memory, equal to ``io/jpeg.entropy_decode``'s."""
+    from superviseddescent_tpu_torch.ops._build import load_library
+    lib = load_library("jpeg_decode")
+    _check_sizes(f, 1)
+    params, huff = entropy_params(f)
+    scan = np.frombuffer(f.scan, np.uint8)
+    coef = torch.empty((f.blocks, 64), dtype=torch.int16, pin_memory=True)
+    err = lib.jpeg_entropy_decode(
+        ctypes.c_void_p(scan.ctypes.data), len(scan),
+        ctypes.c_void_p(params.ctypes.data), ctypes.c_void_p(huff.ctypes.data),
+        ctypes.c_void_p(coef.data_ptr()))
+    if err:
+        raise ValueError(f"JPEG: {ERRORS.get(err, f'error {err}')}")
+    return coef
+
+
+def pixel_params(f: JpegFrame, channels: int):
+    """J1's int32 geometry (see ``csrc/jpeg_decode.cu``) and its (3, 64)
+    quantisers."""
+    geom = [len(f.components), f.width, f.height, f.mode, int(f.rgb_input),
+            channels, f.blocks]
+    plane_off = np.cumsum([0] + _plane_bytes(f))
+    for i in range(3):
+        if i < len(f.components):
+            c = f.components[i]
+            geom += [c.nbx, c.nby, c.offset, int(plane_off[i]), c.dw, c.dh]
+        else:
+            geom += [0, 0, f.blocks, int(plane_off[-1]), 0, 0]
+    quant = np.zeros((3, 64), np.int32)
+    quant[:len(f.components)] = f.quant()
+    return np.asarray(geom, np.int32), quant
+
+
+def jpeg_pixels(coef: torch.Tensor, f: JpegFrame,
+                channels: int = 1) -> torch.Tensor:
+    """J1: (blocks, 64) int16 coefficients -> uint8 (H, W) grey (OpenCV's
+    formula on the RGB; a 1-component image's Y) or (H, W, 3) RGB, on the
+    coefficients' device. A CUDA tensor launches the kernel; a CPU tensor
+    takes the plain twin."""
+    _check_sizes(f, channels)
+    if coef.device.type == "cpu":
+        return pixels_reference(coef, f, channels)
+    if coef.device.type != "cuda":
+        raise ValueError(f"unsupported device {coef.device}")
+    if (coef.dtype != torch.int16 or tuple(coef.shape) != (f.blocks, 64)
+            or not coef.is_contiguous()):
+        raise ValueError(f"coefficients must be contiguous int16 of shape "
+                         f"({f.blocks}, 64), got {coef.dtype} "
+                         f"{tuple(coef.shape)}")
+    from superviseddescent_tpu_torch.ops._build import load_library
+    geom, quant = pixel_params(f, channels)
+    planes = torch.empty(sum(_plane_bytes(f)), dtype=torch.uint8,
+                         device=coef.device)
+    shape = (f.height, f.width) + ((3,) if channels == 3 else ())
+    out = torch.empty(shape, dtype=torch.uint8, device=coef.device)
+    err = load_library("jpeg_decode").jpeg_pixels_launch(
+        ctypes.c_void_p(coef.data_ptr()), ctypes.c_void_p(planes.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(geom.ctypes.data),
+        ctypes.c_void_p(quant.ctypes.data),
+        ctypes.c_void_p(torch.cuda.current_stream(coef.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"jpeg_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    jpeg_pixels.launches += 1
+    return out
+
+
+jpeg_pixels.launches = 0
+
+
+def read_jpeg(path_or_bytes, channels: int = 1, device=None) -> torch.Tensor:
+    """Decode a baseline JPEG (a path, or its bytes) into a uint8 (H, W)
+    grey or (H, W, 3) RGB tensor on ``device`` (the card unless the caller
+    names one; with no card and no device this raises, as
+    ``utils/device.resolve_device`` does)."""
+    dev = resolve_device(device)
+    if isinstance(path_or_bytes, (bytes, bytearray, memoryview)):
+        data = bytes(path_or_bytes)
+    else:
+        with open(os.fspath(path_or_bytes), "rb") as fh:
+            data = fh.read()
+    f = parse_jpeg(data)
+    if dev.type == "cpu":
+        coef = torch.from_numpy(entropy_decode(f))
+    elif dev.type == "cuda":
+        coef = entropy_decode_native(f).to(dev, non_blocking=True)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return jpeg_pixels(coef, f, channels)

@@ -32,8 +32,8 @@ from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
 from superviseddescent_tpu_torch.io.png import encode_png, read_png, write_png
 from superviseddescent_tpu_torch.models import rcr as port_rcr
 from torch_apps_helpers import (  # noqa: F401 (one_torch_thread)
-    PRETRAINED, SYNTH, detect_lines, one_torch_thread, run_app,
-    write_config_files)
+    PRETRAINED, SYNTH, detect_lines, one_torch_thread, record_detect,
+    run_app, write_config_files)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 EXACT_PX = 1e-3
@@ -119,17 +119,6 @@ def test_drawing_marks_rings_and_box():
 
 
 # ------------------------------------------------------------ rcr_detect
-def record_detect(monkeypatch, cls, store):
-    fit = cls.detect
-
-    def recording(self, image, facebox):
-        lms = fit(self, image, facebox)
-        store.append((tuple(float(v) for v in facebox),
-                      np.asarray(lms.coordinates, np.float64)))
-        return lms
-    monkeypatch.setattr(cls, "detect", recording)
-
-
 @pytest.mark.parametrize("mode", ["facebox", "pts", "face_detector"])
 def test_rcr_detect_matches_jax(monkeypatch, tmp_path, mode):
     png = os.path.join(SYNTH, IMAGE + ".png")

@@ -1,0 +1,136 @@
+"""The apps on JPEG inputs, the port against the JAX package, on the CPU.
+
+``rcr_track`` over a 4-frame clip of 1000 x 700 4:2:0 JPEG frames
+(``torch_apps_helpers.write_clip(jpeg=True)``: the drifting ``.synth120``
+face of ``tests/test_torch_apps_track.py``, tinted), tracked by pretrained
+RCR-22 from the face detector's box on frame 0: the port's rows within
+0.02 px of the JAX app's (that file's tolerance for the fused kernel, K3
+in both apps), at depth 2 and by ``--scan``. The pretrained model drifts
+as a tracker in both packages alike (``tests/test_torch_tracking.py``
+chains it over 4 frames); training a tracking model on the CPU would take
+half a minute. The JAX app reads the frames with PIL, the
+port with its own decoder (``--device cpu``: the Python entropy decoder
+and J1's plain twin), and the two decoders give the same pixels
+(``tests/test_torch_jpeg.py``).
+
+``rcr_detect -i face.jpg -f`` with pretrained RCR-22: the landmarks within
+1e-3 px of JAX's (``tests/test_torch_apps_io.py``). Annotated outputs of
+JPEG inputs are PNG files with the suffix ``.png`` (the port has no JPEG
+encoder), holding the image's RGB with the drawing.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from superviseddescent_tpu.apps import rcr_detect as jax_detect
+from superviseddescent_tpu.apps import rcr_track as jax_track
+from superviseddescent_tpu.models import rcr as jax_rcr
+from superviseddescent_tpu_torch.apps import _draw, rcr_detect, rcr_track
+from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
+from superviseddescent_tpu_torch.io.png import SIGNATURE, read_png
+from superviseddescent_tpu_torch.models import rcr as port_rcr
+from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
+from superviseddescent_tpu_torch.ops.patches import load_gray_image
+from torch_apps_helpers import (  # noqa: F401 (one_torch_thread)
+    FRAME_SHAPE, PRETRAINED, SYNTH, assert_same_events, one_torch_thread,
+    record_detect, run_app, track_events, write_clip)
+from torch_jpeg_fixtures import encode, tint
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+FUSED_PX = 0.02
+EXACT_PX = 1e-3
+N_FRAMES = 4
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    from superviseddescent_tpu_torch.models.facedetect import (
+        HaarCascadeDetector)
+    root = tmp_path_factory.mktemp("track_jpeg")
+    frames = str(root / "frames")
+    write_clip(frames, N_FRAMES, jpeg=True)
+    frame0 = load_gray_image(os.path.join(frames, "f00.jpg"), device="cpu")
+    box = HaarCascadeDetector(STOCK_FRONTAL_ALT2, scale_factor=1.2,
+                              min_neighbors=2, min_size=(50, 50),
+                              device="cpu").detect(frame0)[0]
+    return dict(frames=frames,
+                model=os.path.join(PRETRAINED, "rcr22_lfpw5.bin"),
+                box=",".join(repr(float(v)) for v in box))
+
+
+def argv(clip, *extra):
+    return ["-m", clip["model"], "-f", clip["frames"], "--facebox",
+            clip["box"], *extra]
+
+
+@pytest.fixture(scope="module")
+def jax_events(clip):
+    mp = pytest.MonkeyPatch()
+    try:
+        rc, text = run_app(mp, jax_track, argv(clip, "--depth", "2"))
+    finally:
+        mp.undo()
+    assert rc == 0
+    events = track_events(text)
+    assert [e[:2] for e in events] == [("row", i) for i in range(N_FRAMES)]
+    return events
+
+
+@pytest.mark.parametrize("mode", [["--depth", "2"], ["--scan"]])
+def test_track_jpeg_frames_match_jax(monkeypatch, clip, jax_events, mode,
+                                     tmp_path):
+    out_dir = tmp_path / "annotated"
+    rc, text = run_app(monkeypatch, rcr_track, argv(
+        clip, *mode, "--device", "cpu", "-o", str(out_dir)))
+    assert rc == 0
+    assert_same_events(track_events(text), jax_events, FUSED_PX)
+    assert (f"tracked {N_FRAMES} frames: {N_FRAMES} fused fits (0 refits), "
+            "0 exact fits") in text
+    names = [f"f{k:02d}.png" for k in range(N_FRAMES)]
+    assert sorted(os.listdir(out_dir)) == names
+    wrote = [line.split()[1] for line in text.splitlines()
+             if line.startswith("wrote ")]
+    assert wrote == [str(out_dir / name) for name in names]
+    for name in names:
+        rgb = read_png(out_dir / name)
+        assert rgb.shape == FRAME_SHAPE + (3,)
+        assert (rgb == _draw.GREEN).all(axis=2).sum() > 0
+
+
+def test_rcr_detect_on_a_jpeg_matches_jax(monkeypatch, tmp_path):
+    grey = load_gray_image(os.path.join(SYNTH, "synth_0001.png"))
+    jpg = tmp_path / "face.jpg"
+    jpg.write_bytes(encode(tint(grey.astype(np.uint8), 1), "4:2:0", 90))
+    common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
+              str(jpg)]
+    want, got = [], []
+    record_detect(monkeypatch, jax_rcr.DetectionModel, want)
+    record_detect(monkeypatch, port_rcr.DetectionModel, got)
+    rc, _ = run_app(monkeypatch, jax_detect, common + [
+        "-f", STOCK_FRONTAL_ALT2])
+    assert rc == 0
+    out = tmp_path / "out.jpg"
+    rc, text = run_app(monkeypatch, rcr_detect, common + [
+        "-f", "-o", str(out), "--device", "cpu"])
+    assert rc == 0
+    (box, coords), (jax_box, jax_coords) = got[0], want[0]
+    assert len(got) == len(want) == 1 and coords.shape == (22, 2)
+    np.testing.assert_allclose(box, jax_box, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(coords, jax_coords, atol=EXACT_PX, rtol=0)
+    # no JPEG encoder: the drawing goes to out.png, and the app says so
+    written = tmp_path / "out.png"
+    assert f"Wrote {written}" in text and not out.exists()
+    assert written.read_bytes()[:8] == SIGNATURE
+    want_rgb = read_jpeg(jpg, 3, device="cpu").numpy().copy()
+    _draw.draw_landmarks(want_rgb, coords)
+    _draw.draw_box(want_rgb, box)
+    np.testing.assert_array_equal(read_png(written), want_rgb)
+
+
+@pytest.mark.parametrize("name,want", [("x.jpg", "x.png"),
+                                       ("d/x.JPEG", "d/x.png"),
+                                       ("x.png", "x.png"), ("x", "x")])
+def test_annotated_names_are_png(name, want):
+    assert _draw.png_path(name) == want

@@ -22,7 +22,8 @@ in-flight frames; the port has none). The exact fit through the same clip:
 The port alone, on the clip without its short frame: ``--scan`` gives the
 stream's rows bit for bit; the loss test gets each frame's own shape in
 every mode (the fix of the JAX app's padded-shape check); a fused failure
-raises instead of falling back; ``*.jpg`` frames are refused by name; ``-o``
+raises instead of falling back; a ``*.jpg`` frame that does not decode is
+refused by name (JPEG clips: ``tests/test_torch_apps_jpeg.py``); ``-o``
 writes the annotated frames.
 """
 
@@ -162,8 +163,10 @@ def test_fused_failure_raises(monkeypatch, clip):
 
 
 def test_jpg_frames_are_refused_by_name(clip, tmp_path):
+    """``*.jpg`` frames are read (the port decodes JPEG); a truncated one
+    stops the app with an error that names it."""
     frames = tmp_path / "frames"
     write_clip(str(frames), 2)
     (frames / "f01b.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(SystemExit, match="f01b.jpg"):
+    with pytest.raises(ValueError, match="f01b.jpg: JPEG stream ends"):
         rcr_track.main(argv(clip, "--device", "cpu", frames=str(frames)))

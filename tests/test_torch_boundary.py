@@ -1,4 +1,4 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor an image library.
 
 An AST scan (not a subprocess: an interpreter here may import jax at
 start-up) of every module of ``superviseddescent_tpu_torch`` and of
@@ -48,6 +48,19 @@ def is_forbidden(module):
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_module_imports_no_jax(path):
     bad = [m for m in imported_modules(path) if is_forbidden(m)]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# the port decodes images itself: the card has none of these
+IMAGE_LIBRARIES = ("PIL", "torchvision", "cv2", "nvjpeg", "imageio",
+                   "simplejpeg", "turbojpeg")
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_module_imports_no_image_library(path):
+    bad = [m for m in imported_modules(path)
+           if m.split(".")[0] in IMAGE_LIBRARIES]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 

@@ -91,10 +91,17 @@ def test_png_colour_types_match_pil(mode, tmp_path):
 
 
 def test_png_rejects_unsupported():
+    """Every valid PNG decodes (16-bit as PIL reads it:
+    tests/test_torch_jpeg.py); what is left to refuse is invalid: here RGB
+    at 4 bits, a depth the standard does not allow for colour type 2."""
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(buf, "PNG")  # 16-bit
-    with pytest.raises(ValueError, match="unsupported PNG"):
-        decode_png(buf.getvalue())
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(buf, "PNG")
+    data = bytearray(buf.getvalue())
+    assert data[24:26] == b"\x08\x02"            # IHDR bit depth, colour
+    data[24] = 4
+    with pytest.raises(ValueError, match="invalid PNG: bit depth 4, "
+                       "colour type 2"):
+        decode_png(bytes(data))
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a")
 

@@ -1142,3 +1142,81 @@ def test_face_detector_overflow_on_the_card(cuda):
         for got, want_f in zip(ref.detect_stream(frames, depth=depth),
                                singles):
             np.testing.assert_array_equal(got, want_f)
+
+
+# ------------------------------------------------------------------ J1
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "torch_jpeg")
+
+
+def jpeg_manifest():
+    import json
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", ["s00_grey_q75.jpg", "s01_444_q95.jpg",
+                                  "s02_422_q50.jpg", "s04_420_q95_restart.jpg",
+                                  "s06_422_q75_odd.jpg", "clip/f000.jpg"])
+def test_jpeg_kernel_equals_twin_and_pil(cuda, name):
+    """J1 on the host decoder's coefficients: bit-equal to its twin on the
+    same tensors and to PIL's digests; the host decoder equal to the
+    Python one."""
+    import hashlib
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels, read_jpeg)
+    m = jpeg_manifest()
+    want = (m["stills"][name] if name in m["stills"] else
+            [f for f in m["clip"]["frames"] if f["name"] == name][0])
+    data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
+    f = jpeg.parse_jpeg(data)
+    host = entropy_decode_native(f)
+    assert host.is_pinned()
+    np.testing.assert_array_equal(host.numpy(), jpeg.entropy_decode(f))
+    coef = host.to(cuda)
+    for channels, key in ((1, "grey_sha256"), (3, "rgb_sha256")):
+        before = jpeg_pixels.launches
+        got = jpeg_pixels(coef, f, channels)
+        assert jpeg_pixels.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, jpeg.pixels_reference(coef, f, channels))
+        assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == \
+            want[key]
+        assert torch.equal(read_jpeg(data, channels), got)
+
+
+def test_jpeg_kernel_at_odd_and_tiny_sizes(cuda, tmp_path):
+    """J1's edges (box upsampling below three chroma samples, replicated
+    edge samples, odd extents) in every sampling mode: the fixtures'
+    coefficients with the frame cut to small sizes, against the twin on the
+    same cut (the card's machine has no PIL to write small streams)."""
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import jpeg_pixels
+    for name in ("s00_grey_q75.jpg", "s01_444_q95.jpg", "s02_422_q50.jpg",
+                 "s03_420_q75.jpg"):
+        data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
+        f = jpeg.parse_jpeg(data)
+        coef = torch.from_numpy(jpeg.entropy_decode(f)).to(cuda)
+        full_w, full_h = f.width, f.height
+        for w, h in ((1, 1), (3, 2), (4, 5), (5, 9), (17, 33)):
+            f.width, f.height = min(w, full_w), min(h, full_h)
+            hmax = max(c.h for c in f.components)
+            vmax = max(c.v for c in f.components)
+            for c in f.components:
+                c.dw = -(-f.width * c.h // hmax)
+                c.dh = -(-f.height * c.v // vmax)
+            for channels in (1, 3):
+                assert torch.equal(jpeg_pixels(coef, f, channels),
+                                   jpeg.pixels_reference(coef, f, channels))
+
+
+def test_jpeg_host_decoder_reports_truncation(cuda):
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import entropy_decode_native
+    data = open(os.path.join(JPEG_FIXTURES, "s04_420_q95_restart.jpg"),
+                "rb").read()
+    f = jpeg.parse_jpeg(data)
+    f.scan = f.scan[:len(f.scan) // 2]
+    with pytest.raises(ValueError, match="JPEG: "):
+        entropy_decode_native(f)

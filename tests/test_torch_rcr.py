@@ -16,12 +16,13 @@ import pytest
 import torch
 
 from superviseddescent_tpu.models.rcr import DetectionModel as JaxModel
+from superviseddescent_tpu.models.rcr import align_mean as jax_align_mean
 from superviseddescent_tpu.models.rcr_training import (
     normalised_landmark_errors as jax_errors)
 from superviseddescent_tpu_torch.convert import from_jax_params
 from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
 from superviseddescent_tpu_torch.models.rcr import (
-    DetectionModel, gt_facebox, level_sub_windows)
+    DetectionModel, align_mean, gt_facebox, level_sub_windows)
 from superviseddescent_tpu_torch.models.rcr_training import (
     normalised_landmark_errors)
 from superviseddescent_tpu_torch.ops.patches import (
@@ -104,6 +105,23 @@ def test_stepped_gather_detector_equals_detect_batch(case):
     stepped = model.make_stepped_detector(len(images))(
         torch.from_numpy(stack), boxes)
     torch.testing.assert_close(stepped, full, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("placement", [
+    {}, {"scaling_x": 1.1, "scaling_y": 0.85},
+    {"translation_x": 0.05, "translation_y": -0.12},
+    {"scaling_x": 0.9, "scaling_y": 1.2, "translation_x": -0.03,
+     "translation_y": 0.07}])
+def test_align_mean_matches_jax(placement):
+    """The reference's align_mean (model.hpp:64-76): the mean scaled and
+    translated in facebox space, then placed in each box; the same float32
+    operations in the same order as JAX's, so the same bits."""
+    model = DetectionModel.load(MODEL, device="cpu")
+    rng = np.random.default_rng(3)
+    boxes = rng.uniform(20.0, 300.0, (5, 4)).astype(np.float32)
+    got = align_mean(model.mean[None], torch.from_numpy(boxes), **placement)
+    want = jax_align_mean(model.mean.numpy()[None], boxes, **placement)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_level_sub_windows_match_jax():

@@ -123,6 +123,18 @@ def assert_same_events(got, want, atol):
             np.testing.assert_allclose(g[2], w[2], atol=atol, rtol=0)
 
 
+def record_detect(monkeypatch, cls, store):
+    """Record (facebox, unrounded coordinates) of every ``cls.detect``."""
+    fit = cls.detect
+
+    def recording(self, image, facebox):
+        lms = fit(self, image, facebox)
+        store.append((tuple(float(v) for v in facebox),
+                      np.asarray(lms.coordinates, np.float64)))
+        return lms
+    monkeypatch.setattr(cls, "detect", recording)
+
+
 def detect_lines(out):
     """rcr_detect's landmark lines: {name: (x, y)}."""
     rows = {}
@@ -158,10 +170,12 @@ def frame_offsets(n, seed=0):
     return np.asarray(TRACK_ORIGIN) + np.cumsum(steps, axis=0)
 
 
-def write_clip(directory, n=6, loss=False, shape=FRAME_SHAPE):
+def write_clip(directory, n=6, loss=False, shape=FRAME_SHAPE, jpeg=False):
     """n PNG frames of ``shape`` showing one .synth120 face at drifting
     offsets; with ``loss``, frame LOSS_FRAME is cut to its top-left
     LOSS_SHAPE corner, which leaves the face (below row 540) out of it.
+    With ``jpeg``, each frame is a 4:2:0 JPEG (quality 90, PIL) of a seeded
+    tint of it (``torch_jpeg_fixtures.tint``) instead.
     Returns the (n, 2) [row, column] offsets of the image."""
     os.makedirs(directory, exist_ok=True)
     image = load_gray_image(
@@ -174,7 +188,12 @@ def write_clip(directory, n=6, loss=False, shape=FRAME_SHAPE):
         frame[oy:oy + src.shape[0], ox:ox + src.shape[1]] = src
         if loss and k == LOSS_FRAME:
             frame = frame[:LOSS_SHAPE[0], :LOSS_SHAPE[1]]
-        write_png(os.path.join(directory, f"f{k:02d}.png"), frame)
+        if jpeg:
+            from torch_jpeg_fixtures import encode, tint
+            with open(os.path.join(directory, f"f{k:02d}.jpg"), "wb") as f:
+                f.write(encode(tint(frame, 0), "4:2:0", 90))
+        else:
+            write_png(os.path.join(directory, f"f{k:02d}.png"), frame)
     return offs
 
 
