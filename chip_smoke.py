@@ -61,20 +61,31 @@ Then the later phases:
 runs only that phase after the builds. Then the JPEG phase
 (``phase_jpeg``): the committed fixtures of ``tests/torch_jpeg`` (the card
 has no PIL; PIL's sha256 digests in their manifest) through the host C++
-entropy decoder and J1 (``csrc/jpeg_decode.cu``): every still's grey and
-RGB against PIL's digests and bit for bit against J1's twin, the host
-coefficients against the Python twin's on a grey and a 4:2:0 restart
-still, per 768 x 1024 frame of the 16-frame clip the host entropy ms,
-J1's device ms (torch.profiler) beside its bound and its twin's,
-``load_gray_image`` of the JPEG against the PNG of the same pixels;
-``rcr_track`` on the JPEG clip and on those PNG frames at depth 1 and 4
-and ``--scan`` (rows equal; K3 launches = fused fits, J1 launches = JPEG
-frames), and ``rcr_detect -i still.jpg -f -o`` (J1 twice, the drawing
-written as PNG).
+entropy decoder and J1 (``csrc/jpeg_decode.cu``): every still (baseline,
+progressive, multi-scan, CMYK / YCCK, 4:1:1 / 4:4:0, other sampling
+factors) as grey and RGB against PIL's digests and bit for bit against
+J1's twin, the host coefficients against the Python twin's and a
+progressive still's against the baseline still's of the same pixels; per
+768 x 1024 frame of the 16-frame baseline and progressive clips (the same
+pixels; each progressive frame's host coefficients equal the baseline
+frame's) the host entropy ms, J1's device ms (torch.profiler) beside its
+bound and its twin's, ``load_gray_image`` of each clip against the PNG
+of the same pixels, all in turns; ``rcr_track`` on the progressive clip,
+the baseline clip and those PNG frames at depth 1 and 4 and ``--scan``
+(rows equal; K3 launches = fused fits, J1 launches = JPEG frames), and
+``rcr_detect -i still.jpg -f -o`` on a baseline, a progressive and a CMYK
+still (J1 twice each, the drawing written as PNG).
 
     python3 chip_smoke.py --jpeg
 
-runs only that phase after the builds. Last, the phase of the port's last
+runs only that phase after the builds;
+
+    python3 chip_smoke.py --j1 [--package-root DIR]
+
+times only J1 (both launches, and each alone) on the baseline clip's first
+frame, grey and RGB, and with ``--package-root`` another checkout's J1
+beside it (e.g. the parent's, unpacked into ``build/parent/``), in the
+order other, this, this, other. Last, the phase of the port's last
 slice (``phase_remainder``): ``train_rcr`` with the dense sampler and K1
 on the 1,408 samples of the window run in exact, high and fast sampling
 (chunks sized by memory, the peak printed, K1 4 launches a call and each
@@ -3947,11 +3958,11 @@ def phase_apps(torch, data, seed, name, smi):
 # The io slice: baseline JPEG, the host entropy decoder and J1
 # ---------------------------------------------------------------- #
 JPEG_DIR = os.path.join(REPO, "tests", "torch_jpeg")
-# the stills whose host C++ coefficients are held to the Python twin's:
-# one grey, one 4:2:0 with restart markers
-JPEG_ENTROPY_STILLS = ("s07_grey_q95_restart.jpg",
-                       "s04_420_q95_restart.jpg")
-JPEG_DETECT_STILL = "s04_420_q95_restart.jpg"   # a 728 x 1023 face
+# rcr_detect -f -o on a baseline (728 x 1023), a progressive (412 x 600)
+# and an Adobe CMYK (300 x 450) still
+JPEG_DETECT_STILLS = ("s04_420_q95_restart.jpg", "p02_422_q50_prog.jpg",
+                      "c00_cmyk_q75.jpg")
+JPEG_CLIPS = ("clip", "clip_progressive")
 JPEG_TRACK_DEPTHS = (1, 4)
 JPEG_TRACK_COPIES = 8
 # J1's integer operations: per 8x8 block 16 one-dimensional islow
@@ -3980,25 +3991,43 @@ def sha256_of(t):
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
+def inside_blocks(coef, f):
+    """Each component's coefficients of the blocks inside the image (the
+    MCU grid's padding blocks are coded by interleaved scans only)."""
+    out = []
+    for c in f.components:
+        grid = coef[c.offset:c.offset + c.nbx * c.nby].reshape(
+            c.nby, c.nbx, 64)
+        out.append(grid[:c.bh, :c.bw])
+    return out
+
+
+def same_inside(a, b, f):
+    return all(bool((x == y).all()) for x, y in zip(inside_blocks(a, f),
+                                                    inside_blocks(b, f)))
+
+
 def jpeg_stills(torch, manifest):
-    """Every committed still through the host decoder and J1: PIL's grey
-    and RGB digests, J1 bit-equal to its twin on the same coefficients,
-    ``read_jpeg`` equal to both, and the host coefficients equal to the
-    Python twin's on JPEG_ENTROPY_STILLS."""
+    """Every committed still (baseline, progressive, multi-scan, CMYK /
+    YCCK, 4:1:1 / 4:4:0, other sampling factors) through the host decoder
+    and J1: PIL's grey and RGB digests, J1 bit-equal to its twin on the
+    same coefficients, ``read_jpeg`` equal to both, the host coefficients
+    equal to the Python twin's, and a progressive still's equal to those
+    of the baseline still of the same pixels."""
     import numpy as np
     from superviseddescent_tpu_torch.io import jpeg
     from superviseddescent_tpu_torch.ops.jpeg import (
         entropy_decode_native, jpeg_pixels, read_jpeg)
-    worst, out = 0, {}
+    worst, out, host_coef = 0, {}, {}
     for name, want in sorted(manifest["stills"].items()):
         with open(os.path.join(JPEG_DIR, name), "rb") as fh:
             data = fh.read()
         f = jpeg.parse_jpeg(data)
         host = entropy_decode_native(f)
-        if name in JPEG_ENTROPY_STILLS:
-            check(np.array_equal(host.numpy(), jpeg.entropy_decode(f)),
-                  f"{name}: the host decoder's coefficients differ from "
-                  "the Python twin's")
+        check(np.array_equal(host.numpy(), jpeg.entropy_decode(f)),
+              f"{name}: the host decoder's coefficients differ from the "
+              "Python twin's")
+        host_coef[name] = (host.numpy(), f)
         coef = host.cuda()
         for channels, key in ((1, "grey_sha256"), (3, "rgb_sha256")):
             got = jpeg_pixels(coef, f, channels)
@@ -4013,87 +4042,129 @@ def jpeg_stills(torch, manifest):
             check(torch.equal(read_jpeg(data, channels), got),
                   f"{name}: read_jpeg differs from J1 on the same stream")
         out[name] = dict(kind=want["kind"], quality=want["quality"],
-                         shape=want["shape"])
-    log(f"[jpeg] {len(out)} stills (grey, 4:4:4, 4:2:2, 4:2:0; q 50 / 75 "
-        "/ 95; restart markers, optimised tables, 301 x 451): J1's grey "
-        "and RGB equal PIL's digests and the twin bit for bit; the host "
-        "coefficients equal the Python twin's on "
-        + ", ".join(JPEG_ENTROPY_STILLS))
+                         shape=want["shape"], scans=len(f.scans),
+                         progressive=f.progressive)
+    pairs = [(n, w["same_pixels_as"]) for n, w in manifest["stills"].items()
+             if "same_pixels_as" in w]
+    for prog, base in pairs:
+        check(same_inside(host_coef[prog][0], host_coef[base][0],
+                          host_coef[base][1]), f"{prog}: the host "
+              f"coefficients differ from those of {base}, the baseline "
+              "still of the same pixels")
+    log(f"[jpeg] {len(out)} stills (baseline grey, 4:4:4, 4:2:2, 4:2:0 at q "
+        "50 / 75 / 95, restart markers, optimised tables, 301 x 451; "
+        "progressive; multi-scan sequential; Adobe CMYK and YCCK; 4:1:1, "
+        "4:4:0, 2x2/1x2/2x1 and 3x2 sampling): J1's grey and RGB equal "
+        "PIL's digests and the twin bit for bit, the host coefficients the "
+        f"Python twin's; {len(pairs)} progressive stills' coefficients "
+        "equal their baseline stills'")
     return out, worst
 
 
 def jpeg_clip_times(torch, manifest, png_dir):
-    """Per 1024 x 768 frame of the clip: the host entropy decoder (host
-    clock), J1 and its twin (device time, torch.profiler), J1's bound,
-    ``load_gray_image`` of the JPEG (the card) against the PNG of the same
-    pixels (the host's numpy decoder); each frame's grey against PIL's
-    digest. Writes those PNG frames to ``png_dir``. Returns the times and
-    the largest J1 - twin difference."""
+    """Per 1024 x 768 frame of the baseline and the progressive clip: the
+    host entropy decoder (host clock, the clips in turns), J1 and its twin
+    (device time, torch.profiler, the clips in turns), J1's bound,
+    ``load_gray_image`` of each clip's JPEG (the card) against the PNG of
+    the same pixels (the host's numpy decoder), in turns; each frame's
+    grey against PIL's digest, J1 against its twin, and each progressive
+    frame's host coefficients against the baseline frame's. Writes the
+    PNG frames to ``png_dir``. Returns the times and the largest J1 - twin
+    difference."""
     import numpy as np
     from superviseddescent_tpu_torch.io import jpeg
     from superviseddescent_tpu_torch.io.png import write_png
     from superviseddescent_tpu_torch.ops.jpeg import (
         entropy_decode_native, jpeg_pixels)
     from superviseddescent_tpu_torch.ops.patches import load_gray_image
-    frames = manifest["clip"]["frames"]
-    entropy_s, worst, parsed = 0.0, 0, []
-    for fr in frames:
-        with open(os.path.join(JPEG_DIR, fr["name"]), "rb") as fh:
-            data = fh.read()
-        f = jpeg.parse_jpeg(data)
+    clips = {key: manifest[key]["frames"] for key in JPEG_CLIPS}
+    n = len(clips["clip"])
+    check(len(clips["clip_progressive"]) == n, "the clips' lengths differ")
+    worst, parsed, entropy = 0, {}, {key: [] for key in JPEG_CLIPS}
+    for key, frames in clips.items():
+        parsed[key] = []
+        for fr in frames:
+            with open(os.path.join(JPEG_DIR, fr["name"]), "rb") as fh:
+                parsed[key].append(jpeg.parse_jpeg(fh.read()))
+    for key in JPEG_CLIPS + JPEG_CLIPS[::-1]:
         t0 = time.perf_counter()
-        host = entropy_decode_native(f)
-        entropy_s += time.perf_counter() - t0
-        coef = host.cuda()
-        grey = jpeg_pixels(coef, f, 1)
-        check(sha256_of(grey) == fr["grey_sha256"],
-              f"{fr['name']}: J1's grey digest differs from PIL's")
-        worst = max(worst, int((grey.int() - jpeg.pixels_reference(
-            coef, f, 1).int()).abs().max()))
-        write_png(os.path.join(png_dir, os.path.basename(fr["name"])[:-4]
-                               + ".png"), grey.cpu().numpy())
-        parsed.append((f, coef))
-    check(worst == 0, f"the clip: J1 differs from its twin by {worst}")
-    f, coef = parsed[0]
-    j1_ms = device_ms(torch, lambda: jpeg_pixels(coef, f, 1), match="jpeg",
-                      one_kernel=False)
+        for f in parsed[key]:
+            entropy_decode_native(f)
+        entropy[key].append((time.perf_counter() - t0) * 1e3 / n)
+    first = {}
+    for k in range(n):
+        base = entropy_decode_native(parsed["clip"][k])
+        prog = entropy_decode_native(parsed["clip_progressive"][k])
+        check(torch.equal(base, prog), f"{clips['clip_progressive'][k]['name']}"
+              ": the host coefficients differ from the baseline frame's")
+        for key, host in (("clip", base), ("clip_progressive", prog)):
+            fr, f = clips[key][k], parsed[key][k]
+            coef = host.cuda()
+            grey = jpeg_pixels(coef, f, 1)
+            check(sha256_of(grey) == fr["grey_sha256"],
+                  f"{fr['name']}: J1's grey digest differs from PIL's")
+            worst = max(worst, int((grey.int() - jpeg.pixels_reference(
+                coef, f, 1).int()).abs().max()))
+            if key == "clip":
+                write_png(os.path.join(png_dir, os.path.basename(
+                    fr["name"])[:-4] + ".png"), grey.cpu().numpy())
+            first.setdefault(key, (f, coef))
+    check(worst == 0, f"the clips: J1 differs from its twin by {worst}")
+    j1_ms = {key: [] for key in JPEG_CLIPS}
+    for key in JPEG_CLIPS + JPEG_CLIPS[::-1]:
+        f, coef = first[key]
+        j1_ms[key].append(device_ms(torch, lambda: jpeg_pixels(coef, f, 1),
+                                    match="jpeg", one_kernel=False))
+    f, coef = first["clip"]
     twin_ms = device_ms(torch, lambda: jpeg.pixels_reference(coef, f, 1),
                         one_kernel=False)
     bound = jpeg_bound(f, 1)
-    jpgs = [os.path.join(JPEG_DIR, fr["name"]) for fr in frames]
-    pngs = sorted(glob.glob(os.path.join(png_dir, "*.png")))
-    times = {}
-    for label, paths in (("jpeg", jpgs), ("png", pngs)) * 2:
+    paths = {key: [os.path.join(JPEG_DIR, fr["name"]) for fr in frames]
+             for key, frames in clips.items()}
+    paths["png"] = sorted(glob.glob(os.path.join(png_dir, "*.png")))
+    loads = {}
+    for label in ("clip", "clip_progressive", "png") * 2:
         t0 = time.perf_counter()
-        for p in paths:
+        for p in paths[label]:
             load_gray_image(p)
-        times.setdefault(label, []).append(
-            (time.perf_counter() - t0) * 1e3 / len(paths))
-    out = dict(frames=len(frames), entropy_ms=entropy_s * 1e3 / len(frames),
-               j1_device_ms=j1_ms, twin_device_ms=twin_ms,
+        loads.setdefault(label, []).append(
+            (time.perf_counter() - t0) * 1e3 / len(paths[label]))
+    out = dict(frames=n, entropy_ms=entropy["clip"],
+               entropy_progressive_ms=entropy["clip_progressive"],
+               j1_device_ms=j1_ms["clip"],
+               j1_progressive_device_ms=j1_ms["clip_progressive"],
+               twin_device_ms=twin_ms,
                bound_ms=max(bound["bytes_ms"], bound["ops_ms"]),
                bound_by=("bytes" if bound["bytes_ms"] >= bound["ops_ms"]
                          else "operations"), bound=bound,
-               load_gray_jpeg_ms=times["jpeg"], load_gray_png_ms=times["png"])
-    log(f"[jpeg] per {f.width} x {f.height} 4:2:0 frame ({len(frames)} "
-        f"frames): host entropy {out['entropy_ms']:.3f} ms; J1 "
-        f"{j1_ms:.4f} ms device (torch.profiler, both launches), bound "
-        f"{out['bound_ms']:.5f} ms ({out['bound_by']}: "
-        f"{bound['in_bytes'] / 1e6:.2f} MB in, "
+               load_gray_jpeg_ms=loads["clip"],
+               load_gray_progressive_ms=loads["clip_progressive"],
+               load_gray_png_ms=loads["png"])
+
+    def ms(values, digits=3):
+        return " / ".join(f"{v:.{digits}f}" for v in values)
+    log(f"[jpeg] per {f.width} x {f.height} 4:2:0 frame ({n} frames a "
+        f"clip, the clips in turns): host entropy {ms(entropy['clip'])} ms "
+        f"baseline, {ms(entropy['clip_progressive'])} ms progressive; J1 "
+        f"{ms(j1_ms['clip'], 4)} ms baseline, "
+        f"{ms(j1_ms['clip_progressive'], 4)} ms progressive (device, "
+        f"torch.profiler, both launches), bound {out['bound_ms']:.5f} ms "
+        f"({out['bound_by']}: {bound['in_bytes'] / 1e6:.2f} MB in, "
         f"{bound['out_bytes'] / 1e6:.2f} MB out; operations "
         f"{bound['ops_ms']:.5f} ms), twin {twin_ms:.4f} ms device; "
-        "load_gray_image " + " / ".join(f"{v:.2f}" for v in times["jpeg"])
-        + " ms (JPEG, J1) against " + " / ".join(
-            f"{v:.2f}" for v in times["png"]) + " ms (PNG of the same "
-        "pixels, io/png.py), in turns")
+        f"load_gray_image {ms(loads['clip'], 2)} ms (baseline JPEG), "
+        f"{ms(loads['clip_progressive'], 2)} ms (progressive JPEG), "
+        f"{ms(loads['png'], 2)} ms (PNG of the same pixels, io/png.py); "
+        "every progressive frame's host coefficients equal the baseline "
+        "frame's")
     return out, worst
 
 
 def jpeg_track(torch, manifest, png_dir, root):
-    """rcr_track on the JPEG clip and on PNG frames of the same pixels, at
-    JPEG_TRACK_DEPTHS and --scan, with a tracking model trained on the
-    card on frame 0: the rows equal in every run, K3 launches = fused fits,
-    J1 launches = the JPEG frames (0 on PNG)."""
+    """rcr_track on the progressive clip, the baseline clip and PNG frames
+    of the same pixels, at JPEG_TRACK_DEPTHS and --scan, with a tracking
+    model trained on the card on frame 0: the rows equal in every run, K3
+    launches = fused fits, J1 launches = the JPEG frames (0 on PNG)."""
     import numpy as np
     from superviseddescent_tpu_torch.apps import rcr_track
     from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
@@ -4108,7 +4179,8 @@ def jpeg_track(torch, manifest, png_dir, root):
     clip = manifest["clip"]
     n = len(clip["frames"])
     jpg_dir = os.path.join(JPEG_DIR, "clip")
-    frame0 = load_gray_image(os.path.join(jpg_dir, "f000.jpg"))
+    prog_dir = os.path.join(JPEG_DIR, "clip_progressive")
+    frame0 = load_gray_image(os.path.join(prog_dir, "f000.jpg"))
     det = HaarCascadeDetector(STOCK_FRONTAL_ALT2, device="cuda",
                               **FACE_PARAMS)
     box = det.detect(frame0)[0]
@@ -4163,69 +4235,84 @@ def jpeg_track(torch, manifest, png_dir, root):
     out, ref = {}, None
     for mode in modes:
         key = " ".join(mode)
+        grows, gms, gl = run(prog_dir, True, *mode)
         jrows, jms, jl = run(jpg_dir, True, *mode)
         prows, pms, _ = run(png_dir, False, *mode)
         ref = jrows if ref is None else ref
+        check(np.array_equal(bits(grows), bits(jrows)), f"rcr_track {key}: "
+              "rows on the progressive clip differ from those on the "
+              "baseline clip")
         check(np.array_equal(bits(jrows), bits(prows)), f"rcr_track {key}: "
               "rows on JPEG frames differ from those on PNG frames of the "
               "same pixels")
         check(np.array_equal(bits(jrows), bits(ref)), f"rcr_track {key}: "
               "the rows depend on the mode")
-        out[key] = dict(jpeg_ms_per_frame=jms, png_ms_per_frame=pms,
-                        k3_launches=jl["cascade_fused_frames"],
-                        j1_launches=jl["jpeg_decode"])
+        out[key] = dict(progressive_ms_per_frame=gms, jpeg_ms_per_frame=jms,
+                        png_ms_per_frame=pms,
+                        k3_launches=gl["cascade_fused_frames"],
+                        j1_launches=gl["jpeg_decode"],
+                        j1_launches_baseline=jl["jpeg_decode"])
         log(f"[jpeg] rcr_track {key} over {n} frames of 768 x 1024: "
-            f"{jms:.2f} ms a frame on JPEG (J1 {jl['jpeg_decode']} "
-            f"launches, K3 {jl['cascade_fused_frames']} = fused fits), "
-            f"{pms:.2f} ms a frame on PNG of the same pixels; rows equal")
+            f"{gms:.2f} ms a frame on the progressive clip (J1 "
+            f"{gl['jpeg_decode']} launches, K3 {gl['cascade_fused_frames']}"
+            f" = fused fits), {jms:.2f} ms on the baseline clip, {pms:.2f} "
+            "ms on PNG of the same pixels; rows equal")
     return out
 
 
-def jpeg_detect(torch, root):
-    """rcr_detect -i <still>.jpg -f -o out.jpg on the card: J1 twice (grey
-    for the fit, RGB for the drawing), the drawing written as out.png, the
-    landmarks within APP_DETECT_PX of the CPU run's."""
+def jpeg_detect(torch, root, manifest):
+    """rcr_detect -i <still>.jpg -f -o out.jpg on the card for each of
+    JPEG_DETECT_STILLS: J1 twice (grey for the fit, RGB for the drawing),
+    the drawing written as out.png, the landmarks within APP_DETECT_PX of
+    the CPU run's."""
     import numpy as np
     from superviseddescent_tpu_torch.apps import rcr_detect
     from superviseddescent_tpu_torch.io.png import read_png
     from superviseddescent_tpu_torch.models.rcr import DetectionModel
-    argv = ["-m", os.path.join(REPO, "pretrained", "rcr22_lfpw5.bin"), "-i",
-            os.path.join(JPEG_DIR, JPEG_DETECT_STILL), "-f", "-o",
-            os.path.join(root, "detect.jpg")]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        coords = []
-        zero_counts()
-        with recorded(DetectionModel, "detect", coords,
-                      lambda a, lms: np.asarray(lms.coordinates)):
-            rc, text, wall = run_app_main(rcr_detect,
-                                          argv + ["--device", dev])
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            expect_counts(read_counts(), "rcr_detect -i still.jpg -f -o",
-                          jpeg_decode=2)
-        check(rc == 0 and len(coords) == 1, f"rcr_detect {dev}:\n{text}")
-        runs[dev] = (coords[0], wall, text)
-    delta = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
-    check(delta <= APP_DETECT_PX, f"rcr_detect on a JPEG: the card's "
-          f"landmarks {delta} px from the CPU's")
-    written = os.path.join(root, "detect.png")
-    check(f"Wrote {written}" in runs["cuda"][2]
-          and not os.path.exists(os.path.join(root, "detect.jpg")),
-          "rcr_detect -o detect.jpg did not write detect.png")
-    drawn = read_png(written)
-    check(drawn.shape == (1023, 728, 3), f"rcr_detect -o: {drawn.shape}")
-    log(f"[jpeg] rcr_detect -i {JPEG_DETECT_STILL} -f -o detect.jpg: "
-        f"{runs['cuda'][1] * 1e3:.1f} ms (J1 2 launches; written as "
-        f"detect.png), landmarks {delta:.2e} px from the CPU run")
-    return dict(ms=runs["cuda"][1] * 1e3, cpu_delta_px=delta)
+    out = {}
+    for still in JPEG_DETECT_STILLS:
+        stem = os.path.join(root, "detect_" + still[:3])
+        argv = ["-m", os.path.join(REPO, "pretrained", "rcr22_lfpw5.bin"),
+                "-i", os.path.join(JPEG_DIR, still), "-f", "-o",
+                stem + ".jpg"]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            coords = []
+            zero_counts()
+            with recorded(DetectionModel, "detect", coords,
+                          lambda a, lms: np.asarray(lms.coordinates)):
+                rc, text, wall = run_app_main(rcr_detect,
+                                              argv + ["--device", dev])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                expect_counts(read_counts(), f"rcr_detect -i {still} -f -o",
+                              jpeg_decode=2)
+            check(rc == 0 and len(coords) == 1,
+                  f"rcr_detect {still} {dev}:\n{text}")
+            runs[dev] = (coords[0], wall, text)
+        delta = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
+        check(delta <= APP_DETECT_PX, f"rcr_detect on {still}: the card's "
+              f"landmarks {delta} px from the CPU's")
+        written = stem + ".png"
+        check(f"Wrote {written}" in runs["cuda"][2]
+              and not os.path.exists(stem + ".jpg"),
+              f"rcr_detect -o {stem}.jpg did not write {written}")
+        drawn = read_png(written)
+        check(list(drawn.shape) == manifest["stills"][still]["shape"] + [3],
+              f"rcr_detect -o on {still}: {drawn.shape}")
+        log(f"[jpeg] rcr_detect -i {still} -f -o: "
+            f"{runs['cuda'][1] * 1e3:.1f} ms (J1 2 launches; written as "
+            f"PNG), landmarks {delta:.2e} px from the CPU run")
+        out[still] = dict(ms=runs["cuda"][1] * 1e3, cpu_delta_px=delta)
+    return out
 
 
 def phase_jpeg(torch, name, smi):
-    """The io slice on the card: the committed JPEG fixtures
+    """The io slices on the card: the committed JPEG fixtures
     (``tests/torch_jpeg``, PIL's digests in its manifest) through the host
-    entropy decoder and J1, rcr_track over the JPEG clip against PNG frames
-    of the same pixels, rcr_detect on a JPEG still."""
+    entropy decoder and J1, rcr_track over the progressive and the baseline
+    clip against PNG frames of the same pixels, rcr_detect on a baseline,
+    a progressive and a CMYK still."""
     import shutil
     import tempfile
     with open(os.path.join(JPEG_DIR, "manifest.json")) as fh:
@@ -4238,7 +4325,7 @@ def phase_jpeg(torch, name, smi):
         stills, err_stills = jpeg_stills(torch, manifest)
         times, err_clip = jpeg_clip_times(torch, manifest, png_dir)
         track = jpeg_track(torch, manifest, png_dir, root)
-        detect = jpeg_detect(torch, root)
+        detect = jpeg_detect(torch, root, manifest)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     seconds = time.perf_counter() - t0
@@ -4248,9 +4335,60 @@ def phase_jpeg(torch, name, smi):
                 max_abs_err=max(err_stills, err_clip))
 
 
+def j1_times(torch):
+    """J1's device ms (torch.profiler) on frame 0 of the baseline clip,
+    grey and RGB, through the package on ``sys.path``: both launches, and
+    each of its two kernels alone."""
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels)
+    with open(os.path.join(JPEG_DIR, "clip", "f000.jpg"), "rb") as fh:
+        f = jpeg.parse_jpeg(fh.read())
+    coef = entropy_decode_native(f).cuda()
+    out = {}
+    for channels in (1, 3):
+        def call():
+            return jpeg_pixels(coef, f, channels)
+        out[channels] = [device_ms(torch, call, reps=100, match=match,
+                                   one_kernel=match != "jpeg")
+                         for match in ("jpeg", "jpeg_idct", "jpeg_color")]
+    return out
+
+
+def j1_compare(torch, root):
+    """``--j1``: ``j1_times`` of this checkout's package and, with another
+    checkout's (``root``), of that package in a child process, in the
+    order other, this, this, other."""
+    runs = {"this": [], "other": []}
+    order = ["other", "this", "this", "other"] if root != REPO else ["this"]
+    for who in order:
+        if who == "this":
+            runs["this"].append(j1_times(torch))
+            continue
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--j1-times",
+             "--package-root", root], capture_output=True, text=True)
+        check(child.returncode == 0, "the other package's J1 times: "
+              + child.stdout[-2000:] + child.stderr[-2000:])
+        runs["other"].append({int(k): v for k, v in json.loads(
+            child.stdout.strip().splitlines()[-1]).items()})
+    for channels in (1, 3):
+        for i, part in enumerate(("J1", "its IDCT", "its colour kernel")):
+            line = (f"[j1] clip/f000.jpg, channels {channels}, {part}: this "
+                    "tree " + " / ".join(f"{r[channels][i]:.5f}"
+                                         for r in runs["this"]) + " ms")
+            if runs["other"]:
+                line += (" | other " + " / ".join(
+                    f"{r[channels][i]:.5f}" for r in runs["other"]) + " ms")
+            log(line + " (device, torch.profiler)")
+    return runs
+
+
 def jpeg_entry(jpeg):
-    """The kernels line's entry of J1: times per 1024 x 768 4:2:0 frame,
-    launches of the depth-1 rcr_track run on the JPEG clip."""
+    """The kernels line's entry of J1: device ms per 1024 x 768 4:2:0
+    frame of the progressive clip (the slice's main path; the baseline
+    clip's beside it, measured in turns), launches of the depth-1
+    rcr_track run on the progressive clip."""
     source, replaces = SOURCES["jpeg_decode"]
     t = jpeg["times"]
     return dict(
@@ -4259,7 +4397,9 @@ def jpeg_entry(jpeg):
         "PIL on the host; J1 is a hand kernel of the io slice",
         launches=jpeg["track"][f"--depth {JPEG_TRACK_DEPTHS[0]}"][
             "j1_launches"],
-        max_abs_err=jpeg["max_abs_err"], ms=t["j1_device_ms"],
+        max_abs_err=jpeg["max_abs_err"],
+        ms=min(t["j1_progressive_device_ms"]),
+        ms_baseline_clip=min(t["j1_device_ms"]),
         plain_ms=t["twin_device_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler")
 
@@ -4818,18 +4958,26 @@ def main():
     parser.add_argument("--jpeg", action="store_true",
                         help="only run the JPEG phase (phase_jpeg: the "
                         "committed fixtures through the host decoder and J1, "
-                        "rcr_track on the JPEG clip against PNG frames of the "
-                        "same pixels, rcr_detect on a JPEG still) after the "
+                        "rcr_track on the progressive and baseline clips "
+                        "against PNG frames of the same pixels, rcr_detect "
+                        "on baseline, progressive and CMYK stills) after the "
                         "builds")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
                         "on one card, a checkpointed resume) after the "
                         "builds")
+    parser.add_argument("--j1", action="store_true",
+                        help="only time J1 on the baseline clip's first "
+                        "frame, grey and RGB; with --package-root also "
+                        "another checkout's package, in turns")
     parser.add_argument("--probe-times", action="store_true",
                         help=argparse.SUPPRESS)   # --probes' child process
+    parser.add_argument("--j1-times", action="store_true",
+                        help=argparse.SUPPRESS)   # --j1's child process
     parser.add_argument("--package-root", default=REPO,
-                        help="with --k3-batches, --k12 or --k5: the "
+                        help="with --k3-batches, --k12, --k5, --probes or "
+                        "--j1: the "
                         "checkout whose "
                         "superviseddescent_tpu_torch is timed (the data "
                         "stay this checkout's)")
@@ -4846,9 +4994,18 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, root if opts.k3_batches or opts.k12 or opts.k5
-                    or opts.probe_times else REPO)
+                    or opts.probe_times or opts.j1_times else REPO)
     if opts.probe_times:
         print(json.dumps(probe_times(torch, seed)))
+        return 0
+    if opts.j1_times:
+        print(json.dumps(j1_times(torch)))
+        return 0
+    if opts.j1:
+        phase_device(torch)
+        phase_build()
+        print(json.dumps({"j1": j1_compare(torch, root),
+                          "package_root": root}))
         return 0
     if opts.probes:
         phase_device(torch)

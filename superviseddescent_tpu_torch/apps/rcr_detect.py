@@ -8,8 +8,9 @@ detector (``-f``; with no file named, the stock
 ``superviseddescent_tpu_torch/data/``). ``-o`` writes the image with the
 landmarks and the box drawn (``apps/_draw.py``, PNG by the port's own
 writer; a ``.jpg`` output name is written as ``.png``, as the port has no
-JPEG encoder). The image is a PNG or a baseline JPEG, whose pixel stage
-runs on the device (kernel J1). Runs on the card unless ``--device cpu``
+JPEG encoder). The image is a PNG or a JPEG (every kind PIL reads but
+arithmetic coding, 12-bit and lossless), whose pixel stage runs on the
+device (kernel J1). Runs on the card unless ``--device cpu``
 is given; the landmark fit (``DetectionModel.detect``) and the face
 detector are plain PyTorch operations on that device.
 

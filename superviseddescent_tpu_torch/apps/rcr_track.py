@@ -1,7 +1,7 @@
 """rcr-track: track landmarks over a frame sequence.
 
 The port of ``superviseddescent_tpu/apps/rcr_track.py`` (reference:
-rcr-track.cpp). Reads a directory of PNG and baseline JPEG frames
+rcr-track.cpp). Reads a directory of PNG and JPEG frames
 (``*.png``, ``*.jpg``, sorted; a JPEG's pixel stage runs on the device,
 kernel J1), fits the first
 from a facebox (``--facebox`` or the port's face detector,

@@ -1,5 +1,5 @@
-// Baseline JPEG decoding: the host entropy decoder and kernel J1, the pixel
-// stage on the card.
+// JPEG decoding: the host entropy decoder and kernel J1, the pixel stage on
+// the card.
 //
 // No TPU kernel is replaced: the JAX package reads images with PIL on the
 // host (superviseddescent_tpu/ops/patches.py::load_gray_image). This is
@@ -8,24 +8,35 @@
 // io/jpeg.py::pixels_reference (J1); the wrapper is ops/jpeg.py.
 //
 // Entropy decoding is bit-serial and stays on the host, as libjpeg does
-// it: jpeg_entropy_decode splits the scan at its restart markers, removes
-// the byte stuffing and decodes each interval with a 9-bit lookahead table
-// and the canonical slow path, writing int16 coefficients in natural order
-// into the caller's (pinned) buffer.
+// it: jpeg_entropy_decode takes every scan of a file in one call (a
+// sequential frame's one or more scans, or a progressive frame's scans),
+// splits each at its restart markers, removes the byte stuffing and
+// decodes each interval with a 9-bit lookahead table and the canonical
+// slow path, by the scan's procedure: sequential, or T.81 Annex G's DC
+// first, DC refinement, AC first and AC refinement (EOB runs, correction
+// bits). Every scan writes into one array of int16 coefficients in natural
+// order, the caller's (pinned) buffer, zeroed once.
 //
 // J1 is two launches on one stream, one call of jpeg_pixels_launch:
 //   1. jpeg_idct_kernel: eight threads per 8x8 block, 32 blocks per CUDA
-//      block. Each thread dequantises one column (int32 products) and runs
-//      libjpeg's jidctint islow pass 1 on it into shared memory, then pass 2
-//      on one row, the range_limit lookup (values wrapped by RANGE_MASK, not
-//      clamped) and one 8-byte store into the component's plane.
-//   2. jpeg_color_kernel: a thread per output pixel reads the luma sample
-//      and the chroma samples its fancy upsampling needs (libjpeg-turbo's
-//      h2v1 / h2v2 triangle filters with their +1/+2 and +8/+7 biases, edge
-//      samples replicated; box upsampling where the chroma is at most two
-//      samples wide), converts YCbCr to RGB with jdcolor.c's fixed-point
-//      factors (an Adobe transform of 0 means RGB, converted by nothing) and
-//      writes RGB or OpenCV's grey of it (a 1-component image: Y itself).
+//      block, which copies only its blocks' components' quantisers into
+//      shared memory. Each thread dequantises one column (int32 products,
+//      the component's latched table) and runs libjpeg's jidctint islow
+//      pass 1 on it into shared memory, then pass 2 on one row, the
+//      range_limit lookup (values wrapped by RANGE_MASK, not clamped) and
+//      one 8-byte store into the component's plane.
+//   2. jpeg_color_kernel, one instantiation per colour space: a thread per
+//      four neighbouring output pixels of a row (one 4-byte store of grey,
+//      three of RGB, where the width is a multiple of four) reads each of
+//      the up to four components as libjpeg-turbo's jdsample.c upsamples
+//      it (as it is; h2v1 / h2v2 triangle filters with their +1/+2 and
+//      +8/+7 biases where the component is more than two samples wide; the
+//      h1v2 filter with +1/+2; else replication by whole ratios; edge
+//      samples replicated), converts the colour (YCbCr -> RGB with jdcolor.c's
+//      fixed-point factors; RGB as it is; CMYK and YCCK as PIL reads them,
+//      inverted, then PIL's CMYK -> RGB) and writes RGB or OpenCV's grey of
+//      it (a 1-component image: Y itself). A component's filter is the
+//      same for every thread, so the branches do not diverge in a warp.
 // Two launches, because each chroma sample feeds up to four output pixels
 // of its neighbours' MCUs: one block per MCU would recompute the chroma
 // halo's IDCTs (up to 9 blocks a component), while the planes between the
@@ -52,6 +63,8 @@ enum Error {
   kBadRestart = 3,
   kStrayMarker = 4,
   kBadIndex = 5,
+  kEobRun = 6,
+  kBadProgression = 7,
 };
 
 const int kZigzag[64] = {
@@ -62,6 +75,9 @@ const int kZigzag[64] = {
 
 constexpr int kLookahead = 9;
 constexpr int kPad = 8;  // zero bytes after each interval's data
+constexpr int kMaxComps = 4;
+constexpr int kCompParams = 6;   // h, v, nbx, first block, bw, bh
+constexpr int kScanParams = 20;  // see jpeg_entropy_decode
 
 struct HuffTable {
   uint16_t fast[1 << kLookahead];  // length << 8 | symbol, 0: slow path
@@ -90,101 +106,222 @@ void build_table(const uint8_t* bits, const uint8_t* vals, HuffTable* t) {
   }
 }
 
-struct BitReader {
+// MSB-first bits of one un-stuffed restart interval, refilled to more
+// than 56 bits whenever fewer than 32 are left (as io/jpeg.py's _Bits).
+// Errors are thrown as their code and caught by jpeg_entropy_decode.
+struct Bits {
   const uint8_t* data;
-  long len, pos;
-  uint64_t buf;
-  int nbits;
-  // reads zeros past the interval's end; false once it would pass kPad of
-  // them (io/jpeg.py's IndexError): the interval is truncated
-  bool fill() {
+  long len, pos = 0;
+  uint64_t buf = 0;
+  int nbits = 0;
+  // reads zeros past the interval's end; throws once it would pass kPad
+  // of them: the interval is truncated
+  void fill() {
+    if (nbits >= 32) return;
     while (nbits <= 56) {
-      if (pos >= len + kPad) return false;
+      if (pos >= len + kPad) throw (int)kTruncated;
       buf = (buf << 8) | (pos < len ? data[pos] : 0);
       ++pos;
       nbits += 8;
     }
-    return true;
   }
-  int peek16() const { return (int)((buf >> (nbits - 16)) & 0xFFFF); }
-  int bits(int s) {
+  int symbol(const HuffTable& t) {
+    fill();
+    const int p = (int)((buf >> (nbits - 16)) & 0xFFFF);
+    const int e = t.fast[p >> (16 - kLookahead)];
+    if (e) {
+      nbits -= e >> 8;
+      return e & 0xFF;
+    }
+    for (int len = kLookahead + 1; len <= 16; ++len) {
+      const int code = p >> (16 - len);
+      if (code <= t.maxcode[len]) {
+        nbits -= len;
+        return t.vals[code + t.valoffset[len]];
+      }
+    }
+    throw (int)kBadCode;
+  }
+  int get(int s) {  // s (0..16) raw bits
+    fill();
     nbits -= s;
     return (int)((buf >> nbits) & ((1u << s) - 1));
   }
+  int extended(int s) {  // HUFF_EXTEND of s raw bits
+    const int v = get(s);
+    return s && v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
+  }
+  long consumed() const { return 8 * pos - nbits; }
 };
 
-// one Huffman symbol, or -1 for an invalid code
-int decode_symbol(BitReader& br, const HuffTable& t) {
-  const int p = br.peek16();
-  const int e = t.fast[p >> (16 - kLookahead)];
-  if (e) {
-    br.nbits -= e >> 8;
-    return e & 0xFF;
-  }
-  for (int len = kLookahead + 1; len <= 16; ++len) {
-    const int code = p >> (16 - len);
-    if (code <= t.maxcode[len]) {
-      br.nbits -= len;
-      return t.vals[code + t.valoffset[len]];
-    }
-  }
-  return -1;
-}
+inline int16_t wrap16(long long v) { return (int16_t)(uint16_t)(v & 0xFFFF); }
 
-inline int extend(int v, int s) {
-  return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
-}
+struct Scan {
+  int ns, ss, se, ah, al, restart;
+  int comp[kMaxComps];
+};
 
 struct Unit {  // one block of an MCU
-  int comp, dc, ac, base, v, h, nbx;
+  int k, base, v, h, nbx;
+  const HuffTable* dc;
+  const HuffTable* ac;
 };
 
-int decode_interval(const uint8_t* data, long len, long first, long last,
-                    int mcux, const std::vector<Unit>& units,
-                    const HuffTable* tables, int16_t* coef) {
-  BitReader br{data, len, 0, 0, 0};
-  int pred[3] = {0, 0, 0};
+// a correction bit for a nonzero coefficient (AC refinement)
+inline void refine(int16_t& c, int p1, int m1, Bits& br) {
+  if (br.get(1) && !(c & p1)) c = wrap16(c + (c >= 0 ? p1 : m1));
+}
+
+// the MCUs [first, last) of one restart interval; returns the EOB run left
+long decode_interval(Bits& br, bool progressive, const Scan& s, long first,
+                     long last, long mcux, const std::vector<Unit>& units,
+                     int16_t* coef) {
+  long long pred[kMaxComps] = {0, 0, 0, 0};
+  long eobrun = 0;
+  const int p1 = 1 << s.al, m1 = -(1 << s.al);
   for (long mcu = first; mcu < last; ++mcu) {
     const long my = mcu / mcux, mx = mcu % mcux;
     for (const Unit& u : units) {
       int16_t* blk = coef + (u.base + my * u.v * u.nbx + mx * u.h) * 64;
-      if (br.nbits < 32 && !br.fill()) return kTruncated;
-      int s = decode_symbol(br, tables[u.dc]);
-      if (s < 0) return kBadCode;
-      const int diff = s ? extend(br.bits(s), s) : 0;
-      pred[u.comp] += diff;
-      blk[0] = (int16_t)pred[u.comp];
-      for (int k = 1; k < 64;) {
-        if (br.nbits < 32 && !br.fill()) return kTruncated;
-        const int rs = decode_symbol(br, tables[u.ac]);
-        if (rs < 0) return kBadCode;
-        const int r = rs >> 4;
-        s = rs & 15;
-        if (s) {
-          k += r;
-          if (k > 63) return kBadIndex;
-          blk[kZigzag[k]] = (int16_t)extend(br.bits(s), s);
-          ++k;
-        } else if (r == 15) {
-          k += 16;
-        } else {
-          break;
+      if (!progressive || (s.ss == 0 && s.ah == 0)) {  // a DC value
+        const int t = br.symbol(*u.dc);
+        pred[u.k] += t ? br.extended(t) : 0;
+        blk[0] = wrap16(pred[u.k] * (1LL << s.al));
+        if (progressive) continue;
+        for (int k = 1; k < 64;) {
+          const int rs = br.symbol(*u.ac);
+          const int r = rs >> 4, z = rs & 15;
+          if (z) {
+            k += r;
+            if (k > 63) throw (int)kBadIndex;
+            blk[kZigzag[k]] = (int16_t)br.extended(z);
+            ++k;
+          } else if (r == 15) {
+            k += 16;
+          } else {
+            break;
+          }
+        }
+      } else if (s.ss == 0) {  // DC refinement
+        if (br.get(1)) blk[0] = (int16_t)(blk[0] | p1);
+      } else if (s.ah == 0) {  // AC first
+        if (eobrun) {
+          --eobrun;
+          continue;
+        }
+        for (int k = s.ss; k <= s.se; ++k) {
+          const int rs = br.symbol(*u.ac);
+          const int r = rs >> 4, z = rs & 15;
+          if (z) {
+            k += r;
+            if (k > s.se) throw (int)kBadIndex;
+            blk[kZigzag[k]] = wrap16((long long)br.extended(z) * (1 << s.al));
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = (1L << r) + (r ? br.get(r) : 0) - 1;
+            break;
+          }
+        }
+      } else {  // AC refinement
+        int k = s.ss;
+        if (!eobrun) {
+          for (; k <= s.se; ++k) {
+            const int rs = br.symbol(*u.ac);
+            int r = rs >> 4, z = rs & 15;
+            if (z) {
+              if (z != 1) throw (int)kBadCode;
+              z = br.get(1) ? p1 : m1;
+            } else if (r != 15) {
+              eobrun = (1L << r) + (r ? br.get(r) : 0);
+              break;
+            }
+            // pass r zero coefficients, and every nonzero one on the way,
+            // which takes a correction bit
+            for (; k <= s.se; ++k) {
+              int16_t& c = blk[kZigzag[k]];
+              if (c) {
+                refine(c, p1, m1, br);
+              } else if (r == 0) {
+                break;
+              } else {
+                --r;
+              }
+            }
+            if (z) {
+              if (k > s.se) throw (int)kBadIndex;
+              blk[kZigzag[k]] = (int16_t)z;
+            }
+          }
+        }
+        if (eobrun) {
+          for (; k <= s.se; ++k) {
+            int16_t& c = blk[kZigzag[k]];
+            if (c) refine(c, p1, m1, br);
+          }
+          --eobrun;
         }
       }
     }
   }
-  return 8 * br.pos - br.nbits > 8 * len ? kTruncated : kOk;
+  return eobrun;
+}
+
+// split a scan's data at its restart markers, un-stuffing each interval
+void split(const uint8_t* scan, long len, std::vector<uint8_t>& data,
+           std::vector<long>& starts) {
+  data.clear();
+  starts.assign(1, 0);
+  int expect = 0;
+  for (long i = 0; i < len;) {
+    if (scan[i] != 0xFF) {
+      data.push_back(scan[i++]);
+      continue;
+    }
+    const long run = i;
+    while (i < len && scan[i] == 0xFF) ++i;
+    if (i < len && scan[i] == 0x00 && i == run + 1) {
+      data.push_back(0xFF);
+      ++i;
+      continue;
+    }
+    if (i >= len || scan[i] < 0xD0 || scan[i] > 0xD7) throw (int)kStrayMarker;
+    if (scan[i] != 0xD0 + expect) throw (int)kBadRestart;
+    expect = (expect + 1) & 7;
+    ++i;
+    starts.push_back((long)data.size());
+  }
+}
+
+// libjpeg's coef_bits: the last Al of each component's coefficient (zig-zag
+// order), -1 for none; throws on a progressive scan out of order
+void advance(int (&bits)[kMaxComps][64], const Scan& s) {
+  for (int i = 0; i < s.ns; ++i) {
+    int* b = bits[s.comp[i]];
+    if (s.ss > 0 && b[0] < 0) throw (int)kBadProgression;
+    for (int k = s.ss; k <= s.se; ++k) {
+      if (s.ah != (b[k] < 0 ? 0 : b[k])) throw (int)kBadProgression;
+      b[k] = s.al;
+    }
+  }
 }
 
 // ----------------------------------------------------------------- J1
-constexpr int kModeGrey = 0, kMode444 = 1, kModeH2V1 = 2, kModeH2V2 = 3;
+// colour spaces and upsampling filters (io/jpeg.py's COLOR_* and UP_*)
+constexpr int kGrey = 0, kYcc = 1, kRgb = 2, kCmyk = 3, kYcck = 4;
+constexpr int kUpFull = 0, kUpBox = 1, kUpH2V1 = 2, kUpH1V2 = 3,
+              kUpH2V2 = 4;
 constexpr int kBlocksPerCta = 32;  // 8 threads a block, 256 threads
 constexpr int kColorThreads = 256;
+constexpr int kPixels = 4;  // output pixels a thread of the colour kernel
+constexpr int kGeomParams = 9;  // per component, see jpeg_pixels_launch
 
 struct Geometry {
-  int ncomp, width, height, mode, rgb_input, channels, total_blocks;
-  int nbx[3], nby[3], offset[3], plane_off[3], dw[3], dh[3];
-  int16_t quant[3][64];
+  int ncomp, width, height, color, channels, total_blocks;
+  int nbx[kMaxComps], nby[kMaxComps], offset[kMaxComps],
+      plane_off[kMaxComps], dw[kMaxComps], dh[kMaxComps], up[kMaxComps],
+      hexp[kMaxComps], vexp[kMaxComps];
+  int16_t quant[kMaxComps][64];
 };
 
 constexpr int kConstBits = 13, kPass1Bits = 2;
@@ -235,21 +372,34 @@ __device__ __forceinline__ uint32_t range_limit(int x) {
   return (uint32_t)min(max(wrapped, 0), 255);
 }
 
+// the component that block b belongs to
+__device__ __forceinline__ int component_of(const Geometry& g, int b) {
+  int c = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxComps; ++k) c += k < g.ncomp && b >= g.offset[k];
+  return c;
+}
+
 __global__ void __launch_bounds__(kBlocksPerCta * 8)
     jpeg_idct_kernel(const int16_t* __restrict__ coef,
                      uint8_t* __restrict__ planes, const Geometry g) {
-  __shared__ int16_t quant[3][64];
+  __shared__ int16_t quant[kMaxComps][64];
   __shared__ int ws[kBlocksPerCta][8 * 9];  // rows padded against conflicts
-  for (int i = threadIdx.x; i < 3 * 64; i += blockDim.x)
-    quant[i / 64][i % 64] = g.quant[i / 64][i % 64];
+  // the quantisers of the components of this CTA's blocks only (one, or
+  // two at a boundary): each thread's copy from the kernel's parameters is
+  // a constant-bank read of its own address
+  const int first = blockIdx.x * kBlocksPerCta;
+  const int c0 = component_of(g, first);
+  const int c1 = component_of(g, min(first + kBlocksPerCta,
+                                     g.total_blocks) - 1);
+  for (int i = threadIdx.x; i < (c1 - c0 + 1) * 64; i += blockDim.x)
+    quant[c0 + i / 64][i % 64] = g.quant[c0 + i / 64][i % 64];
   __syncthreads();
   const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
-  const int b = blockIdx.x * kBlocksPerCta + local;
+  const int b = first + local;
   if (b >= g.total_blocks) return;  // whole groups of eight leave together
   const unsigned group = 0xFFu << (threadIdx.x & 24);
-  const int c = (g.ncomp > 1 && b >= g.offset[1])
-                    ? ((g.ncomp > 2 && b >= g.offset[2]) ? 2 : 1)
-                    : 0;
+  const int c = component_of(g, b);
   const int16_t* src = coef + (size_t)b * 64;
   int x[8], o[8];
 #pragma unroll
@@ -274,125 +424,208 @@ __global__ void __launch_bounds__(kBlocksPerCta * 8)
                             (size_t)(by * 8 + lane) * stride + bx * 8) = word;
 }
 
-// chroma component c at output pixel (x, y), upsampled as libjpeg-turbo
-__device__ __forceinline__ int chroma(const uint8_t* __restrict__ planes,
+// component c at output pixel (x, y), upsampled as libjpeg-turbo does
+__device__ __forceinline__ int sample(const uint8_t* __restrict__ planes,
                                       const Geometry& g, int c, int x,
                                       int y) {
   const uint8_t* p = planes + g.plane_off[c];
-  const int stride = g.nbx[c] * 8, dw = g.dw[c], dh = g.dh[c];
-  if (g.mode == kMode444) return p[y * stride + x];
+  const int stride = g.nbx[c] * 8, up = g.up[c];
+  if (up == kUpFull) return p[y * stride + x];
+  if (up == kUpBox) return p[(y / g.vexp[c]) * stride + x / g.hexp[c]];
+  if (up == kUpH1V2) {
+    const int i = y >> 1, odd_y = y & 1;
+    const int i2 = odd_y ? min(i + 1, g.dh[c] - 1) : max(i - 1, 0);
+    return (3 * p[i * stride + x] + p[i2 * stride + x] + 1 + odd_y) >> 2;
+  }
   const int j = x >> 1, odd_x = x & 1;
-  const int i = g.mode == kModeH2V2 ? y >> 1 : y;
-  if (dw <= 2) return p[i * stride + j];  // box upsampling
-  const int j2 = odd_x ? min(j + 1, dw - 1) : max(j - 1, 0);
-  if (g.mode == kModeH2V1)
-    return (3 * p[i * stride + j] + p[i * stride + j2] + 1 + odd_x) >> 2;
-  const int i2 = (y & 1) ? min(i + 1, dh - 1) : max(i - 1, 0);
+  const int j2 = odd_x ? min(j + 1, g.dw[c] - 1) : max(j - 1, 0);
+  if (up == kUpH2V1)
+    return (3 * p[y * stride + j] + p[y * stride + j2] + 1 + odd_x) >> 2;
+  const int i = y >> 1;
+  const int i2 = (y & 1) ? min(i + 1, g.dh[c] - 1) : max(i - 1, 0);
   const int near = 3 * p[i * stride + j] + p[i2 * stride + j];
   const int far = 3 * p[i * stride + j2] + p[i2 * stride + j2];
   return (3 * near + far + 8 - odd_x) >> 4;
 }
 
+// jdcolor.c's ycc_rgb_convert
+__device__ __forceinline__ void ycc_rgb(int y, int cb, int cr, int& r,
+                                        int& g, int& b) {
+  const int u = cb - 128, v = cr - 128;
+  r = min(max(y + ((91881 * v + 32768) >> 16), 0), 255);
+  g = min(max(y + ((-22554 * u + 32768 - 46802 * v) >> 16), 0), 255);
+  b = min(max(y + ((116130 * u + 32768) >> 16), 0), 255);
+}
+
+// PIL's CMYK -> RGB of one inverted channel c (255 - C) under the stream's
+// K sample k (255 - K): nk - MULDIV255(c, nk) with nk = k
+__device__ __forceinline__ int cmyk_rgb(int c, int k) {
+  const int t = c * k + 128;
+  return k - (((t >> 8) + t) >> 8);
+}
+
+// the RGB of output pixel (x, y) in colour space Color
+template <int Color>
+__device__ __forceinline__ void pixel_rgb(const uint8_t* __restrict__ planes,
+                                          const Geometry& g, int x, int y,
+                                          int& r, int& gg, int& b) {
+  const int v0 = sample(planes, g, 0, x, y);
+  if (Color == kGrey) {
+    r = gg = b = v0;
+    return;
+  }
+  const int v1 = sample(planes, g, 1, x, y), v2 = sample(planes, g, 2, x, y);
+  if (Color == kRgb) {
+    r = v0;
+    gg = v1;
+    b = v2;
+  } else if (Color == kCmyk) {  // PIL inverts the samples
+    r = 255 - v0;
+    gg = 255 - v1;
+    b = 255 - v2;
+  } else {
+    ycc_rgb(v0, v1, v2, r, gg, b);
+  }
+  if (Color == kCmyk || Color == kYcck) {
+    // libjpeg's ycck_cmyk_convert writes 255 - R, G, B, which PIL's
+    // inversion undoes
+    const int k = sample(planes, g, 3, x, y);
+    r = cmyk_rgb(r, k);
+    gg = cmyk_rgb(gg, k);
+    b = cmyk_rgb(b, k);
+  }
+}
+
+// a thread per kPixels neighbouring pixels of a row: one 4-byte store of
+// grey, or three of RGB, where the row's width is a multiple of kPixels
+template <int Color>
 __global__ void __launch_bounds__(kColorThreads)
     jpeg_color_kernel(const uint8_t* __restrict__ planes,
                       uint8_t* __restrict__ out, const Geometry g) {
-  const int x = blockIdx.x * kColorThreads + threadIdx.x;
+  const int x0 = (blockIdx.x * kColorThreads + threadIdx.x) * kPixels;
   const int y = blockIdx.y;
-  if (x >= g.width) return;
-  const size_t at = (size_t)y * g.width + x;
-  int r = planes[g.plane_off[0] + y * g.nbx[0] * 8 + x], gg = r, b = r;
-  if (g.mode != kModeGrey) {
-    const int cb = chroma(planes, g, 1, x, y);
-    const int cr = chroma(planes, g, 2, x, y);
-    if (g.rgb_input) {
-      gg = cb;
-      b = cr;
+  if (x0 >= g.width) return;
+  uint8_t px[kPixels * 3];
+  const int n = min(kPixels, g.width - x0);
+#pragma unroll
+  for (int i = 0; i < kPixels; ++i) {
+    if (i >= n) break;
+    int r, gg, b;
+    pixel_rgb<Color>(planes, g, x0 + i, y, r, gg, b);
+    if (g.channels == 3) {
+      px[3 * i] = (uint8_t)r;
+      px[3 * i + 1] = (uint8_t)gg;
+      px[3 * i + 2] = (uint8_t)b;
     } else {
-      const int y0 = r, u = cb - 128, v = cr - 128;
-      r = min(max(y0 + ((91881 * v + 32768) >> 16), 0), 255);
-      gg = min(max(y0 + ((-22554 * u + 32768 - 46802 * v) >> 16), 0), 255);
-      b = min(max(y0 + ((116130 * u + 32768) >> 16), 0), 255);
+      px[i] = Color == kGrey ? (uint8_t)r
+                             : (uint8_t)((r * 4899 + gg * 9617 + b * 1868 +
+                                          8192) >> 14);
     }
   }
-  if (g.channels == 3) {
-    out[at * 3] = (uint8_t)r;
-    out[at * 3 + 1] = (uint8_t)gg;
-    out[at * 3 + 2] = (uint8_t)b;
+  const int bytes = n * g.channels;
+  uint8_t* dst = out + ((size_t)y * g.width + x0) * g.channels;
+  if (n == kPixels && g.width % kPixels == 0) {  // 4-byte aligned words
+#pragma unroll
+    for (int w = 0; w < 3; ++w)
+      if (w * 4 < bytes)
+        reinterpret_cast<uint32_t*>(dst)[w] =
+            px[4 * w] | px[4 * w + 1] << 8 | px[4 * w + 2] << 16 |
+            (uint32_t)px[4 * w + 3] << 24;
   } else {
-    out[at] = g.mode == kModeGrey
-                  ? (uint8_t)r
-                  : (uint8_t)((r * 4899 + gg * 9617 + b * 1868 + 8192) >> 14);
+#pragma unroll
+    for (int i = 0; i < kPixels * 3; ++i)
+      if (i < bytes) dst[i] = px[i];
   }
 }
 
 }  // namespace
 
-// The scan's entropy-coded bytes (restart markers and stuffing included)
-// -> (blocks, 64) int16 coefficients in natural order.
-// params: ncomp, mcux, mcuy, restart interval, total blocks, then per
-// component h, v, nbx, first block, DC table, AC table. huff: 8 tables of
-// 16 length counts and 256 symbols (0-3 DC, 4-7 AC). Returns 0 or an
+// Every scan's entropy-coded bytes (restart markers and stuffing included,
+// the scans one after another in `data`) -> (blocks, 64) int16
+// coefficients in natural order.
+// params: ncomp, mcux, mcuy, total blocks, scans, progressive; then per
+// component (4) h, v, nbx, first block, bw, bh (the blocks a scan of that
+// component alone walks); then per scan its offset and length in `data`,
+// ns, Ss, Se, Ah, Al, restart interval, and per scan component (4) the
+// component, its DC table and its AC table (rows of `huff`, -1: none).
+// huff: tables of 16 length counts and 256 symbols. Returns 0 or an
 // io/jpeg.py ERRORS code.
-extern "C" int jpeg_entropy_decode(const uint8_t* scan, int len,
+extern "C" int jpeg_entropy_decode(const uint8_t* data, int len,
                                    const int32_t* params, const uint8_t* huff,
                                    int16_t* coef) {
   const int ncomp = params[0], mcux = params[1], mcuy = params[2];
-  const long n_mcu = (long)mcux * mcuy;
-  const long per = params[3] ? params[3] : n_mcu;
-  memset(coef, 0, (size_t)params[4] * 64 * sizeof(int16_t));
-  std::vector<HuffTable> tables(8);
-  for (int t = 0; t < 8; ++t)
+  const int nscans = params[4];
+  const bool progressive = params[5] != 0;
+  const int32_t* comp = params + 6;
+  const int32_t* scans = comp + kMaxComps * kCompParams;
+  memset(coef, 0, (size_t)params[3] * 64 * sizeof(int16_t));
+  int ntables = 0;
+  for (int s = 0; s < nscans; ++s)
+    for (int i = 0; i < 8; ++i) {
+      const int t = scans[s * kScanParams + 12 + i];
+      ntables = t + 1 > ntables ? t + 1 : ntables;
+    }
+  std::vector<HuffTable> tables(ntables);
+  for (int t = 0; t < ntables; ++t)
     build_table(huff + t * 272, huff + t * 272 + 16, &tables[t]);
-  std::vector<Unit> units;
-  for (int c = 0; c < ncomp; ++c) {
-    const int32_t* p = params + 5 + 6 * c;
-    for (int by = 0; by < p[1]; ++by)
-      for (int bx = 0; bx < p[0]; ++bx)
-        units.push_back(
-            Unit{c, p[4], 4 + p[5], p[3] + by * p[2] + bx, p[1], p[0], p[2]});
-  }
-  // split at the restart markers, un-stuffing each interval
-  std::vector<uint8_t> data;
-  data.reserve(len);
-  std::vector<long> starts{0};
-  int expect = 0;
-  for (long i = 0; i < len;) {
-    if (scan[i] != 0xFF) {
-      data.push_back(scan[i++]);
-      continue;
+  int bits[kMaxComps][64];
+  for (int c = 0; c < kMaxComps; ++c)
+    for (int k = 0; k < 64; ++k) bits[c][k] = -1;
+  std::vector<uint8_t> buf;
+  std::vector<long> starts;
+  try {
+    for (int si = 0; si < nscans; ++si) {
+      const int32_t* p = scans + si * kScanParams;
+      if (p[0] < 0 || p[1] < 0 || (long)p[0] + p[1] > len)
+        throw (int)kTruncated;
+      Scan s{p[2], p[3], p[4], p[5], p[6], p[7], {0, 0, 0, 0}};
+      for (int i = 0; i < s.ns; ++i) s.comp[i] = p[8 + i];
+      if (progressive) advance(bits, s);
+      std::vector<Unit> units;
+      long smcux = mcux, smcuy = mcuy;
+      for (int i = 0; i < s.ns; ++i) {
+        const int32_t* c = comp + s.comp[i] * kCompParams;
+        const HuffTable* dc = p[12 + i] >= 0 ? &tables[p[12 + i]] : nullptr;
+        const HuffTable* ac = p[16 + i] >= 0 ? &tables[p[16 + i]] : nullptr;
+        if (s.ns == 1) {  // the component's own blocks, one an MCU
+          smcux = c[4];
+          smcuy = c[5];
+          units.push_back(Unit{0, c[3], 1, 1, c[2], dc, ac});
+        } else {
+          for (int by = 0; by < c[1]; ++by)
+            for (int bx = 0; bx < c[0]; ++bx)
+              units.push_back(
+                  Unit{i, c[3] + by * c[2] + bx, c[1], c[0], c[2], dc, ac});
+        }
+      }
+      split(data + p[0], p[1], buf, starts);
+      const long n_mcu = smcux * smcuy;
+      const long per = s.restart ? s.restart : n_mcu;
+      const long intervals = (long)starts.size();
+      if (intervals != (n_mcu + per - 1) / per) throw (int)kBadRestart;
+      starts.push_back((long)buf.size());
+      for (long k = 0; k < intervals; ++k) {
+        const long first = k * per;
+        const long last = first + per < n_mcu ? first + per : n_mcu;
+        Bits br{buf.data() + starts[k], starts[k + 1] - starts[k]};
+        const long eobrun = decode_interval(br, progressive, s, first, last,
+                                            smcux, units, coef);
+        if (br.consumed() > 8 * br.len) throw (int)kTruncated;
+        if (eobrun) throw (int)kEobRun;
+      }
     }
-    const long run = i;
-    while (i < len && scan[i] == 0xFF) ++i;
-    if (i < len && scan[i] == 0x00 && i == run + 1) {
-      data.push_back(0xFF);
-      ++i;
-      continue;
-    }
-    if (i >= len || scan[i] < 0xD0 || scan[i] > 0xD7) return kStrayMarker;
-    if (scan[i] != 0xD0 + expect) return kBadRestart;
-    expect = (expect + 1) & 7;
-    ++i;
-    starts.push_back((long)data.size());
-  }
-  const long intervals = (long)starts.size();
-  if (intervals != (n_mcu + per - 1) / per) return kBadRestart;
-  starts.push_back((long)data.size());
-  for (long k = 0; k < intervals; ++k) {
-    const long first = k * per;
-    const long last = first + per < n_mcu ? first + per : n_mcu;
-    const int err = decode_interval(data.data() + starts[k],
-                                    starts[k + 1] - starts[k], first, last,
-                                    mcux, units, tables.data(), coef);
-    if (err) return err;
+  } catch (int err) {
+    return err;
   }
   return kOk;
 }
 
 // J1: coefficients (device) -> planes (device scratch, the components'
 // block-padded planes) -> out (device, height x width x channels uint8).
-// geom: ncomp, width, height, mode, rgb_input, channels, total blocks, then
-// per component (3) nbx, nby, first block, plane offset, dw, dh.
-// quant: 3 x 64 quantisers (int16 values), natural order.
+// geom: ncomp, width, height, colour, channels, total blocks, then per
+// component (4) nbx, nby, first block, plane offset, dw, dh, upsampling
+// filter, its horizontal and vertical ratios.
+// quant: 4 x 64 quantisers (int16 values), natural order.
 extern "C" int jpeg_pixels_launch(const void* coef, void* planes, void* out,
                                   const int32_t* geom, const int32_t* quant,
                                   void* stream) {
@@ -400,18 +633,20 @@ extern "C" int jpeg_pixels_launch(const void* coef, void* planes, void* out,
   g.ncomp = geom[0];
   g.width = geom[1];
   g.height = geom[2];
-  g.mode = geom[3];
-  g.rgb_input = geom[4];
-  g.channels = geom[5];
-  g.total_blocks = geom[6];
-  for (int c = 0; c < 3; ++c) {
-    const int32_t* p = geom + 7 + 6 * c;
+  g.color = geom[3];
+  g.channels = geom[4];
+  g.total_blocks = geom[5];
+  for (int c = 0; c < kMaxComps; ++c) {
+    const int32_t* p = geom + 6 + kGeomParams * c;
     g.nbx[c] = p[0];
     g.nby[c] = p[1];
     g.offset[c] = p[2];
     g.plane_off[c] = p[3];
     g.dw[c] = p[4];
     g.dh[c] = p[5];
+    g.up[c] = p[6];
+    g.hexp[c] = p[7];
+    g.vexp[c] = p[8];
     for (int k = 0; k < 64; ++k) g.quant[c][k] = (int16_t)quant[c * 64 + k];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -420,8 +655,28 @@ extern "C" int jpeg_pixels_launch(const void* coef, void* planes, void* out,
       static_cast<const int16_t*>(coef), static_cast<uint8_t*>(planes), g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.width + kColorThreads - 1) / kColorThreads, g.height);
-  jpeg_color_kernel<<<grid, kColorThreads, 0, s>>>(
-      static_cast<const uint8_t*>(planes), static_cast<uint8_t*>(out), g);
+  const int quads = (g.width + kPixels - 1) / kPixels;
+  const dim3 grid((quads + kColorThreads - 1) / kColorThreads, g.height);
+  const uint8_t* in = static_cast<const uint8_t*>(planes);
+  uint8_t* dst = static_cast<uint8_t*>(out);
+  switch (g.color) {
+    case kGrey:
+      jpeg_color_kernel<kGrey><<<grid, kColorThreads, 0, s>>>(in, dst, g);
+      break;
+    case kYcc:
+      jpeg_color_kernel<kYcc><<<grid, kColorThreads, 0, s>>>(in, dst, g);
+      break;
+    case kRgb:
+      jpeg_color_kernel<kRgb><<<grid, kColorThreads, 0, s>>>(in, dst, g);
+      break;
+    case kCmyk:
+      jpeg_color_kernel<kCmyk><<<grid, kColorThreads, 0, s>>>(in, dst, g);
+      break;
+    case kYcck:
+      jpeg_color_kernel<kYcck><<<grid, kColorThreads, 0, s>>>(in, dst, g);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,11 @@
 
 ``read_jpeg`` parses the stream (``io/jpeg.py``), decodes its entropy-coded
 data on the host and runs the pixel stage where the caller asks: on the
-card, the host C++ entropy decoder of ``csrc/jpeg_decode.cu`` writes the
-coefficients into pinned memory, they go to the card asynchronously and
-J1 (``jpeg_pixels``) turns them into uint8 grey or RGB there; on the CPU,
-the plain twins of both stages run (``io/jpeg.entropy_decode`` and
-``io/jpeg.pixels_reference``). A failed build or launch raises; nothing
+card, the host C++ entropy decoder of ``csrc/jpeg_decode.cu`` decodes every
+scan in one call and writes the coefficients into pinned memory, they go to
+the card asynchronously and J1 (``jpeg_pixels``) turns them into uint8 grey
+or RGB there; on the CPU, the plain twins of both stages run
+(``io/jpeg.entropy_decode`` and ``io/jpeg.pixels_reference``). A failed build or launch raises; nothing
 falls back to the twins.
 """
 
@@ -23,6 +23,7 @@ from superviseddescent_tpu_torch.io.jpeg import (
 from superviseddescent_tpu_torch.utils.device import resolve_device
 
 _INT32_MAX = 2 ** 31 - 1
+MAX_COMPONENTS = 4
 
 
 def _plane_bytes(f: JpegFrame):
@@ -33,34 +34,57 @@ def _check_sizes(f: JpegFrame, channels: int) -> None:
     """The kernels index with int32: refuse what does not fit."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")
-    if max(f.blocks * 64, sum(_plane_bytes(f)),
-           f.width * f.height * channels) > _INT32_MAX:
+    if max(f.blocks * 64, sum(_plane_bytes(f)), f.width * f.height * channels,
+           sum(len(s.data) for s in f.scans)) > _INT32_MAX:
         raise ValueError(f"JPEG of {f.width} x {f.height} is too large for "
                          "the decoder's int32 indices")
 
 
 def entropy_params(f: JpegFrame):
-    """The host decoder's int32 parameters and its Huffman tables: 8 rows
-    (DC 0-3, AC 0-3) of 16 length counts and 256 symbols."""
-    params = [len(f.components), f.mcux, f.mcuy, f.restart_interval,
-              f.blocks]
-    for c in f.components:
-        params += [c.h, c.v, c.nbx, c.offset, c.td, c.ta]
-    huff = np.zeros((8, 272), np.uint8)
-    for (tc, th), (bits, vals) in f.huffman.items():
-        huff[4 * tc + th, :16] = bits
-        huff[4 * tc + th, 16:16 + len(vals)] = vals
-    return np.asarray(params, np.int32), huff
+    """The host decoder's inputs: every scan's bytes one after another, its
+    int32 parameters (see ``csrc/jpeg_decode.cu``) and its Huffman tables,
+    rows of 16 length counts and 256 symbols, each table once."""
+    rows, index = [], {}
+
+    def row(table):
+        if table is None:
+            return -1
+        if id(table) not in index:
+            index[id(table)] = len(rows)
+            rows.append(table)
+        return index[id(table)]
+
+    params = [len(f.components), f.mcux, f.mcuy, f.blocks, len(f.scans),
+              int(f.progressive)]
+    for i in range(MAX_COMPONENTS):
+        c = f.components[i] if i < len(f.components) else None
+        params += ([c.h, c.v, c.nbx, c.offset, c.bw, c.bh] if c else
+                   [0] * 6)
+    offset = 0
+    for s in f.scans:
+        pad = [-1] * (MAX_COMPONENTS - len(s.comps))
+        params += [offset, len(s.data), len(s.comps), s.ss, s.se, s.ah, s.al,
+                   s.restart]
+        params += s.comps + [0] * len(pad)
+        params += [row(t) for t in s.dc] + pad + [row(t) for t in s.ac] + pad
+        offset += len(s.data)
+    huff = np.zeros((max(len(rows), 1), 272), np.uint8)
+    for i, (bits, vals) in enumerate(rows):
+        huff[i, :16] = bits
+        huff[i, 16:16 + len(vals)] = vals
+    data = b"".join(s.data for s in f.scans)
+    return data, np.asarray(params, np.int32), huff
 
 
 def entropy_decode_native(f: JpegFrame) -> torch.Tensor:
-    """The host C++ entropy decoder: (blocks, 64) int16 coefficients in
-    pinned memory, equal to ``io/jpeg.entropy_decode``'s."""
+    """The host C++ entropy decoder, every scan in one call: (blocks, 64)
+    int16 coefficients in pinned memory, equal to
+    ``io/jpeg.entropy_decode``'s."""
     from superviseddescent_tpu_torch.ops._build import load_library
     lib = load_library("jpeg_decode")
     _check_sizes(f, 1)
-    params, huff = entropy_params(f)
-    scan = np.frombuffer(f.scan, np.uint8)
+    data, params, huff = entropy_params(f)
+    scan = np.frombuffer(data, np.uint8)
     coef = torch.empty((f.blocks, 64), dtype=torch.int16, pin_memory=True)
     err = lib.jpeg_entropy_decode(
         ctypes.c_void_p(scan.ctypes.data), len(scan),
@@ -72,18 +96,19 @@ def entropy_decode_native(f: JpegFrame) -> torch.Tensor:
 
 
 def pixel_params(f: JpegFrame, channels: int):
-    """J1's int32 geometry (see ``csrc/jpeg_decode.cu``) and its (3, 64)
+    """J1's int32 geometry (see ``csrc/jpeg_decode.cu``) and its (4, 64)
     quantisers."""
-    geom = [len(f.components), f.width, f.height, f.mode, int(f.rgb_input),
-            channels, f.blocks]
+    geom = [len(f.components), f.width, f.height, f.color, channels,
+            f.blocks]
     plane_off = np.cumsum([0] + _plane_bytes(f))
-    for i in range(3):
+    for i in range(MAX_COMPONENTS):
         if i < len(f.components):
             c = f.components[i]
-            geom += [c.nbx, c.nby, c.offset, int(plane_off[i]), c.dw, c.dh]
+            geom += [c.nbx, c.nby, c.offset, int(plane_off[i]), c.dw, c.dh,
+                     c.up, c.hexp, c.vexp]
         else:
-            geom += [0, 0, f.blocks, int(plane_off[-1]), 0, 0]
-    quant = np.zeros((3, 64), np.int32)
+            geom += [0, 0, f.blocks, int(plane_off[-1]), 0, 0, 0, 1, 1]
+    quant = np.zeros((MAX_COMPONENTS, 64), np.int32)
     quant[:len(f.components)] = f.quant()
     return np.asarray(geom, np.int32), quant
 
@@ -126,7 +151,7 @@ jpeg_pixels.launches = 0
 
 
 def read_jpeg(path_or_bytes, channels: int = 1, device=None) -> torch.Tensor:
-    """Decode a baseline JPEG (a path, or its bytes) into a uint8 (H, W)
+    """Decode a JPEG (a path, or its bytes) into a uint8 (H, W)
     grey or (H, W, 3) RGB tensor on ``device`` (the card unless the caller
     names one; with no card and no device this raises, as
     ``utils/device.resolve_device`` does)."""

@@ -204,7 +204,7 @@ def rgb_to_gray_u8(rgb) -> np.ndarray:
 
 
 def load_gray_image(path, device=None) -> np.ndarray:
-    """Load a PNG or baseline JPEG as (H, W) float32 gray in [0, 255];
+    """Load a PNG or JPEG as (H, W) float32 gray in [0, 255];
     colour images convert with OpenCV parity (alpha is dropped, as PIL's
     convert('RGB') does). The format is read from the magic bytes.
 

@@ -13,8 +13,14 @@ port with its own decoder (``--device cpu``: the Python entropy decoder
 and J1's plain twin), and the two decoders give the same pixels
 (``tests/test_torch_jpeg.py``).
 
-``rcr_detect -i face.jpg -f`` with pretrained RCR-22: the landmarks within
-1e-3 px of JAX's (``tests/test_torch_apps_io.py``). Annotated outputs of
+The same clip written as progressive JPEG (PIL decodes it to the same
+pixels, so the JAX app's rows are the baseline clip's): the port's rows
+bit-equal to its rows on the baseline clip, and so within 0.02 px of the
+JAX app's.
+
+``rcr_detect -i face.jpg -f -o`` with pretrained RCR-22 on a baseline
+4:2:0, a progressive and an Adobe CMYK still of one face: the landmarks
+within 1e-3 px of JAX's (``tests/test_torch_apps_io.py``). Annotated outputs of
 JPEG inputs are PNG files with the suffix ``.png`` (the port has no JPEG
 encoder), holding the image's RGB with the drawing.
 """
@@ -60,6 +66,19 @@ def clip(tmp_path_factory):
                 box=",".join(repr(float(v)) for v in box))
 
 
+@pytest.fixture(scope="module")
+def progressive_frames(clip):
+    """The clip's frames as progressive JPEG: PIL reads the same pixels."""
+    from PIL import Image
+    frames = os.path.join(os.path.dirname(clip["frames"]), "progressive")
+    write_clip(frames, N_FRAMES, jpeg=True, progressive=True)
+    for name in sorted(os.listdir(frames)):
+        assert np.array_equal(
+            np.asarray(Image.open(os.path.join(frames, name))),
+            np.asarray(Image.open(os.path.join(clip["frames"], name))))
+    return frames
+
+
 def argv(clip, *extra):
     return ["-m", clip["model"], "-f", clip["frames"], "--facebox",
             clip["box"], *extra]
@@ -99,10 +118,35 @@ def test_track_jpeg_frames_match_jax(monkeypatch, clip, jax_events, mode,
         assert (rgb == _draw.GREEN).all(axis=2).sum() > 0
 
 
-def test_rcr_detect_on_a_jpeg_matches_jax(monkeypatch, tmp_path):
+def test_track_progressive_frames_match_jax(monkeypatch, clip,
+                                           progressive_frames, jax_events):
+    runs = []
+    for frames in (clip["frames"], progressive_frames):
+        rc, text = run_app(monkeypatch, rcr_track, argv(
+            dict(clip, frames=frames), "--depth", "2", "--device", "cpu"))
+        assert rc == 0
+        runs.append(track_events(text))
+    assert_same_events(runs[1], runs[0], 0)
+    assert_same_events(runs[1], jax_events, FUSED_PX)
+
+
+def still(kind, path):
+    """The face of synth_0001, tinted, as a 4:2:0 still: baseline,
+    progressive, or (``cmyk``) PIL's Adobe CMYK of it."""
+    from PIL import Image
     grey = load_gray_image(os.path.join(SYNTH, "synth_0001.png"))
+    rgb = tint(grey.astype(np.uint8), 1)
+    if kind == "cmyk":
+        Image.fromarray(rgb).convert("CMYK").save(path, "JPEG", quality=90)
+    else:
+        path.write_bytes(encode(rgb, "4:2:0", 90,
+                                progressive=kind == "progressive"))
+
+
+@pytest.mark.parametrize("kind", ["baseline", "progressive", "cmyk"])
+def test_rcr_detect_on_a_jpeg_matches_jax(monkeypatch, tmp_path, kind):
     jpg = tmp_path / "face.jpg"
-    jpg.write_bytes(encode(tint(grey.astype(np.uint8), 1), "4:2:0", 90))
+    still(kind, jpg)
     common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
               str(jpg)]
     want, got = [], []

@@ -11,8 +11,11 @@ tables, sizes that are no multiple of 16 and images of a few pixels (box
 upsampling below three chroma samples). The committed fixtures
 (``tests/torch_jpeg/``, written by ``tests/torch_jpeg_fixtures.py``) still
 match their manifest, which ``chip_smoke.py --jpeg`` holds J1 to on the
-card. Every unsupported kind raises a ``ValueError`` naming it, and cut or
-corrupted streams raise instead of hanging.
+card. Every unsupported kind raises a ``ValueError`` naming it, the kinds
+once refused (progressive, CMYK, 4:4:0, 4:1:1, chroma 2x2) decode, and cut
+or corrupted streams raise instead of hanging. The progressive,
+multi-scan, four-component and other sampling kinds are tested in
+``tests/test_torch_jpeg_progressive.py``.
 """
 
 import hashlib
@@ -100,7 +103,7 @@ def test_adobe_rgb_and_component_ids(tmp_path):
         data[sos + 5 + 2 * i] = ident
     path = tmp_path / "rgb.jpg"
     path.write_bytes(bytes(data))
-    assert jpeg.parse_jpeg(bytes(data)).rgb_input
+    assert jpeg.parse_jpeg(bytes(data)).color == jpeg.COLOR_RGB
     check_against_pil(path)
 
 
@@ -149,12 +152,14 @@ def test_twin_stages_agree_with_the_wrapper():
     np.testing.assert_array_equal(jpeg_pixels(coef, f, 3),
                                   jpeg.pixels_reference(coef, f, 3))
     geom, quant = pixel_params(f, 1)
-    assert geom[:7].tolist() == [3, 301, 451, jpeg.MODE_H2V1, 0, 1,
-                                 f.blocks]
-    np.testing.assert_array_equal(quant, f.quant())
-    params, huff = entropy_params(f)
-    assert params[:5].tolist() == [3, f.mcux, f.mcuy, 0, f.blocks]
-    assert huff.shape == (8, 272) and huff[0, :16].sum() > 0
+    assert geom[:6].tolist() == [3, 301, 451, jpeg.COLOR_YCC, 1, f.blocks]
+    assert geom[6:33].reshape(3, 9)[:, 6:].tolist() == [
+        [jpeg.UP_FULL, 1, 1], [jpeg.UP_H2V1, 2, 1], [jpeg.UP_H2V1, 2, 1]]
+    np.testing.assert_array_equal(quant[:3], f.quant())
+    data, params, huff = entropy_params(f)
+    assert data == f.scans[0].data
+    assert params[:6].tolist() == [3, f.mcux, f.mcuy, f.blocks, 1, 0]
+    assert huff.shape == (4, 272) and huff[0, :16].sum() > 0
 
 
 def test_range_limit_wraps_like_libjpeg():
@@ -180,14 +185,7 @@ def sof_patched(data, offset, value):
 
 def refusal_cases():
     colour = encode(image((32, 32), 3, "4:2:0"), "4:2:0", 75)
-    cmyk = io.BytesIO()
-    Image.fromarray(image((16, 16), 4, "4:4:4")).convert("CMYK").save(
-        cmyk, "JPEG")
-    progressive = io.BytesIO()
-    Image.fromarray(image((16, 16), 5, "4:4:4")).save(
-        progressive, "JPEG", progressive=True)
     return {
-        "progressive": (progressive.getvalue(), "SOF2 \\(progressive\\)"),
         "lossless": (patched(colour, b"\xff\xc0", b"\xff\xc3"),
                      "SOF3 \\(lossless\\)"),
         "arithmetic": (patched(colour, b"\xff\xc0", b"\xff\xc9"),
@@ -197,14 +195,38 @@ def refusal_cases():
         "dac": (patched(colour, b"\xff\xdb", b"\xff\xcc"),
                 "DAC \\(arithmetic coding\\)"),
         "12-bit": (sof_patched(colour, 4, 12), "12-bit"),
-        "cmyk": (cmyk.getvalue(), "4-component CMYK / YCCK"),
-        "4:4:0": (sof_patched(colour, 11, 0x12), "sampling factors 1x2"),
-        "4:1:1": (sof_patched(colour, 11, 0x41), "sampling factors 4x1"),
-        "chroma 2x2": (sof_patched(colour, 14, 0x22),
-                       "sampling factors 2x2 2x2"),
         "dnl": (sof_patched(sof_patched(colour, 5, 0), 6, 0), "DNL"),
         "not a jpeg": (b"GIF89a" + bytes(16), "not a JPEG"),
     }
+
+
+def formerly_refused_cases():
+    """The kinds the decoder refused before progressive, four-component and
+    any whole-ratio sampling were read: each well formed."""
+    from torch_jpeg_fixtures import reencode
+    cmyk = io.BytesIO()
+    Image.fromarray(image((16, 16), 4, "4:4:4")).convert("CMYK").save(
+        cmyk, "JPEG")
+    progressive = io.BytesIO()
+    Image.fromarray(image((16, 16), 5, "4:4:4")).save(
+        progressive, "JPEG", progressive=True)
+    return {
+        "progressive": progressive.getvalue(),
+        "cmyk": cmyk.getvalue(),
+        "4:4:0": sof_patched(encode(image((32, 32), 3, "4:2:2"), "4:2:2",
+                                    75), 11, 0x12),
+        "4:1:1": sof_patched(encode(image((32, 64), 3, "4:2:0"), "4:2:0",
+                                    75), 11, 0x41),
+        "chroma 2x2": reencode(image((32, 32), 3, "4:4:4"),
+                               ((2, 2), (2, 2), (1, 1)), [[0, 1, 2]]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(formerly_refused_cases()))
+def test_formerly_refused_kinds_decode(case, tmp_path):
+    path = tmp_path / "x.jpg"
+    path.write_bytes(formerly_refused_cases()[case])
+    check_against_pil(path)
 
 
 @pytest.mark.parametrize("case", sorted(refusal_cases()))

@@ -7,6 +7,7 @@ inside the fixture, never at import). On the card:
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -1155,20 +1156,27 @@ def jpeg_manifest():
         return json.load(f)
 
 
-@pytest.mark.parametrize("name", ["s00_grey_q75.jpg", "s01_444_q95.jpg",
-                                  "s02_422_q50.jpg", "s04_420_q95_restart.jpg",
-                                  "s06_422_q75_odd.jpg", "clip/f000.jpg"])
+@pytest.mark.parametrize("name", [
+    "s00_grey_q75.jpg", "s01_444_q95.jpg", "s02_422_q50.jpg",
+    "s04_420_q95_restart.jpg", "s06_422_q75_odd.jpg", "clip/f000.jpg",
+    "p00_grey_q75_prog.jpg", "p03_420_q75_prog.jpg",
+    "p04_420_q95_restart_prog.jpg", "c00_cmyk_q75.jpg", "c01_ycck_q75.jpg",
+    "r00_411_q75.jpg", "r01_440_q75.jpg", "m01_422_2scans_restart.jpg",
+    "x00_mixed_2x2_1x2_2x1.jpg", "x01_3x2_box.jpg",
+    "clip_progressive/f000.jpg"])
 def test_jpeg_kernel_equals_twin_and_pil(cuda, name):
     """J1 on the host decoder's coefficients: bit-equal to its twin on the
     same tensors and to PIL's digests; the host decoder equal to the
-    Python one."""
+    Python one (every scan of a progressive or multi-scan stream in one
+    call)."""
     import hashlib
     from superviseddescent_tpu_torch.io import jpeg
     from superviseddescent_tpu_torch.ops.jpeg import (
         entropy_decode_native, jpeg_pixels, read_jpeg)
     m = jpeg_manifest()
+    frames = m["clip"]["frames"] + m["clip_progressive"]["frames"]
     want = (m["stills"][name] if name in m["stills"] else
-            [f for f in m["clip"]["frames"] if f["name"] == name][0])
+            [f for f in frames if f["name"] == name][0])
     data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
     f = jpeg.parse_jpeg(data)
     host = entropy_decode_native(f)
@@ -1186,37 +1194,60 @@ def test_jpeg_kernel_equals_twin_and_pil(cuda, name):
         assert torch.equal(read_jpeg(data, channels), got)
 
 
-def test_jpeg_kernel_at_odd_and_tiny_sizes(cuda, tmp_path):
-    """J1's edges (box upsampling below three chroma samples, replicated
-    edge samples, odd extents) in every sampling mode: the fixtures'
-    coefficients with the frame cut to small sizes, against the twin on the
-    same cut (the card's machine has no PIL to write small streams)."""
+@pytest.mark.parametrize("name", [
+    "s00_grey_q75.jpg", "s01_444_q95.jpg", "s02_422_q50.jpg",
+    "s03_420_q75.jpg", "c00_cmyk_q75.jpg", "c01_ycck_q75.jpg",
+    "r00_411_q75.jpg", "r01_440_q75.jpg", "x00_mixed_2x2_1x2_2x1.jpg",
+    "x01_3x2_box.jpg"])
+def test_jpeg_kernel_at_odd_and_tiny_sizes(cuda, name):
+    """J1's edges in every upsampling filter and colour space (box
+    upsampling below three samples, replicated edge samples, odd extents,
+    replication by 3 and 4): the fixtures' coefficients with the frame cut
+    to small sizes, against the twin on the same cut (the card's machine
+    has no PIL to write small streams)."""
     from superviseddescent_tpu_torch.io import jpeg
     from superviseddescent_tpu_torch.ops.jpeg import jpeg_pixels
-    for name in ("s00_grey_q75.jpg", "s01_444_q95.jpg", "s02_422_q50.jpg",
-                 "s03_420_q75.jpg"):
-        data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
-        f = jpeg.parse_jpeg(data)
-        coef = torch.from_numpy(jpeg.entropy_decode(f)).to(cuda)
-        full_w, full_h = f.width, f.height
-        for w, h in ((1, 1), (3, 2), (4, 5), (5, 9), (17, 33)):
-            f.width, f.height = min(w, full_w), min(h, full_h)
-            hmax = max(c.h for c in f.components)
-            vmax = max(c.v for c in f.components)
-            for c in f.components:
-                c.dw = -(-f.width * c.h // hmax)
-                c.dh = -(-f.height * c.v // vmax)
-            for channels in (1, 3):
-                assert torch.equal(jpeg_pixels(coef, f, channels),
-                                   jpeg.pixels_reference(coef, f, channels))
+    data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
+    f = jpeg.parse_jpeg(data)
+    coef = torch.from_numpy(jpeg.entropy_decode(f)).to(cuda)
+    full_w, full_h = f.width, f.height
+    for w, h in ((1, 1), (3, 2), (4, 5), (5, 9), (17, 33), (23, 7)):
+        f.width, f.height = min(w, full_w), min(h, full_h)
+        jpeg.sample_extents(f)
+        for channels in (1, 3):
+            assert torch.equal(jpeg_pixels(coef, f, channels),
+                               jpeg.pixels_reference(coef, f, channels))
 
 
-def test_jpeg_host_decoder_reports_truncation(cuda):
+@pytest.mark.parametrize("name", ["s04_420_q95_restart.jpg",
+                                  "p04_420_q95_restart_prog.jpg",
+                                  "m01_422_2scans_restart.jpg"])
+def test_jpeg_host_decoder_reports_truncation(cuda, name):
+    """A cut or corrupted scan raises in the host decoder with the Python
+    twin's error."""
     from superviseddescent_tpu_torch.io import jpeg
     from superviseddescent_tpu_torch.ops.jpeg import entropy_decode_native
-    data = open(os.path.join(JPEG_FIXTURES, "s04_420_q95_restart.jpg"),
-                "rb").read()
+    data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
     f = jpeg.parse_jpeg(data)
-    f.scan = f.scan[:len(f.scan) // 2]
+    scan = f.scans[-1]
+    whole = scan.data
+    scan.data = whole[:len(whole) // 2]
     with pytest.raises(ValueError, match="JPEG: "):
         entropy_decode_native(f)
+    scan.data = whole
+    rng = np.random.default_rng(0)
+    for s in f.scans:
+        keep = s.data
+        for _ in range(8):
+            b = bytearray(keep)
+            b[rng.integers(0, len(b))] = rng.integers(0, 256)
+            s.data = bytes(b)
+            try:
+                want = jpeg.entropy_decode(f)
+            except ValueError as e:
+                with pytest.raises(ValueError, match=re.escape(str(e))):
+                    entropy_decode_native(f)
+            else:
+                np.testing.assert_array_equal(
+                    entropy_decode_native(f).numpy(), want)
+        s.data = keep

@@ -170,12 +170,14 @@ def frame_offsets(n, seed=0):
     return np.asarray(TRACK_ORIGIN) + np.cumsum(steps, axis=0)
 
 
-def write_clip(directory, n=6, loss=False, shape=FRAME_SHAPE, jpeg=False):
+def write_clip(directory, n=6, loss=False, shape=FRAME_SHAPE, jpeg=False,
+               progressive=False):
     """n PNG frames of ``shape`` showing one .synth120 face at drifting
     offsets; with ``loss``, frame LOSS_FRAME is cut to its top-left
     LOSS_SHAPE corner, which leaves the face (below row 540) out of it.
     With ``jpeg``, each frame is a 4:2:0 JPEG (quality 90, PIL) of a seeded
-    tint of it (``torch_jpeg_fixtures.tint``) instead.
+    tint of it (``torch_jpeg_fixtures.tint``) instead; with
+    ``progressive`` too, a progressive one of the same pixels.
     Returns the (n, 2) [row, column] offsets of the image."""
     os.makedirs(directory, exist_ok=True)
     image = load_gray_image(
@@ -191,7 +193,8 @@ def write_clip(directory, n=6, loss=False, shape=FRAME_SHAPE, jpeg=False):
         if jpeg:
             from torch_jpeg_fixtures import encode, tint
             with open(os.path.join(directory, f"f{k:02d}.jpg"), "wb") as f:
-                f.write(encode(tint(frame, 0), "4:2:0", 90))
+                f.write(encode(tint(frame, 0), "4:2:0", 90,
+                               progressive=progressive))
         else:
             write_png(os.path.join(directory, f"f{k:02d}.png"), frame)
     return offs

@@ -7,7 +7,7 @@ holds the port's decoder against PIL's digests in ``manifest.json``: the
 sha256 of the JAX package's ``load_gray_image`` as uint8 (PIL, then
 OpenCV's grey) and of PIL's ``convert("RGB")``, per file.
 
-* stills: ``.synth120`` images, every size class at least once, as grey
+* stills (baseline, one interleaved scan): ``.synth120`` images, every size class at least once, as grey
   (1 component), YCbCr 4:4:4, 4:2:2 and 4:2:0 (PIL's ``subsampling`` 0, 1,
   2) at qualities 50, 75 and 95; one 4:2:0 and one grey still with restart
   markers, one with optimised Huffman tables, one of 301 x 451 (no
@@ -18,9 +18,32 @@ OpenCV's grey) and of PIL's ``convert("RGB")``, per file.
   and axis from (260, 40), as ``chip_smoke.py``'s app clip; the offsets
   are in the manifest.
 
-The same seed gives the same bytes for the same PIL and libjpeg-turbo;
-``tests/test_torch_jpeg.py`` checks that the files still match the
-manifest.
+* progressive stills (SOF2, PIL's ``progressive=True``: libjpeg's simple
+  progression, 10 scans for YCbCr, 6 for grey, 18 for CMYK, optimised
+  tables between them): grey, 4:4:4, 4:2:2 and 4:2:0 at qualities 50, 75
+  and 95, one with restart markers, one optimised; ``p00``, ``p02``,
+  ``p03`` and ``p05`` hold the pixels of ``s00``, ``s02``, ``s03`` and
+  ``s05``, so their coefficients equal those stills' (``p03`` is a whole
+  686 x 1024 image).
+* four components: PIL's Adobe CMYK (``convert("CMYK")``) and the same
+  bytes with the Adobe transform set to 2 (YCCK).
+* 4:1:1 and 4:4:0, which PIL cannot write: a PIL 4:2:0 file whose SOF
+  says luma 4x1 (width a multiple of 32, height of 16), and a 4:2:2 file
+  whose SOF says luma 1x2 (both multiples of 16): the same blocks per MCU
+  and MCUs, so the same entropy-coded data, placed otherwise.
+* multi-scan sequential stills and other sampling factors: a PIL file's
+  coefficients (``io/jpeg.entropy_decode``) written again by
+  ``write_sequential``, a small coefficient-level encoder with the
+  standard Huffman tables that PIL's unoptimised files carry: one scan per
+  component; luma alone then both chroma interleaved, with restart
+  markers; luma 2x2 over Cb 1x2 and Cr 2x1 (three filters in one image);
+  luma 3x2 over 1x1 chroma (replication by 3 and 2).
+* clip_progressive: the clip's frames again with ``progressive=True``.
+
+The reference is always PIL's decode of the bytes written: a relabelled
+or re-encoded image's scrambled content is fine. The same seed gives the
+same bytes for the same PIL and libjpeg-turbo; ``tests/test_torch_jpeg.py``
+checks that the files still match the manifest.
 """
 
 import glob
@@ -52,6 +75,36 @@ STILLS = {
                              None),
     "s08_444_q50": (9, "4:4:4", 50, {}, None),
     "s09_grey_q50": (5, "grey", 50, {}, None),
+}
+# progressive stills: name -> the baseline still whose pixels it holds, or
+# (.synth120 image, kind, quality, extra save options, crop (h, w))
+PROGRESSIVE = {
+    "p00_grey_q75_prog": "s00_grey_q75",
+    "p01_444_q95_prog": (2, "4:4:4", 95, {}, (256, 320)),
+    "p02_422_q50_prog": "s02_422_q50",
+    "p03_420_q75_prog": "s03_420_q75",
+    "p04_420_q95_restart_prog": (3, "4:2:0", 95, {"restart_marker_rows": 1},
+                                 (304, 400)),
+    "p05_420_q50_optimized_prog": "s05_420_q50_optimized",
+}
+# four components: (.synth120 image, quality, crop, Adobe transform)
+FOUR = {"c00_cmyk_q75": (1, 75, None, 0),
+        "c01_ycck_q75": (1, 75, None, 2)}
+# relabelled sampling: (.synth120 image, PIL's kind, quality, crop, the
+# luma's new sampling byte)
+RELABEL = {"r00_411_q75": (9, "4:2:0", 75, (320, 256), 0x41),
+           "r01_440_q75": (10, "4:2:2", 75, (320, 240), 0x12)}
+# re-encoded: (.synth120 image, crop, luma / Cb / Cr sampling, scans as
+# component lists, restart interval)
+REENCODED = {
+    "m00_420_3scans": (11, (240, 320), ((2, 2), (1, 1), (1, 1)),
+                       [[0], [1], [2]], 0),
+    "m01_422_2scans_restart": (12, (200, 264), ((2, 1), (1, 1), (1, 1)),
+                               [[0], [1, 2]], 5),
+    "x00_mixed_2x2_1x2_2x1": (13, (232, 304), ((2, 2), (1, 2), (2, 1)),
+                              [[0, 1, 2]], 0),
+    "x01_3x2_box": (14, (216, 312), ((3, 2), (1, 1), (1, 1)),
+                    [[0, 1, 2]], 0),
 }
 CLIP_FRAMES = 16
 CLIP_IMAGE = 3
@@ -109,6 +162,151 @@ def synth(index: int) -> np.ndarray:
     return np.asarray(Image.open(files[index]).convert("L"), np.uint8)
 
 
+class _BitWriter:
+    """MSB-first entropy-coded bytes with 0xFF stuffed."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, code: int, length: int):
+        self.acc = (self.acc << length) | code
+        self.n += length
+        while self.n >= 8:
+            self.n -= 8
+            byte = (self.acc >> self.n) & 0xFF
+            self.out.append(byte)
+            if byte == 0xFF:
+                self.out.append(0)
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self):
+        """Pad the last byte with 1 bits."""
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+
+
+def _magnitude(v: int):
+    """JPEG's size category of ``v`` and its ``size`` appended bits."""
+    size = abs(v).bit_length()
+    return size, (v if v >= 0 else v + (1 << size) - 1)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def write_sequential(width, height, sampling, qtables, coef, scans,
+                     restart=0, tq=(0, 1, 1), dqt_before=None) -> bytes:
+    """A sequential (SOF0) JFIF stream of the coefficients ``coef``
+    ((blocks, 64) int16, natural order, in ``io/jpeg``'s layout for this
+    geometry) with the standard Huffman tables (luma 0, chroma 1).
+    ``sampling``: (h, v) per component; ``scans``: component lists, one a
+    scan; ``qtables``: {table: (64,) natural order}; ``dqt_before``:
+    {scan index: {table: (64,)}} written (redefined) before that scan."""
+    from superviseddescent_tpu_torch.io import jpeg
+    frame = jpeg.JpegFrame(width, height, [
+        jpeg.Component(i + 1, h, v, tq[i]) for i, (h, v) in
+        enumerate(sampling)])
+    jpeg._layout(frame)
+    codes = {key: {sym: (code, length) for length, code, sym in
+                   jpeg.huffman_codes(bytes.fromhex(bits),
+                                      bytes.fromhex(vals))}
+             for key, (bits, vals) in jpeg.STD_HUFFMAN.items()}
+
+    def dqt(tables):
+        return _segment(jpeg.DQT, b"".join(
+            bytes([t]) + bytes(np.asarray(q)[jpeg.ZIGZAG].astype(np.uint8))
+            for t, q in sorted(tables.items())))
+
+    out = bytearray(b"\xff\xd8")
+    out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out += dqt(qtables)
+    out += _segment(0xC0, bytes([8]) + height.to_bytes(2, "big")
+                    + width.to_bytes(2, "big") + bytes([len(sampling)])
+                    + b"".join(bytes([i + 1, h << 4 | v, tq[i]])
+                               for i, (h, v) in enumerate(sampling)))
+    out += _segment(jpeg.DHT, b"".join(
+        bytes([tc << 4 | th]) + bytes.fromhex(bits) + bytes.fromhex(vals)
+        for (tc, th), (bits, vals) in sorted(jpeg.STD_HUFFMAN.items())))
+    if restart:
+        out += _segment(jpeg.DRI, restart.to_bytes(2, "big"))
+    zz = jpeg.ZIGZAG.tolist()
+    for si, comps in enumerate(scans):
+        if dqt_before and si in dqt_before:
+            out += dqt(dqt_before[si])
+        table = [min(ci, 1) for ci in comps]
+        out += _segment(jpeg.SOS, bytes([len(comps)]) + b"".join(
+            bytes([ci + 1, t << 4 | t]) for ci, t in zip(comps, table))
+            + bytes([0, 63, 0]))
+        scan = jpeg.Scan(comps, 0, 63, 0, 0, [None] * len(comps),
+                         [None] * len(comps))
+        mcux, mcuy, units = jpeg._units(frame, scan, {})
+        bw, pred, n_mcu = _BitWriter(), [0] * len(comps), mcux * mcuy
+        for mcu in range(n_mcu):
+            if restart and mcu and mcu % restart == 0:
+                bw.flush()
+                bw.out += bytes([0xFF, 0xD0 + (mcu // restart - 1) % 8])
+                pred = [0] * len(comps)
+            my, mx = divmod(mcu, mcux)
+            for k, _, _, base, v, h, nbx in units:
+                block = coef[base + my * v * nbx + mx * h]
+                dc, ac = codes[(0, table[k])], codes[(1, table[k])]
+                size, bits = _magnitude(int(block[0]) - pred[k])
+                pred[k] = int(block[0])
+                bw.put(*dc[size])
+                bw.put(bits, size)
+                run = 0
+                for i in range(1, 64):
+                    val = int(block[zz[i]])
+                    if not val:
+                        run += 1
+                        continue
+                    while run > 15:
+                        bw.put(*ac[0xF0])
+                        run -= 16
+                    size, bits = _magnitude(val)
+                    bw.put(*ac[run << 4 | size])
+                    bw.put(bits, size)
+                    run = 0
+                if run:
+                    bw.put(*ac[0x00])
+        bw.flush()
+        out += bw.out
+    return bytes(out + b"\xff\xd9")
+
+
+def reencode(pixels: np.ndarray, sampling, scans, restart=0,
+             quality=75) -> bytes:
+    """A PIL 4:4:4 encoding of ``pixels``, its coefficients decoded and
+    written again by ``write_sequential`` with other sampling factors and
+    scans: each component's blocks are the top-left ones of the PIL
+    component's grid (the content is scrambled where the sampling
+    differs; PIL's decode of the result is the reference)."""
+    from superviseddescent_tpu_torch.io import jpeg
+    src = jpeg.parse_jpeg(encode(pixels, "4:4:4", quality))
+    src_coef = jpeg.entropy_decode(src)
+    h, w = pixels.shape[:2]
+    frame = jpeg.JpegFrame(w, h, [jpeg.Component(i + 1, sh, sv, 0)
+                                  for i, (sh, sv) in enumerate(sampling)])
+    jpeg._layout(frame)
+    coef = np.zeros((frame.blocks, 64), np.int16)
+    for c, sc in zip(frame.components, src.components):
+        grid = src_coef[sc.offset:sc.offset + sc.nbx * sc.nby].reshape(
+            sc.nby, sc.nbx, 64)
+        ys = np.arange(c.nby) % sc.nby
+        xs = np.arange(c.nbx) % sc.nbx
+        coef[c.offset:c.offset + c.nbx * c.nby] = grid[ys][:, xs].reshape(
+            -1, 64)
+    qtables = {c.tq: c.quant for c in src.components}
+    return write_sequential(w, h, sampling, qtables, coef, scans, restart,
+                            tq=tuple(c.tq for c in src.components))
+
+
+def _cropped(index, crop):
+    grey = synth(index)
+    return grey if crop is None else grey[:crop[0], :crop[1]]
+
+
 def write_fixtures(out: str = OUT) -> dict:
     os.makedirs(out, exist_ok=True)
     manifest = dict(stills={}, clip={})
@@ -124,9 +322,10 @@ def write_fixtures(out: str = OUT) -> dict:
         manifest["stills"][name + ".jpg"] = dict(
             source=f"synth_{index:04d}", kind=kind, quality=quality,
             options=options, **pil_digests(path))
+    _write_new_stills(out, manifest)
     image = tint(synth(CLIP_IMAGE), SEED + 100)
     offsets = clip_offsets()
-    frames = []
+    frames, prog_frames = [], []
     for k, (oy, ox) in enumerate(offsets):
         frame = np.zeros(CLIP_SHAPE + (3,), np.uint8)
         src = image[:CLIP_SHAPE[0] - oy, :CLIP_SHAPE[1] - ox]
@@ -137,13 +336,83 @@ def write_fixtures(out: str = OUT) -> dict:
         with open(path, "wb") as f:
             f.write(encode(frame, "4:2:0", CLIP_QUALITY))
         frames.append(dict(name=name, **pil_digests(path)))
+        prog = f"clip_progressive/f{k:03d}.jpg"
+        os.makedirs(os.path.join(out, "clip_progressive"), exist_ok=True)
+        path = os.path.join(out, prog)
+        with open(path, "wb") as f:
+            f.write(encode(frame, "4:2:0", CLIP_QUALITY, progressive=True))
+        prog_frames.append(dict(name=prog, **pil_digests(path)))
     manifest["clip"] = dict(source=f"synth_{CLIP_IMAGE:04d}",
                             kind="4:2:0", quality=CLIP_QUALITY,
                             offsets=offsets.tolist(), frames=frames)
+    manifest["clip_progressive"] = dict(
+        source=f"synth_{CLIP_IMAGE:04d}", kind="4:2:0",
+        quality=CLIP_QUALITY, options={"progressive": True},
+        offsets=offsets.tolist(), frames=prog_frames)
     with open(os.path.join(out, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     return manifest
+
+
+def _still_pixels(name):
+    """A baseline still's pixels, as ``write_fixtures`` encodes them."""
+    k = list(STILLS).index(name)
+    index, kind, _, _, crop = STILLS[name]
+    grey = _cropped(index, crop)
+    return grey if kind == "grey" else tint(grey, SEED + k)
+
+
+def _write_new_stills(out, manifest):
+    """The progressive, four-component, relabelled and re-encoded stills
+    (appended after the baseline ones, whose bytes they leave as they
+    are)."""
+    def put(name, data, **info):
+        path = os.path.join(out, name + ".jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        manifest["stills"][name + ".jpg"] = dict(info, **pil_digests(path))
+
+    for k, (name, spec) in enumerate(PROGRESSIVE.items()):
+        same = {}
+        if isinstance(spec, str):
+            index, kind, quality, options, _ = STILLS[spec]
+            pixels = _still_pixels(spec)
+            same = {"same_pixels_as": spec + ".jpg"}
+        else:
+            index, kind, quality, options, crop = spec
+            grey = _cropped(index, crop)
+            pixels = grey if kind == "grey" else tint(grey, SEED + 200 + k)
+        put(name, encode(pixels, kind, quality, progressive=True,
+                         **options),
+            source=f"synth_{index:04d}", kind=kind, quality=quality,
+            options=dict(options, progressive=True), **same)
+    for k, (name, (index, quality, crop, transform)) in enumerate(
+            FOUR.items()):
+        buf = io.BytesIO()
+        Image.fromarray(tint(_cropped(index, crop), SEED + 300)).convert(
+            "CMYK").save(buf, "JPEG", quality=quality)
+        data = bytearray(buf.getvalue())
+        app14 = data.index(b"\xff\xee\x00\x0eAdobe")
+        data[app14 + 4 + 11] = transform
+        put(name, bytes(data), source=f"synth_{index:04d}",
+            kind="ycck" if transform else "cmyk", quality=quality,
+            options={"adobe_transform": transform})
+    for k, (name, (index, kind, quality, crop, luma)) in enumerate(
+            RELABEL.items()):
+        data = bytearray(encode(tint(_cropped(index, crop), SEED + 400 + k),
+                                kind, quality))
+        data[data.index(b"\xff\xc0") + 11] = luma
+        put(name, bytes(data), source=f"synth_{index:04d}",
+            kind={0x41: "4:1:1", 0x12: "4:4:0"}[luma], quality=quality,
+            options={"relabelled_from": kind})
+    for k, (name, (index, crop, sampling, scans, restart)) in enumerate(
+            REENCODED.items()):
+        pixels = tint(_cropped(index, crop), SEED + 500 + k)
+        put(name, reencode(pixels, sampling, scans, restart),
+            source=f"synth_{index:04d}",
+            kind=" ".join(f"{h}x{v}" for h, v in sampling), quality=75,
+            options={"scans": scans, "restart_interval": restart})
 
 
 if __name__ == "__main__":
