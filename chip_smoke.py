@@ -73,10 +73,28 @@ bound and its twin's, ``load_gray_image`` of each clip against the PNG
 of the same pixels, all in turns; ``rcr_track`` on the progressive clip,
 the baseline clip and those PNG frames at depth 1 and 4 and ``--scan``
 (rows equal; K3 launches = fused fits, J1 launches = JPEG frames), and
-``rcr_detect -i still.jpg -f -o`` on a baseline, a progressive and a CMYK
-still (J1 twice each, the drawing written as PNG).
+``rcr_detect -i still.jpg -f -o out.jpg`` on a baseline, a progressive
+and a CMYK still (J1 twice and J2 once each, the file the CPU twins'
+bytes).
 
     python3 chip_smoke.py --jpeg
+
+runs only that phase after the builds. Then the image-io phase
+(``phase_imageio``): kernel J2 (``csrc/jpeg_encode.cu``, the JPEG
+writer's forward pixel stage) against its twin bit for bit, on random
+pixels of every size to 33 x 33 and on the committed stills' and clip
+frames' decoded pixels (grey, 4:4:4, 4:2:2, 4:2:0 at qualities 50, 75,
+95; ``tests/torch_imageio/manifest.json``), every file J2 and the host
+coder write equal to PIL's digest; every committed BMP / PNM / TIFF /
+GIF fixture read to PIL's digests; ``rcr_track -o`` over the 16-frame
+JPEG clip (``f000.jpg`` ... written, each the CPU twins' encoding of the
+frame drawn with the rows the run reported; J1 twice, J2 once a frame);
+``rcr_detect -o`` to ``.jpg``, ``.bmp``, ``.ppm`` and ``.tif`` from a
+BMP, a PGM and a TIFF still; J2's device ms beside its bound, the host
+coder's ms, ``write_jpeg`` against ``write_png``, ``rcr_track -o`` ms a
+frame and each reader's ms on a full-size still.
+
+    python3 chip_smoke.py --imageio
 
 runs only that phase after the builds;
 
@@ -275,6 +293,9 @@ SOURCES = {
     # J1 replaces no pallas_call: the JAX package's image reader
     "jpeg_decode": (_CSRC + "jpeg_decode.cu",
                     "superviseddescent_tpu/ops/patches.py:279"),
+    # J2 replaces no pallas_call: the JAX apps' PIL writer (img.save)
+    "jpeg_encode": (_CSRC + "jpeg_encode.cu",
+                    "superviseddescent_tpu/apps/rcr_detect.py:76"),
 }
 
 
@@ -338,7 +359,7 @@ def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
     logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
                      + list(K12_BUILDS) + list(K5_BUILDS))
-    log(f"[build] K1-K6, J1, the probes and K1's, K2's, K3's and K5's "
+    log(f"[build] K1-K6, J1, J2, the probes and K1's, K2's, K3's and K5's "
         f"measurement builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
@@ -715,7 +736,8 @@ def counted_ops():
         detect_cascade_fused, detect_cascade_fused_frames,
         extract_features_fused, extract_features_fused_frames)
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
-    from superviseddescent_tpu_torch.ops.jpeg import jpeg_pixels
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        jpeg_coefficients, jpeg_pixels)
     from superviseddescent_tpu_torch.ops.patches_window import (
         sample_patches_window)
     from superviseddescent_tpu_torch.probes.dyn import (
@@ -734,7 +756,7 @@ def counted_ops():
             "probe_sampler_pre": probe_sampler_pre,
             "probe_flatout": probe_flatout, "probe_abde": probe_abde,
             "probe_c": probe_c, "probe_c4": probe_c4,
-            "jpeg_decode": jpeg_pixels}
+            "jpeg_decode": jpeg_pixels, "jpeg_encode": jpeg_coefficients}
 
 
 def zero_counts():
@@ -2829,7 +2851,8 @@ def k12_device_ms(torch, args, skw, hkw):
     """K2's and K1's device ms (torch.profiler) through their entry points
     at one level's arguments, K1 on the patches that K2 returns."""
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
-    from superviseddescent_tpu_torch.ops.jpeg import jpeg_pixels
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        jpeg_coefficients, jpeg_pixels)
     from superviseddescent_tpu_torch.ops.patches_window import (
         sample_patches_window)
     n, l = args[1].shape
@@ -4160,13 +4183,11 @@ def jpeg_clip_times(torch, manifest, png_dir):
     return out, worst
 
 
-def jpeg_track(torch, manifest, png_dir, root):
-    """rcr_track on the progressive clip, the baseline clip and PNG frames
-    of the same pixels, at JPEG_TRACK_DEPTHS and --scan, with a tracking
-    model trained on the card on frame 0: the rows equal in every run, K3
-    launches = fused fits, J1 launches = the JPEG frames (0 on PNG)."""
+def clip_track_model(torch, manifest, root):
+    """A tracking model trained on the card on frame 0 of the committed
+    clip (the face at its first offset, the box from the face detector),
+    saved under ``root``: (model path, the box as rcr_track's --facebox)."""
     import numpy as np
-    from superviseddescent_tpu_torch.apps import rcr_track
     from superviseddescent_tpu_torch.io.haar import STOCK_FRONTAL_ALT2
     from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
     from superviseddescent_tpu_torch.models.facedetect import (
@@ -4177,8 +4198,6 @@ def jpeg_track(torch, manifest, png_dir, root):
     from superviseddescent_tpu_torch.ops.patches import load_gray_image
     from superviseddescent_tpu_torch.utils.landmarks import to_row
     clip = manifest["clip"]
-    n = len(clip["frames"])
-    jpg_dir = os.path.join(JPEG_DIR, "clip")
     prog_dir = os.path.join(JPEG_DIR, "clip_progressive")
     frame0 = load_gray_image(os.path.join(prog_dir, "f000.jpg"))
     det = HaarCascadeDetector(STOCK_FRONTAL_ALT2, device="cuda",
@@ -4205,7 +4224,20 @@ def jpeg_track(torch, manifest, png_dir, root):
         image_indices=np.zeros(JPEG_TRACK_COPIES, np.int64), device="cuda")
     model_path = os.path.join(root, "track.bin")
     model.save(model_path)
-    box_arg = ",".join(repr(float(v)) for v in box)
+    return model_path, ",".join(repr(float(v)) for v in box)
+
+
+def jpeg_track(torch, manifest, png_dir, root):
+    """rcr_track on the progressive clip, the baseline clip and PNG frames
+    of the same pixels, at JPEG_TRACK_DEPTHS and --scan, with a tracking
+    model trained on the card on frame 0: the rows equal in every run, K3
+    launches = fused fits, J1 launches = the JPEG frames (0 on PNG)."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_track
+    n = len(manifest["clip"]["frames"])
+    jpg_dir = os.path.join(JPEG_DIR, "clip")
+    prog_dir = os.path.join(JPEG_DIR, "clip_progressive")
+    model_path, box_arg = clip_track_model(torch, manifest, root)
 
     def run(directory, jpeg, *extra):
         rows = []
@@ -4260,49 +4292,69 @@ def jpeg_track(torch, manifest, png_dir, root):
     return out
 
 
-def jpeg_detect(torch, root, manifest):
+def drawn(image, coords, box=None):
+    """``image`` read on the CPU with ``coords`` (and ``box``) drawn."""
+    from superviseddescent_tpu_torch.apps import _draw
+    from superviseddescent_tpu_torch.io.image import read_rgb
+    rgb = read_rgb(image, device="cpu").copy()
+    _draw.draw_landmarks(rgb, coords)
+    if box is not None:
+        _draw.draw_box(rgb, box)
+    return rgb
+
+
+def drawn_jpeg(image, coords, box=None) -> bytes:
+    """The JPEG file the CPU twins write of ``drawn``."""
+    from superviseddescent_tpu_torch.io.jpeg_write import encode_jpeg
+    return encode_jpeg(drawn(image, coords, box), device="cpu")
+
+
+def jpeg_detect(torch, root):
     """rcr_detect -i <still>.jpg -f -o out.jpg on the card for each of
-    JPEG_DETECT_STILLS: J1 twice (grey for the fit, RGB for the drawing),
-    the drawing written as out.png, the landmarks within APP_DETECT_PX of
-    the CPU run's."""
+    JPEG_DETECT_STILLS: J1 twice (grey for the fit, RGB for the drawing)
+    and J2 once, the file the CPU twins' encoding of the still drawn with
+    the run's landmarks and box, the landmarks within APP_DETECT_PX of the
+    CPU run's."""
     import numpy as np
     from superviseddescent_tpu_torch.apps import rcr_detect
-    from superviseddescent_tpu_torch.io.png import read_png
     from superviseddescent_tpu_torch.models.rcr import DetectionModel
     out = {}
     for still in JPEG_DETECT_STILLS:
         stem = os.path.join(root, "detect_" + still[:3])
+        image = os.path.join(JPEG_DIR, still)
         argv = ["-m", os.path.join(REPO, "pretrained", "rcr22_lfpw5.bin"),
-                "-i", os.path.join(JPEG_DIR, still), "-f", "-o",
-                stem + ".jpg"]
+                "-i", image, "-f", "-o", stem + ".jpg"]
         runs = {}
         for dev in ("cuda", "cpu"):
-            coords = []
+            fits = []
             zero_counts()
-            with recorded(DetectionModel, "detect", coords,
-                          lambda a, lms: np.asarray(lms.coordinates)):
+            with recorded(DetectionModel, "detect", fits,
+                          lambda a, lms: (np.asarray(lms.coordinates),
+                                          a[2])):
                 rc, text, wall = run_app_main(rcr_detect,
                                               argv + ["--device", dev])
             if dev == "cuda":
                 torch.cuda.synchronize()
                 expect_counts(read_counts(), f"rcr_detect -i {still} -f -o",
-                              jpeg_decode=2)
-            check(rc == 0 and len(coords) == 1,
+                              jpeg_decode=2, jpeg_encode=1)
+                with open(stem + ".jpg", "rb") as fh:
+                    written = fh.read()
+            check(rc == 0 and len(fits) == 1,
                   f"rcr_detect {still} {dev}:\n{text}")
-            runs[dev] = (coords[0], wall, text)
-        delta = float(np.abs(runs["cuda"][0] - runs["cpu"][0]).max())
+            runs[dev] = (fits[0], wall, text)
+        (coords, box), _, text = runs["cuda"]
+        delta = float(np.abs(coords - runs["cpu"][0][0]).max())
         check(delta <= APP_DETECT_PX, f"rcr_detect on {still}: the card's "
               f"landmarks {delta} px from the CPU's")
-        written = stem + ".png"
-        check(f"Wrote {written}" in runs["cuda"][2]
-              and not os.path.exists(stem + ".jpg"),
-              f"rcr_detect -o {stem}.jpg did not write {written}")
-        drawn = read_png(written)
-        check(list(drawn.shape) == manifest["stills"][still]["shape"] + [3],
-              f"rcr_detect -o on {still}: {drawn.shape}")
+        check(f"Wrote {stem}.jpg" in text, f"rcr_detect -o {stem}.jpg: "
+              f"{text[-300:]}")
+        check(written == drawn_jpeg(image, coords, box),
+              f"rcr_detect -o on {still}: the card's JPEG differs from the "
+              "CPU twins' encoding of the same drawing")
         log(f"[jpeg] rcr_detect -i {still} -f -o: "
-            f"{runs['cuda'][1] * 1e3:.1f} ms (J1 2 launches; written as "
-            f"PNG), landmarks {delta:.2e} px from the CPU run")
+            f"{runs['cuda'][1] * 1e3:.1f} ms (J1 2 launches, J2 1; the "
+            f"file the twins' bytes), landmarks {delta:.2e} px from the CPU "
+            "run")
         out[still] = dict(ms=runs["cuda"][1] * 1e3, cpu_delta_px=delta)
     return out
 
@@ -4325,7 +4377,7 @@ def phase_jpeg(torch, name, smi):
         stills, err_stills = jpeg_stills(torch, manifest)
         times, err_clip = jpeg_clip_times(torch, manifest, png_dir)
         track = jpeg_track(torch, manifest, png_dir, root)
-        detect = jpeg_detect(torch, root, manifest)
+        detect = jpeg_detect(torch, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     seconds = time.perf_counter() - t0
@@ -4400,6 +4452,313 @@ def jpeg_entry(jpeg):
         max_abs_err=jpeg["max_abs_err"],
         ms=min(t["j1_progressive_device_ms"]),
         ms_baseline_clip=min(t["j1_device_ms"]),
+        plain_ms=t["twin_device_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler")
+
+
+# ---------------------------------------------------------------- #
+# Image io: J2, the readers, the apps' outputs
+# ---------------------------------------------------------------- #
+IMAGEIO_DIR = os.path.join(REPO, "tests", "torch_imageio")
+# rcr_detect -o from these stills (412 x 600, .synth120 image 2, whose
+# .pts gives the box) to each of these outputs
+IMAGEIO_DETECT = ("f00_grey.bmp", "f01_grey.pgm", "f02_rgb_lzw_predictor.tif")
+IMAGEIO_OUTPUTS = (".jpg", ".bmp", ".ppm", ".tif")
+IMAGEIO_POINTS = "synth_0002"
+# J2's integer operations: per 8x8 block 16 one-dimensional islow
+# transforms of ~50 operations and 64 quantisations of ~6; per sample ~4
+# (sum, bias, shift, level shift) and ~10 per full-resolution pixel it
+# reads (clamped indices, the colour conversion's products and sums)
+J2_OPS_PER_BLOCK = 16 * 50 + 64 * 6
+J2_OPS_PER_SAMPLE = 4
+J2_OPS_PER_PIXEL_READ = 10
+J2_SWEEP_SIZES = ((1, 1), (1, 9), (7, 1), (8, 8), (9, 17), (16, 16),
+                  (17, 17), (23, 31), (33, 33), (31, 8))
+# the frame of the times: the clip's first frame as RGB, 4:2:0, quality 75
+J2_TIME_FRAME = "clip/f000.jpg"
+READER_REPS = 3
+
+
+def j2_bound(lay):
+    """J2's least time: the pixels read once and the int16 coefficients
+    written once at the memory rate, or its integer operations at 67
+    TOP/s, whichever is longer."""
+    in_bytes = lay.width * lay.height * lay.channels
+    out_bytes = lay.blocks * 64 * 2
+    ops = 0
+    for c in lay.components:
+        blocks = lay.mcux * lay.mcuy * c.h * c.v
+        ops += blocks * (J2_OPS_PER_BLOCK + 64 * (
+            J2_OPS_PER_SAMPLE + J2_OPS_PER_PIXEL_READ * c.hexp * c.vexp))
+    return dict(bytes_ms=(in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3,
+                ops_ms=ops / OPS_PER_S * 1e3, in_bytes=in_bytes,
+                out_bytes=out_bytes, ops=ops)
+
+
+def imageio_j2(torch, manifest):
+    """J2 against its twin on random pixels of every kind at
+    J2_SWEEP_SIZES and qualities 1-100, and on the decoded pixels of the
+    manifest's JPEG writes; each of those files' sha256 against PIL's.
+    Returns (entries checked, files checked, largest |J2 - twin|)."""
+    import hashlib
+    import numpy as np
+    from superviseddescent_tpu_torch.io.jpeg_write import (
+        coefficients_reference, layout)
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        encode_jpeg_device, jpeg_coefficients, read_jpeg)
+    rng = np.random.default_rng(0)
+    worst, checked = 0, 0
+
+    def compare(px, lay, what):
+        nonlocal worst, checked
+        got = jpeg_coefficients(px, lay)
+        twin = coefficients_reference(px, lay)
+        torch.cuda.synchronize()
+        err = int((got.int() - twin.int()).abs().max())
+        worst = max(worst, err)
+        checked += 1
+        check(err == 0, f"J2 differs from its twin by {err} on {what}")
+    kinds = ((3, "4:4:4"), (3, "4:2:2"), (3, "4:2:0"), (1, None))
+    for k, (h, w) in enumerate(J2_SWEEP_SIZES):
+        for channels, sub in kinds:
+            shape = (h, w, 3) if channels == 3 else (h, w)
+            px = torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+            quality = (1, 10, 25, 50, 75, 90, 95, 100)[k % 8]
+            compare(px.cuda(), layout(h, w, channels, quality, sub),
+                    f"{h} x {w} {sub or 'grey'} q{quality}")
+    files = 0
+    for e in manifest["jpeg_writes"]:
+        px = read_jpeg(os.path.join(JPEG_DIR, e["source"]), e["channels"])
+        lay = layout(px.shape[0], px.shape[1], e["channels"], e["quality"],
+                     e["subsampling"])
+        what = (f"{e['source']} {e['subsampling'] or 'grey'} "
+                f"q{e['quality']}")
+        compare(px, lay, what)
+        data = encode_jpeg_device(px, e["quality"], e["subsampling"])
+        check(hashlib.sha256(data).hexdigest() == e["sha256"],
+              f"{what}: the file J2 writes differs from PIL's digest")
+        files += 1
+    log(f"[imageio] J2 bit-equal to its twin on {checked} inputs (every "
+        "kind at 10 sizes to 33 x 33, qualities 1-100; the decoded pixels "
+        f"of {len(manifest['jpeg_writes'])} writes of 3 stills and 2 clip "
+        "frames, 301 x 451 to 768 x 1024); every one of the "
+        f"{files} files equal to PIL's digest")
+    return checked, files, worst
+
+
+def imageio_readers(torch, manifest):
+    """Every committed BMP / PNM / TIFF / GIF fixture read to PIL's grey
+    and RGB digests (the host decoders); each full-size still's
+    load_gray_image ms (host clock, the best of READER_REPS)."""
+    import hashlib
+    from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    times = {}
+    for name, want in sorted(manifest["files"].items()):
+        path = os.path.join(IMAGEIO_DIR, name)
+        grey, rgb = read_gray(path), read_rgb(path)
+        for got, key in ((grey, "grey_sha256"), (rgb, "rgb_sha256")):
+            check(hashlib.sha256(got.tobytes()).hexdigest() == want[key],
+                  f"{name}: the port's {key[:-7]} differs from PIL's")
+        if name.startswith("f"):
+            reps = []
+            for _ in range(READER_REPS):
+                t0 = time.perf_counter()
+                load_gray_image(path)
+                reps.append((time.perf_counter() - t0) * 1e3)
+            times[name] = reps
+    log(f"[imageio] {len(manifest['files'])} BMP / DIB / PNM / TIFF / GIF "
+        "fixtures read to PIL's grey and RGB digests; load_gray_image of a "
+        "412 x 600 still, ms (host): " + ", ".join(
+            f"{n} {min(v):.2f}" for n, v in times.items()))
+    return times
+
+
+def imageio_times(torch):
+    """J2's device ms (torch.profiler) on the clip's first frame as RGB
+    4:2:0 q75 beside its twin's and its bound; the host coder's ms; a
+    whole write_jpeg (J2, the copy, the coder, the file) against
+    write_png (the port's zlib writer) of the same frame, in turns."""
+    import tempfile
+    from superviseddescent_tpu_torch.io.jpeg_write import (
+        coefficients_reference, layout)
+    from superviseddescent_tpu_torch.io.png import write_png
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        huffman_encode_native, jpeg_coefficients, read_jpeg, write_jpeg)
+    px = read_jpeg(os.path.join(JPEG_DIR, J2_TIME_FRAME), 3)
+    lay = layout(px.shape[0], px.shape[1], 3)
+    j2_ms = [device_ms(torch, lambda: jpeg_coefficients(px, lay),
+                       reps=50, match="jpeg_coefficients") for _ in range(2)]
+    twin_ms = device_ms(torch, lambda: coefficients_reference(px, lay),
+                        one_kernel=False)
+    host = jpeg_coefficients(px, lay).cpu().pin_memory()
+    coder = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        huffman_encode_native(host, lay)
+        coder.append((time.perf_counter() - t0) * 1e3)
+    writes = {"jpeg": [], "png": []}
+    px_host = px.cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_write_") as d:
+        for kind in ("jpeg", "png") * 3:
+            t0 = time.perf_counter()
+            if kind == "jpeg":
+                write_jpeg(os.path.join(d, "x.jpg"), px)
+            else:
+                write_png(os.path.join(d, "x.png"), px_host)
+            writes[kind].append((time.perf_counter() - t0) * 1e3)
+    bound = j2_bound(lay)
+    out = dict(j2_device_ms=j2_ms, twin_device_ms=twin_ms,
+               bound_ms=max(bound["bytes_ms"], bound["ops_ms"]),
+               bound_by=("bytes" if bound["bytes_ms"] >= bound["ops_ms"]
+                         else "operations"), bound=bound,
+               host_coder_ms=coder, write_jpeg_ms=writes["jpeg"],
+               write_png_ms=writes["png"])
+    log(f"[imageio] J2 on a {lay.width} x {lay.height} RGB 4:2:0 q75 frame: "
+        + " / ".join(f"{v:.5f}" for v in j2_ms) + " ms (device, "
+        f"torch.profiler), bound {out['bound_ms']:.5f} ms ({out['bound_by']}: "
+        f"{bound['in_bytes'] / 1e6:.2f} MB in, {bound['out_bytes'] / 1e6:.2f}"
+        f" MB out; operations {bound['ops_ms']:.5f} ms), twin "
+        f"{twin_ms:.4f} ms device; host coder {min(coder):.3f}-"
+        f"{max(coder):.3f} ms; write_jpeg " + " / ".join(
+            f"{v:.2f}" for v in writes["jpeg"]) + " ms against write_png "
+        + " / ".join(f"{v:.2f}" for v in writes["png"]) + " ms (host clock)")
+    return out
+
+
+def imageio_track(torch, manifest, root):
+    """rcr_track -o on the 16-frame baseline clip at depth 1: f000.jpg ...
+    written, each byte-equal to the CPU twins' encoding of the frame drawn
+    with the row the run reported; J1 twice and J2 once a frame, K3 once."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_track
+    frames = manifest["clip"]["frames"]
+    n = len(frames)
+    model_path, box_arg = clip_track_model(torch, manifest, root)
+    out_dir = os.path.join(root, "tracked")
+    rows = []
+    zero_counts()
+    with recorded(rcr_track, "estimate_ok", rows,
+                  lambda a, ok: np.array(a[0])):
+        rc, text, wall = run_app_main(rcr_track, [
+            "-m", model_path, "-f", os.path.join(JPEG_DIR, "clip"),
+            "--facebox", box_arg, "--device", "cuda", "--depth", "1", "-o",
+            out_dir])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(rc == 0 and len(rows) == n, f"rcr_track -o exited {rc}:\n{text}")
+    expect_counts(launches, "rcr_track -o on the JPEG clip",
+                  cascade_fused_frames=n, jpeg_decode=2 * n, jpeg_encode=n)
+    names = sorted(os.listdir(out_dir))
+    check(names == [os.path.basename(f["name"]) for f in frames],
+          f"rcr_track -o wrote {names}")
+    for fr, row in zip(frames, rows):
+        l = row.shape[0] // 2
+        coords = np.stack([row[:l], row[l:]], axis=1).astype(np.float32)
+        want = drawn_jpeg(os.path.join(JPEG_DIR, fr["name"]), coords)
+        with open(os.path.join(out_dir, os.path.basename(fr["name"])),
+                  "rb") as fh:
+            check(fh.read() == want, f"rcr_track -o {fr['name']}: the card's "
+                  "file differs from the CPU twins' encoding of the frame "
+                  "drawn with the reported row")
+    ms = wall * 1e3 / n
+    log(f"[imageio] rcr_track -o over {n} JPEG frames of 768 x 1024 at "
+        f"depth 1: {ms:.2f} ms a frame (J1 {launches['jpeg_decode']}, J2 "
+        f"{launches['jpeg_encode']}, K3 {launches['cascade_fused_frames']} "
+        "launches); every f0NN.jpg the twins' bytes")
+    return dict(ms_per_frame=ms, launches=launches)
+
+
+def imageio_detect(torch, root):
+    """rcr_detect -i <still> --pts -o out<ext> for the BMP, PGM and TIFF
+    stills and each of IMAGEIO_OUTPUTS: the named file in its format, the
+    JPEG the CPU twins' bytes, the others the drawn pixels; J2 once for a
+    JPEG output, J1 never."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_detect
+    from superviseddescent_tpu_torch.io.image import read_rgb, sniff
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    magic = {".jpg": "JPEG", ".bmp": "BMP", ".ppm": "PPM", ".tif": "TIFF"}
+    out = {}
+    for still in IMAGEIO_DETECT:
+        image = os.path.join(IMAGEIO_DIR, still)
+        for ext in IMAGEIO_OUTPUTS:
+            target = os.path.join(root, f"detect_{still[:3]}{ext}")
+            fits = []
+            zero_counts()
+            with recorded(DetectionModel, "detect", fits,
+                          lambda a, lms: (np.asarray(lms.coordinates),
+                                          a[2])):
+                rc, text, wall = run_app_main(rcr_detect, [
+                    "-m", os.path.join(REPO, "pretrained",
+                                       "rcr22_lfpw5.bin"),
+                    "-i", image, "--pts", os.path.join(
+                        REPO, ".synth120", IMAGEIO_POINTS + ".pts"),
+                    "-o", target, "--device", "cuda"])
+            torch.cuda.synchronize()
+            check(rc == 0 and len(fits) == 1 and f"Wrote {target}" in text,
+                  f"rcr_detect -i {still} -o {ext}:\n{text}")
+            expect_counts(read_counts(), f"rcr_detect -i {still} -o {ext}",
+                          jpeg_encode=int(ext == ".jpg"))
+            coords, box = fits[0]
+            with open(target, "rb") as fh:
+                data = fh.read()
+            check(sniff(data) == magic[ext], f"rcr_detect -o {target}: "
+                  f"{sniff(data)} bytes")
+            if ext == ".jpg":
+                check(data == drawn_jpeg(image, coords, box),
+                      f"rcr_detect -i {still} -o {ext}: the JPEG differs "
+                      "from the CPU twins'")
+            else:
+                check(np.array_equal(read_rgb(target),
+                                     drawn(image, coords, box)),
+                      f"rcr_detect -i {still} -o {ext}: the pixels differ "
+                      "from the drawing")
+            out[f"{still} {ext}"] = wall * 1e3
+    log("[imageio] rcr_detect -o to .jpg / .bmp / .ppm / .tif from a BMP, a "
+        "PGM and a TIFF still, ms: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def phase_imageio(torch, name, smi):
+    """The image-io slice on the card: J2 against its twin and PIL's
+    digests, the readers against PIL's digests, rcr_track -o on the JPEG
+    clip, rcr_detect -o to four formats from three, the times."""
+    import shutil
+    import tempfile
+    with open(os.path.join(IMAGEIO_DIR, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as fh:
+        jpeg_manifest = json.load(fh)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_imageio_")
+    try:
+        checked, files, worst = imageio_j2(torch, manifest)
+        readers = imageio_readers(torch, manifest)
+        times = imageio_times(torch)
+        track = imageio_track(torch, jpeg_manifest, root)
+        detect = imageio_detect(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[imageio] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, j2_checked=checked,
+                files_checked=files, max_abs_err=worst, readers_ms=readers,
+                times=times, track=track, detect=detect, seconds=seconds)
+
+
+def imageio_entry(imageio):
+    """The kernels line's entry of J2: device ms per 768 x 1024 RGB 4:2:0
+    frame, launches of the rcr_track -o run."""
+    source, replaces = SOURCES["jpeg_encode"]
+    t = imageio["times"]
+    return dict(
+        name="jpeg_encode", route="cuda", source=source, replaces=replaces,
+        replaces_note="no pallas_call: the JAX apps write their drawings "
+        "with PIL's JPEG writer on the host; J2 is a hand kernel of the io "
+        "slice", launches=imageio["track"]["launches"]["jpeg_encode"],
+        max_abs_err=imageio["max_abs_err"], ms=min(t["j2_device_ms"]),
         plain_ms=t["twin_device_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler")
 
@@ -4962,6 +5321,12 @@ def main():
                         "against PNG frames of the same pixels, rcr_detect "
                         "on baseline, progressive and CMYK stills) after the "
                         "builds")
+    parser.add_argument("--imageio", action="store_true",
+                        help="only run the image-io phase (phase_imageio: "
+                        "J2 against its twin and PIL's digests, the BMP / "
+                        "PNM / TIFF / GIF readers, rcr_track -o on the JPEG "
+                        "clip, rcr_detect -o to four formats) after the "
+                        "builds")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
@@ -5057,6 +5422,13 @@ def main():
         jpeg = phase_jpeg(torch, name, smi)
         print(json.dumps({"jpeg": jpeg, "kernels": [jpeg_entry(jpeg)]}))
         return 0
+    if opts.imageio:
+        name, smi = phase_device(torch)
+        phase_build()
+        imageio = phase_imageio(torch, name, smi)
+        print(json.dumps({"imageio": imageio,
+                          "kernels": [imageio_entry(imageio)]}))
+        return 0
     if opts.remainder:
         name, smi = phase_device(torch)
         phase_build()
@@ -5089,9 +5461,11 @@ def main():
     facedetect = phase_facedetect(torch, data)
     apps = phase_apps(torch, data, seed, name, smi)
     jpeg = phase_jpeg(torch, name, smi)
+    imageio = phase_imageio(torch, name, smi)
     remainder = phase_remainder(torch, data, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
-                             families, remainder) + [jpeg_entry(jpeg)]
+                             families, remainder) + [jpeg_entry(jpeg),
+                                                     imageio_entry(imageio)]
     k3_shapes = {
         "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
         "rcr22_batch1": tracking["k3_batch1_ms"],
@@ -5113,7 +5487,8 @@ def main():
                        families=families, tracking=tracking, seed=seed,
                        kernels=entries, k3_shapes=k3_shapes,
                        k3_batches=batches, facedetect=facedetect,
-                       apps=apps, jpeg=jpeg, remainder=remainder,
+                       apps=apps, jpeg=jpeg, imageio=imageio,
+                       remainder=remainder,
                        seconds=time.perf_counter() - t0), f,
                   indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")

@@ -1,94 +1,142 @@
-"""Landmarks and face boxes drawn into an RGB image for the apps' ``-o``.
+"""Landmarks and face boxes drawn into an RGB image for the apps' ``-o``,
+pixel for pixel as the JAX apps draw them with PIL.
 
-The JAX apps draw with PIL (``ImageDraw.ellipse`` of radius 2 per landmark,
-``ImageDraw.rectangle`` for the box). The card has no PIL, so the port
-draws with numpy: each landmark a circle outline of radius 2 around its
-rounded position (the pixels whose distance from the centre rounds to 2),
-the box a one-pixel rectangle outline. The pixels are the port's own and
-are not held to PIL's rasteriser. A JPEG input is read as RGB through
-kernel J1 (``ops/jpeg.read_jpeg``). The port has no JPEG encoder: every
-annotated image is written as PNG, and a ``.jpg`` / ``.jpeg`` output name
-gets the suffix ``.png`` (``png_path``).
+The JAX apps call ``ImageDraw.ellipse([x - 2, y - 2, x + 2, y + 2],
+outline=green)`` per landmark (x, y float32, the corners computed in
+float32), then ``ImageDraw.rectangle([x0, y0, x0 + w, y0 + h],
+outline=red)``, and save with ``img.save(name)``. PIL truncates each
+corner toward zero (C's ``(int)``; a non-finite corner draws nothing),
+so a ring's box is 3 to 5 pixels across near 0; its outline depends only
+on the box's integer width and height (``RINGS``, probed from PIL 12.1 on
+a 1/64 px grid, off-image positions included). The rectangle's outline is
+the rows y0 and y1 from x0 to x1 and the columns x0 and x1 from y0 + 1 to
+y1 (both y0 and y0 + 1 where y1 = y0); everything is clipped to the
+image. ``draw_landmarks`` and ``draw_box`` write those pixels by index
+into a numpy array or a tensor on any device.
+
+``annotate`` reads the image as RGB (``io/image``; a JPEG through J1 on
+the device), draws there and writes the format the output's extension
+names (``io/image.write_image``; a JPEG through J2), so a JPEG frame
+bound for a JPEG file never leaves the card until its coefficients are
+coded.
 """
 
 from __future__ import annotations
 
-import os
+import math
 
 import numpy as np
+import torch
 
-from superviseddescent_tpu_torch.io.png import decode_png, write_png
+from superviseddescent_tpu_torch.io.image import read_rgb_tensor, write_image
 
 GREEN = (0, 255, 0)
 RED = (255, 0, 0)
+# PIL's one-pixel ellipse outline of a box (x1 - x0, y1 - y0) wide and high
+RINGS = {
+    (3, 3): (".##.", "#..#", "#..#", ".##."),
+    (3, 4): (".##.", "#..#", "#..#", "#..#", ".##."),
+    (3, 5): (".##.", "#..#", "#..#", "#..#", "#..#", ".##."),
+    (4, 3): (".###.", "#...#", "#...#", ".###."),
+    (4, 4): (".###.", "#...#", "#...#", "#...#", ".###."),
+    (4, 5): (".###.", "#...#", "#...#", "#...#", "#...#", ".###."),
+    (5, 3): (".####.", "#....#", "#....#", ".####."),
+    (5, 4): (".####.", "#....#", "#....#", "#....#", ".####."),
+    (5, 5): ("..##..", ".#..#.", "#....#", "#....#", ".#..#.", "..##.."),
+}
+_RING_OFFSETS = {size: np.nonzero(np.array([[c == "#" for c in row]
+                                            for row in rows]))
+                 for size, rows in RINGS.items()}
+_INT_LIMIT = 2 ** 31
 
-_D = np.arange(-2, 3)
-_RING = np.abs(np.hypot(_D[:, None], _D[None, :]) - 2.0) < 0.5
-RING_DY, RING_DX = (a - 2 for a in np.nonzero(_RING))
+
+def _trunc(v) -> int | None:
+    """C's (int) of a finite corner inside int's range, else None."""
+    v = float(v)
+    if not math.isfinite(v) or abs(v) >= _INT_LIMIT:
+        return None
+    return int(v)
 
 
-def to_rgb(pixels: np.ndarray) -> np.ndarray:
-    """(H, W, C) uint8 as decoded by ``io/png`` -> (H, W, 3) RGB (grey is
-    repeated, alpha dropped)."""
-    if pixels.shape[2] <= 2:
-        return np.repeat(pixels[..., :1], 3, axis=2)
-    return np.ascontiguousarray(pixels[..., :3])
-
-
-def draw_landmarks(rgb: np.ndarray, coordinates, colour=GREEN) -> None:
-    """A radius-2 circle outline around each (x, y), clipped to the image."""
+def _paint(rgb, ys, xs, colour) -> None:
     h, w = rgb.shape[:2]
-    c = np.rint(np.asarray(coordinates, np.float64)).reshape(-1, 2)
-    c = c[np.isfinite(c).all(axis=1)].astype(np.int64)
-    ys = (c[:, 1:2] + RING_DY[None, :]).ravel()
-    xs = (c[:, 0:1] + RING_DX[None, :]).ravel()
+    ys, xs = np.asarray(ys, np.int64), np.asarray(xs, np.int64)
     keep = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
-    rgb[ys[keep], xs[keep]] = colour
+    ys, xs = ys[keep], xs[keep]
+    if not len(ys):
+        return
+    if isinstance(rgb, torch.Tensor):
+        dev = rgb.device
+        rgb[torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)] = (
+            torch.tensor(colour, dtype=rgb.dtype, device=dev))
+    else:
+        rgb[ys, xs] = colour
 
 
-def draw_box(rgb: np.ndarray, box, colour=RED) -> None:
-    """The outline of the rectangle [x, x + w] x [y, y + h], clipped."""
-    h, w = rgb.shape[:2]
-    x0, y0, bw, bh = (float(v) for v in box)
-    x0, y0 = int(round(x0)), int(round(y0))
-    x1, y1 = int(round(x0 + bw)), int(round(y0 + bh))
-    cx0, cx1 = max(x0, 0), min(x1, w - 1)
-    cy0, cy1 = max(y0, 0), min(y1, h - 1)
-    for y in (y0, y1):
-        if 0 <= y < h and cx0 <= cx1:
-            rgb[y, cx0:cx1 + 1] = colour
-    for x in (x0, x1):
-        if 0 <= x < w and cy0 <= cy1:
-            rgb[cy0:cy1 + 1, x] = colour
+def ring_pixels(coordinates):
+    """(ys, xs) of every landmark's ring, in order."""
+    c = np.asarray(coordinates)
+    if not np.issubdtype(c.dtype, np.floating):
+        c = c.astype(np.float64)
+    c = c.reshape(-1, 2)
+    two = c.dtype.type(2)
+    ys, xs = [], []
+    for (x0, y0), (x1, y1) in zip(c - two, c + two):
+        corners = [_trunc(v) for v in (x0, y0, x1, y1)]
+        if None in corners:
+            continue
+        x0, y0, x1, y1 = corners
+        dy, dx = _RING_OFFSETS[(x1 - x0, y1 - y0)]
+        ys.append(y0 + dy)
+        xs.append(x0 + dx)
+    if not ys:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(ys), np.concatenate(xs)
 
 
-def read_rgb(image_path, device=None) -> np.ndarray:
-    """A PNG or JPEG file as (H, W, 3) uint8 RGB; a JPEG's pixels are
-    computed on ``device`` (the card unless the caller names one)."""
-    with open(image_path, "rb") as f:
-        data = f.read()
-    if data[:2] == b"\xff\xd8":
-        from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
-        return read_jpeg(data, 3, device).cpu().numpy()
-    return to_rgb(decode_png(data))
+def box_pixels(box):
+    """(ys, xs) of the outline of [x, y, x + w, y + h] as PIL draws it."""
+    x, y, bw, bh = box                  # the sums in the box's own type
+    corners = [_trunc(v) for v in (x, y, x + bw, y + bh)]
+    if None in corners:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    x0, y0, x1, y1 = corners
+    if x1 < x0 or y1 < y0:
+        raise ValueError(f"box {box}: x1 must be >= x0 and y1 >= y0, as "
+                         "PIL's rectangle requires")
+    across = np.arange(x0, x1 + 1)
+    down = np.arange(min(y0 + 1, y1), max(y0 + 1, y1) + 1)
+    ys = np.concatenate([np.full(len(across), y0), np.full(len(across), y1),
+                         down, down])
+    xs = np.concatenate([across, across, np.full(len(down), x0),
+                         np.full(len(down), x1)])
+    return ys, xs
 
 
-def png_path(out_path) -> str:
-    """The name an annotated image is written under: a ``.jpg`` / ``.jpeg``
-    name with the suffix ``.png``, any other name as it is."""
-    root, ext = os.path.splitext(os.fspath(out_path))
-    return root + ".png" if ext.lower() in (".jpg", ".jpeg") else os.fspath(
-        out_path)
+def draw_landmarks(rgb, coordinates, colour=GREEN) -> None:
+    """PIL's ring of ``ellipse([x - 2, y - 2, x + 2, y + 2])`` per (x, y),
+    clipped to the image; ``rgb`` is an (H, W, 3) array or tensor."""
+    _paint(rgb, *ring_pixels(coordinates), colour)
+
+
+def draw_box(rgb, box, colour=RED) -> None:
+    """PIL's outline of ``rectangle([x, y, x + w, y + h])``, clipped."""
+    _paint(rgb, *box_pixels(box), colour)
 
 
 def annotate(image_path, out_path, coordinates, box=None,
              device=None) -> str:
-    """Write ``image_path`` as RGB PNG with the landmarks (and the box)
-    drawn, under ``png_path(out_path)``; returns that name."""
-    rgb = read_rgb(image_path, device)
+    """Write ``image_path`` as RGB with the landmarks (and then the box)
+    drawn, in the format of ``out_path``'s extension; returns
+    ``out_path``. The image is read, drawn and (as JPEG) encoded on
+    ``device``."""
+    from superviseddescent_tpu_torch.io.image import format_for
+    from superviseddescent_tpu_torch.utils.device import resolve_device
+    format_for(out_path)                # an unwritable name raises first
+    dev = resolve_device(device)
+    rgb = read_rgb_tensor(image_path, dev)
     draw_landmarks(rgb, coordinates)
     if box is not None:
         draw_box(rgb, box)
-    path = png_path(out_path)
-    write_png(path, rgb)
-    return path
+    write_image(out_path, rgb, device=dev)
+    return str(out_path)

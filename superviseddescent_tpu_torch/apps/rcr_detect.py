@@ -6,16 +6,18 @@ ground-truth landmarks (``--pts``), or from the port's Haar cascade face
 detector (``-f``; with no file named, the stock
 ``haarcascade_frontalface_alt2.xml`` carried in
 ``superviseddescent_tpu_torch/data/``). ``-o`` writes the image with the
-landmarks and the box drawn (``apps/_draw.py``, PNG by the port's own
-writer; a ``.jpg`` output name is written as ``.png``, as the port has no
-JPEG encoder). The image is a PNG or a JPEG (every kind PIL reads but
-arithmetic coding, 12-bit and lossless), whose pixel stage runs on the
-device (kernel J1). Runs on the card unless ``--device cpu``
+landmarks and the box drawn as PIL draws them (``apps/_draw.py``), in the
+format its extension names, as PIL's ``save`` chooses it: PNG, JPEG
+(through kernel J2 on the device), BMP / DIB, PNM or TIFF; GIF and WebP
+are refused by name, an unknown or missing extension raises. The image
+is a PNG, a JPEG (every kind PIL reads but arithmetic coding, 12-bit and
+lossless; its pixel stage runs on the device, kernel J1), a BMP, a PNM,
+a TIFF or a GIF (``io/image.py``). Runs on the card unless ``--device cpu``
 is given; the landmark fit (``DetectionModel.detect``) and the face
 detector are plain PyTorch operations on that device.
 
     python -m superviseddescent_tpu_torch.apps.rcr_detect -m model.bin \\
-        -i face.jpg -f -o out.png
+        -i face.jpg -f -o out.jpg
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ def main(argv=None):
                     "(PyTorch port)")
     p.add_argument("-m", "--model", required=True, help="trained model file")
     p.add_argument("-i", "--image", required=True,
-                   help="PNG or JPEG image to detect in")
+                   help="image to detect in (PNG, JPEG, BMP, PNM, TIFF or "
+                        "GIF)")
     p.add_argument("--facebox", default=None, help="x,y,w,h")
     p.add_argument("--pts", default=None,
                    help="derive the facebox from this ground-truth .pts file")
@@ -40,8 +43,9 @@ def main(argv=None):
                         " (with no file: the carried "
                         "haarcascade_frontalface_alt2.xml)")
     p.add_argument("-o", "--output", default=None,
-                   help="output PNG with drawn landmarks (a .jpg / .jpeg "
-                        "name is written with the suffix .png)")
+                   help="write the image with the landmarks and the box "
+                        "drawn, in the format of the name's extension (.png,"
+                        " .jpg, .bmp, .ppm, .tif, ...)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain PyTorch path)")

@@ -35,10 +35,11 @@ Differences from the JAX app, by intent:
     ``(refit)``: the same rows as the JAX app's synchronous re-fit. Until
     the new chain's first row is read, the face-size rule uses the facebox;
   * the JAX app hands aligned float32 frames to its fused detector; the
-    port always hands uint8 frames, so fused tracking runs on K3;
-  * ``-o`` writes every annotated frame as PNG: a ``.jpg`` frame's is
-    named with the suffix ``.png`` (the port has no JPEG encoder), and the
-    name is printed.
+    port always hands uint8 frames, so fused tracking runs on K3.
+
+``-o`` writes every frame under its own basename in the format its
+extension names, drawn as PIL draws (``apps/_draw``), as the JAX app does;
+a JPEG frame is decoded (J1), drawn and encoded (J2) on the device.
 
     python -m superviseddescent_tpu_torch.apps.rcr_track -m model.bin \\
         -f frames/ --face-detector
@@ -118,16 +119,13 @@ def bbox_text(row):
 
 
 def annotate_row(output_dir, path, row, device=None):
-    """With an output directory, write the frame with the row drawn (as
-    PNG; a renamed JPEG frame's file name is printed)."""
+    """With an output directory, write the frame with the row drawn under
+    its own basename, in its own format."""
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
         l = row.shape[0] // 2
-        target = os.path.join(output_dir, os.path.basename(path))
-        written = annotate(path, target, np.stack([row[:l], row[l:]], axis=1),
-                           device=device)
-        if written != target:
-            print(f"wrote {written}")
+        annotate(path, os.path.join(output_dir, os.path.basename(path)),
+                 np.stack([row[:l], row[l:]], axis=1), device=device)
 
 
 class Tracker:
@@ -311,8 +309,8 @@ def main(argv=None):
                         "initial facebox, and re-detect on tracking loss, "
                         "like the reference app (rcr-track.cpp:141)")
     p.add_argument("-o", "--output-dir", default=None,
-                   help="write annotated frames here (as PNG: a .jpg "
-                        "frame's gets the suffix .png)")
+                   help="write annotated frames here, each under its own "
+                        "name and in its own format")
     p.add_argument("--no-fused", action="store_true",
                    help="track with the exact fit instead of the fused "
                         "whole-cascade kernel")

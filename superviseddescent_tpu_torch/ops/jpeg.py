@@ -1,4 +1,5 @@
-"""Kernel J1, the JPEG pixel stage on the card, and ``read_jpeg``.
+"""Kernels J1 and J2, the JPEG pixel stages on the card: ``read_jpeg``
+and ``write_jpeg``.
 
 ``read_jpeg`` parses the stream (``io/jpeg.py``), decodes its entropy-coded
 data on the host and runs the pixel stage where the caller asks: on the
@@ -8,6 +9,13 @@ the card asynchronously and J1 (``jpeg_pixels``) turns them into uint8 grey
 or RGB there; on the CPU, the plain twins of both stages run
 (``io/jpeg.entropy_decode`` and ``io/jpeg.pixels_reference``). A failed build or launch raises; nothing
 falls back to the twins.
+
+``write_jpeg`` / ``encode_jpeg_device`` write the file PIL writes
+(``io/jpeg_write.py``): on the card, kernel J2 (``jpeg_coefficients``,
+``csrc/jpeg_encode.cu``) turns the uint8 pixels into quantised
+coefficients there, one copy brings them to pinned memory and the host
+C++ coder of the same source writes the scan; on the CPU, the plain twins
+(``io/jpeg_write.coefficients_reference`` and ``entropy_encode``).
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ import torch
 
 from superviseddescent_tpu_torch.io.jpeg import (
     ERRORS, JpegFrame, entropy_decode, parse_jpeg, pixels_reference)
+from superviseddescent_tpu_torch.io.jpeg_write import (
+    DEFAULT_QUALITY, EncLayout, assemble, coefficients_reference,
+    encode_jpeg, layout, std_tables)
 from superviseddescent_tpu_torch.utils.device import resolve_device
 
 _INT32_MAX = 2 ** 31 - 1
@@ -169,3 +180,125 @@ def read_jpeg(path_or_bytes, channels: int = 1, device=None) -> torch.Tensor:
     else:
         raise ValueError(f"unsupported device {dev}")
     return jpeg_pixels(coef, f, channels)
+
+
+# ------------------------------------------------------------------ J2
+def coefficient_params(lay: EncLayout):
+    """J2's int32 geometry (see ``csrc/jpeg_encode.cu``) and its (2, 64)
+    quantisers."""
+    geom = [len(lay.components), lay.width, lay.height, lay.channels,
+            lay.mcux, lay.mcuy, lay.blocks_per_mcu, lay.blocks]
+    for i in range(3):
+        if i < len(lay.components):
+            c = lay.components[i]
+            geom += [c.h, c.v, c.wib, c.hib, c.hexp, c.vexp, c.last_row,
+                     c.first, c.tq]
+        else:
+            geom += [1, 1, 0, 0, 1, 1, 0, lay.blocks_per_mcu, 0]
+    quant = np.zeros((2, 64), np.int32)
+    quant[:len(lay.quant)] = lay.quant
+    return np.asarray(geom, np.int32), quant
+
+
+def jpeg_coefficients(pixels: torch.Tensor, lay: EncLayout) -> torch.Tensor:
+    """J2: uint8 (H, W) grey or (H, W, 3) RGB -> (blocks, 64) int16
+    quantised coefficients in the coder's order, on the pixels' device. A
+    CUDA tensor launches the kernel; a CPU tensor takes the plain twin."""
+    if pixels.device.type == "cpu":
+        return coefficients_reference(pixels, lay)
+    if pixels.device.type != "cuda":
+        raise ValueError(f"unsupported device {pixels.device}")
+    shape = (lay.height, lay.width) + ((3,) if lay.channels == 3 else ())
+    if (pixels.dtype != torch.uint8 or tuple(pixels.shape) != shape
+            or not pixels.is_contiguous()):
+        raise ValueError(f"pixels must be contiguous uint8 of shape {shape}, "
+                         f"got {pixels.dtype} {tuple(pixels.shape)}")
+    if max(lay.blocks * 64, pixels.numel()) > _INT32_MAX:
+        raise ValueError(f"{lay.width} x {lay.height} is too large for the "
+                         "encoder's int32 indices")
+    from superviseddescent_tpu_torch.ops._build import load_library
+    geom, quant = coefficient_params(lay)
+    out = torch.empty((lay.blocks, 64), dtype=torch.int16,
+                      device=pixels.device)
+    err = load_library("jpeg_encode").jpeg_coefficients_launch(
+        ctypes.c_void_p(pixels.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(quant.ctypes.data),
+        ctypes.c_void_p(torch.cuda.current_stream(pixels.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"jpeg_encode kernel launch failed: CUDA error "
+                           f"{err}")
+    jpeg_coefficients.launches += 1
+    return out
+
+
+jpeg_coefficients.launches = 0
+
+
+def huffman_params(lay: EncLayout):
+    """The host coder's int32 parameters and its (4, 272) tables (DC 0,
+    AC 0, DC 1, AC 1; the second pair repeats the first for grey)."""
+    params = [len(lay.components), lay.blocks_per_mcu]
+    for c in lay.components:
+        params += [c.h * c.v, c.tq]
+    params += [0] * (2 + 2 * 3 - len(params))
+    huff = np.zeros((4, 272), np.uint8)
+    tables = std_tables(lay.channels)
+    for t in range(2):
+        for k, (bits, vals) in enumerate(tables[min(t, len(tables) - 1)]):
+            huff[2 * t + k, :16] = bits
+            huff[2 * t + k, 16:16 + len(vals)] = vals
+    return np.asarray(params, np.int32), huff
+
+
+def huffman_encode_native(coef: torch.Tensor, lay: EncLayout,
+                          library=None) -> bytes:
+    """The host C++ coder on (blocks, 64) int16 coefficients in host
+    memory (pinned on the card's path): the scan's bytes, equal to
+    ``io/jpeg_write.entropy_encode``'s. ``library``: a loaded build of
+    the coder (the CPU tests build the host half with g++)."""
+    if library is None:
+        from superviseddescent_tpu_torch.ops._build import load_library
+        library = load_library("jpeg_encode")
+    if (coef.device.type != "cpu" or coef.dtype != torch.int16
+            or tuple(coef.shape) != (lay.blocks, 64)
+            or not coef.is_contiguous()):
+        raise ValueError("the coder takes contiguous int16 host coefficients "
+                         f"of shape ({lay.blocks}, 64)")
+    params, huff = huffman_params(lay)
+    cap = lay.blocks * 512 + 16
+    if cap > _INT32_MAX:
+        raise ValueError(f"{lay.width} x {lay.height} is too large for the "
+                         "coder's int32 sizes")
+    out = np.empty(cap, np.uint8)
+    n = library.jpeg_huffman_encode(
+        ctypes.c_void_p(coef.data_ptr()), lay.blocks,
+        ctypes.c_void_p(params.ctypes.data), ctypes.c_void_p(huff.ctypes.data),
+        ctypes.c_void_p(out.ctypes.data), cap)
+    if n < 0:
+        raise RuntimeError("JPEG coder: the output buffer is too small")
+    return out[:n].tobytes()
+
+
+def encode_jpeg_device(pixels: torch.Tensor, quality: int = DEFAULT_QUALITY,
+                       subsampling: str | None = None) -> bytes:
+    """The card's JPEG writer: J2 on the device, one copy of the
+    coefficients into pinned memory, the host coder. ``pixels``: uint8 (H,
+    W) or (H, W, 3) on the card."""
+    lay = layout(pixels.shape[0], pixels.shape[1],
+                 1 if pixels.dim() == 2 else 3, quality, subsampling)
+    coef = jpeg_coefficients(pixels.contiguous(), lay)
+    host = torch.empty(coef.shape, dtype=torch.int16, pin_memory=True)
+    host.copy_(coef, non_blocking=True)
+    torch.cuda.current_stream(pixels.device).synchronize()
+    return assemble(lay, huffman_encode_native(host, lay))
+
+
+def write_jpeg(path, pixels, quality: int = DEFAULT_QUALITY,
+               subsampling: str | None = None, device=None) -> None:
+    """Write uint8 grey (H, W) or RGB (H, W, 3) pixels as the JPEG file
+    PIL writes (``io/jpeg_write.encode_jpeg``): through J2 on the card
+    unless the caller names the CPU (or hands CPU pixels with
+    ``device="cpu"``)."""
+    data = encode_jpeg(pixels, quality, subsampling, device=device)
+    with open(os.fspath(path), "wb") as fh:
+        fh.write(data)

@@ -21,8 +21,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from superviseddescent_tpu_torch.io.png import SIGNATURE as PNG_SIGNATURE
-from superviseddescent_tpu_torch.io.png import decode_png
 from superviseddescent_tpu_torch.ops.solver import (
     float32_matmul, tf32_matmul)
 
@@ -204,32 +202,17 @@ def rgb_to_gray_u8(rgb) -> np.ndarray:
 
 
 def load_gray_image(path, device=None) -> np.ndarray:
-    """Load a PNG or JPEG as (H, W) float32 gray in [0, 255];
-    colour images convert with OpenCV parity (alpha is dropped, as PIL's
-    convert('RGB') does). The format is read from the magic bytes.
+    """Load an image file as (H, W) float32 gray in [0, 255], as the JAX
+    package's ``load_gray_image`` (PIL's mode L as it is, every other
+    mode through RGB with OpenCV's grey): PNG, JPEG, BMP, PNM, TIFF or
+    GIF, the format read from the magic bytes (``io/image.read_gray``).
 
-    PNG decodes on the host. A JPEG's pixel stage runs on ``device``: the
-    card (kernel J1, ``ops/jpeg.py``) unless the caller passes
-    ``device="cpu"``; with no card and no device a JPEG raises. Decoding
-    errors raise ``ValueError`` naming the file."""
-    with open(path, "rb") as f:
-        data = f.read()
-    try:
-        if data[:8] == PNG_SIGNATURE:
-            pixels = decode_png(data)
-            if pixels.shape[2] <= 2:
-                gray = pixels[..., 0]
-            else:
-                gray = rgb_to_gray_u8(pixels[..., :3])
-        elif data[:2] == b"\xff\xd8":
-            from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
-            gray = read_jpeg(data, 1, device).cpu().numpy()
-        else:
-            raise ValueError(f"not a PNG or JPEG file (starts with "
-                             f"{data[:4]!r})")
-    except ValueError as e:
-        raise ValueError(f"{path}: {e}") from None
-    return gray.astype(np.float32)
+    A JPEG's pixel stage runs on ``device``: the card (kernel J1,
+    ``ops/jpeg.py``) unless the caller passes ``device="cpu"``; with no
+    card and no device a JPEG raises. Every other format decodes on the
+    host. Decoding errors raise ``ValueError`` naming the file."""
+    from superviseddescent_tpu_torch.io.image import read_gray
+    return read_gray(path, device).astype(np.float32)
 
 
 def stack_images(gray_images, dtype=None, pad_width_to=1,

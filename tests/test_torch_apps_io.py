@@ -104,18 +104,28 @@ def test_write_png_refuses_what_it_cannot_write(pixels):
 
 
 def test_drawing_marks_rings_and_box():
+    """The rings and the box are PIL's ImageDraw pixels, as the JAX app
+    draws them: a ring per landmark (one off the image's corner, one with
+    a non-finite coordinate that draws nothing), then the box."""
+    from PIL import ImageDraw
+    coords = np.float32([[10.4, 9.6], [0.0, 0.0], [np.nan, 3.0]])
+    box = (3.0, 4.0, 10.0, 40.0)
     rgb = np.zeros((20, 30, 3), np.uint8)
-    _draw.draw_landmarks(rgb, [[10.4, 9.6], [0.0, 0.0], [np.nan, 3.0]])
+    _draw.draw_landmarks(rgb, coords)
+    _draw.draw_box(rgb, box)
+    want = Image.new("RGB", (30, 20))
+    draw = ImageDraw.Draw(want)
+    for x, y in coords:
+        draw.ellipse([x - 2, y - 2, x + 2, y + 2], outline=_draw.GREEN)
+    x0, y0, w, h = box
+    draw.rectangle([x0, y0, x0 + w, y0 + h], outline=_draw.RED)
+    np.testing.assert_array_equal(rgb, np.asarray(want))
     green = (rgb == _draw.GREEN).all(axis=2)
-    # a radius-2 ring around (10, 10), and the part of the one at (0, 0)
-    # that lies inside the image
-    assert green[10, 12] and green[8, 10] and not green[10, 10]
+    # the ring of (10.4, 9.6) spans columns 8-12 and rows 7-11
+    assert green[9, 8] and green[7, 9] and not green[9, 10]
     assert green[2, 0] and green[0, 2] and not green[0, 0]
-    assert green.sum() == 12 + 4
-    _draw.draw_box(rgb, (3.0, 4.0, 10.0, 40.0))
     red = (rgb == _draw.RED).all(axis=2)
     assert red[4, 3:14].all() and red[4:, 3].all() and red[4:, 13].all()
-    assert red.sum() == 11 + 2 * 15
 
 
 # ------------------------------------------------------------ rcr_detect

@@ -1251,3 +1251,53 @@ def test_jpeg_host_decoder_reports_truncation(cuda, name):
                 np.testing.assert_array_equal(
                     entropy_decode_native(f).numpy(), want)
         s.data = keep
+
+
+# ------------------------------------------------------------------ J2
+IMAGEIO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "torch_imageio")
+J2_KINDS = ((3, "4:4:4"), (3, "4:2:2"), (3, "4:2:0"), (1, None))
+
+
+@pytest.mark.parametrize("channels,sub", J2_KINDS)
+def test_jpeg_encode_kernel_equals_twin(cuda, channels, sub):
+    """J2 bit-equal to its twin at every size from 1 x 1 to 33 x 33 (each
+    edge and dummy-block rule) and at 301 x 451 and 768 x 1024, qualities
+    1 to 100; the card's whole file equal to the CPU twins'."""
+    from superviseddescent_tpu_torch.io.jpeg_write import (
+        coefficients_reference, encode_jpeg, layout)
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        encode_jpeg_device, jpeg_coefficients)
+    rng = np.random.default_rng(channels * 10 + len(sub or ""))
+    shapes = [(h, w) for h in range(1, 34, 4) for w in range(1, 34)]
+    shapes += [(301, 451), (451, 301), (768, 1024)]
+    for k, (h, w) in enumerate(shapes):
+        px = rng.integers(0, 256, (h, w, 3)[:2 + (channels == 3)], np.uint8)
+        quality = (1, 10, 25, 50, 75, 90, 95, 100)[k % 8]
+        lay = layout(h, w, channels, quality, sub)
+        t = torch.from_numpy(px)
+        before = jpeg_coefficients.launches
+        got = jpeg_coefficients(t.to(cuda), lay)
+        assert jpeg_coefficients.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), coefficients_reference(t, lay)), (
+            h, w, quality)
+        if h * w < 5000 or h == 768:
+            assert encode_jpeg_device(t.to(cuda), quality, sub) == \
+                encode_jpeg(t, quality, sub, device="cpu")
+
+
+def test_jpeg_encode_kernel_writes_pils_digests(cuda):
+    """J2 and the host coder on the decoded pixels of the committed stills
+    and clip frames: every file's sha256 is PIL's, from the manifest."""
+    import hashlib
+    import json
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        encode_jpeg_device, read_jpeg)
+    with open(os.path.join(IMAGEIO_FIXTURES, "manifest.json")) as f:
+        writes = json.load(f)["jpeg_writes"]
+    for e in writes:
+        px = read_jpeg(os.path.join(JPEG_FIXTURES, e["source"]),
+                       e["channels"], cuda)
+        data = encode_jpeg_device(px, e["quality"], e["subsampling"])
+        assert hashlib.sha256(data).hexdigest() == e["sha256"], e

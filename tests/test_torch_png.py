@@ -20,7 +20,7 @@ import pytest
 from PIL import Image
 
 from superviseddescent_tpu.ops.patches import load_gray_image as jax_load_gray
-from superviseddescent_tpu_torch.apps._draw import read_rgb
+from superviseddescent_tpu_torch.io.image import read_rgb
 from superviseddescent_tpu_torch.io.png import ADAM7, decode_png
 from superviseddescent_tpu_torch.ops.patches import load_gray_image
 
