@@ -85,12 +85,15 @@ writer's forward pixel stage) against its twin bit for bit, on random
 pixels of every size to 33 x 33 and on the committed stills' and clip
 frames' decoded pixels (grey, 4:4:4, 4:2:2, 4:2:0 at qualities 50, 75,
 95; ``tests/torch_imageio/manifest.json``), every file J2 and the host
-coder write equal to PIL's digest; every committed BMP / PNM / TIFF /
-GIF fixture read to PIL's digests; ``rcr_track -o`` over the 16-frame
+coder write equal to PIL's digest; the PNG and TIFF files of the same
+decoded pixels and of two drawn stills against PIL's digests (each PNG's
+filtered rows always; the whole file, which PIL's zlib wrote, with the
+card's zlib named); every committed BMP / PNM / TIFF / GIF fixture read
+to PIL's digests; ``rcr_track -o`` over the 16-frame
 JPEG clip (``f000.jpg`` ... written, each the CPU twins' encoding of the
 frame drawn with the rows the run reported; J1 twice, J2 once a frame);
-``rcr_detect -o`` to ``.jpg``, ``.bmp``, ``.ppm`` and ``.tif`` from a
-BMP, a PGM and a TIFF still; J2's device ms beside its bound, the host
+``rcr_detect -o`` to ``.jpg``, ``.png``, ``.bmp``, ``.ppm`` and ``.tif``
+from a BMP, a PGM and a TIFF still, each file the writers' bytes; J2's device ms beside its bound, the host
 coder's ms, ``write_jpeg`` against ``write_png``, ``rcr_track -o`` ms a
 frame and each reader's ms on a full-size still.
 
@@ -98,12 +101,17 @@ frame and each reader's ms on a full-size still.
 
 runs only that phase after the builds;
 
-    python3 chip_smoke.py --j1 [--package-root DIR]
+    python3 chip_smoke.py --j1 [--j2] [--sweep] [--package-root DIR]
 
-times only J1 (both launches, and each alone) on the baseline clip's first
-frame, grey and RGB, and with ``--package-root`` another checkout's J1
-beside it (e.g. the parent's, unpacked into ``build/parent/``), in the
-order other, this, this, other. Last, the phase of the port's last
+times only J1 on the baseline clip's first frame, grey and RGB (``--j2``:
+J2 on its RGB at 4:2:0 q75; both flags: both), each kernel by name, with
+``--package-root`` another checkout's kernels beside them (e.g. the
+parent's, unpacked into ``build/parent/``: its two J1 launches by name),
+in the order other, this, this, other; then this tree's split of each
+kernel (staging, transform, stores) from its measurement builds and,
+with ``--sweep``, each kernel at the other launch plans ``J1_SWEEP`` /
+``J2_SWEEP``, each output held against its twin. Last, the phase of the
+port's last
 slice (``phase_remainder``): ``train_rcr`` with the dense sampler and K1
 on the 1,408 samples of the window run in exact, high and fast sampling
 (chunks sized by memory, the peak printed, K1 4 launches a call and each
@@ -358,9 +366,10 @@ K5_SWEEP = ((1, 4, 256), (2, 2, 256), (1, 5, 256), (1, 6, 256), (1, 8, 256),
 def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
     logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
-                     + list(K12_BUILDS) + list(K5_BUILDS))
-    log(f"[build] K1-K6, J1, J2, the probes and K1's, K2's, K3's and K5's "
-        f"measurement builds in "
+                     + list(K12_BUILDS) + list(K5_BUILDS)
+                     + list(JPEG_BUILDS))
+    log(f"[build] K1-K6, J1, J2, the probes and K1's, K2's, K3's, K5's, "
+        f"J1's and J2's measurement builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1711,6 +1720,18 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True,
     few-microsecond kernel: such a session is profiled again, up to
     ``PROFILE_TRIES`` times in all, and the run fails when none holds a
     record: no other clock stands in for it."""
+    found = device_kernels(torch, call, reps, match, before)
+    if one_kernel:
+        check(len(found) == 1 and found[0][1] == 1,
+              f"expected one kernel per call, the profiler recorded "
+              f"{[(key[:60], per_call) for key, per_call, _ in found]}")
+    return sum(per_call * us for _, per_call, us in found) / 1e3
+
+
+def device_kernels(torch, call, reps=20, match=None, before=None):
+    """``device_ms``'s profiled kernels of ``call``: (name, launches per
+    call, device us per launch) of each kernel whose name holds
+    ``match``."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -1736,11 +1757,7 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True,
         log(f"[profile] session {attempt} of {PROFILE_TRIES} recorded no "
             f"kernel (match {match!r})")
     check(found, f"torch.profiler recorded no kernel (match {match!r})")
-    if one_kernel:
-        check(len(found) == 1 and found[0][1] == 1,
-              f"expected one kernel per call, the profiler recorded "
-              f"{[(key[:60], per_call) for key, per_call, _ in found]}")
-    return sum(per_call * us for _, per_call, us in found) / 1e3
+    return found
 
 
 def family_data(torch, data, model):
@@ -4387,52 +4404,252 @@ def phase_jpeg(torch, name, smi):
                 max_abs_err=max(err_stills, err_clip))
 
 
-def j1_times(torch):
-    """J1's device ms (torch.profiler) on frame 0 of the baseline clip,
-    grey and RGB, through the package on ``sys.path``: both launches, and
-    each of its two kernels alone."""
+# J1's and J2's measurement builds: -DJPEG_*_LAUNCH_ONLY returns at once
+# (the launch's own time), -DJPEG_*_STAGE_ONLY stops after the staging
+# (J2: and the colour conversion), -DJPEG_*_SKIP_STORE leaves out the
+# global stores; the last two keep the work they do. -DJPEG_*_TIMELINE
+# has thread 0 of each CTA write the global timer at its start and after
+# each phase (``jpeg_timeline``)
+JPEG_BUILDS = tuple((name, (f"{macro}_{part}",))
+                    for name, macro in (("jpeg_decode", "JPEG_DECODE"),
+                                        ("jpeg_encode", "JPEG_ENCODE"))
+                    for part in ("LAUNCH_ONLY", "STAGE_ONLY", "SKIP_STORE",
+                                 "TIMELINE"))
+# other launch plans for --sweep: J1's tile (MCU rows, MCU columns,
+# threads), J2's strip (MCUs a CTA takes)
+J1_SWEEP = ((1, 4, 128), (1, 8, 128), (1, 8, 256), (2, 2, 128),
+            (2, 3, 192), (2, 4, 128), (2, 4, 256), (2, 4, 384),
+            (2, 6, 256), (2, 8, 256), (3, 4, 256), (4, 2, 256),
+            (4, 4, 256), (4, 4, 512))
+J2_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16)
+# the frame of --j1 / --j2: the baseline clip's first 768 x 1024 4:2:0
+# frame, J1 to grey and RGB, J2 of its RGB at 4:2:0 quality 75
+JPEG_TIME_FRAME = "clip/f000.jpg"
+JPEG_TIME_REPS = 100
+
+
+def kernel_name(key):
+    """A profiler record's kernel name without its namespace and
+    arguments."""
+    import re
+    m = re.search(r"(jpeg_\w+)", key)
+    return m.group(1) if m else key[:40]
+
+
+def jpeg_time_inputs(torch):
+    """JPEG_TIME_FRAME's parsed frame, its coefficients on the card, its
+    RGB (J1) and the 4:2:0 q75 layout of that RGB."""
     from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.io.jpeg_write import layout
     from superviseddescent_tpu_torch.ops.jpeg import (
         entropy_decode_native, jpeg_pixels)
-    with open(os.path.join(JPEG_DIR, "clip", "f000.jpg"), "rb") as fh:
+    with open(os.path.join(JPEG_DIR, JPEG_TIME_FRAME), "rb") as fh:
         f = jpeg.parse_jpeg(fh.read())
     coef = entropy_decode_native(f).cuda()
+    px = jpeg_pixels(coef, f, 3)
+    return f, coef, px, layout(px.shape[0], px.shape[1], 3)
+
+
+def jpeg_times(torch):
+    """Device ms (torch.profiler) of J1 on JPEG_TIME_FRAME to grey and to
+    RGB, and of J2 on its RGB, through the package on ``sys.path``: per
+    kernel name (one fused J1 kernel in this tree; the IDCT and the colour
+    kernel in older ones)."""
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        jpeg_coefficients, jpeg_pixels)
+    f, coef, px, lay = jpeg_time_inputs(torch)
+    calls = {"j1_grey": lambda: jpeg_pixels(coef, f, 1),
+             "j1_rgb": lambda: jpeg_pixels(coef, f, 3),
+             "j2": lambda: jpeg_coefficients(px, lay)}
     out = {}
-    for channels in (1, 3):
-        def call():
-            return jpeg_pixels(coef, f, channels)
-        out[channels] = [device_ms(torch, call, reps=100, match=match,
-                                   one_kernel=match != "jpeg")
-                         for match in ("jpeg", "jpeg_idct", "jpeg_color")]
+    for key, call in calls.items():
+        found = device_kernels(torch, call, reps=JPEG_TIME_REPS,
+                               match="jpeg")
+        out[key] = {kernel_name(k): n * us / 1e3 for k, n, us in found}
     return out
 
 
-def j1_compare(torch, root):
-    """``--j1``: ``j1_times`` of this checkout's package and, with another
-    checkout's (``root``), of that package in a child process, in the
-    order other, this, this, other."""
+def jpeg_split(torch):
+    """This tree's J1 (grey and RGB) and J2 beside their measurement builds
+    (JPEG_BUILDS) on JPEG_TIME_FRAME: the launch alone, staging (the
+    stage-only build), transform (the build without stores less staging)
+    and stores (the kernel less the build without stores), device ms."""
+    import ctypes
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        coefficient_params, pixel_params, quant_on_card)
+    f, coef, px, lay = jpeg_time_inputs(torch)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def j1(defines, channels):
+        lib = load_library("jpeg_decode", defines)
+        geom, quant = pixel_params(f, channels)
+        tables = quant_on_card(quant, "cuda")
+        out = torch.empty((f.height, f.width, channels)[:2 + (channels > 1)],
+                          dtype=torch.uint8, device="cuda")
+        return lambda: lib.jpeg_pixels_launch(
+            ctypes.c_void_p(coef.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(geom.ctypes.data),
+            ctypes.c_void_p(tables.data_ptr()), stream)
+
+    def j2(defines, _):
+        lib = load_library("jpeg_encode", defines)
+        geom, quant = coefficient_params(lay)
+        tables = quant_on_card(quant, "cuda")
+        out = torch.empty((lay.blocks, 64), dtype=torch.int16, device="cuda")
+        return lambda: lib.jpeg_coefficients_launch(
+            ctypes.c_void_p(px.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(geom.ctypes.data),
+            ctypes.c_void_p(tables.data_ptr()), stream)
+    out = {}
+    for key, make, macro, channels in (("j1_grey", j1, "JPEG_DECODE", 1),
+                                       ("j1_rgb", j1, "JPEG_DECODE", 3),
+                                       ("j2", j2, "JPEG_ENCODE", 3)):
+        ms = {build: device_ms(torch, make(defines, channels),
+                               reps=JPEG_TIME_REPS, match="jpeg")
+              for build, defines in (
+                  ("whole", ()), ("launch_only", (f"{macro}_LAUNCH_ONLY",)),
+                  ("stage_only", (f"{macro}_STAGE_ONLY",)),
+                  ("skip_store", (f"{macro}_SKIP_STORE",)))}
+        out[key] = dict(ms, staging=ms["stage_only"],
+                        transform=ms["skip_store"] - ms["stage_only"],
+                        stores=ms["whole"] - ms["skip_store"])
+        log(f"[{key[:2]}] split of {key} on {JPEG_TIME_FRAME}: whole "
+            f"{ms['whole']:.5f} ms, the launch alone "
+            f"{ms['launch_only']:.5f}, staging {ms['stage_only']:.5f}, "
+            f"transform {out[key]['transform']:.5f}, stores "
+            f"{out[key]['stores']:.5f} (device, measurement builds)")
+    return out
+
+
+def jpeg_timeline(torch):
+    """This tree's J1 (grey, RGB) and J2 on JPEG_TIME_FRAME through their
+    -DJPEG_*_TIMELINE builds: when the CTAs start after the first one
+    (spread), how long each phase takes in a CTA (mean and largest), and
+    the last CTA's end; ns of the global timer, one warm launch."""
+    import ctypes
+    import numpy as np
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        coefficient_params, pixel_params, quant_on_card)
+    f, coef, px, lay = jpeg_time_inputs(torch)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for key, channels in (("j1_grey", 1), ("j1_rgb", 3), ("j2", 3)):
+        if key == "j2":
+            lib = load_library("jpeg_encode", ("JPEG_ENCODE_TIMELINE",))
+            geom, quant = coefficient_params(lay)
+            dst = torch.empty((lay.blocks, 64), dtype=torch.int16,
+                              device="cuda")
+            args = (px, dst)
+            launch = lib.jpeg_coefficients_launch
+            ctas = lay.mcuy * -(-lay.mcux // int(geom[35]))
+            phases = ("staging", "colour", "transform")
+        else:
+            lib = load_library("jpeg_decode", ("JPEG_DECODE_TIMELINE",))
+            geom, quant = pixel_params(f, channels)
+            dst = torch.empty((f.height, f.width, channels)[
+                :2 + (channels > 1)], dtype=torch.uint8, device="cuda")
+            args = (coef, dst)
+            launch = lib.jpeg_pixels_launch
+            ctas = -(-int(geom[7]) // int(geom[10])) * -(
+                -int(geom[6]) // int(geom[11]))
+            phases = ("quantisers", "transform", "colour")
+        tables = quant_on_card(quant, "cuda")
+        for _ in range(5):
+            launch(ctypes.c_void_p(args[0].data_ptr()),
+                   ctypes.c_void_p(args[1].data_ptr()),
+                   ctypes.c_void_p(geom.ctypes.data),
+                   ctypes.c_void_p(tables.data_ptr()), stream)
+        torch.cuda.synchronize()
+        t = dst.view(-1).view(torch.int64)[:4 * ctas].cpu().numpy().reshape(
+            ctas, 4)
+        t = t - t[:, 0].min()
+        d = np.diff(t, axis=1)
+        out[key] = dict(ctas=ctas, start_spread_ns=int(t[:, 0].max()),
+                        end_ns=int(t[:, 3].max()),
+                        **{f"{p}_mean_ns": float(d[:, k].mean())
+                           for k, p in enumerate(phases)},
+                        **{f"{p}_max_ns": int(d[:, k].max())
+                           for k, p in enumerate(phases)})
+        log(f"[{key[:2]}] timeline of {key} ({ctas} CTAs, global timer): "
+            f"CTAs start within {out[key]['start_spread_ns']} ns, the last "
+            f"ends at {out[key]['end_ns']} ns; per CTA " + ", ".join(
+                f"{p} {out[key][p + '_mean_ns']:.0f} ns (max "
+                f"{out[key][p + '_max_ns']})" for p in phases))
+    return out
+
+
+def jpeg_sweep(torch):
+    """This tree's J1 at each tile of J1_SWEEP and J2 at each strip of
+    J2_SWEEP on JPEG_TIME_FRAME: device ms, each output against its twin
+    (the count of unequal entries)."""
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.io.jpeg_write import (
+        coefficients_reference)
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        jpeg_coefficients, jpeg_pixels)
+    f, coef, px, lay = jpeg_time_inputs(torch)
+    out = {"j1": {}, "j2": {}}
+    for tile in J1_SWEEP:
+        row = {}
+        for channels in (1, 3):
+            got = jpeg_pixels(coef, f, channels, tile)
+            unequal = int((got != jpeg.pixels_reference(
+                coef, f, channels)).sum())
+            check(unequal == 0, f"J1 at tile {tile}: {unequal} pixels "
+                  "differ from the twin")
+            row[channels] = device_ms(
+                torch, lambda: jpeg_pixels(coef, f, channels, tile),
+                reps=JPEG_TIME_REPS, match="jpeg")
+        out["j1"][str(tile)] = row
+        log(f"[j1] sweep tile {tile}: grey {row[1]:.5f} ms, RGB "
+            f"{row[3]:.5f} ms (device), equal to the twin")
+    twin = coefficients_reference(px, lay)
+    for strip in J2_SWEEP:
+        got = jpeg_coefficients(px, lay, strip)
+        unequal = int((got != twin).sum())
+        check(unequal == 0, f"J2 at strip {strip}: {unequal} coefficients "
+              "differ from the twin")
+        out["j2"][strip] = device_ms(
+            torch, lambda: jpeg_coefficients(px, lay, strip),
+            reps=JPEG_TIME_REPS, match="jpeg")
+        log(f"[j2] sweep strip {strip}: {out['j2'][strip]:.5f} ms "
+            "(device), equal to the twin")
+    return out
+
+
+def jpeg_compare(torch, root, which):
+    """``--j1`` / ``--j2``: ``jpeg_times`` of this checkout's package and,
+    with another checkout's (``root``), of that package in a child process,
+    in the order other, this, this, other; the lines of ``which`` ("j1",
+    "j2" or both) printed side by side."""
     runs = {"this": [], "other": []}
     order = ["other", "this", "this", "other"] if root != REPO else ["this"]
     for who in order:
         if who == "this":
-            runs["this"].append(j1_times(torch))
+            runs["this"].append(jpeg_times(torch))
             continue
         child = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--j1-times",
+            [sys.executable, os.path.abspath(__file__), "--jpeg-times",
              "--package-root", root], capture_output=True, text=True)
-        check(child.returncode == 0, "the other package's J1 times: "
+        check(child.returncode == 0, "the other package's JPEG times: "
               + child.stdout[-2000:] + child.stderr[-2000:])
-        runs["other"].append({int(k): v for k, v in json.loads(
-            child.stdout.strip().splitlines()[-1]).items()})
-    for channels in (1, 3):
-        for i, part in enumerate(("J1", "its IDCT", "its colour kernel")):
-            line = (f"[j1] clip/f000.jpg, channels {channels}, {part}: this "
-                    "tree " + " / ".join(f"{r[channels][i]:.5f}"
-                                         for r in runs["this"]) + " ms")
-            if runs["other"]:
-                line += (" | other " + " / ".join(
-                    f"{r[channels][i]:.5f}" for r in runs["other"]) + " ms")
-            log(line + " (device, torch.profiler)")
+        runs["other"].append(json.loads(
+            child.stdout.strip().splitlines()[-1]))
+
+    def text(run_list, key):
+        total = " / ".join(f"{sum(r[key].values()):.5f}" for r in run_list)
+        parts = " + ".join(f"{name} {ms:.5f}"
+                           for name, ms in run_list[0][key].items())
+        return f"{total} ms ({parts})"
+    keys = [k for k in ("j1_grey", "j1_rgb", "j2") if k[:2] in which]
+    for key in keys:
+        line = (f"[{key[:2]}] {JPEG_TIME_FRAME} {key}: this tree "
+                + text(runs["this"], key))
+        if runs["other"]:
+            line += " | other " + text(runs["other"], key)
+        log(line + " (device, torch.profiler)")
     return runs
 
 
@@ -4463,7 +4680,7 @@ IMAGEIO_DIR = os.path.join(REPO, "tests", "torch_imageio")
 # rcr_detect -o from these stills (412 x 600, .synth120 image 2, whose
 # .pts gives the box) to each of these outputs
 IMAGEIO_DETECT = ("f00_grey.bmp", "f01_grey.pgm", "f02_rgb_lzw_predictor.tif")
-IMAGEIO_OUTPUTS = (".jpg", ".bmp", ".ppm", ".tif")
+IMAGEIO_OUTPUTS = (".jpg", ".png", ".bmp", ".ppm", ".tif")
 IMAGEIO_POINTS = "synth_0002"
 # J2's integer operations: per 8x8 block 16 one-dimensional islow
 # transforms of ~50 operations and 64 quantisations of ~6; per sample ~4
@@ -4544,6 +4761,62 @@ def imageio_j2(torch, manifest):
         "frames, 301 x 451 to 768 x 1024); every one of the "
         f"{files} files equal to PIL's digest")
     return checked, files, worst
+
+
+def drawn_points():
+    """The landmarks of the manifest's drawn PNG / TIFF writes and their
+    bounding box (x, y, width, height), as the fixture script draws them
+    (``tests/torch_imageio_fixtures.drawn_still``)."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io.pts import read_pts_landmarks
+    coords = np.asarray(read_pts_landmarks(os.path.join(
+        REPO, ".synth120", IMAGEIO_POINTS + ".pts")).coordinates, np.float32)
+    lo = coords.min(axis=0)
+    return coords, (*lo, *(coords.max(axis=0) - lo))
+
+
+def imageio_png_tiff(torch, manifest):
+    """The manifest's PNG and TIFF writes: the decoded pixels of the stills
+    and clip frames (J1, grey and RGB) and two full-size stills drawn as
+    ``rcr_detect -o`` draws, written by ``encode_png`` / ``encode_tiff``.
+    Each PNG's filtered rows against PIL's (``filtered_sha256``, which no
+    zlib changes) and each file against PIL's digest, which PIL's zlib
+    (the manifest's ``zlib``) wrote: a file that differs under another
+    zlib says so by name. Returns the files checked."""
+    import hashlib
+    import zlib
+    from superviseddescent_tpu_torch.io.png import encode_png, filter_rows
+    from superviseddescent_tpu_torch.io.tiff import encode_tiff
+    from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
+    ours, theirs = zlib.ZLIB_RUNTIME_VERSION, manifest["zlib"]
+    coords, box = drawn_points()
+    checked = 0
+    for e in manifest["png_tiff_writes"]:
+        if e["drawn"]:
+            px = drawn(os.path.join(IMAGEIO_DIR, e["source"]), coords, box)
+        else:
+            px = read_jpeg(os.path.join(JPEG_DIR, e["source"]),
+                           e["channels"]).cpu().numpy()
+        kind = "drawn" if e["drawn"] else ("grey", "RGB")[e["channels"] > 1]
+        what = f"{e['format']} of {e['source']} {kind}"
+        if e["format"] == "PNG":
+            rows = filter_rows(px.reshape(px.shape[0], -1), e["channels"])
+            check(hashlib.sha256(rows.tobytes()).hexdigest()
+                  == e["filtered_sha256"], f"{what}: the filtered rows "
+                  "differ from PIL's")
+            data = encode_png(px)
+        else:
+            data = encode_tiff(px)
+        check(hashlib.sha256(data).hexdigest() == e["sha256"],
+              f"{what}: the file differs from PIL's digest"
+              + (f" (this machine's zlib is {ours}, the digest's {theirs})"
+                 if ours != theirs else f" (zlib {ours}, as the digest's)"))
+        checked += 1
+    log(f"[imageio] {checked} PNG / TIFF writes (grey and RGB of 3 stills "
+        "and 2 clip frames, 2 drawn stills) equal to PIL's digests, each "
+        f"PNG's filtered rows too; zlib {ours} here, {theirs} for the "
+        "digests")
+    return checked
 
 
 def imageio_readers(torch, manifest):
@@ -4678,7 +4951,14 @@ def imageio_detect(torch, root):
     from superviseddescent_tpu_torch.apps import rcr_detect
     from superviseddescent_tpu_torch.io.image import read_rgb, sniff
     from superviseddescent_tpu_torch.models.rcr import DetectionModel
-    magic = {".jpg": "JPEG", ".bmp": "BMP", ".ppm": "PPM", ".tif": "TIFF"}
+    from superviseddescent_tpu_torch.io.bmp import encode_bmp
+    from superviseddescent_tpu_torch.io.png import encode_png
+    from superviseddescent_tpu_torch.io.pnm import encode_pnm
+    from superviseddescent_tpu_torch.io.tiff import encode_tiff
+    magic = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".ppm": "PPM",
+             ".tif": "TIFF"}
+    encoders = {".png": encode_png, ".bmp": encode_bmp, ".ppm": encode_pnm,
+                ".tif": encode_tiff}
     out = {}
     for still in IMAGEIO_DETECT:
         image = os.path.join(IMAGEIO_DIR, still)
@@ -4710,13 +4990,17 @@ def imageio_detect(torch, root):
                       f"rcr_detect -i {still} -o {ext}: the JPEG differs "
                       "from the CPU twins'")
             else:
-                check(np.array_equal(read_rgb(target),
-                                     drawn(image, coords, box)),
+                picture = drawn(image, coords, box)
+                check(np.array_equal(read_rgb(target), picture),
                       f"rcr_detect -i {still} -o {ext}: the pixels differ "
                       "from the drawing")
+                check(data == encoders[ext](picture),
+                      f"rcr_detect -i {still} -o {ext}: the file differs "
+                      "from the writer's bytes of the drawing")
             out[f"{still} {ext}"] = wall * 1e3
-    log("[imageio] rcr_detect -o to .jpg / .bmp / .ppm / .tif from a BMP, a "
-        "PGM and a TIFF still, ms: " + ", ".join(
+    log("[imageio] rcr_detect -o to .jpg / .png / .bmp / .ppm / .tif from a "
+        "BMP, a PGM and a TIFF still (each file the writers' bytes of the "
+        "drawing), ms: " + ", ".join(
             f"{k} {v:.1f}" for k, v in out.items()))
     return out
 
@@ -4735,6 +5019,7 @@ def phase_imageio(torch, name, smi):
     root = tempfile.mkdtemp(prefix="chip_smoke_imageio_")
     try:
         checked, files, worst = imageio_j2(torch, manifest)
+        png_tiff = imageio_png_tiff(torch, manifest)
         readers = imageio_readers(torch, manifest)
         times = imageio_times(torch)
         track = imageio_track(torch, jpeg_manifest, root)
@@ -4744,7 +5029,8 @@ def phase_imageio(torch, name, smi):
     seconds = time.perf_counter() - t0
     log(f"[imageio] {seconds:.1f} s in all ({name}; {smi})")
     return dict(device=name, nvidia_smi=smi, j2_checked=checked,
-                files_checked=files, max_abs_err=worst, readers_ms=readers,
+                files_checked=files, png_tiff_checked=png_tiff,
+                max_abs_err=worst, readers_ms=readers,
                 times=times, track=track, detect=detect, seconds=seconds)
 
 
@@ -5334,15 +5620,22 @@ def main():
                         "builds")
     parser.add_argument("--j1", action="store_true",
                         help="only time J1 on the baseline clip's first "
-                        "frame, grey and RGB; with --package-root also "
-                        "another checkout's package, in turns")
+                        "frame, grey and RGB, with its split; with "
+                        "--package-root also another checkout's package, "
+                        "in turns; with --sweep also other tiles (J1_SWEEP)")
+    parser.add_argument("--j2", action="store_true",
+                        help="only time J2 on the baseline clip's first "
+                        "frame as RGB 4:2:0 q75, with its split; with "
+                        "--package-root also another checkout's package, "
+                        "in turns; with --sweep also other strips "
+                        "(J2_SWEEP)")
     parser.add_argument("--probe-times", action="store_true",
                         help=argparse.SUPPRESS)   # --probes' child process
-    parser.add_argument("--j1-times", action="store_true",
-                        help=argparse.SUPPRESS)   # --j1's child process
+    parser.add_argument("--jpeg-times", action="store_true",
+                        help=argparse.SUPPRESS)   # --j1 / --j2's child
     parser.add_argument("--package-root", default=REPO,
-                        help="with --k3-batches, --k12, --k5, --probes or "
-                        "--j1: the "
+                        help="with --k3-batches, --k12, --k5, --probes, "
+                        "--j1 or --j2: the "
                         "checkout whose "
                         "superviseddescent_tpu_torch is timed (the data "
                         "stay this checkout's)")
@@ -5359,18 +5652,23 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, root if opts.k3_batches or opts.k12 or opts.k5
-                    or opts.probe_times or opts.j1_times else REPO)
+                    or opts.probe_times or opts.jpeg_times else REPO)
     if opts.probe_times:
         print(json.dumps(probe_times(torch, seed)))
         return 0
-    if opts.j1_times:
-        print(json.dumps(j1_times(torch)))
+    if opts.jpeg_times:
+        print(json.dumps(jpeg_times(torch)))
         return 0
-    if opts.j1:
+    if opts.j1 or opts.j2:
         phase_device(torch)
         phase_build()
-        print(json.dumps({"j1": j1_compare(torch, root),
-                          "package_root": root}))
+        which = ("j1",) * opts.j1 + ("j2",) * opts.j2
+        result = {"times": jpeg_compare(torch, root, which),
+                  "split": jpeg_split(torch),
+                  "timeline": jpeg_timeline(torch), "package_root": root}
+        if opts.sweep:
+            result["sweep"] = jpeg_sweep(torch)
+        print(json.dumps(result))
         return 0
     if opts.probes:
         phase_device(torch)

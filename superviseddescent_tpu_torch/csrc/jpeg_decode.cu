@@ -17,35 +17,59 @@
 // bits). Every scan writes into one array of int16 coefficients in natural
 // order, the caller's (pinned) buffer, zeroed once.
 //
-// J1 is two launches on one stream, one call of jpeg_pixels_launch:
-//   1. jpeg_idct_kernel: eight threads per 8x8 block, 32 blocks per CUDA
-//      block, which copies only its blocks' components' quantisers into
-//      shared memory. Each thread dequantises one column (int32 products,
-//      the component's latched table) and runs libjpeg's jidctint islow
-//      pass 1 on it into shared memory, then pass 2 on one row, the
-//      range_limit lookup (values wrapped by RANGE_MASK, not clamped) and
-//      one 8-byte store into the component's plane.
-//   2. jpeg_color_kernel, one instantiation per colour space: a thread per
-//      four neighbouring output pixels of a row (one 4-byte store of grey,
-//      three of RGB, where the width is a multiple of four) reads each of
-//      the up to four components as libjpeg-turbo's jdsample.c upsamples
-//      it (as it is; h2v1 / h2v2 triangle filters with their +1/+2 and
-//      +8/+7 biases where the component is more than two samples wide; the
-//      h1v2 filter with +1/+2; else replication by whole ratios; edge
-//      samples replicated), converts the colour (YCbCr -> RGB with jdcolor.c's
-//      fixed-point factors; RGB as it is; CMYK and YCCK as PIL reads them,
-//      inverted, then PIL's CMYK -> RGB) and writes RGB or OpenCV's grey of
-//      it (a 1-component image: Y itself). A component's filter is the
-//      same for every thread, so the branches do not diverge in a warp.
-// Two launches, because each chroma sample feeds up to four output pixels
-// of its neighbours' MCUs: one block per MCU would recompute the chroma
-// halo's IDCTs (up to 9 blocks a component), while the planes between the
-// launches are 1.2 MB at 1024 x 768 4:2:0 and stay in the L2.
+// J1 is one launch of jpeg_pixels_kernel (jpeg_pixels_launch), one
+// instantiation per colour space: one CTA per tile of MCUs (ops/jpeg.
+// J1_TILE: MCU rows and columns, threads), nothing between the phases
+// leaving shared memory:
+//   1. the components' quantisers into shared memory (cp.async through the
+//      L1: every CTA reads the same 1 KB, which from the L2 alone would
+//      be a hot spot);
+//   2. transform: each component's tile with one block of halo on each
+//      side its triangle filter reads across (h2v1, h2v2: left and right;
+//      h1v2, h2v2: above and below), in one list of blocks. Each group of
+//      eight threads walks its blocks of the list: each thread loads one
+//      16-byte row of the group's next block while the group transforms
+//      the current one from its slot in shared memory, so a CTA's loads
+//      stream under its transforms rather than come first as one burst;
+//      dequantise one column each (int32 products, the component's latched
+//      table), libjpeg's jidctint islow pass 1 on it into shared memory,
+//      pass 2 on one row, the range_limit lookup (values wrapped by
+//      RANGE_MASK, not clamped) and one 8-byte store into the component's
+//      plane in shared memory. (A shortcut for blocks whose AC coefficients
+//      are all 0, 38% of luma and 85% of chroma blocks in the 768 x 1024
+//      test clip, measured no faster: the loads, not the passes, set the
+//      time.) The halo's blocks are loaded and
+//      transformed again by each tile that reads them: at a tile of 2 x 4
+//      MCUs of 4:2:0, 4 x 6 blocks of each chroma component for its 8, 80
+//      blocks in all for 48 (a thread-block cluster that takes the rows
+//      above and below from its neighbours' shared memory read fewer bytes
+//      but was slower on the card: the clusters start up to 1 us apart and
+//      wait for each other, PERF.md);
+//   3. colour: a thread per eight neighbouring output pixels of a row reads
+//      each of the up to four components as libjpeg-turbo's jdsample.c
+//      upsamples it (as it is; h2v1 / h2v2 triangle filters with their
+//      +1/+2 and +8/+7 biases where the component is more than two samples
+//      wide; the h1v2 filter with +1/+2; else replication by whole ratios;
+//      edge samples replicated), the eight pixels sharing their samples,
+//      converts the colour (YCbCr -> RGB with jdcolor.c's fixed-point
+//      factors; RGB as it is; CMYK and YCCK as PIL reads them, inverted,
+//      then PIL's CMYK -> RGB) and writes RGB or OpenCV's grey of it (a
+//      1-component image: Y itself) into the tile staged in shared memory;
+//   4. stores: the tile's rows go out in 16-byte stores where the image's
+//      rows are 16-byte aligned (8- or 4-byte, else bytes).
+// Measurement builds: -DJPEG_DECODE_LAUNCH_ONLY returns at once,
+// -DJPEG_DECODE_STAGE_ONLY only loads the blocks (phase 2 without its
+// transform, then stops), -DJPEG_DECODE_SKIP_STORE leaves out phase 4 (both
+// keep the work they do), -DJPEG_DECODE_TIMELINE records each CTA's phases
+// on the global timer.
 //
 // What bounds J1 on this card: bytes (the int16 coefficients read once,
 // 2.4 MB at 1024 x 768 4:2:0, and the output written once); its operations
-// are ~1 k integer operations per block. Everything is integer, so the
-// kernel's bits equal the twin's and libjpeg-turbo's.
+// are ~1 k integer operations per block and ~40 per pixel. Tensor cores do
+// not fit: islow rounds between its passes (and descales each output on
+// its own), which a matrix product cannot do, and the dequantised int16
+// products overflow int8 operands. Everything is integer, so the kernel's
+// bits equal the twin's and libjpeg-turbo's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -311,18 +335,115 @@ void advance(int (&bits)[kMaxComps][64], const Scan& s) {
 constexpr int kGrey = 0, kYcc = 1, kRgb = 2, kCmyk = 3, kYcck = 4;
 constexpr int kUpFull = 0, kUpBox = 1, kUpH2V1 = 2, kUpH1V2 = 3,
               kUpH2V2 = 4;
-constexpr int kBlocksPerCta = 32;  // 8 threads a block, 256 threads
-constexpr int kColorThreads = 256;
-constexpr int kPixels = 4;  // output pixels a thread of the colour kernel
-constexpr int kGeomParams = 9;  // per component, see jpeg_pixels_launch
+constexpr int kMaxThreads = 512;
+constexpr int kGeomParams = 10;  // per component, see jpeg_pixels_launch
+constexpr int kBlockBytes = 144;  // a staged block, padded against conflicts
 
 struct Geometry {
   int ncomp, width, height, color, channels, total_blocks;
-  int nbx[kMaxComps], nby[kMaxComps], offset[kMaxComps],
-      plane_off[kMaxComps], dw[kMaxComps], dh[kMaxComps], up[kMaxComps],
-      hexp[kMaxComps], vexp[kMaxComps];
-  int16_t quant[kMaxComps][64];
+  int mcux, mcuy, hmax, vmax, tile_rows, tile_cols, threads;
+  int nbx[kMaxComps], nby[kMaxComps], offset[kMaxComps], dw[kMaxComps],
+      dh[kMaxComps], up[kMaxComps], hexp[kMaxComps], vexp[kMaxComps],
+      h[kMaxComps], v[kMaxComps];
 };
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Each component's tile of blocks grows by one block on each side that
+// its triangle filter reads across (h2v1, h2v2: left and right; h1v2,
+// h2v2: above and below).
+__host__ __device__ inline int ext_rows(const Geometry& g, int c) {
+  return g.tile_rows * g.v[c] + 2 * (g.up[c] == kUpH1V2 || g.up[c] == kUpH2V2);
+}
+__host__ __device__ inline int ext_cols(const Geometry& g, int c) {
+  return g.tile_cols * g.h[c] + 2 * (g.up[c] == kUpH2V1 || g.up[c] == kUpH2V2);
+}
+// a plane's rows 16 bytes apart modulo 128: the eight rows of a block
+// that the lanes of a group write at once fall in different banks
+__host__ __device__ inline int plane_stride(const Geometry& g, int c) {
+  return round_up(ext_cols(g, c) * 8, 128) + 16;
+}
+
+// A CTA's shared memory, in bytes from its start (the same on the host,
+// which sizes the launch, and on the card): the quantisers (int32), every
+// component's plane, per group of eight threads a staged block and the
+// IDCT workspace, the staged output tile, the components' CompTiles.
+struct Smem {
+  int planes, slots, ws, stage, stage_stride, rows, cols, tiles, bytes;
+};
+
+__host__ __device__ inline Smem smem_layout(const Geometry& g) {
+  Smem s;
+  s.planes = kMaxComps * 64 * 4;
+  s.slots = s.planes;
+  for (int c = 0; c < g.ncomp; ++c)
+    s.slots += ext_rows(g, c) * 8 * plane_stride(g, c);
+  s.ws = s.slots + (g.threads / 8) * kBlockBytes;
+  s.rows = g.tile_rows * 8 * g.vmax;
+  s.cols = g.tile_cols * 8 * g.hmax;
+  s.stage_stride = round_up(s.cols * g.channels, 16);
+  s.stage = s.ws + (g.threads / 8) * 72 * 4;
+  s.tiles = s.stage + s.rows * s.stage_stride;
+  s.bytes = s.tiles + kMaxComps * 32;
+  return s;
+}
+
+// One component's part of a CTA: where its plane lies in shared memory,
+// and which blocks it holds. Kept in shared memory, so that no thread
+// holds an array indexed by component.
+struct CompTile {
+  int plane, stride;         // byte offset, row pitch
+  int rows, cols;            // blocks, halo included
+  int first_row, first_col;  // the halo's first block row and column
+};
+
+__device__ __forceinline__ CompTile comp_tile(const Geometry& g,
+                                              const Smem& L, int c, int my0,
+                                              int mx0) {
+  CompTile t;
+  t.plane = L.planes;
+  for (int k = 0; k < c; ++k)
+    t.plane += ext_rows(g, k) * 8 * plane_stride(g, k);
+  t.stride = plane_stride(g, c);
+  t.rows = ext_rows(g, c);
+  t.cols = ext_cols(g, c);
+  t.first_row = my0 * g.v[c] - (t.rows - g.tile_rows * g.v[c]) / 2;
+  t.first_col = mx0 * g.h[c] - (t.cols - g.tile_cols * g.h[c]) / 2;
+  return t;
+}
+
+// Block b of the CTA's list (every component's tile and halo in turn, row
+// by row): its component, its row and column in the tile, and its index in
+// the coefficients, -1 where it lies past the image's blocks.
+__device__ __forceinline__ int locate(const CompTile* tiles,
+                                      const Geometry& g, int b, int& c,
+                                      int& r, int& q) {
+  c = 0;
+  while (b >= tiles[c].rows * tiles[c].cols) {
+    b -= tiles[c].rows * tiles[c].cols;
+    ++c;
+  }
+  r = b / tiles[c].cols;
+  q = b - r * tiles[c].cols;
+  const int by = tiles[c].first_row + r, bx = tiles[c].first_col + q;
+  if (by < 0 || by >= g.nby[c] || bx < 0 || bx >= g.nbx[c]) return -1;
+  return g.offset[c] + by * g.nbx[c] + bx;
+}
+
+// a copy of 16 bytes from device memory into shared memory that skips
+// the registers, through the SM's L1: every CTA reads the same tables, and
+// the CTAs of one SM then fetch them from the L2 once
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
 
 constexpr int kConstBits = 13, kPass1Bits = 2;
 
@@ -372,80 +493,91 @@ __device__ __forceinline__ uint32_t range_limit(int x) {
   return (uint32_t)min(max(wrapped, 0), 255);
 }
 
-// the component that block b belongs to
-__device__ __forceinline__ int component_of(const Geometry& g, int b) {
-  int c = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxComps; ++k) c += k < g.ncomp && b >= g.offset[k];
-  return c;
+// A component's sample (i, j) in its plane in shared memory, whose first
+// row and column are the halo's (past the image's top or left edge that
+// halo is never read).
+__device__ __forceinline__ const uint8_t* sample_at(const uint8_t* smem,
+                                                    const CompTile& t, int i,
+                                                    int j) {
+  return smem + t.plane + (i - t.first_row * 8) * t.stride +
+         (j - t.first_col * 8);
 }
 
-__global__ void __launch_bounds__(kBlocksPerCta * 8)
-    jpeg_idct_kernel(const int16_t* __restrict__ coef,
-                     uint8_t* __restrict__ planes, const Geometry g) {
-  __shared__ int16_t quant[kMaxComps][64];
-  __shared__ int ws[kBlocksPerCta][8 * 9];  // rows padded against conflicts
-  // the quantisers of the components of this CTA's blocks only (one, or
-  // two at a boundary): each thread's copy from the kernel's parameters is
-  // a constant-bank read of its own address
-  const int first = blockIdx.x * kBlocksPerCta;
-  const int c0 = component_of(g, first);
-  const int c1 = component_of(g, min(first + kBlocksPerCta,
-                                     g.total_blocks) - 1);
-  for (int i = threadIdx.x; i < (c1 - c0 + 1) * 64; i += blockDim.x)
-    quant[c0 + i / 64][i % 64] = g.quant[c0 + i / 64][i % 64];
-  __syncthreads();
-  const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
-  const int b = first + local;
-  if (b >= g.total_blocks) return;  // whole groups of eight leave together
-  const unsigned group = 0xFFu << (threadIdx.x & 24);
-  const int c = component_of(g, b);
-  const int16_t* src = coef + (size_t)b * 64;
-  int x[8], o[8];
+// the six samples j0 - 1 .. j0 + 4 of row i, clamped to the component's
+// extent as the triangle filters clamp their neighbours (j0 a multiple of
+// four: one 4-byte read and two bytes away from the edges)
+__device__ __forceinline__ void row6(const uint8_t* smem, const CompTile& t,
+                                     int i, int j0, int last, int (&s)[6]) {
+  const uint8_t* p = sample_at(smem, t, i, j0);
+  if (j0 > 0 && j0 + 4 <= last) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    s[0] = p[-1];
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    x[k] = (int)src[k * 8 + lane] * (int)quant[c][k * 8 + lane];
-  idct_1d(x, o, kConstBits - kPass1Bits);  // column `lane`
+    for (int k = 0; k < 4; ++k) s[k + 1] = (w >> (8 * k)) & 0xFF;
+    s[5] = p[4];
+  } else {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) ws[local][k * 9 + lane] = o[k];
-  __syncwarp(group);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) x[k] = ws[local][lane * 9 + k];
-  idct_1d(x, o, kConstBits + kPass1Bits + 3);  // row `lane`
-  uint2 word;
-  word.x = range_limit(o[0]) | range_limit(o[1]) << 8 |
-           range_limit(o[2]) << 16 | range_limit(o[3]) << 24;
-  word.y = range_limit(o[4]) | range_limit(o[5]) << 8 |
-           range_limit(o[6]) << 16 | range_limit(o[7]) << 24;
-  const int bi = b - g.offset[c];
-  const int by = bi / g.nbx[c], bx = bi - by * g.nbx[c];
-  const size_t stride = (size_t)g.nbx[c] * 8;
-  *reinterpret_cast<uint2*>(planes + g.plane_off[c] +
-                            (size_t)(by * 8 + lane) * stride + bx * 8) = word;
-}
-
-// component c at output pixel (x, y), upsampled as libjpeg-turbo does
-__device__ __forceinline__ int sample(const uint8_t* __restrict__ planes,
-                                      const Geometry& g, int c, int x,
-                                      int y) {
-  const uint8_t* p = planes + g.plane_off[c];
-  const int stride = g.nbx[c] * 8, up = g.up[c];
-  if (up == kUpFull) return p[y * stride + x];
-  if (up == kUpBox) return p[(y / g.vexp[c]) * stride + x / g.hexp[c]];
-  if (up == kUpH1V2) {
-    const int i = y >> 1, odd_y = y & 1;
-    const int i2 = odd_y ? min(i + 1, g.dh[c] - 1) : max(i - 1, 0);
-    return (3 * p[i * stride + x] + p[i2 * stride + x] + 1 + odd_y) >> 2;
+    for (int k = 0; k < 6; ++k)
+      s[k] = *sample_at(smem, t, i, min(max(j0 - 1 + k, 0), last));
   }
-  const int j = x >> 1, odd_x = x & 1;
-  const int j2 = odd_x ? min(j + 1, g.dw[c] - 1) : max(j - 1, 0);
-  if (up == kUpH2V1)
-    return (3 * p[y * stride + j] + p[y * stride + j2] + 1 + odd_x) >> 2;
-  const int i = y >> 1;
-  const int i2 = (y & 1) ? min(i + 1, g.dh[c] - 1) : max(i - 1, 0);
-  const int near = 3 * p[i * stride + j] + p[i2 * stride + j];
-  const int far = 3 * p[i * stride + j2] + p[i2 * stride + j2];
-  return (3 * near + far + 8 - odd_x) >> 4;
+}
+
+// component c at output pixels (y, x .. x + 7), x a multiple of 8,
+// upsampled as libjpeg-turbo's jdsample.c does: as it is, by replication
+// (whole ratios), or the h2v1 / h1v2 / h2v2 triangle filters with their
+// biases, edge samples replicated. Eight neighbouring pixels share their
+// samples: h2v2 reads two rows of six for them.
+__device__ __forceinline__ void samples8(const uint8_t* smem,
+                                         const CompTile& t, const Geometry& g,
+                                         int c, int y, int x, int (&o)[8]) {
+  const int up = g.up[c];
+  if (up == kUpFull || up == kUpH1V2) {
+    const uint2 a = *reinterpret_cast<const uint2*>(
+        sample_at(smem, t, up == kUpFull ? y : y >> 1, x));
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      o[k] = ((k < 4 ? a.x : a.y) >> (8 * (k & 3))) & 0xFF;
+    if (up == kUpH1V2) {
+      const int i = y >> 1, odd = y & 1;
+      const int i2 = odd ? min(i + 1, g.dh[c] - 1) : max(i - 1, 0);
+      const uint2 b =
+          *reinterpret_cast<const uint2*>(sample_at(smem, t, i2, x));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        o[k] = (3 * o[k] + (((k < 4 ? b.x : b.y) >> (8 * (k & 3))) & 0xFF) +
+                1 + odd) >> 2;
+    }
+  } else if (up == kUpBox) {
+    const int i = y / g.vexp[c];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      o[k] = *sample_at(smem, t, i, (x + k) / g.hexp[c]);
+  } else {
+    // pixel x + 2k + e reads sample j0 + k and its neighbour j0 + k - 1
+    // (e = 0) or j0 + k + 1 (e = 1): s[m] is sample j0 - 1 + m
+    const int j0 = x >> 1, last = g.dw[c] - 1;
+    int s[6];
+    row6(smem, t, up == kUpH2V1 ? y : y >> 1, j0, last, s);
+    if (up == kUpH2V1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[2 * k] = (3 * s[k + 1] + s[k] + 1) >> 2;
+        o[2 * k + 1] = (3 * s[k + 1] + s[k + 2] + 2) >> 2;
+      }
+    } else {  // h2v2: column sums of the near and far rows
+      const int i = y >> 1;
+      const int i2 = (y & 1) ? min(i + 1, g.dh[c] - 1) : max(i - 1, 0);
+      int far[6];
+      row6(smem, t, i2, j0, last, far);
+#pragma unroll
+      for (int m = 0; m < 6; ++m) s[m] = 3 * s[m] + far[m];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[2 * k] = (3 * s[k + 1] + s[k] + 8) >> 4;
+        o[2 * k + 1] = (3 * s[k + 1] + s[k + 2] + 7) >> 4;
+      }
+    }
+  }
 }
 
 // jdcolor.c's ycc_rgb_convert
@@ -464,78 +596,226 @@ __device__ __forceinline__ int cmyk_rgb(int c, int k) {
   return k - (((t >> 8) + t) >> 8);
 }
 
-// the RGB of output pixel (x, y) in colour space Color
-template <int Color>
-__device__ __forceinline__ void pixel_rgb(const uint8_t* __restrict__ planes,
-                                          const Geometry& g, int x, int y,
-                                          int& r, int& gg, int& b) {
-  const int v0 = sample(planes, g, 0, x, y);
-  if (Color == kGrey) {
-    r = gg = b = v0;
-    return;
-  }
-  const int v1 = sample(planes, g, 1, x, y), v2 = sample(planes, g, 2, x, y);
-  if (Color == kRgb) {
-    r = v0;
-    gg = v1;
-    b = v2;
-  } else if (Color == kCmyk) {  // PIL inverts the samples
-    r = 255 - v0;
-    gg = 255 - v1;
-    b = 255 - v2;
-  } else {
-    ycc_rgb(v0, v1, v2, r, gg, b);
-  }
-  if (Color == kCmyk || Color == kYcck) {
-    // libjpeg's ycck_cmyk_convert writes 255 - R, G, B, which PIL's
-    // inversion undoes
-    const int k = sample(planes, g, 3, x, y);
-    r = cmyk_rgb(r, k);
-    gg = cmyk_rgb(gg, k);
-    b = cmyk_rgb(b, k);
-  }
-}
+#ifdef JPEG_DECODE_TIMELINE
+// the measurement build's clock: thread 0 of each CTA writes the global
+// timer (ns) at the start and after each phase into out[4 * CTA + k],
+// 64 bits each, and the stores are left out
+#define TIMELINE(k)                                                      \
+  do {                                                                   \
+    unsigned long long now;                                              \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));              \
+    if (threadIdx.x == 0)                                                \
+      reinterpret_cast<unsigned long long*>(out)[blockIdx.x * 4 + (k)] = \
+          now;                                                           \
+  } while (0)
+#else
+#define TIMELINE(k) \
+  do {              \
+  } while (0)
+#endif
 
-// a thread per kPixels neighbouring pixels of a row: one 4-byte store of
-// grey, or three of RGB, where the row's width is a multiple of kPixels
+// One CTA per tile of tile_rows x tile_cols MCUs (fewer at the image's
+// right and bottom edges): the phases of the header above.
 template <int Color>
-__global__ void __launch_bounds__(kColorThreads)
-    jpeg_color_kernel(const uint8_t* __restrict__ planes,
-                      uint8_t* __restrict__ out, const Geometry g) {
-  const int x0 = (blockIdx.x * kColorThreads + threadIdx.x) * kPixels;
-  const int y = blockIdx.y;
-  if (x0 >= g.width) return;
-  uint8_t px[kPixels * 3];
-  const int n = min(kPixels, g.width - x0);
+__global__ void __launch_bounds__(kMaxThreads)
+    jpeg_pixels_kernel(const int16_t* __restrict__ coef,
+                       const int32_t* __restrict__ tables,
+                       uint8_t* __restrict__ out, const Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+#ifdef JPEG_DECODE_LAUNCH_ONLY
+  return;  // the launch's own time: grid, threads and shared memory
+#endif
+  TIMELINE(0);
+  const Smem L = smem_layout(g);
+  const int* quant = reinterpret_cast<const int*>(smem);
+  CompTile* tiles = reinterpret_cast<CompTile*>(smem + L.tiles);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int tiles_x = (g.mcux + g.tile_cols - 1) / g.tile_cols;
+  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
+  const int my0 = ty * g.tile_rows, mx0 = tx * g.tile_cols;
+
+  // 1. the components' quantisers (int32) and tiles; each group's first
+  // block is on its way before the quantisers are waited for
+  for (int i = tid; i < g.ncomp * 64 * 4 / 16; i += nthreads)
+    copy_async16(smem + i * 16, tables + i * 4);
+  if (tid < g.ncomp) tiles[tid] = comp_tile(g, L, tid, my0, mx0);
+  __syncthreads();
+  const int groups = nthreads >> 3, lane = tid & 7;
+  int total = 0;
+  for (int c = 0; c < g.ncomp; ++c) total += tiles[c].rows * tiles[c].cols;
+  int c, r, q, at = -1;
+  uint4 next = make_uint4(0, 0, 0, 0);
+  if (tid >> 3 < total) {
+    at = locate(tiles, g, tid >> 3, c, r, q);
+    if (at >= 0)
+      next = reinterpret_cast<const uint4*>(coef + (size_t)at * 64)[lane];
+  }
+  copy_async_wait();
+  __syncthreads();
+  TIMELINE(1);
+
+  // 2. transform, a group of eight threads per block, `groups` blocks
+  // apart; row `lane` of the next block is in flight meanwhile
+  const unsigned gmask = 0xFFu << (tid & 24);
+  int* ws = reinterpret_cast<int*>(smem + L.ws) + (tid >> 3) * 72;
+  unsigned char* slot = smem + L.slots + (tid >> 3) * kBlockBytes;
+  for (int b = tid >> 3; b < total; b += groups) {
+    const int cb = c, rb = r, qb = q, here = at;
+    const uint4 row = next;
+    if (b + groups < total) {
+      at = locate(tiles, g, b + groups, c, r, q);
+      if (at >= 0)
+        next = reinterpret_cast<const uint4*>(coef + (size_t)at * 64)[lane];
+    }
+    if (here < 0) continue;
+    reinterpret_cast<uint4*>(slot)[lane] = row;
+#ifndef JPEG_DECODE_STAGE_ONLY
+    __syncwarp(gmask);
+    const CompTile& t = tiles[cb];
+    const int* qt = quant + cb * 64;
+    const int16_t* src = reinterpret_cast<const int16_t*>(slot);
+    int x[8], o[8];
 #pragma unroll
-  for (int i = 0; i < kPixels; ++i) {
-    if (i >= n) break;
-    int r, gg, b;
-    pixel_rgb<Color>(planes, g, x0 + i, y, r, gg, b);
+    for (int k = 0; k < 8; ++k)
+      x[k] = (int)src[k * 8 + lane] * qt[k * 8 + lane];
+    idct_1d(x, o, kConstBits - kPass1Bits);  // column `lane`
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ws[k * 9 + lane] = o[k];
+    __syncwarp(gmask);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = ws[lane * 9 + k];
+    __syncwarp(gmask);  // the slot and `ws` are free for the next block
+    idct_1d(x, o, kConstBits + kPass1Bits + 3);  // row `lane`
+    uint2 word;
+    word.x = range_limit(o[0]) | range_limit(o[1]) << 8 |
+             range_limit(o[2]) << 16 | range_limit(o[3]) << 24;
+    word.y = range_limit(o[4]) | range_limit(o[5]) << 8 |
+             range_limit(o[6]) << 16 | range_limit(o[7]) << 24;
+    *reinterpret_cast<uint2*>(smem + t.plane + (rb * 8 + lane) * t.stride +
+                              qb * 8) = word;
+#endif
+  }
+  __syncthreads();
+  TIMELINE(2);
+#ifdef JPEG_DECODE_STAGE_ONLY
+  if (g.total_blocks < 0) out[tid] = smem[tid];  // never: keeps the work
+#else
+
+  // 3. colour, eight pixels a thread, into the staged output tile
+  const int y0 = my0 * 8 * g.vmax, x0 = mx0 * 8 * g.hmax;
+  const int rows = min(L.rows, g.height - y0);
+  const int cols = min(L.cols, g.width - x0);
+  const int octets = (cols + 7) / 8;
+  for (int i = tid; i < rows * octets; i += nthreads) {
+    const int r = i / octets, x = x0 + 8 * (i - r * octets), y = y0 + r;
+    int s0[8], s1[8], s2[8], s3[8];
+    samples8(smem, tiles[0], g, 0, y, x, s0);
+    if (Color != kGrey) {
+      samples8(smem, tiles[1], g, 1, y, x, s1);
+      samples8(smem, tiles[2], g, 2, y, x, s2);
+    }
+    if (Color == kCmyk || Color == kYcck)
+      samples8(smem, tiles[3], g, 3, y, x, s3);
+    uint32_t word[6] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      int rr, gg, bb;
+      if (Color == kGrey) {
+        rr = gg = bb = s0[k];
+      } else if (Color == kRgb) {
+        rr = s0[k];
+        gg = s1[k];
+        bb = s2[k];
+      } else if (Color == kCmyk) {  // PIL inverts the samples
+        rr = 255 - s0[k];
+        gg = 255 - s1[k];
+        bb = 255 - s2[k];
+      } else {
+        ycc_rgb(s0[k], s1[k], s2[k], rr, gg, bb);
+      }
+      if (Color == kCmyk || Color == kYcck) {
+        // libjpeg's ycck_cmyk_convert writes 255 - R, G, B, which PIL's
+        // inversion undoes
+        rr = cmyk_rgb(rr, s3[k]);
+        gg = cmyk_rgb(gg, s3[k]);
+        bb = cmyk_rgb(bb, s3[k]);
+      }
+      if (g.channels == 3) {
+        const uint32_t px[3] = {(uint32_t)rr, (uint32_t)gg, (uint32_t)bb};
+#pragma unroll
+        for (int e = 0; e < 3; ++e)
+          word[(3 * k + e) >> 2] |= px[e] << (8 * ((3 * k + e) & 3));
+      } else {
+        const uint32_t grey =
+            Color == kGrey ? (uint32_t)rr
+                           : (uint32_t)((rr * 4899 + gg * 9617 + bb * 1868 +
+                                         8192) >> 14);
+        word[k >> 2] |= grey << (8 * (k & 3));
+      }
+    }
+    // 8-byte stores: a row of the stage starts 16-byte aligned, and eight
+    // pixels take 8 or 24 bytes
+    uint2* d = reinterpret_cast<uint2*>(smem + L.stage + r * L.stage_stride +
+                                        (x - x0) * g.channels);
+    d[0] = make_uint2(word[0], word[1]);
     if (g.channels == 3) {
-      px[3 * i] = (uint8_t)r;
-      px[3 * i + 1] = (uint8_t)gg;
-      px[3 * i + 2] = (uint8_t)b;
-    } else {
-      px[i] = Color == kGrey ? (uint8_t)r
-                             : (uint8_t)((r * 4899 + gg * 9617 + b * 1868 +
-                                          8192) >> 14);
+      d[1] = make_uint2(word[2], word[3]);
+      d[2] = make_uint2(word[4], word[5]);
     }
   }
-  const int bytes = n * g.channels;
-  uint8_t* dst = out + ((size_t)y * g.width + x0) * g.channels;
-  if (n == kPixels && g.width % kPixels == 0) {  // 4-byte aligned words
-#pragma unroll
-    for (int w = 0; w < 3; ++w)
-      if (w * 4 < bytes)
-        reinterpret_cast<uint32_t*>(dst)[w] =
-            px[4 * w] | px[4 * w + 1] << 8 | px[4 * w + 2] << 16 |
-            (uint32_t)px[4 * w + 3] << 24;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kPixels * 3; ++i)
-      if (i < bytes) dst[i] = px[i];
+  __syncthreads();
+  TIMELINE(3);
+
+  // 4. stores: each row's bytes, in words of 16 (8, 4) bytes where the
+  // image's rows and the tile's first column allow it, the rest bytewise
+  const int row_bytes = cols * g.channels;
+  const size_t image_row = (size_t)g.width * g.channels;
+  int vec = 16;
+  while (vec > 1 && (image_row % vec || (x0 * g.channels) % vec ||
+                     reinterpret_cast<uintptr_t>(out) % vec))
+    vec >>= 1;
+  if (vec == 2) vec = 1;
+  const int words = row_bytes / vec, tail = row_bytes - words * vec;
+  const int per_row = words + tail;
+  uint8_t* dst0 = out + (size_t)y0 * image_row + (size_t)x0 * g.channels;
+#if defined(JPEG_DECODE_SKIP_STORE) || defined(JPEG_DECODE_TIMELINE)
+  if (g.total_blocks < 0)  // never: the stores are left out, not the work
+#endif
+    for (int i = tid; i < rows * per_row; i += nthreads) {
+      const int r = i / per_row, k = i - r * per_row;
+      const uint8_t* s = smem + L.stage + r * L.stage_stride;
+      uint8_t* d = dst0 + r * image_row;
+      if (k >= words) {
+        const int at = words * vec + k - words;
+        d[at] = s[at];
+      } else if (vec == 16) {
+        reinterpret_cast<uint4*>(d)[k] =
+            reinterpret_cast<const uint4*>(s)[k];
+      } else if (vec == 8) {
+        reinterpret_cast<uint2*>(d)[k] = reinterpret_cast<const uint2*>(s)[k];
+      } else if (vec == 4) {
+        reinterpret_cast<uint32_t*>(d)[k] =
+            reinterpret_cast<const uint32_t*>(s)[k];
+      } else {
+        d[k] = s[k];
+      }
+    }
+#endif  // JPEG_DECODE_STAGE_ONLY
+}
+
+template <int Color>
+cudaError_t launch_pixels(const Geometry& g, int ctas, int bytes,
+                          cudaStream_t s, const int16_t* in,
+                          const int32_t* tables, uint8_t* out) {
+  if (bytes > 48 * 1024) {  // above the default, asked for
+    const cudaError_t err = cudaFuncSetAttribute(
+        jpeg_pixels_kernel<Color>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
   }
+  jpeg_pixels_kernel<Color><<<ctas, g.threads, bytes, s>>>(in, tables, out,
+                                                            g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -620,14 +900,18 @@ extern "C" int jpeg_entropy_decode(const uint8_t* data, int len,
   return kOk;
 }
 
-// J1: coefficients (device) -> planes (device scratch, the components'
-// block-padded planes) -> out (device, height x width x channels uint8).
-// geom: ncomp, width, height, colour, channels, total blocks, then per
-// component (4) nbx, nby, first block, plane offset, dw, dh, upsampling
-// filter, its horizontal and vertical ratios.
-// quant: 4 x 64 quantisers (int16 values), natural order.
-extern "C" int jpeg_pixels_launch(const void* coef, void* planes, void* out,
-                                  const int32_t* geom, const int32_t* quant,
+// J1: coefficients (device, blocks x 64 int16, each component's blocks row
+// by row) -> out (device, height x width x channels uint8), one launch.
+// geom: ncomp, width, height, colour, channels, total blocks, the MCUs
+// that cover the image across and down, the MCU's largest sampling
+// factors, the launch plan (a CTA's tile in MCU rows and columns, its
+// threads), then per component (4) nbx, nby, first block, dw, dh,
+// upsampling filter, its horizontal and vertical ratios, its sampling
+// factors h and v.
+// tables (device): 4 x 64 quantisers (int16 values as int32), natural
+// order (ops/jpeg.quant_on_card).
+extern "C" int jpeg_pixels_launch(const void* coef, void* out,
+                                  const int32_t* geom, const void* tables,
                                   void* stream) {
   Geometry g;
   g.ncomp = geom[0];
@@ -636,47 +920,48 @@ extern "C" int jpeg_pixels_launch(const void* coef, void* planes, void* out,
   g.color = geom[3];
   g.channels = geom[4];
   g.total_blocks = geom[5];
+  g.mcux = geom[6];
+  g.mcuy = geom[7];
+  g.hmax = geom[8];
+  g.vmax = geom[9];
+  g.tile_rows = geom[10];
+  g.tile_cols = geom[11];
+  g.threads = geom[12];
   for (int c = 0; c < kMaxComps; ++c) {
-    const int32_t* p = geom + 6 + kGeomParams * c;
+    const int32_t* p = geom + 13 + kGeomParams * c;
     g.nbx[c] = p[0];
     g.nby[c] = p[1];
     g.offset[c] = p[2];
-    g.plane_off[c] = p[3];
-    g.dw[c] = p[4];
-    g.dh[c] = p[5];
-    g.up[c] = p[6];
-    g.hexp[c] = p[7];
-    g.vexp[c] = p[8];
-    for (int k = 0; k < 64; ++k) g.quant[c][k] = (int16_t)quant[c * 64 + k];
+    g.dw[c] = p[3];
+    g.dh[c] = p[4];
+    g.up[c] = p[5];
+    g.hexp[c] = p[6];
+    g.vexp[c] = p[7];
+    g.h[c] = p[8];
+    g.v[c] = p[9];
   }
+  if (g.tile_rows < 1 || g.tile_cols < 1 || g.threads < 32 ||
+      g.threads > kMaxThreads || g.threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const int bytes = smem_layout(g).bytes;
+  const int ctas = ((g.mcuy + g.tile_rows - 1) / g.tile_rows) *
+                   ((g.mcux + g.tile_cols - 1) / g.tile_cols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ctas = (g.total_blocks + kBlocksPerCta - 1) / kBlocksPerCta;
-  jpeg_idct_kernel<<<ctas, kBlocksPerCta * 8, 0, s>>>(
-      static_cast<const int16_t*>(coef), static_cast<uint8_t*>(planes), g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int quads = (g.width + kPixels - 1) / kPixels;
-  const dim3 grid((quads + kColorThreads - 1) / kColorThreads, g.height);
-  const uint8_t* in = static_cast<const uint8_t*>(planes);
+  const int16_t* in = static_cast<const int16_t*>(coef);
+  const int32_t* q = static_cast<const int32_t*>(tables);
   uint8_t* dst = static_cast<uint8_t*>(out);
   switch (g.color) {
     case kGrey:
-      jpeg_color_kernel<kGrey><<<grid, kColorThreads, 0, s>>>(in, dst, g);
-      break;
+      return (int)launch_pixels<kGrey>(g, ctas, bytes, s, in, q, dst);
     case kYcc:
-      jpeg_color_kernel<kYcc><<<grid, kColorThreads, 0, s>>>(in, dst, g);
-      break;
+      return (int)launch_pixels<kYcc>(g, ctas, bytes, s, in, q, dst);
     case kRgb:
-      jpeg_color_kernel<kRgb><<<grid, kColorThreads, 0, s>>>(in, dst, g);
-      break;
+      return (int)launch_pixels<kRgb>(g, ctas, bytes, s, in, q, dst);
     case kCmyk:
-      jpeg_color_kernel<kCmyk><<<grid, kColorThreads, 0, s>>>(in, dst, g);
-      break;
+      return (int)launch_pixels<kCmyk>(g, ctas, bytes, s, in, q, dst);
     case kYcck:
-      jpeg_color_kernel<kYcck><<<grid, kColorThreads, 0, s>>>(in, dst, g);
-      break;
+      return (int)launch_pixels<kYcck>(g, ctas, bytes, s, in, q, dst);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

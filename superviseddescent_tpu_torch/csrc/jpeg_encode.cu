@@ -9,29 +9,47 @@
 // io/jpeg_write.py::coefficients_reference (J2) and
 // io/jpeg_write.py::entropy_encode (the coder); the wrapper is ops/jpeg.py.
 //
-// J2 (jpeg_coefficients_launch, one launch): eight threads per 8x8 block,
-// 32 blocks per CUDA block, the blocks in the order the coder walks them
-// (MCU after MCU, within one the components in order, each component's
-// blocks row by row). Thread r of a block computes row r of its samples
-// straight from the uint8 pixels: libjpeg's jccolor.c rgb_ycc_convert
-// (SCALEBITS 16) of each full-resolution pixel it needs, the image's last
-// column and row replicated (jcsample.c expand_right_edge, jcprepct.c's
-// row group), h2v2 / h2v1 downsampling with their alternating biases, the
-// component's last downsampled row repeated to the iMCU height; then the
-// level shift and pass 1 of jfdctint.c jpeg_fdct_islow on its row into
-// shared memory, and pass 2 on column r, quantised by q << 3 with
-// jcdctmgr.c's rounding (half away from zero), eight int16 stores. A dummy
-// block of an interleaved MCU (right of width_in_blocks, or below
-// height_in_blocks: jccoefct.c compress_data) transforms its source block
-// and keeps only the DC.
+// J2 (jpeg_coefficients_launch, one launch): one CTA per strip of MCUs,
+// one MCU row high and `strip` MCUs wide (ops/jpeg.J2_STRIP, by blocks per
+// MCU), whose blocks are one contiguous range of the output in the coder's
+// order (MCU after MCU, within one the components in order, each
+// component's blocks row by row). In four phases, all in shared memory:
+//   1. staging: the strip's 8 x vmax pixel rows, the image's last row
+//      repeated (jcprepct.c's row group) and, past its right edge, its last
+//      column (jcsample.c expand_right_edge), copied with 16-byte cp.async
+//      where the rows allow it (8- or 4-byte, else byte by byte at the
+//      image's right edge), and the quantisers with their magics (1 KB
+//      from ops/jpeg.quant_on_card, through the L1, which every CTA
+//      reads);
+//   2. colour: each pixel converted once (jccolor.c rgb_ycc_convert,
+//      SCALEBITS 16) into full-resolution Y, Cb and Cr planes, four pixels a
+//      thread (a grey image is staged straight into its plane);
+//   3. transform: eight threads a block. Thread r forms row r of its
+//      block's samples from the planes (h2v2 / h2v1 downsampling with their
+//      alternating biases, the component's last downsampled row repeated to
+//      the iMCU height), runs pass 1 of jfdctint.c jpeg_fdct_islow on it
+//      into shared memory and pass 2 on column r, and quantises by d =
+//      q << 3 with jcdctmgr.c's rounding (half away from zero) as one
+//      __umulhi by the divisor's magic reciprocal (ops/jpeg.quant_magic,
+//      equal to the division for every value the transform can give). A
+//      dummy block of an interleaved MCU (right of width_in_blocks, or
+//      below height_in_blocks: jccoefct.c compress_data) transforms its
+//      source block, which lies in the same MCU, and keeps only the DC;
+//   4. stores: the strip's blocks, gathered in shared memory, go out in
+//      16-byte coalesced stores.
+// Measurement builds: -DJPEG_ENCODE_LAUNCH_ONLY returns at once,
+// -DJPEG_ENCODE_STAGE_ONLY stops after phase 2, -DJPEG_ENCODE_SKIP_STORE
+// leaves out phase 4 (both keep the work they do), -DJPEG_ENCODE_TIMELINE
+// records each CTA's phases on the global timer.
 //
 // What bounds J2 on this card: bytes (the pixels read once, 2.4 MB for a
 // 1024 x 768 RGB frame, and the int16 coefficients written once, 2.4 MB at
-// 4:2:0); its operations are ~1.3 k integer operations per block for the
-// transform and quantisation and ~20 per pixel sample for the colour
-// conversion and downsampling, each chroma sample recomputing the colour
-// of the four pixels it averages. Everything is integer, so the kernel's
-// bits equal the twin's and libjpeg-turbo's (PIL's).
+// 4:2:0); its operations are ~1.2 k integer operations per block and ~30
+// per pixel. Tensor cores do not fit: islow rounds between its two passes
+// (and descales each output on its own), which a matrix product cannot do,
+// and its products of up to 16-bit constants overflow int8 operands.
+// Everything is integer, so the kernel's bits equal the twin's and
+// libjpeg-turbo's (PIL's).
 //
 // The coder (jpeg_huffman_encode) is bit-serial and stays on the host, as
 // libjpeg's jchuff.c: encode_one_block per block with the DC predicted per
@@ -146,30 +164,83 @@ void encode_block(Writer& w, const int16_t* blk, int& last_dc,
 
 #ifndef JPEG_ENCODE_HOST_ONLY
 // ----------------------------------------------------------------- J2
-constexpr int kBlocksPerCta = 32;  // 8 threads a block, 256 threads
 constexpr int kConstBits = 13, kPass1Bits = 2;
 constexpr int kCompParams = 9;  // see jpeg_coefficients_launch
+constexpr int kMaxThreads = 512;
 
 struct Geometry {
   int ncomp, width, height, channels, mcux, mcuy, per_mcu, total_blocks;
+  int strip, threads, hmax, vmax;  // MCUs a CTA takes, its threads
   int h[kMaxComps], v[kMaxComps], wib[kMaxComps], hib[kMaxComps],
       hexp[kMaxComps], vexp[kMaxComps], last_row[kMaxComps],
       first[kMaxComps], tq[kMaxComps];
-  int16_t quant[kTables][64];
 };
 
-// component c (0 Y, 1 Cb, 2 Cr; a grey image's only one: the grey) of the
-// pixel at (y, x), both already inside the image
-__device__ __forceinline__ int component(const uint8_t* __restrict__ px,
-                                         const Geometry& g, int c, int y,
-                                         int x) {
-  const size_t at = ((size_t)y * g.width + x) * g.channels;
-  if (g.channels == 1) return px[at];
-  const int r = px[at], gg = px[at + 1], b = px[at + 2];
-  if (c == 0) return (19595 * r + 38470 * gg + 7471 * b + 32768) >> 16;
-  if (c == 1)
-    return (-11059 * r - 21709 * gg + 32768 * b + (128 << 16) + 32767) >> 16;
-  return (32768 * r - 27439 * gg - 5329 * b + (128 << 16) + 32767) >> 16;
+// A CTA's shared memory, in bytes from its start (the same on the host,
+// which sizes the launch, and on the card)
+struct Smem {
+  int rows, cols;        // the strip's full-resolution pixels
+  int plane_stride;      // a Y / Cb / Cr plane's row, padded
+  int pix_stride;        // a staged RGB row
+  int quant, planes, pix, ws, stage, bytes;
+};
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+__host__ __device__ inline Smem smem_layout(const Geometry& g) {
+  Smem s;
+  s.rows = 8 * g.vmax;
+  s.cols = 8 * g.hmax * g.strip;
+  // rows 16 bytes apart modulo 128: the eight rows of a block that the
+  // lanes of a group read at once fall in different banks
+  s.plane_stride = round_up(s.cols, 128) + 16;
+  s.pix_stride = round_up(s.cols * 3, 16);
+  s.quant = 0;  // the quantisers, then their magics (int32 each)
+  s.planes = s.quant + kTables * 64 * 8;
+  s.pix = s.planes + g.ncomp * s.rows * s.plane_stride;
+  s.ws = s.pix + (g.channels == 3 ? s.rows * s.pix_stride : 0);
+  s.stage = s.ws + (g.threads / 8) * 72 * 4;
+  s.bytes = s.stage + g.strip * g.per_mcu * 128;
+  return s;
+}
+
+// a copy of `bytes` (4, 8 or 16) from device memory into shared memory
+// that skips the registers
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
+
+// the same for 16 bytes, through the SM's L1
+__device__ __forceinline__ void copy_async_l1(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// jccolor.c rgb_ycc_convert of one pixel
+__device__ __forceinline__ void rgb_ycc(int r, int g, int b, uint32_t& y,
+                                        uint32_t& cb, uint32_t& cr) {
+  y = (uint32_t)((19595 * r + 38470 * g + 7471 * b + 32768) >> 16);
+  cb = (uint32_t)((-11059 * r - 21709 * g + 32768 * b + (128 << 16) +
+                   32767) >> 16);
+  cr = (uint32_t)((32768 * r - 27439 * g - 5329 * b + (128 << 16) +
+                   32767) >> 16);
 }
 
 // jfdctint's butterfly on one row (pass 1) or column (pass 2)
@@ -208,66 +279,213 @@ __device__ __forceinline__ void fdct_1d(const int (&d)[8], int (&o)[8],
   o[1] = (t7 + z1 + z4 + half) >> shift;
 }
 
-__global__ void __launch_bounds__(kBlocksPerCta * 8)
+__device__ __forceinline__ int byte_of(uint32_t w, int k) {
+  return (int)((w >> (8 * k)) & 0xFF);
+}
+
+#ifdef JPEG_ENCODE_TIMELINE
+// the measurement build's clock: thread 0 of each CTA writes the global
+// timer (ns) at the start and after each phase into the output's first
+// 64-bit words (4 a CTA), and the stores are left out
+#define TIMELINE(k)                                                      \
+  do {                                                                   \
+    unsigned long long now;                                              \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));              \
+    if (threadIdx.x == 0)                                                \
+      reinterpret_cast<unsigned long long*>(out)[blockIdx.x * 4 + (k)] = \
+          now;                                                           \
+  } while (0)
+#else
+#define TIMELINE(k) \
+  do {              \
+  } while (0)
+#endif
+
+// One CTA per strip of g.strip MCUs of one MCU row (fewer at the right
+// edge): the strip's blocks are one contiguous range of the output.
+__global__ void __launch_bounds__(kMaxThreads)
     jpeg_coefficients_kernel(const uint8_t* __restrict__ px,
+                             const int32_t* __restrict__ tables,
                              int16_t* __restrict__ out, const Geometry g) {
-  __shared__ int ws[kBlocksPerCta][8 * 9];  // rows padded against conflicts
-  const int local = threadIdx.x >> 3, lane = threadIdx.x & 7;
-  const int b = blockIdx.x * kBlocksPerCta + local;
-  if (b >= g.total_blocks) return;  // whole groups of eight leave together
-  const unsigned group = 0xFFu << (threadIdx.x & 24);
-  const int mcu = b / g.per_mcu, u = b - mcu * g.per_mcu;
-  int c = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxComps; ++k) c += k < g.ncomp && u >= g.first[k];
-  const int h = g.h[c], in_mcu = u - g.first[c];
-  const int my = mcu / g.mcux, mx = mcu - my * g.mcux;
-  const int by = my * g.v[c] + in_mcu / h, bx = mx * h + in_mcu % h;
-  // a dummy block transforms its source block and keeps the DC
-  int sy = by, sx = bx;
-  if (by >= g.hib[c]) {
-    sy = g.hib[c] - 1;
-    sx = min(mx * h + h - 1, g.wib[c] - 1);
-  } else if (bx >= g.wib[c]) {
-    sx = g.wib[c] - 1;
-  }
-  const bool dummy = sy != by || sx != bx;
-  // row `lane` of the source block's samples
-  const int hexp = g.hexp[c], vexp = g.vexp[c];
-  const int i = min(sy * 8 + lane, g.last_row[c]);
-  int x[8], o[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int j = sx * 8 + k;
-    int sum = 0;
-    for (int dy = 0; dy < vexp; ++dy) {
-      const int yy = min(i * vexp + dy, g.height - 1);
-      for (int dx = 0; dx < hexp; ++dx)
-        sum += component(px, g, c, yy, min(j * hexp + dx, g.width - 1));
+  extern __shared__ __align__(16) unsigned char smem[];
+#ifdef JPEG_ENCODE_LAUNCH_ONLY
+  return;  // the launch's own time: grid, threads and shared memory
+#endif
+  TIMELINE(0);
+  const Smem L = smem_layout(g);
+  const int* quant = reinterpret_cast<const int*>(smem + L.quant);
+  uint8_t* planes = smem + L.planes;
+  int* ws = reinterpret_cast<int*>(smem + L.ws);
+  int16_t* stage = reinterpret_cast<int16_t*>(smem + L.stage);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int strips = (g.mcux + g.strip - 1) / g.strip;
+  const int my = blockIdx.x / strips;
+  const int mx0 = (blockIdx.x - my * strips) * g.strip;
+  const int mcus = min(g.strip, g.mcux - mx0);
+  const int rows = L.rows, cols = mcus * 8 * g.hmax;
+  const int x0 = mx0 * 8 * g.hmax, y0 = my * 8 * g.vmax;
+  const int ch = g.channels;
+  // the quantisers and their magics, 1 KB, beside the pixels (through the
+  // SM's L1: every CTA reads the same table, and the CTAs of one SM then
+  // fetch it from the L2 once)
+  for (int i = tid; i < kTables * 64 * 8 / 16; i += nthreads)
+    copy_async_l1(smem + L.quant + i * 16, tables + i * 4);
+
+  // 1. the strip's pixel rows into shared memory, the image's last row
+  // and column replicated (jcprepct.c, jcsample.c expand_right_edge): a
+  // grey image straight into its plane, RGB interleaved
+  uint8_t* dst0 = ch == 1 ? planes : smem + L.pix;
+  const int dstride = ch == 1 ? L.plane_stride : L.pix_stride;
+  const int row_bytes = cols * ch;
+  const size_t image_row = (size_t)g.width * ch;
+  int vec = 16;
+  while (vec >= 4 &&
+         (image_row % vec || row_bytes % vec || (x0 * ch) % vec ||
+          reinterpret_cast<uintptr_t>(px) % vec))
+    vec >>= 1;
+  if (x0 + cols <= g.width && vec >= 4) {
+    const int per_row = row_bytes / vec;
+    for (int i = tid; i < rows * per_row; i += nthreads) {
+      const int r = i / per_row, k = i - r * per_row;
+      const int y = min(y0 + r, g.height - 1);
+      copy_async(dst0 + r * dstride + k * vec,
+                 px + y * image_row + (size_t)x0 * ch + k * vec, vec);
     }
-    const int n = hexp * vexp;
-    const int s = n == 1 ? sum
-                : n == 2 ? (sum + (j & 1)) >> 1
-                         : (sum + 1 + (j & 1)) >> 2;
-    x[k] = s - 128;
+  } else {
+    for (int i = tid; i < rows * row_bytes; i += nthreads) {
+      const int r = i / row_bytes, k = i - r * row_bytes;
+      const int t = k / ch, c = k - t * ch;
+      const int y = min(y0 + r, g.height - 1), x = min(x0 + t, g.width - 1);
+      dst0[r * dstride + k] = px[((size_t)y * g.width + x) * ch + c];
+    }
   }
-  fdct_1d(x, o, true);
+  copy_async_wait();
+  __syncthreads();
+  TIMELINE(1);
+
+  // 2. each pixel's colour once, four pixels a thread: three 4-byte reads
+  // of R G B, one 4-byte store into each of the Y, Cb and Cr planes
+  const int plane_bytes = rows * L.plane_stride;
+  if (ch == 3) {
+    const int quads = cols / 4;
+    for (int i = tid; i < rows * quads; i += nthreads) {
+      const int r = i / quads, q = i - r * quads;
+      const uint32_t* s = reinterpret_cast<const uint32_t*>(
+          smem + L.pix + r * L.pix_stride + q * 12);
+      const uint32_t w[3] = {s[0], s[1], s[2]};
+      uint32_t yw = 0, cbw = 0, crw = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) ws[local][lane * 9 + k] = o[k];
-  __syncwarp(group);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) x[k] = ws[local][k * 9 + lane];
-  fdct_1d(x, o, false);  // column `lane`
-  const int16_t* q = g.quant[g.tq[c]];
-  int16_t* dst = out + (size_t)b * 64;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int d = q[k * 8 + lane] << 3;
-    const int a = o[k] < 0 ? -o[k] : o[k];
-    const int v = (a + (d >> 1)) / d;
-    dst[k * 8 + lane] =
-        (int16_t)(dummy && (k | lane) ? 0 : (o[k] < 0 ? -v : v));
+      for (int p = 0; p < 4; ++p) {
+        const int at = 3 * p;
+        uint32_t y, cb, cr;
+        rgb_ycc(byte_of(w[at >> 2], at & 3),
+                byte_of(w[(at + 1) >> 2], (at + 1) & 3),
+                byte_of(w[(at + 2) >> 2], (at + 2) & 3), y, cb, cr);
+        yw |= y << (8 * p);
+        cbw |= cb << (8 * p);
+        crw |= cr << (8 * p);
+      }
+      uint8_t* d = planes + r * L.plane_stride + q * 4;
+      *reinterpret_cast<uint32_t*>(d) = yw;
+      *reinterpret_cast<uint32_t*>(d + plane_bytes) = cbw;
+      *reinterpret_cast<uint32_t*>(d + 2 * plane_bytes) = crw;
+    }
+    __syncthreads();
   }
+  TIMELINE(2);
+
+#ifndef JPEG_ENCODE_STAGE_ONLY
+  // 3. eight threads a block, the blocks in the coder's order: thread r
+  // forms row r of its block's samples (downsampling from the planes),
+  // pass 1 on it into `ws`, then pass 2 on column r, quantised into
+  // `stage`
+  const int nb = mcus * g.per_mcu;
+  const int group = tid >> 3, lane = tid & 7;
+  const unsigned gmask = 0xFFu << (tid & 24);
+  int* w = ws + group * 72;  // rows padded against bank conflicts
+  for (int lb = group; lb < nb; lb += nthreads >> 3) {
+    const int m = lb / g.per_mcu, u = lb - m * g.per_mcu;
+    int c = 0;
+#pragma unroll
+    for (int k = 1; k < kMaxComps; ++k) c += k < g.ncomp && u >= g.first[k];
+    const int h = g.h[c], v = g.v[c], in_mcu = u - g.first[c];
+    const int mx = mx0 + m;
+    const int by = my * v + in_mcu / h, bx = mx * h + in_mcu % h;
+    // a dummy block (jccoefct.c compress_data) transforms its source
+    // block, which lies in the same MCU, and keeps the DC
+    int sy = by, sx = bx;
+    if (by >= g.hib[c]) {
+      sy = g.hib[c] - 1;
+      sx = min(mx * h + h - 1, g.wib[c] - 1);
+    } else if (bx >= g.wib[c]) {
+      sx = g.wib[c] - 1;
+    }
+    const bool dummy = sy != by || sx != bx;
+    // row `lane` of the source block in the strip's samples: rows below
+    // the component's last downsampled row repeat it
+    const int li = min(sy * 8 + lane, g.last_row[c]) - my * v * 8;
+    const int lj = (sx - mx0 * h) * 8;
+    const uint8_t* plane = planes + c * plane_bytes;
+    int x[8], o[8];
+    if (g.hexp[c] == 1) {  // the component as it is
+      const uint2 a = *reinterpret_cast<const uint2*>(
+          plane + li * L.plane_stride + lj);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = byte_of(k < 4 ? a.x : a.y, k & 3);
+    } else {  // h2v1 (bias 0, 1) or h2v2 (bias 1, 2) along the row
+      const int v2 = g.vexp[c] == 2;
+      const uint8_t* r0 = plane + (li << v2) * L.plane_stride + 2 * lj;
+      const uint4 a = *reinterpret_cast<const uint4*>(r0);
+      const uint4 b = *reinterpret_cast<const uint4*>(
+          r0 + v2 * L.plane_stride);
+      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int s0 = byte_of(aw[k >> 1], 2 * (k & 1)) +
+                       byte_of(aw[k >> 1], 2 * (k & 1) + 1);
+        const int s1 = byte_of(bw[k >> 1], 2 * (k & 1)) +
+                       byte_of(bw[k >> 1], 2 * (k & 1) + 1);
+        x[k] = v2 ? (s0 + s1 + 1 + (k & 1)) >> 2 : (s0 + (k & 1)) >> 1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] -= 128;
+    fdct_1d(x, o, true);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[lane * 9 + k] = o[k];
+    __syncwarp(gmask);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = w[k * 9 + lane];
+    __syncwarp(gmask);  // `w` is free for the group's next block
+    fdct_1d(x, o, false);  // column `lane`
+    // jcdctmgr.c: (|o| + d / 2) / d by d = q << 3, rounded half away
+    // from zero, as one multiply by the divisor's magic reciprocal
+    const int* qt = quant + g.tq[c] * 64;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int d = qt[k * 8 + lane] << 3;
+      const int a = o[k] < 0 ? -o[k] : o[k];
+      const int q = (int)__umulhi((uint32_t)(a + (d >> 1)),
+                                  (uint32_t)qt[kTables * 64 + k * 8 + lane]);
+      stage[lb * 64 + k * 8 + lane] =
+          (int16_t)(dummy && (k | lane) ? 0 : (o[k] < 0 ? -q : q));
+    }
+  }
+  __syncthreads();
+  TIMELINE(3);
+
+  // 4. the strip's blocks, contiguous in the output, in 16-byte stores
+  const uint4* src = reinterpret_cast<const uint4*>(stage);
+  uint4* dst = reinterpret_cast<uint4*>(
+      out + (size_t)(my * g.mcux + mx0) * g.per_mcu * 64);
+#if defined(JPEG_ENCODE_SKIP_STORE) || defined(JPEG_ENCODE_TIMELINE)
+  if (g.total_blocks < 0)  // never: the stores are left out, not the work
+#endif
+    for (int i = tid; i < nb * 8; i += nthreads) dst[i] = src[i];
+#else
+  if (g.total_blocks < 0) out[tid] = planes[tid];  // never: keeps the work
+#endif  // JPEG_ENCODE_STAGE_ONLY
 }
 #endif  // JPEG_ENCODE_HOST_ONLY
 
@@ -305,11 +523,13 @@ extern "C" int jpeg_huffman_encode(const int16_t* coef, int blocks,
 // geom: ncomp, width, height, channels, mcux, mcuy, blocks per MCU, total
 // blocks, then per component (3) h, v, width_in_blocks, height_in_blocks,
 // its horizontal and vertical expansion, its last downsampled row, its
-// first block in an MCU and its table.
-// quant: 2 x 64 quantisers, natural order.
+// first block in an MCU and its table; then the launch plan (MCUs a CTA
+// takes, its threads) and the MCU's largest sampling factors.
+// tables (device): 2 x 64 quantisers, then their 2 x 64 magic
+// reciprocals, natural order, int32 (ops/jpeg.quant_on_card).
 extern "C" int jpeg_coefficients_launch(const void* pixels, void* out,
                                         const int32_t* geom,
-                                        const int32_t* quant, void* stream) {
+                                        const void* tables, void* stream) {
   Geometry g;
   g.ncomp = geom[0];
   g.width = geom[1];
@@ -331,12 +551,26 @@ extern "C" int jpeg_coefficients_launch(const void* pixels, void* out,
     g.first[c] = p[7];
     g.tq[c] = p[8];
   }
-  for (int t = 0; t < kTables; ++t)
-    for (int k = 0; k < 64; ++k) g.quant[t][k] = (int16_t)quant[t * 64 + k];
-  const int ctas = (g.total_blocks + kBlocksPerCta - 1) / kBlocksPerCta;
-  jpeg_coefficients_kernel<<<ctas, kBlocksPerCta * 8, 0,
+  const int32_t* plan = geom + 8 + kCompParams * kMaxComps;
+  g.strip = plan[0];
+  g.threads = plan[1];
+  g.hmax = plan[2];
+  g.vmax = plan[3];
+  if (g.strip < 1 || g.threads < 32 || g.threads > kMaxThreads ||
+      g.threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const int bytes = smem_layout(g).bytes;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jpeg_coefficients_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int ctas = g.mcuy * ((g.mcux + g.strip - 1) / g.strip);
+  jpeg_coefficients_kernel<<<ctas, g.threads, bytes,
                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pixels), static_cast<int16_t*>(out), g);
+      static_cast<const uint8_t*>(pixels),
+      static_cast<const int32_t*>(tables), static_cast<int16_t*>(out), g);
   return (int)cudaGetLastError();
 }
 #endif  // JPEG_ENCODE_HOST_ONLY

@@ -1,7 +1,9 @@
 """Images in and out as the JAX package's PIL calls read and write them.
 
 ``sniff`` reads the format from the magic bytes: PNG, JPEG, BMP (``BM``),
-PNM (``P1``-``P6``), TIFF (``II*\\0``, ``MM\\0*``) and GIF (``GIF87a``,
+PNM (every prefix PIL's ``PpmImagePlugin._accept`` takes: ``P0``-``P6``,
+``Pf`` and ``Py``; ``decode_pnm`` refuses PFM and PIL's own extensions by
+name), TIFF (``II*\\0``, ``MM\\0*``) and GIF (``GIF87a``,
 ``GIF89a``); a format PIL reads that is not ported (WebP, JPEG 2000, ...)
 raises naming it. ``read_rgb`` is ``Image.open(p).convert("RGB")``;
 ``read_gray`` is the JAX package's ``load_gray_image``: PIL's mode ``L``
@@ -77,8 +79,8 @@ def sniff(data: bytes) -> str:
         return "JPEG"
     if data[:2] == b"BM":
         return "BMP"
-    if data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 1:
-        return "PPM"
+    if len(data) > 1 and data[:1] == b"P" and data[1:2] in b"0123456fy":
+        return "PPM"   # PpmImagePlugin._accept: decode_pnm refuses by name
     if data[:4] in (b"II*\x00", b"MM\x00*", b"II\x2b\x00", b"MM\x00\x2b"):
         return "TIFF"
     if data[:6] in (b"GIF87a", b"GIF89a"):

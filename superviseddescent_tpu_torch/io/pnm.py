@@ -9,8 +9,11 @@ PPM decoders scale them: a maxval of 255 as it is; any other
 quotient; a raw sample above maxval saturates at 255, a plain one
 raises); a grey maxval above 255 (PIL's mode ``I``) to
 ``round(value / maxval * 65535)`` and then clipped to 255 as PIL's
-``convert("RGB")`` clips it (65535 as it is). Refused by name: PAM (P7),
-PFM (``Pf``) and PIL's own extensions (``P0CMYK``, ``PyP`` ...).
+``convert("RGB")`` clips it (65535 as it is). Refused by name: what PIL
+12.1 reads besides (PFM, ``Pf``, and its own extensions ``P0CMYK``,
+``PyP`` ...), which ``io/image.sniff`` sends here as PIL's ``_accept``
+takes it, and, called directly, PAM (P7) and ``PF``, which PIL's
+``Image.open`` does not identify.
 
 Writes grey (H, W) as P5 and RGB (H, W, 3) as P6, byte for byte PIL's
 (``P5\\n3 2\\n255\\n`` and the samples), whatever the extension of the

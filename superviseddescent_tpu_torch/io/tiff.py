@@ -17,8 +17,8 @@ compressions, old-style LZW, predictor 3, CMYK, YCbCr, CIELab, 2, 4, 12,
 associated alpha.
 
 Writes grey (H, W) and RGB (H, W, 3) uint8 uncompressed, little-endian,
-in one strip; PIL reads the pixels back equal (the tags are not PIL's
-bytes).
+in one strip, byte for byte PIL's file (its tags: SamplesPerPixel only
+for RGB, as PIL's ``_save`` writes it only for several bands).
 """
 
 from __future__ import annotations
@@ -270,8 +270,9 @@ def decode_tiff(data: bytes) -> np.ndarray:
 
 
 def encode_tiff(pixels) -> bytes:
-    """uint8 (H, W) grey or (H, W, 3) RGB -> an uncompressed little-endian
-    TIFF of one strip."""
+    """uint8 (H, W) grey or (H, W, 3) RGB -> the uncompressed
+    little-endian TIFF of one strip that PIL's ``save`` writes, byte for
+    byte."""
     pixels = np.asarray(pixels)
     if pixels.dtype != np.uint8 or not (
             pixels.ndim == 2 or (pixels.ndim == 3 and pixels.shape[2] == 3)):
@@ -285,6 +286,8 @@ def encode_tiff(pixels) -> bytes:
                (262, 3, (1 if spp == 1 else 2,)), (273, 4, (0,)),
                (277, 3, (spp,)), (278, 4, (height,)),
                (279, 4, (len(body),)), (284, 3, (1,))]
+    if spp == 1:   # PIL's _save writes SamplesPerPixel for several bands
+        entries = [e for e in entries if e[0] != 277]
     ifd_at = 8
     ifd_size = 2 + 12 * len(entries) + 4
     extra_at = ifd_at + ifd_size

@@ -21,6 +21,7 @@ C++ coder of the same source writes the scan; on the CPU, the plain twins
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import numpy as np
@@ -37,18 +38,34 @@ _INT32_MAX = 2 ** 31 - 1
 MAX_COMPONENTS = 4
 
 
-def _plane_bytes(f: JpegFrame):
-    return [c.nbx * c.nby * 64 for c in f.components]
-
-
 def _check_sizes(f: JpegFrame, channels: int) -> None:
     """The kernels index with int32: refuse what does not fit."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")
-    if max(f.blocks * 64, sum(_plane_bytes(f)), f.width * f.height * channels,
+    if max(f.blocks * 64, f.width * f.height * channels,
            sum(len(s.data) for s in f.scans)) > _INT32_MAX:
         raise ValueError(f"JPEG of {f.width} x {f.height} is too large for "
                          "the decoder's int32 indices")
+
+
+@functools.lru_cache(maxsize=32)
+def _tables_on_card(data: bytes, index: int) -> torch.Tensor:
+    table = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(
+        torch.device("cuda", index))
+    torch.cuda.synchronize(index)   # ready for a launch on any stream
+    return table
+
+
+def quant_on_card(quant: np.ndarray, device) -> torch.Tensor:
+    """A kernel's int32 quantisation tables (``pixel_params``' or
+    ``coefficient_params``') on the card, which the kernels copy into
+    shared memory with the rest of their inputs: uploaded once per table
+    set and device (a clip's frames, or one quality's writes, share
+    theirs)."""
+    index = torch.device(device).index
+    return _tables_on_card(np.ascontiguousarray(quant, np.int32).tobytes(),
+                           torch.cuda.current_device() if index is None
+                           else index)
 
 
 def entropy_params(f: JpegFrame):
@@ -106,30 +123,42 @@ def entropy_decode_native(f: JpegFrame) -> torch.Tensor:
     return coef
 
 
-def pixel_params(f: JpegFrame, channels: int):
+# J1's launch plan: a CTA's tile in MCU rows and MCU columns, and its
+# threads; PERF.md gives the sweep on the card that chose it
+# (``chip_smoke.py --j1 --sweep``)
+J1_TILE = (2, 4, 256)
+
+
+def pixel_params(f: JpegFrame, channels: int, tile=None):
     """J1's int32 geometry (see ``csrc/jpeg_decode.cu``) and its (4, 64)
-    quantisers."""
+    quantisers (``quant_on_card`` takes them to the card). ``tile``:
+    another launch plan than ``J1_TILE``."""
+    hmax = max(c.h for c in f.components)
+    vmax = max(c.v for c in f.components)
+    # the MCUs that cover the image (fewer than the frame's grid where a
+    # caller cut f.width / f.height after parsing)
     geom = [len(f.components), f.width, f.height, f.color, channels,
-            f.blocks]
-    plane_off = np.cumsum([0] + _plane_bytes(f))
+            f.blocks, -(-f.width // (8 * hmax)), -(-f.height // (8 * vmax)),
+            hmax, vmax, *(tile or J1_TILE)]
     for i in range(MAX_COMPONENTS):
         if i < len(f.components):
             c = f.components[i]
-            geom += [c.nbx, c.nby, c.offset, int(plane_off[i]), c.dw, c.dh,
-                     c.up, c.hexp, c.vexp]
+            geom += [c.nbx, c.nby, c.offset, c.dw, c.dh, c.up, c.hexp,
+                     c.vexp, c.h, c.v]
         else:
-            geom += [0, 0, f.blocks, int(plane_off[-1]), 0, 0, 0, 1, 1]
+            geom += [0, 0, f.blocks, 0, 0, 0, 1, 1, 1, 1]
     quant = np.zeros((MAX_COMPONENTS, 64), np.int32)
     quant[:len(f.components)] = f.quant()
     return np.asarray(geom, np.int32), quant
 
 
-def jpeg_pixels(coef: torch.Tensor, f: JpegFrame,
-                channels: int = 1) -> torch.Tensor:
+def jpeg_pixels(coef: torch.Tensor, f: JpegFrame, channels: int = 1,
+                tile=None) -> torch.Tensor:
     """J1: (blocks, 64) int16 coefficients -> uint8 (H, W) grey (OpenCV's
     formula on the RGB; a 1-component image's Y) or (H, W, 3) RGB, on the
     coefficients' device. A CUDA tensor launches the kernel; a CPU tensor
-    takes the plain twin."""
+    takes the plain twin. ``tile``: another launch plan than
+    ``J1_TILE``'s (for the sweep)."""
     _check_sizes(f, channels)
     if coef.device.type == "cpu":
         return pixels_reference(coef, f, channels)
@@ -141,15 +170,13 @@ def jpeg_pixels(coef: torch.Tensor, f: JpegFrame,
                          f"({f.blocks}, 64), got {coef.dtype} "
                          f"{tuple(coef.shape)}")
     from superviseddescent_tpu_torch.ops._build import load_library
-    geom, quant = pixel_params(f, channels)
-    planes = torch.empty(sum(_plane_bytes(f)), dtype=torch.uint8,
-                         device=coef.device)
+    geom, quant = pixel_params(f, channels, tile)
     shape = (f.height, f.width) + ((3,) if channels == 3 else ())
     out = torch.empty(shape, dtype=torch.uint8, device=coef.device)
+    tables = quant_on_card(quant, coef.device)
     err = load_library("jpeg_decode").jpeg_pixels_launch(
-        ctypes.c_void_p(coef.data_ptr()), ctypes.c_void_p(planes.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(geom.ctypes.data),
-        ctypes.c_void_p(quant.ctypes.data),
+        ctypes.c_void_p(coef.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(tables.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(coef.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"jpeg_decode kernel launch failed: CUDA error "
@@ -183,9 +210,36 @@ def read_jpeg(path_or_bytes, channels: int = 1, device=None) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ J2
-def coefficient_params(lay: EncLayout):
-    """J2's int32 geometry (see ``csrc/jpeg_encode.cu``) and its (2, 64)
-    quantisers."""
+def quant_magic(q: int) -> int:
+    """J2's reciprocal of the divisor ``q << 3`` of quantiser ``q``
+    (1-255): ``umulhi(n, magic)`` is ``n // (q << 3)`` for every n below
+    2^17 (the error n * (magic - 2^32 / d) / 2^32 stays under 2^-15, less
+    than 1 / d), so the quantisation's rounded division becomes one
+    multiply (``tests/test_torch_png_write.py`` checks every n J2 can
+    form)."""
+    return (1 << 32) // (int(q) << 3) + 1
+
+
+# J2's launch plan: the MCUs a CTA takes along its MCU row, by blocks per
+# MCU (grey 1, 4:4:4 3, 4:2:2 4, 4:2:0 6). The sweep on the card
+# (``chip_smoke.py --j2 --sweep``, PERF.md) chose 8 for 4:2:0; the others
+# give their CTAs the same 256-384 threads
+J2_STRIP = {1: 32, 3: 16, 4: 8, 6: 8}
+J2_MAX_THREADS = 512
+
+
+def j2_plan(lay: EncLayout, strip: int | None = None):
+    """(MCUs a CTA takes, its threads): eight threads a block of the
+    strip, at most J2_MAX_THREADS (the CTA then loops over its blocks)."""
+    strip = strip or J2_STRIP[lay.blocks_per_mcu]
+    threads = -(-8 * strip * lay.blocks_per_mcu // 32) * 32
+    return strip, min(threads, J2_MAX_THREADS)
+
+
+def coefficient_params(lay: EncLayout, strip: int | None = None):
+    """J2's int32 geometry (see ``csrc/jpeg_encode.cu``) and its (2, 2,
+    64) quantisers and their magic reciprocals (``quant_magic``), which
+    ``quant_on_card`` takes to the card."""
     geom = [len(lay.components), lay.width, lay.height, lay.channels,
             lay.mcux, lay.mcuy, lay.blocks_per_mcu, lay.blocks]
     for i in range(3):
@@ -195,15 +249,20 @@ def coefficient_params(lay: EncLayout):
                      c.first, c.tq]
         else:
             geom += [1, 1, 0, 0, 1, 1, 0, lay.blocks_per_mcu, 0]
-    quant = np.zeros((2, 64), np.int32)
-    quant[:len(lay.quant)] = lay.quant
-    return np.asarray(geom, np.int32), quant
+    geom += [*j2_plan(lay, strip), max(c.h for c in lay.components),
+             max(c.v for c in lay.components)]
+    quant = np.ones((2, 2, 64), np.int64)
+    quant[0, :len(lay.quant)] = lay.quant
+    quant[1] = np.vectorize(quant_magic)(quant[0])
+    return np.asarray(geom, np.int32), quant.astype(np.int32)
 
 
-def jpeg_coefficients(pixels: torch.Tensor, lay: EncLayout) -> torch.Tensor:
+def jpeg_coefficients(pixels: torch.Tensor, lay: EncLayout,
+                      strip: int | None = None) -> torch.Tensor:
     """J2: uint8 (H, W) grey or (H, W, 3) RGB -> (blocks, 64) int16
     quantised coefficients in the coder's order, on the pixels' device. A
-    CUDA tensor launches the kernel; a CPU tensor takes the plain twin."""
+    CUDA tensor launches the kernel; a CPU tensor takes the plain twin.
+    ``strip``: another launch plan than ``J2_STRIP``'s (for the sweep)."""
     if pixels.device.type == "cpu":
         return coefficients_reference(pixels, lay)
     if pixels.device.type != "cuda":
@@ -217,12 +276,13 @@ def jpeg_coefficients(pixels: torch.Tensor, lay: EncLayout) -> torch.Tensor:
         raise ValueError(f"{lay.width} x {lay.height} is too large for the "
                          "encoder's int32 indices")
     from superviseddescent_tpu_torch.ops._build import load_library
-    geom, quant = coefficient_params(lay)
+    geom, quant = coefficient_params(lay, strip)
     out = torch.empty((lay.blocks, 64), dtype=torch.int16,
                       device=pixels.device)
+    tables = quant_on_card(quant, pixels.device)
     err = load_library("jpeg_encode").jpeg_coefficients_launch(
         ctypes.c_void_p(pixels.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(quant.ctypes.data),
+        ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(tables.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(pixels.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"jpeg_encode kernel launch failed: CUDA error "

@@ -14,6 +14,8 @@ stock cascade): the landmarks within 1e-3 px of JAX's
 the test records the unrounded coordinates ``DetectionModel.detect``
 returns in each package, holds the two within 1e-3, and holds each
 printed line to its own package's coordinates within half a print step.
+``rcr_detect -o out.png`` writes the JAX app's bytes, and ``-o out.tif``
+PIL's TIFF of the same drawing.
 """
 
 import io
@@ -162,6 +164,27 @@ def test_rcr_detect_matches_jax(monkeypatch, tmp_path, mode):
     assert written.shape == (450, 300, 3)
     assert (written == _draw.GREEN).all(axis=2).sum() > 0
     assert (written == _draw.RED).all(axis=2).sum() > 0
+
+
+def test_rcr_detect_png_and_tiff_are_the_jax_apps_bytes(monkeypatch,
+                                                        tmp_path):
+    png = os.path.join(SYNTH, IMAGE + ".png")
+    common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i", png,
+              "--pts", png[:-4] + ".pts"]
+    jax_out = tmp_path / "jax.png"
+    rc, _ = run_app(monkeypatch, jax_detect, common + ["-o", str(jax_out)])
+    assert rc == 0
+    for ext in (".png", ".tif"):
+        out = tmp_path / ("out" + ext)
+        rc, text = run_app(monkeypatch, rcr_detect, common + [
+            "-o", str(out), "--device", "cpu"])
+        assert rc == 0 and f"Wrote {out}" in text
+        if ext == ".png":
+            assert out.read_bytes() == jax_out.read_bytes()
+        else:   # the JAX app's .tif: PIL's TIFF of the same drawing
+            buf = io.BytesIO()
+            Image.open(jax_out).save(buf, "TIFF")
+            assert out.read_bytes() == buf.getvalue()
 
 
 def test_rcr_detect_without_a_box_says_so(monkeypatch):

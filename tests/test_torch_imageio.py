@@ -8,8 +8,8 @@ card, and the port reads it as the JAX package does: ``load_gray_image``
 bit-equal to the JAX package's, ``read_rgb`` equal to PIL's
 ``convert("RGB")``. The manifest's JPEG digests are still PIL's files of
 their pixels, and the port's CPU twins write the same bytes. The
-writers: BMP, DIB, PGM and PPM byte-equal to PIL's; TIFF read back equal
-by PIL; ``format_for`` is PIL's extension table for the formats ported,
+writers: BMP, DIB, PGM, PPM and TIFF byte-equal to PIL's (PNG in
+``tests/test_torch_png_write.py``); ``format_for`` is PIL's extension table for the formats ported,
 a format PIL writes but the port does not is refused by name, an unknown
 or missing extension raises ``ValueError`` as PIL's ``save`` does. Every
 kind the readers leave out raises naming it. The rings and the box of
@@ -103,6 +103,7 @@ def test_writers_are_pils_bytes(shape, channels):
     assert encode_bmp(px) == pil_save(px, "BMP")
     assert encode_bmp(px, dib=True) == pil_save(px, "DIB")
     assert encode_pnm(px) == pil_save(px, "PPM")
+    assert encode_tiff(px) == pil_save(px, "TIFF")
     back = np.asarray(Image.open(io.BytesIO(encode_tiff(px))))
     np.testing.assert_array_equal(back, px)
     for data in (encode_bmp(px), encode_pnm(px), encode_tiff(px)):
@@ -363,7 +364,7 @@ def test_annotate_writes_pils_file(tmp_path):
     Image.fromarray(rgb).save(src)
     coords = np.float32([[10.3, 12.7], [40.5, 30.25]])
     box = (5.5, 6.25, 30.0, 25.5)
-    for ext in (".jpg", ".png", ".ppm", ".bmp"):
+    for ext in (".jpg", ".png", ".ppm", ".bmp", ".tif"):
         out = tmp_path / ("out" + ext)
         assert _draw.annotate(src, out, coords, box, device="cpu") == str(out)
         im = Image.open(src).convert("RGB")
@@ -374,8 +375,7 @@ def test_annotate_writes_pils_file(tmp_path):
                        outline=_draw.RED)
         ref = tmp_path / ("ref" + ext)
         im.save(ref)
-        if ext in (".jpg", ".bmp", ".ppm"):
-            assert out.read_bytes() == ref.read_bytes(), ext
+        assert out.read_bytes() == ref.read_bytes(), ext
         np.testing.assert_array_equal(np.asarray(Image.open(out).convert(
             "RGB")), np.asarray(Image.open(ref).convert("RGB")))
     with pytest.raises(ValueError, match="GIF"):

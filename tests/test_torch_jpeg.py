@@ -152,9 +152,11 @@ def test_twin_stages_agree_with_the_wrapper():
     np.testing.assert_array_equal(jpeg_pixels(coef, f, 3),
                                   jpeg.pixels_reference(coef, f, 3))
     geom, quant = pixel_params(f, 1)
-    assert geom[:6].tolist() == [3, 301, 451, jpeg.COLOR_YCC, 1, f.blocks]
-    assert geom[6:33].reshape(3, 9)[:, 6:].tolist() == [
-        [jpeg.UP_FULL, 1, 1], [jpeg.UP_H2V1, 2, 1], [jpeg.UP_H2V1, 2, 1]]
+    assert geom[:10].tolist() == [3, 301, 451, jpeg.COLOR_YCC, 1, f.blocks,
+                                  f.mcux, f.mcuy, 2, 1]
+    assert geom[13:43].reshape(3, 10)[:, 5:].tolist() == [
+        [jpeg.UP_FULL, 1, 1, 2, 1], [jpeg.UP_H2V1, 2, 1, 1, 1],
+        [jpeg.UP_H2V1, 2, 1, 1, 1]]
     np.testing.assert_array_equal(quant[:3], f.quant())
     data, params, huff = entropy_params(f)
     assert data == f.scans[0].data

@@ -35,7 +35,7 @@ from superviseddescent_tpu_torch.io.jpeg_write import (
     block_map, coefficients_reference, encode_jpeg, entropy_encode, layout)
 from superviseddescent_tpu_torch.ops.jpeg import (
     coefficient_params, huffman_encode_native, jpeg_coefficients,
-    write_jpeg)
+    quant_magic, write_jpeg)
 from torch_jpeg_fixtures import OUT as JPEG_FIXTURES
 
 QUALITIES = (1, 10, 25, 50, 75, 90, 95, 100)
@@ -158,9 +158,13 @@ def test_the_kernels_geometry_is_the_layout():
     assert list(geom[:8]) == [3, 21, 17, 3, 2, 2, 6, 24]
     assert list(geom[8:17]) == [2, 2, 3, 3, 1, 1, 17, 0, 0]     # Y
     assert list(geom[17:26]) == [1, 1, 2, 2, 2, 2, 8, 4, 1]     # Cb
-    np.testing.assert_array_equal(quant, lay.quant)
+    assert list(geom[35:]) == [8, 384, 2, 2]    # strip, threads, MCU
+    np.testing.assert_array_equal(quant[0], lay.quant)
+    np.testing.assert_array_equal(quant[1], np.vectorize(quant_magic)(
+        lay.quant))
     grey = coefficient_params(layout(5, 7, 1))[0]
     assert list(grey[:8]) == [1, 7, 5, 1, 1, 1, 1, 1]
+    assert list(grey[35:]) == [32, 256, 1, 1]
 
 
 def test_jpeg_coefficients_takes_the_twin_on_the_cpu():

@@ -1219,6 +1219,94 @@ def test_jpeg_kernel_at_odd_and_tiny_sizes(cuda, name):
                                jpeg.pixels_reference(coef, f, channels))
 
 
+JPEG_KINDS = ["s00_grey_q75.jpg", "s01_444_q95.jpg", "s02_422_q50.jpg",
+              "s03_420_q75.jpg", "c00_cmyk_q75.jpg", "c01_ycck_q75.jpg",
+              "r00_411_q75.jpg", "r01_440_q75.jpg",
+              "x00_mixed_2x2_1x2_2x1.jpg", "x01_3x2_box.jpg"]
+
+
+def around(n):
+    return (n - 1, n, n + 1)
+
+
+@pytest.mark.parametrize("name", JPEG_KINDS)
+def test_jpeg_kernel_at_tile_boundaries(cuda, name):
+    """J1 at widths and heights one under, at and one over one and two of
+    its tiles (ops/jpeg.J1_TILE, in pixels of the frame's MCUs) and at a
+    single MCU row, under the default plan and two others, against the
+    twin on the same cut frame."""
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import J1_TILE, jpeg_pixels
+    data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
+    f = jpeg.parse_jpeg(data)
+    coef = torch.from_numpy(jpeg.entropy_decode(f)).to(cuda)
+    full_w, full_h = f.width, f.height
+    mcu_w = 8 * max(c.h for c in f.components)
+    mcu_h = 8 * max(c.v for c in f.components)
+    tw, th = J1_TILE[1] * mcu_w, J1_TILE[0] * mcu_h
+    widths = [*around(tw), *around(2 * tw), full_w]
+    heights = [mcu_h, *around(th), *around(2 * th), full_h]
+    for k, (w, h) in enumerate((w, h) for w in widths for h in heights):
+        f.width, f.height = min(w, full_w), min(h, full_h)
+        jpeg.sample_extents(f)
+        plan = (None, (2, 3, 64), (1, 16, 512))[k % 3]
+        for channels in (1, 3):
+            assert torch.equal(jpeg_pixels(coef, f, channels, plan),
+                               jpeg.pixels_reference(coef, f, channels)), (
+                f.width, f.height, channels, plan)
+
+
+@pytest.mark.parametrize("name", ["s03_420_q75.jpg", "c01_ycck_q75.jpg"])
+def test_jpeg_kernel_extreme_blocks_equal_the_twin(cuda, name):
+    """J1 gives the twin's bits on blocks with only a DC and on blocks
+    with large AC values, at values far outside what an 8-bit encoder
+    writes, where the int32 products wrap."""
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import jpeg_pixels
+    data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
+    f = jpeg.parse_jpeg(data)
+    coef = jpeg.entropy_decode(f).copy()
+    rng = np.random.default_rng(5)
+    idx = rng.choice(len(coef), min(400, len(coef)), replace=False)
+    coef[idx, 0] = rng.choice([32767, -32768, 20000, -20000, 4000], len(idx))
+    coef[idx[:len(idx) // 2], 1:] = 0
+    coef[idx[len(idx) // 2:], 5] = 32767
+    t = torch.from_numpy(coef).to(cuda)
+    for channels in (1, 3):
+        assert torch.equal(jpeg_pixels(t, f, channels),
+                           jpeg.pixels_reference(t, f, channels)), channels
+
+
+@pytest.mark.parametrize("name", JPEG_KINDS + ["clip/f000.jpg"])
+def test_jpeg_kernel_writes_every_pixel(cuda, name):
+    """J1 launched into outputs filled with two different sentinels gives
+    the twin's pixels both times: no pixel is left unwritten."""
+    import ctypes
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops._build import load_library
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        pixel_params, quant_on_card)
+    data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
+    f = jpeg.parse_jpeg(data)
+    coef = torch.from_numpy(jpeg.entropy_decode(f)).to(cuda)
+    for channels in (1, 3):
+        want = jpeg.pixels_reference(coef, f, channels)
+        geom, quant = pixel_params(f, channels)
+        tables = quant_on_card(quant, cuda)
+        for sentinel in (0x5A, 0xA5):
+            out = torch.full(tuple(want.shape), sentinel, dtype=torch.uint8,
+                             device=cuda)
+            err = load_library("jpeg_decode").jpeg_pixels_launch(
+                ctypes.c_void_p(coef.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()),
+                ctypes.c_void_p(geom.ctypes.data),
+                ctypes.c_void_p(tables.data_ptr()),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            assert err == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (channels, sentinel)
+
+
 @pytest.mark.parametrize("name", ["s04_420_q95_restart.jpg",
                                   "p04_420_q95_restart_prog.jpg",
                                   "m01_422_2scans_restart.jpg"])
@@ -1285,6 +1373,33 @@ def test_jpeg_encode_kernel_equals_twin(cuda, channels, sub):
         if h * w < 5000 or h == 768:
             assert encode_jpeg_device(t.to(cuda), quality, sub) == \
                 encode_jpeg(t, quality, sub, device="cpu")
+
+
+@pytest.mark.parametrize("channels,sub", J2_KINDS)
+def test_jpeg_encode_kernel_at_strip_boundaries(cuda, channels, sub):
+    """J2 at widths one under, at and one over one and two of its strips
+    (ops/jpeg.J2_STRIP MCUs, in pixels) and at heights one under, at and
+    one over one and two MCU rows, under the default plan and two others,
+    bit-equal to its twin."""
+    from superviseddescent_tpu_torch.io.jpeg_write import (
+        coefficients_reference, layout)
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        J2_STRIP, jpeg_coefficients)
+    rng = np.random.default_rng(channels * 7 + len(sub or ""))
+    lay = layout(16, 16, channels, 75, sub)
+    mcu_w = 8 * max(c.h for c in lay.components)
+    mcu_h = 8 * max(c.v for c in lay.components)
+    sw = J2_STRIP[lay.blocks_per_mcu] * mcu_w
+    widths = [*around(sw), *around(2 * sw)]
+    heights = [*around(mcu_h), *around(2 * mcu_h)]
+    for k, (w, h) in enumerate((w, h) for w in widths for h in heights):
+        px = rng.integers(0, 256, (h, w, 3)[:2 + (channels == 3)], np.uint8)
+        lay = layout(h, w, channels, (50, 75, 95)[k % 3], sub)
+        t = torch.from_numpy(px)
+        for strip in (None, 1, 3):
+            got = jpeg_coefficients(t.to(cuda), lay, strip)
+            assert torch.equal(got.cpu(), coefficients_reference(t, lay)), (
+                h, w, strip)
 
 
 def test_jpeg_encode_kernel_writes_pils_digests(cuda):

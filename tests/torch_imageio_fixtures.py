@@ -11,7 +11,12 @@ manifest's ``jpeg_writes`` are the sha256 digests of the files PIL's
 ``save(format="JPEG")`` writes for pixels the card can make without PIL:
 the RGB (or grey) that ``tests/torch_jpeg`` stills and clip frames decode
 to, at 4:4:4, 4:2:2 and 4:2:0 (grey: one component) and qualities 50, 75
-and 95; the card encodes the same pixels with kernel J2.
+and 95; the card encodes the same pixels with kernel J2. Its
+``png_tiff_writes`` are PIL's PNG and TIFF files of the same decoded
+pixels (RGB and grey) and of two full-size stills drawn as ``rcr_detect
+-o`` draws (``drawn_still``): each file's sha256 and, for a PNG, the
+sha256 of its filtered rows, which holds whatever zlib deflates them;
+``zlib`` names the zlib that wrote the files.
 
 * small files (61 x 47, a crop of a tinted ``.synth120`` face), one per
   reader variant: BMP 24-bit, grey (mode L), bilevel (mode 1), 8-bit, 4-bit
@@ -59,6 +64,10 @@ SUBSAMPLINGS = ("4:4:4", "4:2:2", "4:2:0")
 # their grey for the one-component writes)
 JPEG_SOURCES = ("s01_444_q95.jpg", "s03_420_q75.jpg", "s06_422_q75_odd.jpg",
                 "clip/f000.jpg", "clip/f009.jpg")
+# the full-size stills drawn with DRAWN_POINTS' landmarks for the PNG and
+# TIFF write digests (what rcr_detect -o writes)
+DRAWN_STILLS = ("f00_grey.bmp", "f02_rgb_lzw_predictor.tif")
+DRAWN_POINTS = "synth_0002"
 
 
 def small_rgb() -> np.ndarray:
@@ -571,6 +580,63 @@ def jpeg_writes() -> list:
     return out
 
 
+def png_stream(data: bytes) -> bytes:
+    """A PNG file's filtered rows: its IDAT chunks' zlib stream inflated."""
+    pos, idat = 8, []
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + length])
+        pos += 12 + length
+    return zlib.decompress(b"".join(idat))
+
+
+def drawn_still(name: str) -> np.ndarray:
+    """A full-size still with DRAWN_POINTS' landmarks and their bounding
+    box drawn as the JAX ``rcr_detect -o`` draws them (PIL's ImageDraw)."""
+    from PIL import ImageDraw
+    from superviseddescent_tpu.io.pts import read_pts_landmarks
+    points = read_pts_landmarks(os.path.join(
+        os.path.dirname(HERE), ".synth120", DRAWN_POINTS + ".pts"))
+    coords = np.asarray(points.coordinates, np.float32)
+    x0, y0 = coords.min(axis=0)
+    w, h = coords.max(axis=0) - (x0, y0)
+    with Image.open(os.path.join(OUT, name)) as im:
+        img = im.convert("RGB")
+    draw = ImageDraw.Draw(img)
+    for x, y in coords:
+        draw.ellipse([x - 2, y - 2, x + 2, y + 2], outline=(0, 255, 0))
+    draw.rectangle([x0, y0, x0 + w, y0 + h], outline=(255, 0, 0))
+    return np.asarray(img)
+
+
+def png_tiff_writes() -> list:
+    """PIL's PNG and TIFF files of pixels the card makes without PIL: the
+    RGB and grey that JPEG_SOURCES decode to, and the full-size stills
+    DRAWN_STILLS drawn (``drawn_still``). Per file its source, channels,
+    format, size and sha256; a PNG's also the sha256 of its filtered rows
+    (``png_stream``), which no zlib version changes."""
+    from superviseddescent_tpu.ops.patches import rgb_to_gray_u8
+    cases = []
+    for name in JPEG_SOURCES:
+        with Image.open(os.path.join(JPEG_DIR, name)) as im:
+            rgb = np.asarray(im.convert("RGB"))
+        cases += [(name, 3, False, rgb), (name, 1, False, rgb_to_gray_u8(rgb))]
+    cases += [(name, 3, True, drawn_still(name)) for name in DRAWN_STILLS]
+    out = []
+    for name, channels, drawn, px in cases:
+        for fmt in ("PNG", "TIFF"):
+            data = pil_bytes(Image.fromarray(px), fmt)
+            entry = dict(source=name, channels=channels, drawn=drawn,
+                         format=fmt, bytes=len(data),
+                         sha256=hashlib.sha256(data).hexdigest())
+            if fmt == "PNG":
+                entry["filtered_sha256"] = hashlib.sha256(
+                    png_stream(data)).hexdigest()
+            out.append(entry)
+    return out
+
+
 def write_fixtures(out: str = OUT) -> dict:
     os.makedirs(out, exist_ok=True)
     files = {}
@@ -578,12 +644,15 @@ def write_fixtures(out: str = OUT) -> dict:
                   full_fixtures):
         files.update(group())
     manifest = {"files": {}, "jpeg_writes": jpeg_writes(),
-                "crop": list(CROP), "full_image": FULL_IMAGE}
+                "crop": list(CROP), "full_image": FULL_IMAGE,
+                "drawn_points": DRAWN_POINTS,
+                "zlib": zlib.ZLIB_RUNTIME_VERSION}
     for name, data in sorted(files.items()):
         path = os.path.join(out, name)
         with open(path, "wb") as f:
             f.write(data)
         manifest["files"][name] = dict(pil_digests(path), bytes=len(data))
+    manifest["png_tiff_writes"] = png_tiff_writes()
     with open(os.path.join(out, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
     return manifest
