@@ -99,6 +99,24 @@ frame and each reader's ms on a full-size still.
 
     python3 chip_smoke.py --imageio
 
+runs only that phase after the builds. Then the TIFF / PFM / WebP phase
+(``phase_tiffwebp``): every fixture of the TIFF kinds (one per key of
+PIL's ``OPEN_INFO``), the compressed kinds, JPEG-in-TIFF, PFM and lossless
+WebP in ``tests/torch_imageio`` read on the card to PIL's digests (a
+JPEG-compressed TIFF through J1, its batch of strips or tiles against
+J1's twin; WebP through the host C++ decoder, against the Python twin on
+the small files; a kind PIL cannot read refused by name);
+the clip frame's pixels as a lossless WebP, a JPEG-in-TIFF as PIL's
+writer and as libtiff's lay it out, an I;16 and an F TIFF and a PFM
+through ``load_gray_image`` (each frame equal to the pixels the kind
+holds) and K3 on the 4,096 faces' boxes (rows equal to those of the same
+pixels as PNG; J1 once a JPEG-in-TIFF, K3 once a kind); each reader's ms
+on that 768 x 1024 frame and J1's device ms on each JPEG-in-TIFF layout
+(and on strips of 80 rows, the worst case of two launches) beside its
+twin and its bound.
+
+    python3 chip_smoke.py --tiffwebp
+
 runs only that phase after the builds;
 
     python3 chip_smoke.py --j1 [--j2] [--sweep] [--package-root DIR]
@@ -4653,24 +4671,35 @@ def jpeg_compare(torch, root, which):
     return runs
 
 
-def jpeg_entry(jpeg):
+def jpeg_entry(jpeg, tiffwebp=None):
     """The kernels line's entry of J1: device ms per 1024 x 768 4:2:0
     frame of the progressive clip (the slice's main path; the baseline
     clip's beside it, measured in turns), launches of the depth-1
-    rcr_track run on the progressive clip."""
+    rcr_track run on the progressive clip, plus the JPEG-in-TIFF run's
+    (``phase_tiffwebp``) with its ms per 768 x 1024 page beside."""
     source, replaces = SOURCES["jpeg_decode"]
     t = jpeg["times"]
+    extra = {}
+    if tiffwebp is not None:
+        tt = tiffwebp["times"]["j1"]
+        extra = dict(tiff_launches=tiffwebp["launches"]["jpeg_decode"],
+                     tiff_plain_ms=tt["jpeg_tiff_pil"]["twin_device_ms"],
+                     tiff_bound_ms=tt["jpeg_tiff_pil"]["bound_ms"],
+                     max_abs_err_tiff=tiffwebp["max_abs_err"],
+                     **tiff_page_times(tt))
     return dict(
         name="jpeg_decode", route="cuda", source=source, replaces=replaces,
         replaces_note="no pallas_call: the JAX package decodes images with "
         "PIL on the host; J1 is a hand kernel of the io slice",
         launches=jpeg["track"][f"--depth {JPEG_TRACK_DEPTHS[0]}"][
-            "j1_launches"],
-        max_abs_err=jpeg["max_abs_err"],
+            "j1_launches"] + extra.get("tiff_launches", 0),
+        max_abs_err=max(jpeg["max_abs_err"],
+                        extra.get("max_abs_err_tiff", 0)),
         ms=min(t["j1_progressive_device_ms"]),
         ms_baseline_clip=min(t["j1_device_ms"]),
         plain_ms=t["twin_device_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler")
+        bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler",
+        **extra)
 
 
 # ---------------------------------------------------------------- #
@@ -4819,6 +4848,13 @@ def imageio_png_tiff(torch, manifest):
     return checked
 
 
+def imageio_reader_files(manifest):
+    """The fixtures of the BMP / PNM / TIFF / GIF readers (the TIFF kinds,
+    PFM and WebP: ``phase_tiffwebp``)."""
+    return sorted(name for group in ("bmp", "pnm", "tiff", "gif", "full")
+                  for name in manifest["groups"][group])
+
+
 def imageio_readers(torch, manifest):
     """Every committed BMP / PNM / TIFF / GIF fixture read to PIL's grey
     and RGB digests (the host decoders); each full-size still's
@@ -4827,7 +4863,8 @@ def imageio_readers(torch, manifest):
     from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
     from superviseddescent_tpu_torch.ops.patches import load_gray_image
     times = {}
-    for name, want in sorted(manifest["files"].items()):
+    for name in imageio_reader_files(manifest):
+        want = manifest["files"][name]
         path = os.path.join(IMAGEIO_DIR, name)
         grey, rgb = read_gray(path), read_rgb(path)
         for got, key in ((grey, "grey_sha256"), (rgb, "rgb_sha256")):
@@ -4840,7 +4877,8 @@ def imageio_readers(torch, manifest):
                 load_gray_image(path)
                 reps.append((time.perf_counter() - t0) * 1e3)
             times[name] = reps
-    log(f"[imageio] {len(manifest['files'])} BMP / DIB / PNM / TIFF / GIF "
+    log(f"[imageio] {len(imageio_reader_files(manifest))} BMP / DIB / PNM / "
+        "TIFF / GIF "
         "fixtures read to PIL's grey and RGB digests; load_gray_image of a "
         "412 x 600 still, ms (host): " + ", ".join(
             f"{n} {min(v):.2f}" for n, v in times.items()))
@@ -5047,6 +5085,310 @@ def imageio_entry(imageio):
         max_abs_err=imageio["max_abs_err"], ms=min(t["j2_device_ms"]),
         plain_ms=t["twin_device_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler")
+
+
+# ---------------------------------------------------------------- #
+# Every TIFF kind PIL reads, JPEG-in-TIFF (J1), PFM, lossless WebP
+# ---------------------------------------------------------------- #
+TIFFWEBP_GROUPS = ("tiff_kind", "tiff_more", "pfm", "webp", "clip")
+# the committed 768 x 1024 files of the clip frame's pixels: a lossless
+# WebP, JPEG-in-TIFF as PIL's writer lays it out (RGB, 32 strips of 32
+# rows) and as libtiff's does (YCbCr 4:2:0, 64 strips of 16 rows), one J1
+# launch each; J1 is also timed on 4:2:0 strips of 80 rows, the worst case
+# of two launches (a batch of 12 and a short last strip)
+TIFFWEBP_COMMITTED = {"webp": "f04_clip.webp",
+                      "jpeg_tiff_pil": "f06_clip_rgb_pil.tif",
+                      "jpeg_tiff_libtiff": "f07_clip_ycbcr420_libtiff.tif"}
+TIFFWEBP_J1 = dict(TIFFWEBP_COMMITTED, jpeg_tiff_worst="f05_clip_ycbcr420.tif")
+del TIFFWEBP_J1["webp"]
+TIFFWEBP_REPS = 5
+
+
+def tiffwebp_readers(torch, manifest):
+    """Every new fixture read on the card (``read_gray`` / ``read_rgb``
+    with the card as the device: JPEG-compressed TIFFs through J1, WebP
+    through the C++ decoder, the rest on the host) to PIL's digests; a
+    kind PIL cannot read raises. J1 on each JPEG-compressed
+    TIFF's batch of strips or tiles against its twin on the same
+    coefficients; the C++ WebP decoder against the Python twin on the
+    small WebP fixtures. Returns (files checked, J1's largest difference
+    from its twin)."""
+    import hashlib
+    import numpy as np
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
+    from superviseddescent_tpu_torch.io.tiff import (
+        compression as tiff_compression, jpeg_chunks)
+    from superviseddescent_tpu_torch.io.webp import (
+        compose, decode_vp8l, decode_vp8l_native)
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels)
+    names = sorted(n for g in TIFFWEBP_GROUPS for n in manifest["groups"][g])
+    refused = worst = 0
+    for name in names:
+        want, path = manifest["files"][name], os.path.join(IMAGEIO_DIR, name)
+        if "pil_error" in want:
+            try:
+                read_rgb(path)
+            except ValueError as e:
+                refused += 1
+                check("not a kind PIL reads" in str(e),
+                      f"{name}: refused as {e}")
+                continue
+            check(False, f"{name}: read, where it must be refused by name")
+        for read, key in ((read_gray, "grey_sha256"), (read_rgb,
+                                                       "rgb_sha256")):
+            got = read(path)
+            check(hashlib.sha256(got.tobytes()).hexdigest() == want[key],
+                  f"{name}: the port's {key[:-7]} on the card differs from "
+                  "PIL's")
+        with open(path, "rb") as fh:
+            data = fh.read()
+        if name.endswith(".tif") and tiff_compression(data) == 7:
+            page = jpeg_chunks(data)
+            frames = [jpeg.parse_jpeg(st) for st in page.streams]
+            f = frames[0]
+            same = [g for g in frames if (g.width, g.height) == (f.width,
+                                                                 f.height)]
+            coef = torch.stack([entropy_decode_native(g) for g in same]
+                               ).cuda()
+            for channels in (1, 3):
+                got = jpeg_pixels(coef, f, channels)
+                worst = max(worst, int((got.int() - jpeg.pixels_reference(
+                    coef, f, channels).int()).abs().max()))
+        if name.startswith("w"):
+            check(np.array_equal(compose(data, decode_vp8l_native),
+                                 compose(data, decode_vp8l)),
+                  f"{name}: the C++ decoder differs from the Python twin")
+    check(worst == 0, f"J1 on the TIFF batches differs from its twin by "
+          f"{worst}")
+    log(f"[tiffwebp] {len(names)} fixtures on the card ({refused} refused "
+        "by name as PIL refuses them), the rest equal to PIL's "
+        "grey and RGB digests; J1 on every JPEG-in-TIFF batch equal to its "
+        "twin; the C++ WebP decoder equal to the Python twin")
+    return len(names), worst
+
+
+def tiff_bytes(samples, bits: int, sample_format: int) -> bytes:
+    """An uncompressed little-endian TIFF of one strip of grey ``samples``
+    (photometric 1): PIL's I;16 (16 bits, 1) or F (32 bits, 3)."""
+    import struct
+    h, w = samples.shape
+    body = samples.astype("<u2" if bits == 16 else "<f4").tobytes()
+    tags = [(256, 4, w), (257, 4, h), (258, 3, bits), (259, 3, 1),
+            (262, 3, 1), (273, 4, 8), (277, 3, 1), (278, 4, h),
+            (279, 4, len(body)), (339, 3, sample_format)]
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHI", t, k, 1) + struct.pack(
+            "<I" if k == 4 else "<H2x", v) for t, k, v in tags) + bytes(4)
+    return b"II*\x00" + struct.pack("<I", 8 + len(body)) + body + ifd
+
+
+def tiffwebp_files(torch, manifest, root):
+    """The clip frame's pixels in every new kind, as files under ``root``,
+    and the grey that ``load_gray_image`` must give for each: the
+    committed lossless WebP (the clip frame's grey) and JPEG-in-TIFFs
+    (the grey of their RGB read on the card, both digests PIL's), and
+    built here from the clip frame's grey (the card has no PIL) an I;16
+    TIFF (twice the grey: clipped past 127), an F TIFF (the grey plus 0.7:
+    truncated back) and a PFM (1.5 times less 20, rows bottom up:
+    truncated and clipped). Returns (paths, greys) by kind."""
+    import hashlib
+    import shutil
+    import numpy as np
+    from superviseddescent_tpu_torch.io.image import read_rgb
+    from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
+    from superviseddescent_tpu_torch.ops.patches import rgb_to_gray_u8
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    grey = read_jpeg(os.path.join(JPEG_DIR, J2_TIME_FRAME), 1).cpu().numpy()
+    check(digest(grey) == manifest["files"][TIFFWEBP_COMMITTED["webp"]][
+        "grey_sha256"], "the clip frame's grey differs from PIL's grey of "
+        "its lossless WebP")
+    g = grey.astype("<f4")
+    paths, greys = {}, {"webp": grey}
+    for kind, name in TIFFWEBP_COMMITTED.items():
+        paths[kind] = os.path.join(root, name)
+        shutil.copy(os.path.join(IMAGEIO_DIR, name), paths[kind])
+        if kind != "webp":
+            want = manifest["files"][name]
+            rgb = read_rgb(paths[kind])
+            check(digest(rgb) == want["rgb_sha256"], f"{name}: RGB on the "
+                  "card differs from PIL's")
+            greys[kind] = rgb_to_gray_u8(rgb)
+            check(digest(greys[kind]) == want["grey_sha256"],
+                  f"{name}: grey differs from PIL's")
+    built = {"i16_tiff.tif": (tiff_bytes(grey.astype("<u2") * 2, 16, 1),
+                              np.clip(2 * grey.astype(np.int32), 0, 255)),
+             "f_tiff.tif": (tiff_bytes(g + 0.7, 32, 3), grey),
+             "pfm.pfm": (b"Pf\n%d %d\n-1.0\n" % (g.shape[1], g.shape[0])
+                         + (g * 1.5 - 20)[::-1].astype("<f4").tobytes(),
+                         np.clip(np.trunc(g * 1.5 - 20), 0, 255))}
+    for name, (data, want) in built.items():
+        kind = name.split(".")[0]
+        paths[kind] = os.path.join(root, name)
+        greys[kind] = want.astype(np.uint8)
+        with open(paths[kind], "wb") as fh:
+            fh.write(data)
+    return paths, greys
+
+
+def tiffwebp_k3(torch, data, paths, greys, root):
+    """The slice's main path: each kind's file through
+    ``load_gray_image`` on the card, each frame equal to the grey the kind
+    holds, then ``make_fused_detector`` (K3) on the 4,096 faces' boxes
+    over that one frame; the rows equal those from the same grey written
+    as PNG and read back. Counts from 0 before, read after: J1 once per
+    JPEG-in-TIFF (every strip full: one batch), K3 once per kind. Returns
+    the launches and the PNG paths."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io.png import write_png
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    model = data["model"]
+    det = model.make_fused_detector(roi=ROI, max_ied=data["max_ied"])
+    idx = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    zero_counts()
+    frames = {kind: load_gray_image(p) for kind, p in paths.items()}
+    rows = {kind: det(torch.from_numpy(f.astype("uint8"))[None].cuda(),
+                      data["boxes"], image_indices=idx)
+            for kind, f in frames.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts(launches, "the new kinds through load_gray_image and K3",
+                  jpeg_decode=sum(k.startswith("jpeg_tiff") for k in paths),
+                  cascade_fused_frames=len(paths))
+    pngs = {}
+    for kind, f in frames.items():
+        check(np.array_equal(f, greys[kind]), f"{kind}: load_gray_image on "
+              "the card differs from the pixels the file holds")
+        pngs[kind] = os.path.join(root, f"{kind}.png")
+        write_png(pngs[kind], greys[kind])
+        png_rows = det(torch.from_numpy(load_gray_image(pngs[kind]).astype(
+            "uint8"))[None].cuda(), data["boxes"], image_indices=idx)
+        check(rows[kind].shape == (BATCH, 2 * len(model.landmark_ids))
+              and bool(torch.isfinite(rows[kind]).all()),
+              f"{kind}: non-finite or misshapen rows")
+        check(torch.equal(rows[kind], png_rows), f"{kind}: K3's rows from "
+              "the frame differ from those from its pixels as PNG")
+    log(f"[tiffwebp] the clip frame as {', '.join(paths)}: load_gray_image "
+        "equal to the pixels each holds, then K3 on "
+        f"{BATCH} faces, rows equal to the PNG of the same pixels; "
+        f"launches {launches}")
+    return launches, pngs
+
+
+def tiffwebp_times(torch, paths, pngs):
+    """Each new reader's ``load_gray_image`` ms on the 768 x 1024 frame
+    (host clock, the kinds in turns, TIFFWEBP_REPS rounds) beside the PNG
+    of the WebP's pixels; J1's device ms per page (torch.profiler, every
+    launch of a read) on each JPEG-in-TIFF layout of ``TIFFWEBP_J1``, its
+    twin's and its bound."""
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.io.tiff import jpeg_chunks
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels, read_tiff_jpeg)
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    order = dict(paths, png=pngs["webp"])
+    ms = {kind: [] for kind in order}
+    for _ in range(TIFFWEBP_REPS):
+        for kind, p in order.items():
+            t0 = time.perf_counter()
+            load_gray_image(p)
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+    j1 = {}
+    for kind, name in TIFFWEBP_J1.items():
+        with open(os.path.join(IMAGEIO_DIR, name), "rb") as fh:
+            data = fh.read()
+        # a read's launches are one kernel by name: its mean over the
+        # session times the launches a read counts (the profiler may miss
+        # a session's first launches, which rounding per read would halve)
+        before = jpeg_pixels.launches
+        read_tiff_jpeg(data, 1)
+        per_call = jpeg_pixels.launches - before
+        j1_ms = []
+        for _ in range(2):
+            found = device_kernels(torch, lambda: read_tiff_jpeg(data, 1),
+                                   reps=10, match="jpeg_pixels")
+            check(len(found) == 1, f"J1 on {name}: kernels {found}")
+            j1_ms.append(per_call * found[0][2] / 1e3)
+        frames = [jpeg.parse_jpeg(st) for st in jpeg_chunks(data).streams]
+        f = frames[0]
+        groups = [[g for g in frames if (g.width, g.height) == (
+            f.width, f.height)]]
+        groups += [grp for grp in [frames[len(groups[0]):]] if grp]
+        coefs = [torch.stack([entropy_decode_native(g) for g in grp]).cuda()
+                 for grp in groups]
+        # the twin runs some 10^5 small operations a page: two reps, or
+        # the profiler's records take minutes to sum
+        twin_ms = device_ms(torch, lambda: [jpeg.pixels_reference(
+            c, grp[0], 1) for c, grp in zip(coefs, groups)], reps=2,
+            one_kernel=False)
+        bounds = [jpeg_bound(g, 1) for g in frames]
+        bound = {k: sum(b[k] for b in bounds) for k in bounds[0]}
+        j1[kind] = dict(
+            file=name, strips=len(frames), launches=per_call,
+            device_ms=j1_ms, twin_device_ms=twin_ms,
+            bound_ms=max(bound["bytes_ms"], bound["ops_ms"]),
+            bound_by=("bytes" if bound["bytes_ms"] >= bound["ops_ms"]
+                      else "operations"), bound=bound)
+    log("[tiffwebp] load_gray_image of the 768 x 1024 frame, ms (host "
+        "clock, best of " + str(TIFFWEBP_REPS) + ", the kinds in turns): "
+        + ", ".join(f"{k} {min(v):.2f}" for k, v in ms.items()))
+    for kind, t in j1.items():
+        log(f"[tiffwebp] J1 on {t['file']} ({t['strips']} strips, "
+            f"{t['launches']} launches): "
+            + " / ".join(f"{v:.5f}" for v in t["device_ms"])
+            + f" ms (device, torch.profiler), bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), twin {t['twin_device_ms']:.4f} ms device")
+    return dict(load_gray_ms=ms, j1=j1)
+
+
+def tiffwebp_entry(tiffwebp):
+    """J1's entry of a ``--tiffwebp`` run: launches and device ms per 768
+    x 1024 JPEG-in-TIFF page as PIL's writer lays it out, the other
+    layouts beside."""
+    source, replaces = SOURCES["jpeg_decode"]
+    t = tiffwebp["times"]["j1"]
+    main = t["jpeg_tiff_pil"]
+    return dict(
+        name="jpeg_decode", route="cuda", source=source, replaces=replaces,
+        launches=tiffwebp["launches"]["jpeg_decode"],
+        max_abs_err=tiffwebp["max_abs_err"], ms=min(main["device_ms"]),
+        plain_ms=main["twin_device_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        ms_source="torch.profiler", **tiff_page_times(t))
+
+
+def tiff_page_times(j1):
+    """J1's ms per JPEG-in-TIFF page by layout, for the kernels line."""
+    return {f"ms_tiff_page_{kind[len('jpeg_tiff_'):]}": min(v["device_ms"])
+            for kind, v in j1.items()}
+
+
+def phase_tiffwebp(torch, data, name, smi):
+    """The TIFF kinds, JPEG-in-TIFF (J1), PFM and lossless WebP on the
+    card: every new fixture to PIL's digests, J1's TIFF batches against
+    the twin, the clip frame in each new kind through load_gray_image and
+    K3 (rows equal to its PNG's), the readers' and J1's times."""
+    import shutil
+    import tempfile
+    with open(os.path.join(IMAGEIO_DIR, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tiffwebp_")
+    try:
+        checked, worst = tiffwebp_readers(torch, manifest)
+        paths, greys = tiffwebp_files(torch, manifest, root)
+        launches, pngs = tiffwebp_k3(torch, data, paths, greys, root)
+        times = tiffwebp_times(torch, paths, pngs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[tiffwebp] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, files_checked=checked,
+                max_abs_err=worst, launches=launches, times=times,
+                seconds=seconds)
 
 
 # ---------------------------------------------------------------- #
@@ -5613,6 +5955,11 @@ def main():
                         "PNM / TIFF / GIF readers, rcr_track -o on the JPEG "
                         "clip, rcr_detect -o to four formats) after the "
                         "builds")
+    parser.add_argument("--tiffwebp", action="store_true",
+                        help="only the TIFF kinds, JPEG-in-TIFF (J1), PFM "
+                        "and lossless WebP: every new fixture to PIL's "
+                        "digests, the clip frame in each kind through K3, "
+                        "the readers' times (the main run includes it)")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
@@ -5727,6 +6074,13 @@ def main():
         print(json.dumps({"imageio": imageio,
                           "kernels": [imageio_entry(imageio)]}))
         return 0
+    if opts.tiffwebp:
+        name, smi = phase_device(torch)
+        phase_build()
+        tiffwebp = phase_tiffwebp(torch, load_data(torch), name, smi)
+        print(json.dumps({"tiffwebp": tiffwebp,
+                          "kernels": [tiffwebp_entry(tiffwebp)]}))
+        return 0
     if opts.remainder:
         name, smi = phase_device(torch)
         phase_build()
@@ -5760,10 +6114,11 @@ def main():
     apps = phase_apps(torch, data, seed, name, smi)
     jpeg = phase_jpeg(torch, name, smi)
     imageio = phase_imageio(torch, name, smi)
+    tiffwebp = phase_tiffwebp(torch, data, name, smi)
     remainder = phase_remainder(torch, data, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
-                             families, remainder) + [jpeg_entry(jpeg),
-                                                     imageio_entry(imageio)]
+                             families, remainder) + [
+        jpeg_entry(jpeg, tiffwebp), imageio_entry(imageio)]
     k3_shapes = {
         "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
         "rcr22_batch1": tracking["k3_batch1_ms"],
@@ -5786,7 +6141,7 @@ def main():
                        kernels=entries, k3_shapes=k3_shapes,
                        k3_batches=batches, facedetect=facedetect,
                        apps=apps, jpeg=jpeg, imageio=imageio,
-                       remainder=remainder,
+                       tiffwebp=tiffwebp, remainder=remainder,
                        seconds=time.perf_counter() - t0), f,
                   indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")

@@ -11,9 +11,11 @@ format its extension names, as PIL's ``save`` chooses it: PNG, JPEG
 (through kernel J2 on the device), BMP / DIB, PNM or TIFF; GIF and WebP
 are refused by name, an unknown or missing extension raises. The image
 is a PNG, a JPEG (every kind PIL reads but arithmetic coding, 12-bit and
-lossless; its pixel stage runs on the device, kernel J1), a BMP, a PNM,
-a TIFF or a GIF (``io/image.py``). Runs on the card unless ``--device cpu``
-is given; the landmark fit (``DetectionModel.detect``) and the face
+lossless; its pixel stage runs on the device, kernel J1), a BMP, a PNM
+(grey PFM too), a TIFF (every kind PIL reads; a JPEG-compressed one
+through J1), a GIF or a lossless WebP
+(``io/image.py``). Runs on the card unless ``--device cpu`` is given;
+the landmark fit (``DetectionModel.detect``) and the face
 detector are plain PyTorch operations on that device.
 
     python -m superviseddescent_tpu_torch.apps.rcr_detect -m model.bin \\
@@ -32,8 +34,8 @@ def main(argv=None):
                     "(PyTorch port)")
     p.add_argument("-m", "--model", required=True, help="trained model file")
     p.add_argument("-i", "--image", required=True,
-                   help="image to detect in (PNG, JPEG, BMP, PNM, TIFF or "
-                        "GIF)")
+                   help="image to detect in (PNG, JPEG, BMP, PNM, TIFF, GIF "
+                        "or lossless WebP)")
     p.add_argument("--facebox", default=None, help="x,y,w,h")
     p.add_argument("--pts", default=None,
                    help="derive the facebox from this ground-truth .pts file")

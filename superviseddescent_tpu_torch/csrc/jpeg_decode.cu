@@ -19,7 +19,9 @@
 //
 // J1 is one launch of jpeg_pixels_kernel (jpeg_pixels_launch), one
 // instantiation per colour space: one CTA per tile of MCUs (ops/jpeg.
-// J1_TILE: MCU rows and columns, threads), nothing between the phases
+// J1_TILE: MCU rows and columns, threads), a row of the grid per image
+// where a batch of images of one geometry and one table set comes in one
+// launch (a JPEG-compressed TIFF's strips), nothing between the phases
 // leaving shared memory:
 //   1. the components' quantisers into shared memory (cp.async through the
 //      L1: every CTA reads the same 1 KB, which from the L2 alone would
@@ -341,7 +343,7 @@ constexpr int kBlockBytes = 144;  // a staged block, padded against conflicts
 
 struct Geometry {
   int ncomp, width, height, color, channels, total_blocks;
-  int mcux, mcuy, hmax, vmax, tile_rows, tile_cols, threads;
+  int mcux, mcuy, hmax, vmax, tile_rows, tile_cols, threads, batch;
   int nbx[kMaxComps], nby[kMaxComps], offset[kMaxComps], dw[kMaxComps],
       dh[kMaxComps], up[kMaxComps], hexp[kMaxComps], vexp[kMaxComps],
       h[kMaxComps], v[kMaxComps];
@@ -622,6 +624,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                        const int32_t* __restrict__ tables,
                        uint8_t* __restrict__ out, const Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // the image of the batch: its coefficients and its output
+  coef += (size_t)blockIdx.y * g.total_blocks * 64;
+  out += (size_t)blockIdx.y * g.height * g.width * g.channels;
 #ifdef JPEG_DECODE_LAUNCH_ONLY
   return;  // the launch's own time: grid, threads and shared memory
 #endif
@@ -813,8 +818,8 @@ cudaError_t launch_pixels(const Geometry& g, int ctas, int bytes,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
-  jpeg_pixels_kernel<Color><<<ctas, g.threads, bytes, s>>>(in, tables, out,
-                                                            g);
+  jpeg_pixels_kernel<Color><<<dim3(ctas, g.batch), g.threads, bytes, s>>>(
+      in, tables, out, g);
   return cudaGetLastError();
 }
 
@@ -900,14 +905,16 @@ extern "C" int jpeg_entropy_decode(const uint8_t* data, int len,
   return kOk;
 }
 
-// J1: coefficients (device, blocks x 64 int16, each component's blocks row
-// by row) -> out (device, height x width x channels uint8), one launch.
+// J1: coefficients (device, batch x blocks x 64 int16, each image's
+// components' blocks row by row) -> out (device, batch x height x width x
+// channels uint8), one launch for the batch (images of one geometry and
+// one table set: the strips or tiles of a JPEG-compressed TIFF).
 // geom: ncomp, width, height, colour, channels, total blocks, the MCUs
 // that cover the image across and down, the MCU's largest sampling
 // factors, the launch plan (a CTA's tile in MCU rows and columns, its
 // threads), then per component (4) nbx, nby, first block, dw, dh,
 // upsampling filter, its horizontal and vertical ratios, its sampling
-// factors h and v.
+// factors h and v, and last the batch (a grid row of CTAs per image).
 // tables (device): 4 x 64 quantisers (int16 values as int32), natural
 // order (ops/jpeg.quant_on_card).
 extern "C" int jpeg_pixels_launch(const void* coef, void* out,
@@ -927,6 +934,7 @@ extern "C" int jpeg_pixels_launch(const void* coef, void* out,
   g.tile_rows = geom[10];
   g.tile_cols = geom[11];
   g.threads = geom[12];
+  g.batch = geom[13 + kGeomParams * kMaxComps];
   for (int c = 0; c < kMaxComps; ++c) {
     const int32_t* p = geom + 13 + kGeomParams * c;
     g.nbx[c] = p[0];
@@ -941,7 +949,8 @@ extern "C" int jpeg_pixels_launch(const void* coef, void* out,
     g.v[c] = p[9];
   }
   if (g.tile_rows < 1 || g.tile_cols < 1 || g.threads < 32 ||
-      g.threads > kMaxThreads || g.threads % 32)
+      g.threads > kMaxThreads || g.threads % 32 || g.batch < 1 ||
+      g.batch > 65535)
     return (int)cudaErrorInvalidValue;
   const int bytes = smem_layout(g).bytes;
   const int ctas = ((g.mcuy + g.tile_rows - 1) / g.tile_rows) *

@@ -2,18 +2,22 @@
 
 ``sniff`` reads the format from the magic bytes: PNG, JPEG, BMP (``BM``),
 PNM (every prefix PIL's ``PpmImagePlugin._accept`` takes: ``P0``-``P6``,
-``Pf`` and ``Py``; ``decode_pnm`` refuses PFM and PIL's own extensions by
-name), TIFF (``II*\\0``, ``MM\\0*``) and GIF (``GIF87a``,
-``GIF89a``); a format PIL reads that is not ported (WebP, JPEG 2000, ...)
-raises naming it. ``read_rgb`` is ``Image.open(p).convert("RGB")``;
+``Pf`` and ``Py``; ``decode_pnm`` reads grey PFM and refuses PIL's own
+extensions by name), TIFF (``II*\\0``, ``MM\\0*``), GIF (``GIF87a``,
+``GIF89a``) and WebP (``RIFF....WEBP``; ``io/webp`` reads lossless WebP
+and refuses lossy by name); a format PIL reads that is not ported (JPEG
+2000, PSD, QOI) raises naming it. ``read_rgb`` is
+``Image.open(p).convert("RGB")``;
 ``read_gray`` is the JAX package's ``load_gray_image``: PIL's mode ``L``
 as it is, every other mode through RGB and OpenCV's grey, which agree
 wherever r = g = b (4899 + 9617 + 1868 = 2^14), so a reader that returns
-one grey plane (modes 1, L, and PIL's I clipped by ``convert("RGB")``)
-gives both. JPEG's pixel stage runs on ``device`` (kernel J1,
-``ops/jpeg.read_jpeg``; the card unless the caller names one); every
-other format decodes on the host (``io/png``, ``bmp``, ``pnm``, ``tiff``,
-``gif``).
+one grey plane (modes 1, L, LA, and PIL's I;16, I and F clipped by
+``convert("RGB")``) gives both. JPEG's pixel stage runs on ``device``
+(kernel J1, ``ops/jpeg.read_jpeg``; the card unless the caller names
+one), and so does a JPEG-compressed TIFF's (``ops/jpeg.read_tiff_jpeg``);
+a WebP decodes on the host, by the C++ decoder where ``device`` is the
+card and by its Python twin on the CPU (``io/webp``); every other format
+decodes on the host (``io/png``, ``bmp``, ``pnm``, ``tiff``, ``gif``).
 
 ``format_for`` is PIL's extension table (``Image.registered_extensions``
 of PIL 12.1) for the formats the port writes, case-insensitive;
@@ -34,7 +38,9 @@ from superviseddescent_tpu_torch.io.gif import decode_gif
 from superviseddescent_tpu_torch.io.png import (
     SIGNATURE as PNG_SIGNATURE, decode_png, encode_png)
 from superviseddescent_tpu_torch.io.pnm import decode_pnm, encode_pnm
-from superviseddescent_tpu_torch.io.tiff import decode_tiff, encode_tiff
+from superviseddescent_tpu_torch.io.tiff import (
+    compression as tiff_compression, decode_tiff, encode_tiff)
+from superviseddescent_tpu_torch.io.webp import decode_webp
 
 # the written formats of PIL's extension table
 WRITTEN = {".png": "PNG", ".apng": "PNG",
@@ -69,10 +75,10 @@ DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 
 
 def sniff(data: bytes) -> str:
-    """The format of an image file's bytes: PNG, JPEG, BMP, PPM, TIFF, GIF
-    or DIB (PIL's names; a DIB is BMP without its file header, known by
-    its header's size as PIL knows it). Raises naming a format that is not
-    ported."""
+    """The format of an image file's bytes: PNG, JPEG, BMP, PPM, TIFF, GIF,
+    WEBP or DIB (PIL's names; a DIB is BMP without its file header, known
+    by its header's size as PIL knows it). Raises naming a format that is
+    not ported."""
     if data[:8] == PNG_SIGNATURE:
         return "PNG"
     if data[:2] == b"\xff\xd8":
@@ -86,14 +92,15 @@ def sniff(data: bytes) -> str:
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise ValueError("reading WebP is not ported")
+        return "WEBP"
     if len(data) >= 4 and int.from_bytes(data[:4], "little") in DIB_HEADERS:
         return "DIB"
     for magic, name in UNPORTED_MAGIC:
         if data.startswith(magic):
             raise ValueError(f"reading {name} is not ported")
     raise ValueError(f"not an image format the port reads (starts with "
-                     f"{data[:4]!r}; PNG, JPEG, BMP, PNM, TIFF or GIF)")
+                     f"{data[:4]!r}; PNG, JPEG, BMP, PNM, TIFF, GIF or "
+                     "WebP)")
 
 
 def decode_host(data: bytes, fmt: str, channels: int = 3) -> np.ndarray:
@@ -114,8 +121,8 @@ def decode_host(data: bytes, fmt: str, channels: int = 3) -> np.ndarray:
 
 
 def _read(path, channels: int, device):
-    """An image file's pixels: a JPEG's as a tensor on ``device`` (J1),
-    any other format's as a host array."""
+    """An image file's pixels: a JPEG's or a JPEG-compressed TIFF's as a
+    tensor on ``device`` (J1), any other format's as a host array."""
     with open(os.fspath(path), "rb") as f:
         data = f.read()
     try:
@@ -123,7 +130,13 @@ def _read(path, channels: int, device):
         if fmt == "JPEG":
             from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
             return read_jpeg(data, channels, device)
-        px = decode_host(data, fmt, channels)
+        if fmt == "TIFF" and tiff_compression(data) == 7:
+            from superviseddescent_tpu_torch.ops.jpeg import read_tiff_jpeg
+            return read_tiff_jpeg(data, channels, device)
+        if fmt == "WEBP":
+            px = decode_webp(data, device)
+        else:
+            px = decode_host(data, fmt, channels)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     if channels == 3 and px.ndim == 2:

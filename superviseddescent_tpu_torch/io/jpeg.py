@@ -148,6 +148,9 @@ class JpegFrame:
     adobe_transform: int | None = None
     mcux: int = 0
     mcuy: int = 0
+    # the colour space a container sets (a TIFF's photometric), over what
+    # the markers say
+    container_color: int | None = None
 
     @property
     def blocks(self) -> int:
@@ -155,10 +158,13 @@ class JpegFrame:
 
     @property
     def color(self) -> int:
-        """The components' colour space, decided as libjpeg does: for
+        """The components' colour space: the container's where it sets
+        one (``container_color``), else decided as libjpeg does: for
         three, JFIF, then Adobe's transform (0: RGB), then the component
         ids 'R', 'G', 'B'; for four, Adobe's transform (none or 0: CMYK,
         any other: YCCK)."""
+        if self.container_color is not None:
+            return self.container_color
         n = len(self.components)
         if n == 1:
             return COLOR_GREY
@@ -897,9 +903,12 @@ def pixels_reference(coef: torch.Tensor, f: JpegFrame,
                      channels: int = 1) -> torch.Tensor:
     """The plain twin of kernel J1: (blocks, 64) int16 coefficients ->
     uint8 (H, W) grey by OpenCV's formula (Y itself for a 1-component
-    image) or (H, W, 3) RGB, on the coefficients' device."""
+    image) or (H, W, 3) RGB, on the coefficients' device; (N, blocks, 64)
+    of N images of one geometry and one table set -> (N, H, W[, 3])."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")
+    if coef.dim() == 3:
+        return torch.stack([pixels_reference(c, f, channels) for c in coef])
     quant = torch.as_tensor(f.quant(), device=coef.device)
     w, h = f.width, f.height
     planes = [upsample(_plane(coef, quant[i], c), c, w, h)

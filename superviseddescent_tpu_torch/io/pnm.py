@@ -9,11 +9,14 @@ PPM decoders scale them: a maxval of 255 as it is; any other
 quotient; a raw sample above maxval saturates at 255, a plain one
 raises); a grey maxval above 255 (PIL's mode ``I``) to
 ``round(value / maxval * 65535)`` and then clipped to 255 as PIL's
-``convert("RGB")`` clips it (65535 as it is). Refused by name: what PIL
-12.1 reads besides (PFM, ``Pf``, and its own extensions ``P0CMYK``,
+``convert("RGB")`` clips it (65535 as it is). PFM grey (``Pf``) reads as
+PIL's mode ``F``: float32 rows from the bottom up, little-endian where the
+scale is negative (a scale of 0, NaN or infinity raises as PIL does),
+then ``convert("RGB")``'s truncation toward zero and clip to [0, 255]
+(``float_to_u8``). Refused by name: PIL's own extensions (``P0CMYK``,
 ``PyP`` ...), which ``io/image.sniff`` sends here as PIL's ``_accept``
-takes it, and, called directly, PAM (P7) and ``PF``, which PIL's
-``Image.open`` does not identify.
+takes them, and, called directly, PAM (P7) and colour PFM (``PF``),
+which PIL's ``Image.open`` does not identify.
 
 Writes grey (H, W) as P5 and RGB (H, W, 3) as P6, byte for byte PIL's
 (``P5\\n3 2\\n255\\n`` and the samples), whatever the extension of the
@@ -27,8 +30,8 @@ import numpy as np
 WHITESPACE = b" \t\n\x0b\x0c\r"
 MAGIC = {b"P1": (1, False), b"P2": (1, False), b"P3": (3, False),
          b"P4": (1, True), b"P5": (1, True), b"P6": (3, True)}
-REFUSED = {b"P7": "PAM (P7)", b"Pf": "PFM (Pf, float)", b"PF": "PFM (PF, "
-           "float)", b"P0CMYK": "P0CMYK (CMYK)", b"PyP": "PyP (palette)",
+REFUSED = {b"P7": "PAM (P7)", b"PF": "PFM (PF, colour float)",
+           b"P0CMYK": "P0CMYK (CMYK)", b"PyP": "PyP (palette)",
            b"PyRGBA": "PyRGBA", b"PyCMYK": "PyCMYK"}
 TOKEN_LIMIT = 10
 
@@ -50,6 +53,12 @@ class _Header:
         return out
 
     def token(self) -> int:
+        out = self.word()
+        if not out.isdigit():
+            raise ValueError(f"PNM: bad header token {out[:12]!r}")
+        return int(out)
+
+    def word(self) -> bytes:
         out = b""
         while len(out) <= TOKEN_LIMIT:
             if self.pos >= len(self.data):
@@ -69,9 +78,9 @@ class _Header:
             out += c
         if not out:
             raise ValueError("PNM: the file ends inside its header")
-        if len(out) > TOKEN_LIMIT or not out.isdigit():
+        if len(out) > TOKEN_LIMIT:
             raise ValueError(f"PNM: bad header token {out[:12]!r}")
-        return int(out)
+        return out
 
 
 def _plain_tokens(data: bytes) -> bytes:
@@ -91,17 +100,50 @@ def _plain_tokens(data: bytes) -> bytes:
         pos = min(ends) + 1
 
 
+def float_to_u8(values: np.ndarray) -> np.ndarray:
+    """PIL's mode ``F`` through ``convert("RGB")``: truncated toward zero,
+    clipped to [0, 255], NaN 0."""
+    with np.errstate(invalid="ignore"):     # signalling NaNs are NaNs
+        v = np.nan_to_num(values.astype(np.float64), nan=0.0)
+    return np.clip(np.trunc(v), 0, 255).astype(np.uint8)
+
+
+def _decode_pfm(head: _Header, data: bytes) -> np.ndarray:
+    """Grey PFM (``Pf``) after its magic: PIL's ``F;32F`` (scale below
+    0) or ``F;32BF`` rows, bottom row first."""
+    width, height = head.token(), head.token()
+    if width <= 0 or height <= 0:
+        raise ValueError(f"PNM: size {width} x {height}")
+    word = head.word()
+    try:
+        scale = float(word)
+    except ValueError:
+        raise ValueError(f"PFM: bad scale {word[:12]!r}") from None
+    if scale == 0.0 or not np.isfinite(scale):
+        raise ValueError("PFM: scale must be finite and non-zero")
+    n = width * height * 4
+    body = data[head.pos:head.pos + n]
+    if len(body) < n:
+        raise ValueError("PFM: truncated image data")
+    values = np.frombuffer(body, "<f4" if scale < 0 else ">f4")
+    return float_to_u8(values.reshape(height, width)[::-1])
+
+
 def _scale(values: np.ndarray, maxval: int, out_max: int) -> np.ndarray:
     """Python's ``round(value / maxval * out_max)``, half to even."""
     return np.round(values.astype(np.float64) / maxval * out_max)
 
 
 def decode_pnm(data: bytes) -> np.ndarray:
-    """PNM bytes -> uint8 (H, W) grey (bilevel, PGM) or (H, W, 3) RGB."""
+    """PNM bytes -> uint8 (H, W) grey (bilevel, PGM, PFM) or (H, W, 3)
+    RGB."""
     head = _Header(data)
     magic = head.magic()
     if magic in REFUSED:
-        raise ValueError(f"PNM {REFUSED[magic]} is not ported (P1-P6 only)")
+        raise ValueError(f"PNM {REFUSED[magic]} is not ported (P1-P6 and "
+                         "Pf only)")
+    if magic == b"Pf":
+        return _decode_pfm(head, data)
     if magic not in MAGIC:
         raise ValueError(f"not a PNM file (magic {magic!r})")
     bands, raw = MAGIC[magic]

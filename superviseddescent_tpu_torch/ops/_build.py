@@ -62,6 +62,8 @@ KERNELS = {
     # JPEG writing (ops/jpeg.py): J2 and the host Huffman coder
     "jpeg_encode": {"jpeg_coefficients_launch": [_P] * 5,
                     "jpeg_huffman_encode": [_P, _I, _P, _P, _P, _I]},
+    # lossless WebP (io/webp.py): the host VP8L decoder, no kernel
+    "webp_decode": {"webp_decode_vp8l": [_P, _I, _I, _I, _P]},
 }
 
 

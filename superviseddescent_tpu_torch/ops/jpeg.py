@@ -7,8 +7,11 @@ card, the host C++ entropy decoder of ``csrc/jpeg_decode.cu`` decodes every
 scan in one call and writes the coefficients into pinned memory, they go to
 the card asynchronously and J1 (``jpeg_pixels``) turns them into uint8 grey
 or RGB there; on the CPU, the plain twins of both stages run
-(``io/jpeg.entropy_decode`` and ``io/jpeg.pixels_reference``). A failed build or launch raises; nothing
-falls back to the twins.
+(``io/jpeg.entropy_decode`` and ``io/jpeg.pixels_reference``). A failed
+build or launch raises; nothing falls back to the twins.
+``read_tiff_jpeg`` decodes a JPEG-compressed TIFF the same way, its
+strips or tiles of one size as one batch of J1 (a grid row an image) and
+the short last strip in a second launch.
 
 ``write_jpeg`` / ``encode_jpeg_device`` write the file PIL writes
 (``io/jpeg_write.py``): on the card, kernel J2 (``jpeg_coefficients``,
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 
 from superviseddescent_tpu_torch.io.jpeg import (
-    ERRORS, JpegFrame, entropy_decode, parse_jpeg, pixels_reference)
+    COLOR_GREY, COLOR_RGB, COLOR_YCC, ERRORS, JpegFrame, entropy_decode,
+    parse_jpeg, pixels_reference)
 from superviseddescent_tpu_torch.io.jpeg_write import (
     DEFAULT_QUALITY, EncLayout, assemble, coefficients_reference,
     encode_jpeg, layout, std_tables)
@@ -104,16 +108,23 @@ def entropy_params(f: JpegFrame):
     return data, np.asarray(params, np.int32), huff
 
 
-def entropy_decode_native(f: JpegFrame) -> torch.Tensor:
+def entropy_decode_native(f: JpegFrame, out=None) -> torch.Tensor:
     """The host C++ entropy decoder, every scan in one call: (blocks, 64)
     int16 coefficients in pinned memory, equal to
-    ``io/jpeg.entropy_decode``'s."""
+    ``io/jpeg.entropy_decode``'s; into ``out`` (a contiguous host tensor
+    of that shape, a batch's row) where given."""
     from superviseddescent_tpu_torch.ops._build import load_library
     lib = load_library("jpeg_decode")
     _check_sizes(f, 1)
     data, params, huff = entropy_params(f)
     scan = np.frombuffer(data, np.uint8)
-    coef = torch.empty((f.blocks, 64), dtype=torch.int16, pin_memory=True)
+    if out is not None and (
+            out.device.type != "cpu" or out.dtype != torch.int16
+            or tuple(out.shape) != (f.blocks, 64) or not out.is_contiguous()):
+        raise ValueError(f"the decoder writes contiguous int16 host "
+                         f"coefficients of shape ({f.blocks}, 64)")
+    coef = out if out is not None else torch.empty(
+        (f.blocks, 64), dtype=torch.int16, pin_memory=True)
     err = lib.jpeg_entropy_decode(
         ctypes.c_void_p(scan.ctypes.data), len(scan),
         ctypes.c_void_p(params.ctypes.data), ctypes.c_void_p(huff.ctypes.data),
@@ -127,12 +138,15 @@ def entropy_decode_native(f: JpegFrame) -> torch.Tensor:
 # threads; PERF.md gives the sweep on the card that chose it
 # (``chip_smoke.py --j1 --sweep``)
 J1_TILE = (2, 4, 256)
+# the images of one launch: the grid's rows
+J1_MAX_BATCH = 65535
 
 
-def pixel_params(f: JpegFrame, channels: int, tile=None):
+def pixel_params(f: JpegFrame, channels: int, tile=None, batch: int = 1):
     """J1's int32 geometry (see ``csrc/jpeg_decode.cu``) and its (4, 64)
     quantisers (``quant_on_card`` takes them to the card). ``tile``:
-    another launch plan than ``J1_TILE``."""
+    another launch plan than ``J1_TILE``; ``batch``: images of ``f``'s
+    geometry and tables in one launch."""
     hmax = max(c.h for c in f.components)
     vmax = max(c.v for c in f.components)
     # the MCUs that cover the image (fewer than the frame's grid where a
@@ -147,6 +161,7 @@ def pixel_params(f: JpegFrame, channels: int, tile=None):
                      c.vexp, c.h, c.v]
         else:
             geom += [0, 0, f.blocks, 0, 0, 0, 1, 1, 1, 1]
+    geom.append(batch)
     quant = np.zeros((MAX_COMPONENTS, 64), np.int32)
     quant[:len(f.components)] = f.quant()
     return np.asarray(geom, np.int32), quant
@@ -156,22 +171,28 @@ def jpeg_pixels(coef: torch.Tensor, f: JpegFrame, channels: int = 1,
                 tile=None) -> torch.Tensor:
     """J1: (blocks, 64) int16 coefficients -> uint8 (H, W) grey (OpenCV's
     formula on the RGB; a 1-component image's Y) or (H, W, 3) RGB, on the
-    coefficients' device. A CUDA tensor launches the kernel; a CPU tensor
-    takes the plain twin. ``tile``: another launch plan than
-    ``J1_TILE``'s (for the sweep)."""
+    coefficients' device; (N, blocks, 64), N images of ``f``'s geometry
+    and tables, -> (N, H, W[, 3]) in the same one launch. A CUDA tensor
+    launches the kernel; a CPU tensor takes the plain twin. ``tile``:
+    another launch plan than ``J1_TILE``'s (for the sweep)."""
     _check_sizes(f, channels)
     if coef.device.type == "cpu":
         return pixels_reference(coef, f, channels)
     if coef.device.type != "cuda":
         raise ValueError(f"unsupported device {coef.device}")
-    if (coef.dtype != torch.int16 or tuple(coef.shape) != (f.blocks, 64)
-            or not coef.is_contiguous()):
+    batch = coef.shape[0] if coef.dim() == 3 else 1
+    if (coef.dtype != torch.int16 or tuple(coef.shape[-2:]) != (f.blocks, 64)
+            or coef.dim() not in (2, 3) or not coef.is_contiguous()
+            or not 1 <= batch <= J1_MAX_BATCH
+            or batch * f.width * f.height * channels > _INT32_MAX):
         raise ValueError(f"coefficients must be contiguous int16 of shape "
-                         f"({f.blocks}, 64), got {coef.dtype} "
+                         f"([N,] {f.blocks}, 64) with N at most "
+                         f"{J1_MAX_BATCH}, got {coef.dtype} "
                          f"{tuple(coef.shape)}")
     from superviseddescent_tpu_torch.ops._build import load_library
-    geom, quant = pixel_params(f, channels, tile)
-    shape = (f.height, f.width) + ((3,) if channels == 3 else ())
+    geom, quant = pixel_params(f, channels, tile, batch)
+    shape = coef.shape[:-2] + (f.height, f.width) + (
+        (3,) if channels == 3 else ())
     out = torch.empty(shape, dtype=torch.uint8, device=coef.device)
     tables = quant_on_card(quant, coef.device)
     err = load_library("jpeg_decode").jpeg_pixels_launch(
@@ -207,6 +228,78 @@ def read_jpeg(path_or_bytes, channels: int = 1, device=None) -> torch.Tensor:
     else:
         raise ValueError(f"unsupported device {dev}")
     return jpeg_pixels(coef, f, channels)
+
+
+def _tiff_frame(stream: bytes, page, width: int, height: int) -> JpegFrame:
+    """One strip or tile's frame, held to what libtiff's JPEG codec takes:
+    the strip's size, the photometric's components and sampling (YCbCr:
+    luma at the YCbCrSubsampling tag's factors, chroma 1 x 1) and colour
+    space (grey, RGB as it is, YCbCr converted)."""
+    f = parse_jpeg(stream)
+    if (f.width, f.height) != (width, height):
+        raise ValueError(f"TIFF JPEG: a {f.width} x {f.height} frame in a "
+                         f"{width} x {height} strip or tile")
+    sampling = [(c.h, c.v) for c in f.components]
+    want = {1: [(1, 1)], 2: [(1, 1)] * 3,
+            6: [tuple(page.subsampling), (1, 1), (1, 1)]}[page.photometric]
+    if sampling != want:
+        raise ValueError(f"TIFF JPEG: components sampled {sampling} under "
+                         f"photometric {page.photometric} (libtiff takes "
+                         f"{want})")
+    f.container_color = {1: COLOR_GREY, 2: COLOR_RGB,
+                         6: COLOR_YCC}[page.photometric]
+    return f
+
+
+def read_tiff_jpeg(data: bytes, channels: int = 1,
+                   device=None) -> torch.Tensor:
+    """A JPEG-compressed TIFF page (``io/tiff.jpeg_chunks``) -> uint8 (H,
+    W) grey or (H, W, 3) RGB on ``device`` (the card unless the caller
+    names one), as PIL reads it through libtiff. Each strip or tile is an
+    image of its own (its edge rows and columns are the chroma filter's
+    edges). J1 decodes the page in at most two launches: every strip or
+    tile of the full size as one batch, and the short last strip; the
+    host decodes the entropy-coded data (the C++ decoder into one pinned
+    buffer on the card's path, the Python twin on the CPU's)."""
+    from superviseddescent_tpu_torch.io.tiff import jpeg_chunks
+    dev = resolve_device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    page = jpeg_chunks(data)
+    tw, tl = page.tile
+    n = len(page.streams)
+    last = page.height - (page.down - 1) * tl
+    sizes = [(tw, tl)] * n if page.tiled else (
+        [(tw, tl)] * (n - 1) + [(tw, last)])
+    groups = [list(range(n))] if len(set(sizes)) == 1 else [
+        list(range(n - 1)), [n - 1]]
+    parts = []
+    for group in groups:
+        frames = [_tiff_frame(page.streams[k], page, *sizes[k])
+                  for k in group]
+        f = frames[0]
+        for g in frames[1:]:
+            if not np.array_equal(g.quant(), f.quant()):
+                raise ValueError("TIFF JPEG strips or tiles under different "
+                                 "quantisation tables are not ported")
+        if dev.type == "cpu":
+            coef = torch.from_numpy(np.stack(
+                [entropy_decode(g) for g in frames]))
+        else:
+            host = torch.empty((len(frames), f.blocks, 64),
+                               dtype=torch.int16, pin_memory=True)
+            for i, g in enumerate(frames):
+                entropy_decode_native(g, host[i])
+            coef = host.to(dev, non_blocking=True)
+        parts.append(jpeg_pixels(coef, f, channels))
+    tail = (3,) if channels == 3 else ()
+    if page.tiled:
+        px = parts[0].reshape((page.down, page.across, tl, tw) + tail)
+        px = px.transpose(1, 2).reshape(
+            (page.down * tl, page.across * tw) + tail)
+        return px[:page.height, :page.width].contiguous()
+    rows = [p.reshape((-1, page.width) + tail) for p in parts]
+    return (torch.cat(rows) if len(rows) > 1 else rows[0]).contiguous()
 
 
 # ------------------------------------------------------------------ J2

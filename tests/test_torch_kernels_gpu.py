@@ -1416,3 +1416,59 @@ def test_jpeg_encode_kernel_writes_pils_digests(cuda):
                        e["channels"], cuda)
         data = encode_jpeg_device(px, e["quality"], e["subsampling"])
         assert hashlib.sha256(data).hexdigest() == e["sha256"], e
+
+
+TIFF_JPEG_FILES = ["f05_clip_ycbcr420.tif", "f06_clip_rgb_pil.tif",
+                   "f07_clip_ycbcr420_libtiff.tif", "j00_rgb_strips_pil.tif",
+                   "j01_grey_strips_pil.tif", "j02_ycbcr444_pil.tif",
+                   "j03_ycbcr420_strips.tif", "j04_ycbcr420_tiles.tif",
+                   "j05_ycbcr422_strips_be.tif", "j06_grey_tiles.tif"]
+
+
+@pytest.mark.parametrize("name", TIFF_JPEG_FILES)
+def test_jpeg_kernel_tiff_batches(cuda, name):
+    """A JPEG-compressed TIFF on the card: at most two J1 launches (the
+    full-size strips or tiles as one batch, the short last strip), the
+    batch bit-equal to its twin on the same coefficients, the page equal
+    to PIL's digests in grey and RGB."""
+    import hashlib
+    import json
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.io.tiff import jpeg_chunks
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels, read_tiff_jpeg)
+    with open(os.path.join(IMAGEIO_FIXTURES, "manifest.json")) as f:
+        want = json.load(f)["files"][name]
+    data = open(os.path.join(IMAGEIO_FIXTURES, name), "rb").read()
+    for channels, key in ((1, "grey_sha256"), (3, "rgb_sha256")):
+        before = jpeg_pixels.launches
+        got = read_tiff_jpeg(data, channels, cuda)
+        assert jpeg_pixels.launches - before <= 2
+        assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == \
+            want[key]
+    page = jpeg_chunks(data)
+    frames = [jpeg.parse_jpeg(s) for s in page.streams]
+    f = frames[0]
+    same = [g for g in frames if (g.width, g.height) == (f.width, f.height)]
+    coef = torch.stack([entropy_decode_native(g) for g in same]).to(cuda)
+    for channels in (1, 3):
+        got = jpeg_pixels(coef, f, channels)
+        assert torch.equal(got.cpu(), jpeg.pixels_reference(coef.cpu(), f,
+                                                            channels))
+
+
+def test_webp_native_decoder_on_the_card_path(cuda):
+    """The nvcc-built host decoder behind read_rgb(device=card): every
+    WebP fixture equal to PIL's digests."""
+    import hashlib
+    import json
+    from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
+    with open(os.path.join(IMAGEIO_FIXTURES, "manifest.json")) as f:
+        m = json.load(f)
+    for name in m["groups"]["webp"] + ["f04_clip.webp"]:
+        path = os.path.join(IMAGEIO_FIXTURES, name)
+        for read, key in ((read_gray, "grey_sha256"), (read_rgb,
+                                                       "rgb_sha256")):
+            got = read(path, device=cuda)
+            assert hashlib.sha256(got.tobytes()).hexdigest() == \
+                m["files"][name][key], name

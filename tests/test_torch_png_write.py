@@ -9,8 +9,8 @@ committed PNG / TIFF digests of ``tests/torch_imageio/manifest.json``
 (which ``chip_smoke.py --imageio`` holds the card to) are still PIL's, and
 the port writes them (``tests/test_torch_apps_io.py`` holds ``rcr_detect
 -o`` to the JAX app's PNG and TIFF bytes). ``load_gray_image`` and
-``read_rgb`` of PFM and of PIL's ``P0`` / ``Py`` extensions raise the
-named refusal; a prefix PIL does not take (P7, PF) the generic message.
+``read_rgb`` of PIL's ``P0`` / ``Py`` extensions raise the named refusal
+(grey PFM is read: ``tests/test_torch_tiff_kinds.py``); a prefix PIL does not take (P7, PF) the generic message.
 J2's reciprocal quantisation equals the division it replaces.
 """
 
@@ -136,7 +136,7 @@ def test_manifest_png_tiff_digests_are_pils_and_the_ports(fmt):
             assert sha(png_stream(got)) == e["filtered_sha256"], e
 
 
-PNM_REFUSED = [(b"Pf\n2 1\n-1.0\n" + bytes(8), "PFM"),
+PNM_REFUSED = [(b"PyCMYK\n1 1\n255\n" + bytes(4), "PyCMYK"),
                (b"P0CMYK\n1 1\n255\n" + bytes(4), "P0CMYK"),
                (b"PyP\n1 1\n255\n" + bytes(1), "PyP"),
                (b"PyRGBA\n1 1\n255\n" + bytes(4), "PyRGBA")]

@@ -1,10 +1,11 @@
-"""Writes the committed BMP / PNM / TIFF / GIF fixtures,
+"""Writes the committed BMP / PNM / TIFF / GIF / WebP fixtures,
 ``tests/torch_imageio/``, with PIL and small writers of its own.
 
     python tests/torch_imageio_fixtures.py
 
-The card has no PIL, so ``chip_smoke.py --imageio`` reads these files and
-holds the port's readers to PIL's digests in ``manifest.json``: per file
+The card has no PIL, so ``chip_smoke.py --imageio`` and ``--tiffwebp``
+read these files and hold the port's readers to PIL's digests in
+``manifest.json``: per file
 the sha256 of the JAX package's ``load_gray_image`` as uint8 (PIL, then
 OpenCV's grey) and of PIL's ``convert("RGB")``, and PIL's mode. The
 manifest's ``jpeg_writes`` are the sha256 digests of the files PIL's
@@ -31,7 +32,29 @@ sha256 of its filtered rows, which holds whatever zlib deflates them;
   interlaced, local palette, an offset frame with a transparent index, no
   palette, a grey local table over a global palette, animated;
 * full size, for the card's reader times: a grey BMP, a PGM, an RGB TIFF
-  (LZW, predictor 2) and a GIF of one ``.synth120`` image (412 x 600).
+  (LZW, predictor 2) and a GIF of one ``.synth120`` image (412 x 600);
+* one uncompressed TIFF (23 x 17) for each of the 120 keys of PIL's
+  ``TiffImagePlugin.OPEN_INFO`` (``k*``, written by ``tiff``: samples wide
+  enough to clip, NaN and infinities among the floats; raw YCbCr with its
+  strip after the IFD, as PIL writes it), ten of which PIL cannot read
+  (the manifest holds PIL's error for those); the compressed kinds
+  (``c*``: LZMA, predictors 2 and 3, 16 and 32-bit big-endian, fill order
+  2, planar CMYK, LA, 16-bit RGB tiles); JPEG-in-TIFF (``j*``: PIL's own
+  writes, grey, RGB and 4:4:4 YCbCr, and libtiff's layout around PIL's
+  JPEG streams, 4:2:0 and 4:2:2 YCbCr and grey in strips and tiles);
+  grey PFM at both byte orders (``n11``-``n13``);
+* lossless WebP (``w*``): PIL's encoder at methods 0, 4 and 6, RGBA with
+  and without ``exact``, 2, 4 and 16-colour palettes, grey, noise, ICC
+  and EXIF chunks, a 2-frame animation, an animation whose first frame
+  lies inside a larger canvas, a meta prefix image, and a bitstream of
+  this script's (``vp8l_predictor_modes``) whose predictor image walks
+  all 16 modes;
+* the clip frame ``clip/f000.jpg``'s pixels (768 x 1024) for the card's
+  new readers: a lossless WebP; JPEG-in-TIFF as PIL's writer lays it out
+  (RGB, its default strips of 32 rows) and as libtiff's writer does
+  (``libtiff_jpeg_tiff``: YCbCr 4:2:0, its default strips of 16 rows),
+  one J1 launch each; and 4:2:0 strips of 80 rows, the worst case of two
+  launches (a batch and a short last strip).
 
 The reference is PIL's decode of the bytes written; the same seed gives
 the same bytes for the same PIL and libtiff. ``tests/test_torch_imageio.py``
@@ -68,6 +91,11 @@ JPEG_SOURCES = ("s01_444_q95.jpg", "s03_420_q75.jpg", "s06_422_q75_odd.jpg",
 # TIFF write digests (what rcr_detect -o writes)
 DRAWN_STILLS = ("f00_grey.bmp", "f02_rgb_lzw_predictor.tif")
 DRAWN_POINTS = "synth_0002"
+# the card's new readers read this clip frame's pixels as a lossless WebP
+# and as JPEG-compressed TIFFs; the 4:2:0 strips of 80 rows (12 of 80 and
+# one of 64) are the worst case of J1's two launches
+CLIP_FRAME = "clip/f000.jpg"
+CLIP_STRIP_ROWS = 80
 
 
 def small_rgb() -> np.ndarray:
@@ -87,9 +115,12 @@ def pil_bytes(image: Image.Image, fmt: str, **options) -> bytes:
 
 def pil_digests(path) -> dict:
     """PIL's pixels of a file: the JAX package's grey, convert('RGB') and
-    PIL's mode."""
+    PIL's mode; for a file PIL cannot read, its error."""
     from superviseddescent_tpu.ops.patches import load_gray_image
-    grey = load_gray_image(path).astype(np.uint8)
+    try:
+        grey = load_gray_image(path).astype(np.uint8)
+    except (OSError, ValueError, SyntaxError) as e:
+        return dict(pil_error=str(e))
     with Image.open(path) as im:
         mode = im.mode
         rgb = np.asarray(im.convert("RGB"), np.uint8)
@@ -301,42 +332,57 @@ def pnm_fixtures() -> dict:
 
 
 # ----------------------------------------------------------------- TIFF
-def tiff(chunks, tags: dict, big_endian=False) -> bytes:
+def tiff(chunks, tags: dict, big_endian=False, data_last=False) -> bytes:
     """A TIFF of one IFD: ``chunks`` (strips or tiles, in order) and
     ``tags`` {tag: (type, values)}; the offsets and byte counts of the
-    chunks go under the offsets tag named in ``tags`` with values None."""
+    chunks go under the offsets tag named in ``tags`` with values None.
+    ``data_last``: the chunks after the IFD, as PIL writes them (a reader
+    that runs past a strip then meets the end of the file)."""
     e = ">" if big_endian else "<"
-    fmt = {3: "H", 4: "I"}
-    body = bytearray()
-    offsets = []
-    for c in chunks:
-        offsets.append(8 + len(body))
-        body += c
-        if len(body) % 2:
-            body += b"\x00"
-    entries = dict(tags)
-    for off_tag, cnt_tag in ((273, 279), (324, 325)):
-        if off_tag in entries:
-            entries[off_tag] = (4, offsets)
-            entries[cnt_tag] = (4, [len(c) for c in chunks])
-    ifd_at = 8 + len(body)
-    n = len(entries)
-    extra_at = ifd_at + 2 + 12 * n + 4
-    ifd, extra = struct.pack(e + "H", n), bytearray()
-    for tag in sorted(entries):
-        kind, values = entries[tag]
-        packed = struct.pack(e + fmt[kind] * len(values), *values)
-        if len(packed) <= 4:
-            ifd += struct.pack(e + "HHI", tag, kind, len(values))
-            ifd += packed.ljust(4, b"\x00")
-        else:
-            ifd += struct.pack(e + "HHII", tag, kind, len(values),
-                               extra_at + len(extra))
-            extra += packed
-    ifd += struct.pack(e + "I", 0)
-    head = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(
-        e + "I", ifd_at)
-    return head + bytes(body) + bytes(ifd) + bytes(extra)
+    fmt = {1: "B", 3: "H", 4: "I", 7: "B"}
+
+    def layout(start):
+        body, offsets = bytearray(), []
+        for c in chunks:
+            offsets.append(start + len(body))
+            body += c
+            if len(body) % 2:
+                body += b"\x00"
+        entries = dict(tags)
+        for off_tag, cnt_tag in ((273, 279), (324, 325)):
+            if off_tag in entries:
+                entries[off_tag] = (4, offsets)
+                entries[cnt_tag] = (4, [len(c) for c in chunks])
+        return body, entries
+
+    def directory(entries, ifd_at):
+        n = len(entries)
+        extra_at = ifd_at + 2 + 12 * n + 4
+        ifd, extra = struct.pack(e + "H", n), bytearray()
+        for tag in sorted(entries):
+            kind, values = entries[tag]
+            packed = struct.pack(e + fmt[kind] * len(values), *values)
+            if len(packed) <= 4:
+                ifd += struct.pack(e + "HHI", tag, kind, len(values))
+                ifd += packed.ljust(4, b"\x00")
+            else:
+                ifd += struct.pack(e + "HHII", tag, kind, len(values),
+                                   extra_at + len(extra))
+                extra += packed
+                if len(extra) % 2:
+                    extra += b"\x00"
+        ifd += struct.pack(e + "I", 0)
+        return bytes(ifd) + bytes(extra)
+
+    head = (b"MM\x00*" if big_endian else b"II*\x00")
+    if data_last:
+        meta = directory(layout(0)[1], 8)
+        body, entries = layout(8 + len(meta))
+        return head + struct.pack(e + "I", 8) + directory(entries, 8) + bytes(
+            body)
+    body, entries = layout(8)
+    return head + struct.pack(e + "I", 8 + len(body)) + bytes(body) + \
+        directory(entries, 8 + len(body))
 
 
 def packbits(data: bytes) -> bytes:
@@ -557,6 +603,475 @@ def full_fixtures() -> dict:
     }
 
 
+def clip_fixtures() -> dict:
+    """The clip frame's pixels for the card's new readers."""
+    with Image.open(os.path.join(JPEG_DIR, CLIP_FRAME)) as im:
+        clip = np.asarray(im.convert("RGB"))
+    return {
+        "f04_clip.webp": pil_bytes(Image.fromarray(clip), "WEBP",
+                                   lossless=True, method=4),
+        "f05_clip_ycbcr420.tif": jpeg_tiff(clip, rows=CLIP_STRIP_ROWS),
+        "f06_clip_rgb_pil.tif": pil_bytes(Image.fromarray(clip), "TIFF",
+                                          compression="jpeg"),
+        "f07_clip_ycbcr420_libtiff.tif": libtiff_jpeg_tiff(clip),
+    }
+
+
+def libtiff_jpeg_tiff(rgb: np.ndarray, quality: int = 75) -> bytes:
+    """RGB pixels as libtiff's own writer lays out a JPEG-compressed YCbCr
+    4:2:0 TIFF (through ctypes): its default rows a strip
+    (``TIFFDefaultStripSize``), libjpeg's colour conversion and
+    downsampling (``JPEGCOLORMODE_RGB``), written a scanline at a time."""
+    import ctypes
+    import ctypes.util
+    import tempfile
+    lib = ctypes.CDLL(ctypes.util.find_library("tiff"))
+    lib.TIFFOpen.restype = ctypes.c_void_p
+    lib.TIFFDefaultStripSize.restype = ctypes.c_uint32
+    h, w = rgb.shape[:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "page.tif")
+        tif = ctypes.c_void_p(lib.TIFFOpen(path.encode(), b"w"))
+        assert tif.value, "libtiff cannot open " + path
+
+        def put(tag, *values):
+            assert lib.TIFFSetField(tif, ctypes.c_uint32(tag), *values)
+        u32, i = ctypes.c_uint32, ctypes.c_int
+        put(256, u32(w))
+        put(257, u32(h))
+        put(258, i(8))
+        put(277, i(3))
+        put(284, i(1))
+        put(259, i(7))
+        put(262, i(6))
+        put(530, i(2), i(2))
+        put(65538, i(1))                    # JPEGCOLORMODE_RGB
+        put(65537, i(quality))              # JPEGQUALITY
+        put(278, u32(lib.TIFFDefaultStripSize(tif, u32(0))))
+        for y in range(h):
+            row = np.ascontiguousarray(rgb[y], np.uint8)
+            assert lib.TIFFWriteScanline(
+                tif, row.ctypes.data_as(ctypes.c_void_p), u32(y), i(0)) == 1
+        lib.TIFFClose(tif)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+# ------------------------------------------------- TIFF kinds, JPEG, PFM
+KIND_CROP = (150, 120, 17, 23)     # row, column, height, width
+
+
+def kind_name(index: int, key) -> str:
+    order, photometric, fmt, fill, bits, extra = key
+    return (f"k{index:03d}_{order.decode()}_p{photometric}_s{fmt[0]}_f{fill}"
+            f"_b{'-'.join(map(str, bits))}"
+            + (f"_e{'-'.join(map(str, extra))}" if extra else "") + ".tif")
+
+
+def kind_samples(key, rng) -> bytes:
+    """Rows of samples for one OPEN_INFO key, in the file's byte order:
+    the crop's grey, colour and an alpha of it, widened where the kind is
+    wide (16-bit values past 255, signed values below 0, floats with
+    fractions, NaN and infinities), so every clip and truncation shows."""
+    order, photometric, fmt, fill, bits, extra = key
+    e = ">" if order == b"MM" else "<"
+    y, x, h, w = KIND_CROP
+    rgb = tint(synth(0)[y:y + h, x:x + w], SEED + 2).astype(np.int64)
+    grey = rgb[..., 1]
+    spp, depth = len(bits), bits[0]
+    planes = [rgb[..., 0], rgb[..., 1], rgb[..., 2], 255 - grey // 2,
+              grey // 3, grey // 5][:spp]
+    if photometric in (0, 1, 3, 6) and spp <= 2:
+        planes = [grey, 255 - grey // 2][:spp]
+    px = np.stack(planes, axis=-1)
+    if depth < 8:
+        v = px >> (8 - depth)
+        flat = np.unpackbits(v.astype(np.uint8)[..., None], axis=-1)[
+            ..., 8 - depth:].reshape(h, -1)
+        return np.packbits(flat, axis=1).tobytes()
+    if depth == 12:
+        v = (px * 7 + rng.integers(0, 9, px.shape)) & 0xFFF
+        flat = np.unpackbits(v.astype(">u2").view(np.uint8).reshape(
+            h, -1, 2), axis=-1)[..., 4:].reshape(h, -1)
+        return np.packbits(flat, axis=1).tobytes()
+    if fmt == (3,):
+        v = (px * 1.3 - 40 + rng.uniform(0, 1, px.shape)).astype(np.float32)
+        v.flat[:4] = (np.nan, np.inf, -np.inf, 1e9)
+        return v.astype(e + "f4").tobytes()
+    if depth == 8:
+        return px.astype(np.uint8).tobytes()
+    if fmt == (2,):
+        return (px * 3 - 200).astype(f"{e}i{depth // 8}").tobytes()
+    if depth == 16:
+        wide = px * 257 + rng.integers(0, 257, px.shape)
+        if photometric in (0, 1):
+            wide = px * 2 + rng.integers(0, 3, px.shape)   # past 255
+        return wide.astype(e + "u2").tobytes()
+    v = px * 3 - 200                                       # I;32N
+    return v.astype(np.int64).astype(e + "i4").tobytes()
+
+
+def tiff_kind_fixtures() -> dict:
+    """One uncompressed file of one strip per key of PIL's OPEN_INFO (raw
+    YCbCr with its strip after the IFD, as PIL writes it)."""
+    from PIL import TiffImagePlugin
+    rng = np.random.default_rng(SEED)
+    y, x, h, w = KIND_CROP
+    out = {}
+    for i, key in enumerate(sorted(TiffImagePlugin.OPEN_INFO, key=repr)):
+        order, photometric, fmt, fill, bits, extra = key
+        tags = {256: (3, [w]), 257: (3, [h]), 258: (3, list(bits)),
+                259: (3, [1]), 262: (3, [photometric]), 273: None,
+                277: (3, [len(bits)]), 278: (3, [h])}
+        if fmt != (1,):
+            tags[339] = (3, [fmt[0]] * len(bits))
+        if fill != 1:
+            tags[266] = (3, [fill])
+        if extra:
+            tags[338] = (3, list(extra))
+        if photometric == 3:
+            n = 1 << bits[0]
+            tags[320] = (3, list(rng.integers(0, 65536, 3 * n)))
+        out[kind_name(i, key)] = tiff(
+            [kind_samples(key, rng)], tags, big_endian=order == b"MM",
+            data_last=photometric == 6)
+    return out
+
+
+def split_jpeg(data: bytes):
+    """A PIL JPEG -> (its tables as a JPEGTables stream: SOI, DQT, DHT,
+    EOI; the abbreviated stream: SOI, SOF, the scan, EOI)."""
+    pos, tables, rest = 2, b"\xff\xd8", b"\xff\xd8"
+    while True:
+        marker = data[pos + 1]
+        (n,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        if marker in (0xDB, 0xC4):
+            tables += data[pos:pos + 2 + n]
+        elif marker == 0xDA:
+            return tables + b"\xff\xd9", rest + data[pos:]
+        elif marker in (0xC0, 0xC1, 0xC2, 0xDD):
+            rest += data[pos:pos + 2 + n]
+        pos += 2 + n
+
+
+def jpeg_tiff(px, rows=None, tile=None, subsampling="4:2:0", quality=75,
+              big_endian=False) -> bytes:
+    """A JPEG-compressed TIFF as libtiff writes one: each strip (``rows``
+    a strip, the last the rows left) or tile (``tile`` = width, height;
+    zero-padded) a PIL JPEG cut to an abbreviated stream, the tables once
+    under JPEGTables; photometric 6 (YCbCr) for RGB pixels, 1 for grey."""
+    h, w = px.shape[:2]
+    grey = px.ndim == 2
+    if tile:
+        tw, tl = tile
+        pieces = []
+        for ty in range(0, h, tl):
+            for tx in range(0, w, tw):
+                t = np.zeros((tl, tw) + px.shape[2:], np.uint8)
+                part = px[ty:ty + tl, tx:tx + tw]
+                t[:part.shape[0], :part.shape[1]] = part
+                pieces.append(t)
+    else:
+        pieces = [px[y0:y0 + rows] for y0 in range(0, h, rows)]
+    chunks, tables = [], None
+    for piece in pieces:
+        options = {} if grey else {"subsampling": subsampling}
+        t, body = split_jpeg(pil_bytes(Image.fromarray(piece), "JPEG",
+                                       quality=quality, **options))
+        assert tables in (None, t)
+        tables = t
+        chunks.append(body)
+    factors = {"4:2:0": (2, 2), "4:2:2": (2, 1), "4:4:4": (1, 1)}
+    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [8] * (1 if grey else 3)),
+            259: (3, [7]), 262: (3, [1 if grey else 6]),
+            277: (3, [1 if grey else 3]), 347: (7, list(tables))}
+    if not grey:
+        tags[530] = (3, list(factors[subsampling]))
+    if tile:
+        tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]), 324: None})
+    else:
+        tags.update({273: None, 278: (3, [rows])})
+    return tiff(chunks, tags, big_endian=big_endian)
+
+
+def fp_predicted(values: np.ndarray, samples: int) -> bytes:
+    """libtiff's floating-point predictor (3) on (h, w * samples) float32
+    rows: each row's bytes in planes by significance (most significant
+    first), then each byte less the one ``samples`` bytes to its left."""
+    out = []
+    for row in values:
+        planes = row.astype(">f4").view(np.uint8).reshape(-1, 4).T.ravel()
+        d = planes.astype(np.int16)
+        d[samples:] = planes[samples:].astype(np.int16) - planes[:-samples]
+        out.append((d & 0xFF).astype(np.uint8))
+    return np.concatenate(out).tobytes()
+
+
+def tiff_more_fixtures() -> dict:
+    """Compressions and predictors of the new kinds, JPEG-in-TIFF (PIL's
+    own writes: grey, RGB and 4:4:4 YCbCr; libtiff's layout with PIL's
+    JPEG: 4:2:0 and 4:2:2 YCbCr and grey in strips and tiles), LZMA."""
+    import lzma
+    rgb = small_rgb()
+    grey = rgb[..., 1]
+    h, w = grey.shape
+    rng = np.random.default_rng(SEED + 3)
+    base = {256: (3, [w]), 257: (3, [h]), 273: None, 277: (3, [1]),
+            278: (3, [h])}
+    f = (grey * 1.3 - 40 + rng.uniform(0, 1, grey.shape)).astype(np.float32)
+    v16 = (grey.astype(np.int64) * 3).astype(np.uint16)
+    d16 = (np.diff(v16.astype(np.int64), axis=1, prepend=0) & 0xFFFF)
+    s32 = grey.astype(np.int64) * 3 - 200
+    d32 = np.diff(s32, axis=1, prepend=0) & 0xFFFFFFFF
+    cmyk = np.concatenate([255 - rgb, (grey // 4)[..., None]], axis=2)
+    rev = lambda b: bytes(bytearray(int(f"{c:08b}"[::-1], 2) for c in b))
+    files = {
+        "c00_grey_lzma.tif": pil_bytes(Image.fromarray(grey), "TIFF",
+                                       compression="lzma"),
+        "c01_rgb_lzma_predictor.tif": pil_bytes(
+            Image.fromarray(rgb), "TIFF", compression="lzma",
+            tiffinfo={317: 2}),
+        "c02_float_deflate_predictor3.tif": pil_bytes(
+            Image.fromarray(f, "F"), "TIFF",
+            compression="tiff_adobe_deflate", tiffinfo={317: 3}),
+        "c03_float_lzma_predictor3_be.tif": tiff(
+            [lzma.compress(fp_predicted(f, 1))], {
+                **base, 258: (3, [32]), 259: (3, [34925]), 262: (3, [1]),
+                317: (3, [3]), 339: (3, [3])}, big_endian=True),
+        "c04_i16_deflate_predictor2_be.tif": tiff(
+            [zlib.compress(d16.astype(">u2").tobytes())], {
+                **base, 258: (3, [16]), 259: (3, [8]), 262: (3, [1]),
+                317: (3, [2])}, big_endian=True),
+        "c05_i32s_lzw.tif": pil_bytes(Image.fromarray(
+            s32.astype(np.int32), "I"), "TIFF", compression="tiff_lzw"),
+        "c06_i32s_deflate_predictor2_be.tif": tiff(
+            [zlib.compress(d32.astype(">u4").tobytes())], {
+                **base, 258: (3, [32]), 259: (3, [8]), 262: (3, [1]),
+                317: (3, [2]), 339: (3, [2])}, big_endian=True),
+        "c07_bilevel_fill2_deflate.tif": tiff(
+            [rev(zlib.compress(np.packbits(grey > 120, axis=1).tobytes()))],
+            {**base, 258: (3, [1]), 259: (3, [8]), 262: (3, [0]),
+             266: (3, [2])}),
+        "c08_cmyk_planar_deflate.tif": tiff(
+            [zlib.compress(cmyk[..., c].tobytes()) for c in range(4)], {
+                **base, 258: (3, [8] * 4), 259: (3, [8]), 262: (3, [5]),
+                277: (3, [4]), 284: (3, [2])}),
+        "c09_cmyk_lzw.tif": pil_bytes(Image.fromarray(cmyk, "CMYK"), "TIFF",
+                                      compression="tiff_lzw"),
+        "c10_la_packbits.tif": pil_bytes(Image.fromarray(np.stack(
+            [grey, 255 - grey], axis=2), "LA"), "TIFF",
+            compression="packbits"),
+        "c11_rgb16_tiles_deflate_predictor2.tif": tiff(
+            [zlib.compress((np.diff(t.astype(np.int64), axis=1, prepend=0)
+                            & 0xFFFF).astype("<u2").tobytes())
+             for t in tiles_of(rgb.astype(np.uint16) * 257
+                               + rng.integers(0, 257, rgb.shape), 16)], {
+                256: (3, [w]), 257: (3, [h]), 258: (3, [16] * 3),
+                259: (3, [8]), 262: (3, [2]), 277: (3, [3]), 317: (3, [2]),
+                322: (3, [16]), 323: (3, [16]), 324: None}),
+        "j00_rgb_strips_pil.tif": pil_bytes(
+            Image.fromarray(rgb), "TIFF", compression="jpeg",
+            tiffinfo={278: 16}),
+        "j01_grey_strips_pil.tif": pil_bytes(
+            Image.fromarray(grey), "TIFF", compression="jpeg",
+            tiffinfo={278: 8}),
+        "j02_ycbcr444_pil.tif": pil_bytes(
+            Image.fromarray(rgb).convert("YCbCr"), "TIFF",
+            compression="jpeg"),
+        "j03_ycbcr420_strips.tif": jpeg_tiff(rgb, rows=16),
+        "j04_ycbcr420_tiles.tif": jpeg_tiff(rgb, tile=(32, 16)),
+        "j05_ycbcr422_strips_be.tif": jpeg_tiff(
+            rgb, rows=8, subsampling="4:2:2", quality=90, big_endian=True),
+        "j06_grey_tiles.tif": jpeg_tiff(grey, tile=(16, 16), quality=50),
+    }
+    return files
+
+
+def tiles_of(px: np.ndarray, size: int) -> list:
+    """(h, w, c) -> its size x size tiles, zero-padded, rows of
+    ``size * c`` samples."""
+    h, w = px.shape[:2]
+    out = []
+    for ty in range(0, h, size):
+        for tx in range(0, w, size):
+            t = np.zeros((size, size) + px.shape[2:], px.dtype)
+            part = px[ty:ty + size, tx:tx + size]
+            t[:part.shape[0], :part.shape[1]] = part
+            out.append(t.reshape(size, -1))
+    return out
+
+
+def pfm_fixtures() -> dict:
+    grey = small_rgb()[..., 1]
+    h, w = grey.shape
+    rng = np.random.default_rng(SEED + 4)
+    f = (grey * 1.2 - 30 + rng.uniform(0, 1, grey.shape)).astype(np.float32)
+    f.flat[:3] = (np.nan, np.inf, 300.5)
+    return {
+        "n11_pf_little_endian.pfm": b"Pf\n%d %d\n-1.0\n" % (w, h)
+        + f[::-1].astype("<f4").tobytes(),
+        "n12_pf_big_endian.pfm": b"Pf\n%d %d\n2.5\n" % (w, h)
+        + f[::-1].astype(">f4").tobytes(),
+        "n13_pf_pil.pfm": pil_bytes(Image.fromarray(f, "F"), "PPM"),
+    }
+
+
+# ------------------------------------------------------------------ WebP
+class _LsbWriter:
+    """Bits least significant first, as VP8L reads them."""
+
+    def __init__(self):
+        self.value, self.n = 0, 0
+
+    def put(self, v: int, n: int):
+        self.value |= (v & ((1 << n) - 1)) << self.n
+        self.n += n
+
+    def code8(self, symbol: int):
+        """A symbol of a code of 256 lengths of 8: its 8 bits, first bit
+        the code's most significant."""
+        self.put(int(f"{symbol:08b}"[::-1], 2), 8)
+
+    def bytes(self) -> bytes:
+        return self.value.to_bytes((self.n + 7) // 8, "little")
+
+
+def _literal_image(bw: _LsbWriter, argb: np.ndarray, meta: bool):
+    """An entropy-coded image of literals only: no colour cache, no meta
+    prefix image, and five codes: green, red, blue and alpha of 256 lengths
+    of 8 (a code-length code of the one length 8, which takes no bits; the
+    green code's 24 length symbols cut off by max_symbol), distance a
+    simple code of one symbol."""
+    bw.put(0, 1)                                   # no colour cache
+    if meta:
+        bw.put(0, 1)                               # no meta prefix image
+    for k in range(4):
+        bw.put(0, 1)                               # a normal code
+        bw.put(12 - 4, 4)                          # 12 code-length lengths
+        for i in range(12):                        # order: ... 16, 6, 7, 8
+            bw.put(1 if i == 11 else 0, 3)
+        if k == 0:
+            bw.put(1, 1)
+            bw.put(3, 3)                           # 8 bits of max_symbol
+            bw.put(254, 8)                         # 256 = 2 + 254
+        else:
+            bw.put(0, 1)
+    bw.put(1, 1)                                   # distance: simple,
+    bw.put(0, 1)                                   # one symbol,
+    bw.put(0, 1)                                   # 1 bit wide,
+    bw.put(0, 1)                                   # symbol 0
+    for p in argb.ravel().tolist():
+        for shift in (8, 16, 0, 24):               # green, red, blue, alpha
+            bw.code8((p >> shift) & 0xFF)
+
+
+def vp8l_predictor_modes(argb: np.ndarray, bits: int = 2) -> bytes:
+    """A VP8L bitstream whose predictor image walks every mode, 0 to 15,
+    block after block (``bits``: the blocks' size), over ``argb`` as its
+    residuals, all literals: PIL's decode of it is the reference."""
+    h, w = argb.shape
+    bw = _LsbWriter()
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(1, 1)
+    bw.put(0, 3)
+    bw.put(1, 1)                                   # a transform:
+    bw.put(0, 2)                                   # the predictor
+    bw.put(bits - 2, 3)
+    bh, bwide = -(-h >> bits), -(-w >> bits)
+    modes = (np.arange(bh * bwide) % 16).reshape(bh, bwide).astype(np.uint32)
+    _literal_image(bw, (modes << 8) | 0xFF000000, False)
+    bw.put(0, 1)                                   # no more transforms
+    _literal_image(bw, argb, True)
+    return bw.bytes()
+
+
+def riff(chunks) -> bytes:
+    body = b"WEBP"
+    for fourcc, payload in chunks:
+        body += fourcc + struct.pack("<I", len(payload)) + payload
+        if len(payload) % 2:
+            body += b"\x00"
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8l_of(data: bytes) -> bytes:
+    """The VP8L payload of a simple lossless WebP of PIL's."""
+    assert data[12:16] == b"VP8L"
+    (n,) = struct.unpack_from("<I", data, 16)
+    return data[20:20 + n]
+
+
+def webp_fixtures() -> dict:
+    rgb = small_rgb()
+    grey = rgb[..., 1]
+    h, w = grey.shape
+    rng = np.random.default_rng(SEED + 5)
+    rgba = np.concatenate([rgb, (255 - grey // 2)[..., None]], axis=2)
+    rgba[::7, ::5, 3] = 0
+    argb = ((rgba[..., 3].astype(np.uint32) << 24)
+            | (rgba[..., 0].astype(np.uint32) << 16)
+            | (rgba[..., 1].astype(np.uint32) << 8) | rgba[..., 2])
+    second = Image.fromarray(rgb[::-1].copy())
+    anim = io.BytesIO()
+    Image.fromarray(rgb).save(anim, "WEBP", lossless=True, save_all=True,
+                              append_images=[second], duration=80)
+    frame = vp8l_of(pil_bytes(Image.fromarray(rgba[:30, :40], "RGBA"),
+                              "WEBP", lossless=True, exact=True))
+    cw, ch = w + 6, h + 4
+    vp8x = struct.pack("<B3x", 0x12) + (cw - 1).to_bytes(3, "little") + (
+        ch - 1).to_bytes(3, "little")
+    anmf = ((4 // 2).to_bytes(3, "little") + (6 // 2).to_bytes(3, "little")
+            + (40 - 1).to_bytes(3, "little") + (30 - 1).to_bytes(3, "little")
+            + (100).to_bytes(3, "little") + b"\x00")
+    offset_anim = riff([(b"VP8X", vp8x), (b"ANIM", bytes(6)),
+                        (b"ANMF", anmf + b"VP8L" + struct.pack(
+                            "<I", len(frame)) + frame
+                            + b"\x00" * (len(frame) & 1))])
+    files = {
+        "w00_rgb_m0_q0.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                        lossless=True, method=0, quality=0),
+        "w01_rgb_m4_q50.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                         lossless=True, method=4,
+                                         quality=50),
+        "w02_rgb_m6_q100.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                          lossless=True, method=6,
+                                          quality=100),
+        "w03_rgba.webp": pil_bytes(Image.fromarray(rgba, "RGBA"), "WEBP",
+                                   lossless=True),
+        "w04_rgba_exact.webp": pil_bytes(Image.fromarray(rgba, "RGBA"),
+                                         "WEBP", lossless=True, exact=True),
+        "w05_palette2.webp": pil_bytes(Image.fromarray(rgb).quantize(2)
+                                       .convert("RGB"), "WEBP",
+                                       lossless=True),
+        "w06_palette4.webp": pil_bytes(Image.fromarray(rgb).quantize(4)
+                                       .convert("RGB"), "WEBP",
+                                       lossless=True),
+        "w07_palette16.webp": pil_bytes(Image.fromarray(rgb).quantize(16)
+                                        .convert("RGB"), "WEBP",
+                                        lossless=True),
+        "w08_grey.webp": pil_bytes(Image.fromarray(grey), "WEBP",
+                                   lossless=True),
+        "w09_animated.webp": anim.getvalue(),
+        "w10_animated_offset_frame.webp": offset_anim,
+        "w11_predictor_modes.webp": riff([(b"VP8L", vp8l_predictor_modes(
+            argb ^ rng.integers(0, 1 << 32, argb.shape, np.uint32)
+            .astype(np.uint32) & 0x0F0F0F0F))]),
+        "w12_icc_exif.webp": pil_bytes(
+            Image.fromarray(rgb), "WEBP", lossless=True,
+            icc_profile=b"\x00" * 132, exif=b"Exif\x00\x00II*\x00"
+            + bytes(8)),
+        "w13_noise.webp": pil_bytes(Image.fromarray(rng.integers(
+            0, 256, (h, w, 3)).astype(np.uint8)), "WEBP", lossless=True),
+        # large enough for libwebp to split the codes by a meta prefix image
+        "w14_meta_prefix.webp": pil_bytes(Image.fromarray(tint(synth(0)[
+            100:190, 90:210], SEED)), "WEBP", lossless=True, method=4,
+            quality=100),
+    }
+    return files
+
+
 def jpeg_writes() -> list:
     """PIL's JPEG files of the pixels the card decodes from
     ``tests/torch_jpeg``: name, channels, subsampling, quality, digest."""
@@ -637,13 +1152,20 @@ def png_tiff_writes() -> list:
     return out
 
 
+# the manifest's groups: each writer's files under its name
+GROUPS = (bmp_fixtures, pnm_fixtures, tiff_fixtures, gif_fixtures,
+          full_fixtures, tiff_kind_fixtures, tiff_more_fixtures,
+          pfm_fixtures, webp_fixtures, clip_fixtures)
+
+
 def write_fixtures(out: str = OUT) -> dict:
     os.makedirs(out, exist_ok=True)
-    files = {}
-    for group in (bmp_fixtures, pnm_fixtures, tiff_fixtures, gif_fixtures,
-                  full_fixtures):
-        files.update(group())
-    manifest = {"files": {}, "jpeg_writes": jpeg_writes(),
+    files, groups = {}, {}
+    for group in GROUPS:
+        made = group()
+        files.update(made)
+        groups[group.__name__[:-len("_fixtures")]] = sorted(made)
+    manifest = {"files": {}, "groups": groups, "jpeg_writes": jpeg_writes(),
                 "crop": list(CROP), "full_image": FULL_IMAGE,
                 "drawn_points": DRAWN_POINTS,
                 "zlib": zlib.ZLIB_RUNTIME_VERSION}
