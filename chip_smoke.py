@@ -117,6 +117,22 @@ twin and its bound.
 
     python3 chip_smoke.py --tiffwebp
 
+runs only that phase after the builds. Then the lossy WebP phase
+(``phase_webp_lossy``): every lossy fixture of ``tests/torch_imageio``
+(group ``webp_lossy``) through the host C++ entropy stage (against the
+Python twin) and kernels W1, W2 and W3 of ``csrc/vp8_pixels.cu``, each
+against its twin on the same inputs, the planes after W2 against
+libwebp's ``WebPDecodeYUV`` digests, RGB and grey against PIL's and an
+ALPH chunk's alpha against PIL's; the lossy clip frame through
+``load_gray_image`` (W1-W3 once each) and K3 on the 4,096 faces' boxes,
+rows equal to those from the PNG of its pixels; ``rcr_detect -i`` on
+that frame, landmarks and drawing equal to those from the PNG; the host
+entropy ms, W1-W3's device ms beside their twins', their byte bounds and
+the wavefront's critical path, and ``load_gray_image`` ms against the
+PNG and the JPEG of the same frame.
+
+    python3 chip_smoke.py --webp
+
 runs only that phase after the builds;
 
     python3 chip_smoke.py --j1 [--j2] [--sweep] [--package-root DIR]
@@ -322,6 +338,13 @@ SOURCES = {
     # J2 replaces no pallas_call: the JAX apps' PIL writer (img.save)
     "jpeg_encode": (_CSRC + "jpeg_encode.cu",
                     "superviseddescent_tpu/apps/rcr_detect.py:76"),
+    # W1-W3 replace no pallas_call: the JAX package's image reader
+    "vp8_reconstruct": (_CSRC + "vp8_pixels.cu",
+                        "superviseddescent_tpu/ops/patches.py:279"),
+    "vp8_filter": (_CSRC + "vp8_pixels.cu",
+                   "superviseddescent_tpu/ops/patches.py:279"),
+    "vp8_colour": (_CSRC + "vp8_pixels.cu",
+                   "superviseddescent_tpu/ops/patches.py:279"),
 }
 
 
@@ -767,6 +790,8 @@ def counted_ops():
         jpeg_coefficients, jpeg_pixels)
     from superviseddescent_tpu_torch.ops.patches_window import (
         sample_patches_window)
+    from superviseddescent_tpu_torch.ops.webp import (
+        vp8_colour, vp8_filter, vp8_reconstruct)
     from superviseddescent_tpu_torch.probes.dyn import (
         probe_abde, probe_c, probe_c4)
     from superviseddescent_tpu_torch.probes.flatout import probe_flatout
@@ -783,7 +808,9 @@ def counted_ops():
             "probe_sampler_pre": probe_sampler_pre,
             "probe_flatout": probe_flatout, "probe_abde": probe_abde,
             "probe_c": probe_c, "probe_c4": probe_c4,
-            "jpeg_decode": jpeg_pixels, "jpeg_encode": jpeg_coefficients}
+            "jpeg_decode": jpeg_pixels, "jpeg_encode": jpeg_coefficients,
+            "vp8_reconstruct": vp8_reconstruct, "vp8_filter": vp8_filter,
+            "vp8_colour": vp8_colour}
 
 
 def zero_counts():
@@ -5392,6 +5419,366 @@ def phase_tiffwebp(torch, data, name, smi):
 
 
 # ---------------------------------------------------------------- #
+# Lossy WebP: the host entropy stage and kernels W1, W2, W3
+# ---------------------------------------------------------------- #
+WEBP_LOSSY_FRAME = "f08_clip_lossy.webp"     # the clip frame, PIL's q75
+WEBP_LOSSY_REPS = 5
+# W1 and W2 also run on this few CTAs, each taking several macroblock rows
+WEBP_FEW_CTAS = 5
+WEBP_KERNELS = ("vp8_reconstruct", "vp8_filter", "vp8_colour")
+# W1's and W2's integer operations per macroblock, W3's per output sample
+# (counted from csrc/vp8_pixels.cu: the WHT and 24 inverse DCTs with their
+# adds and clips, and the prediction of 384 samples; at most 8 luma and 6
+# chroma edges of 16 and 8 lines of up to 40 operations; two chroma
+# interpolations and the fixed-point colour of one sample)
+W1_OPS_PER_MB, W2_OPS_PER_MB, W3_OPS_PER_PIXEL = 6000, 10000, 60
+
+
+def vp8_bounds(f, channels=3):
+    """W1, W2 and W3's least times on frame ``f`` (an io/vp8 Vp8Frame):
+    each input read once and each output written once at the memory rate,
+    or their integer operations at 67 TOP/s (J1's yardstick), whichever is
+    longer; and the wavefront's critical path of W1 and W2 in dependent
+    macroblock steps."""
+    mbs = f.mb_w * f.mb_h
+    planes = 384 * mbs
+    out = f.width * f.height * channels
+    work = {
+        "vp8_reconstruct": (mbs * (800 + 20) + planes, mbs * W1_OPS_PER_MB),
+        "vp8_filter": (mbs * 4 + 2 * planes,
+                       mbs * W2_OPS_PER_MB if f.filter_type else 0),
+        "vp8_colour": (f.width * f.height * 3 // 2 + out,
+                       f.width * f.height * W3_OPS_PER_PIXEL)}
+    bounds = {}
+    for name, (nbytes, ops) in work.items():
+        b_ms, o_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+        bounds[name] = dict(bytes=nbytes, ops=ops, bytes_ms=b_ms, ops_ms=o_ms,
+                            bound_ms=max(b_ms, o_ms),
+                            bound_by="bytes" if b_ms >= o_ms else "operations")
+    steps = f.mb_w + 2 * (f.mb_h - 1)
+    for name in WEBP_KERNELS[:2]:
+        bounds[name]["critical_path_steps"] = steps
+    return bounds
+
+
+def vp8_stages(torch, payload):
+    """A VP8 payload through the card's path stage by stage, each kernel
+    against its twin on the same inputs (the twins as plain PyTorch on the
+    card). Returns (frame, planes after W2, the largest difference of any
+    kernel from its twin, RGB, grey)."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io.vp8 import decode_vp8
+    from superviseddescent_tpu_torch.ops import webp as W
+    f, coeffs, modes, filters = W.vp8_frame(payload, torch.device("cuda"))
+    twin = decode_vp8(payload)
+    check(all(np.array_equal(np.asarray(getattr(f, k)), getattr(twin, k))
+              for k in ("coeffs", "modes", "filters"))
+          and f.info == twin.info,
+          "the C++ entropy stage differs from the Python twin")
+    worst = 0
+
+    def diff(a, b):
+        return max(int((x.int() - y.int()).abs().max()) for x, y in zip(a, b))
+    planes = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
+    worst = max(worst, diff(planes, W.reconstruct_reference(
+        coeffs, modes, f.mb_w, f.mb_h)))
+    want = W.filter_reference(*planes, filters, f.filter_type, f.mb_w,
+                              f.mb_h)
+    planes = W.vp8_filter(*(p.clone() for p in planes), filters,
+                          f.filter_type, f.mb_w, f.mb_h)
+    worst = max(worst, diff(planes, want))
+    out = {}
+    for channels in (3, 1):
+        out[channels] = W.vp8_colour(*planes, f.width, f.height, channels)
+        worst = max(worst, diff([out[channels]], [W.colour_reference(
+            *planes, f.width, f.height, channels)]))
+    return f, planes, worst, out[3], out[1]
+
+
+def webp_lossy_fixtures(torch, manifest):
+    """Every committed lossy fixture on the card: the C++ entropy stage
+    against the Python twin, W1, W2 and W3 each bit-equal to its twin on
+    the same inputs (and W1, W2 on the clip frame on WEBP_FEW_CTAS CTAs
+    equal to a CTA a row), the planes after W2 equal to libwebp's
+    ``WebPDecodeYUV`` digests, the RGB and grey of ``read_rgb`` /
+    ``read_gray`` (every stage on the card) equal to PIL's, and an ALPH
+    chunk's alpha (through the C++ VP8L decoder) equal to PIL's. Returns
+    (files, largest kernel-twin difference)."""
+    import hashlib
+    import numpy as np
+    from superviseddescent_tpu_torch.io import webp
+    from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(
+            a.cpu().numpy() if hasattr(a, "cpu") else a).tobytes()
+        ).hexdigest()
+    names = manifest["groups"]["webp_lossy"]
+    worst = 0
+    for name in names:
+        want, path = manifest["files"][name], os.path.join(IMAGEIO_DIR, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        seen = []
+
+        def lossy(payload):
+            f, planes, err, rgb, grey = vp8_stages(torch, payload)
+            seen.append((f, planes, err, grey))
+            return rgb
+        rgb = webp.compose(data, webp.decode_vp8l_native, lossy)
+        check(len(seen) == 1, f"{name}: {len(seen)} lossy frames")
+        f, planes, err, grey = seen[0]
+        worst = max(worst, err)
+        check(digest(rgb) == want["rgb_sha256"],
+              f"{name}: the card's RGB differs from PIL's")
+        if "yuv_sha256" in want:
+            uh, uw = (f.height + 1) // 2, (f.width + 1) // 2
+            got = [digest(planes[0][:f.height, :f.width]),
+                   digest(planes[1][:uh, :uw]), digest(planes[2][:uh, :uw])]
+            check(got == want["yuv_sha256"], f"{name}: W1 + W2's planes "
+                  "differ from libwebp's WebPDecodeYUV")
+            check(digest(grey) == want["grey_sha256"],
+                  f"{name}: W3's grey differs from PIL's")
+        if "alpha_sha256" in want:
+            chunks = {c: body for c, body, _ in webp._chunks(data, 12,
+                                                             len(data))}
+            alpha = webp.decode_alpha(chunks[b"ALPH"], f.width, f.height,
+                                      webp.decode_vp8l_native)
+            check(digest(alpha) == want["alpha_sha256"],
+                  f"{name}: the ALPH chunk's alpha differs from PIL's")
+        for read, key in ((read_gray, "grey_sha256"), (read_rgb,
+                                                       "rgb_sha256")):
+            check(digest(read(path)) == want[key], f"{name}: the port's "
+                  f"{key[:-7]} on the card differs from PIL's")
+    # a grid smaller than the rows: each CTA takes several rows in turn
+    from superviseddescent_tpu_torch.ops import webp as W
+    with open(os.path.join(IMAGEIO_DIR, WEBP_LOSSY_FRAME), "rb") as fh:
+        clip = fh.read()
+    payload = {c: body for c, body, _ in webp._chunks(clip, 12, len(clip))}[
+        b"VP8 "]
+    f, coeffs, modes, filters = W.vp8_frame(payload, torch.device("cuda"))
+    full = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
+    few = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h, grid=WEBP_FEW_CTAS)
+    check(all(torch.equal(a, b) for a, b in zip(full, few)),
+          f"W1 on {WEBP_FEW_CTAS} CTAs differs from W1 on a CTA a row")
+    full = W.vp8_filter(*full, filters, f.filter_type, f.mb_w, f.mb_h)
+    few = W.vp8_filter(*few, filters, f.filter_type, f.mb_w, f.mb_h,
+                       grid=WEBP_FEW_CTAS)
+    check(all(torch.equal(a, b) for a, b in zip(full, few)),
+          f"W2 on {WEBP_FEW_CTAS} CTAs differs from W2 on a CTA a row")
+    check(worst == 0, f"W1-W3 differ from their twins by {worst}")
+    log(f"[webp] {len(names)} lossy fixtures on the card: the C++ entropy "
+        "stage equal to the Python twin, W1, W2 and W3 each equal to its "
+        "twin, the planes to libwebp's WebPDecodeYUV, RGB and grey to PIL's, "
+        f"ALPH to PIL's alpha; W1 and W2 on {WEBP_FEW_CTAS} CTAs (several "
+        "rows each) equal to a CTA a row")
+    return len(names), worst
+
+
+def webp_lossy_k3(torch, data, manifest, root):
+    """The slice's main path: the lossy clip frame through
+    ``load_gray_image`` on the card (the host entropy stage, then W1, W2,
+    W3 once each) and ``make_fused_detector`` (K3) on the 4,096 faces'
+    boxes over it; the rows equal those from a PNG of the same pixels.
+    Counts from 0 before, read after. Returns (launches, paths)."""
+    import hashlib
+    import shutil
+    import numpy as np
+    from superviseddescent_tpu_torch.io.png import write_png
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    model = data["model"]
+    det = model.make_fused_detector(roi=ROI, max_ied=data["max_ied"])
+    idx = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    paths = {"webp_lossy": os.path.join(root, WEBP_LOSSY_FRAME)}
+    shutil.copy(os.path.join(IMAGEIO_DIR, WEBP_LOSSY_FRAME),
+                paths["webp_lossy"])
+    zero_counts()
+    frame = load_gray_image(paths["webp_lossy"])
+    rows = det(torch.from_numpy(frame.astype("uint8"))[None].cuda(),
+               data["boxes"], image_indices=idx)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts(launches, "the lossy WebP frame through load_gray_image "
+                  "and K3", vp8_reconstruct=1, vp8_filter=1, vp8_colour=1,
+                  cascade_fused_frames=1)
+    check(hashlib.sha256(frame.astype("uint8").tobytes()).hexdigest()
+          == manifest["files"][WEBP_LOSSY_FRAME]["grey_sha256"],
+          "load_gray_image of the lossy frame differs from PIL's grey")
+    paths["png"] = os.path.join(root, "webp_lossy.png")
+    write_png(paths["png"], frame.astype(np.uint8))
+    png_rows = det(torch.from_numpy(load_gray_image(paths["png"]).astype(
+        "uint8"))[None].cuda(), data["boxes"], image_indices=idx)
+    check(rows.shape == (BATCH, 2 * len(model.landmark_ids))
+          and bool(torch.isfinite(rows).all()), "non-finite or misshapen "
+          "rows from the lossy frame")
+    check(torch.equal(rows, png_rows), "K3's rows from the lossy WebP frame "
+          "differ from those from its pixels as PNG")
+    paths["jpeg"] = os.path.join(JPEG_DIR, J2_TIME_FRAME)
+    log(f"[webp] the lossy clip frame through load_gray_image (W1, W2, W3 "
+        f"once each) and K3 on {BATCH} faces: rows equal to the PNG of the "
+        f"same pixels; launches {launches}")
+    return launches, paths
+
+
+def webp_lossy_detect(torch, root):
+    """rcr_detect -i <lossy frame>.webp -f -o out.png on the card (W1-W3
+    twice: grey for the fit, RGB for the drawing) and on a PNG of the same
+    RGB pixels: the same landmarks and the same drawn file."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_detect
+    from superviseddescent_tpu_torch.io.image import read_rgb
+    from superviseddescent_tpu_torch.io.png import write_png
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    image = os.path.join(IMAGEIO_DIR, WEBP_LOSSY_FRAME)
+    png = os.path.join(root, "lossy_rgb.png")
+    write_png(png, read_rgb(image))
+    runs = {}
+    for kind, src in (("webp", image), ("png", png)):
+        out = os.path.join(root, f"detect_{kind}.png")
+        argv = ["-m", os.path.join(REPO, "pretrained", "rcr22_lfpw5.bin"),
+                "-i", src, "-f", "-o", out, "--device", "cuda"]
+        fits = []
+        zero_counts()
+        with recorded(DetectionModel, "detect", fits,
+                      lambda a, lms: np.asarray(lms.coordinates)):
+            rc, text, wall = run_app_main(rcr_detect, argv)
+        torch.cuda.synchronize()
+        n = 2 if kind == "webp" else 0
+        expect_counts(read_counts(), f"rcr_detect -i {kind} -f -o",
+                      vp8_reconstruct=n, vp8_filter=n, vp8_colour=n)
+        check(rc == 0 and len(fits) == 1 and f"Wrote {out}" in text,
+              f"rcr_detect -i {os.path.basename(src)}:\n{text[-400:]}")
+        with open(out, "rb") as fh:
+            runs[kind] = (fits[0], wall, fh.read())
+    check(np.array_equal(runs["webp"][0], runs["png"][0])
+          and runs["webp"][2] == runs["png"][2], "rcr_detect on the lossy "
+          "WebP: landmarks or drawing differ from those of its pixels as PNG")
+    log(f"[webp] rcr_detect -i {WEBP_LOSSY_FRAME} -f -o: "
+        f"{runs['webp'][1] * 1e3:.1f} ms on the card (W1-W3 twice; "
+        f"{runs['png'][1] * 1e3:.1f} ms from the PNG), the landmarks and "
+        "the drawn PNG equal to those from the PNG of the same pixels")
+    return dict(ms=runs["webp"][1] * 1e3, png_ms=runs["png"][1] * 1e3)
+
+
+def webp_lossy_times(torch, paths):
+    """On the 768 x 1024 lossy frame: the host entropy stage's ms (host
+    clock, best of WEBP_LOSSY_REPS), W1, W2 and W3's device ms
+    (torch.profiler) beside their twins' and their bounds, and
+    ``load_gray_image`` ms for the lossy WebP, the PNG of its pixels and
+    the JPEG it was written from, in turns."""
+    from superviseddescent_tpu_torch.io.vp8 import decode_vp8_native
+    from superviseddescent_tpu_torch.io.webp import _chunks
+    from superviseddescent_tpu_torch.ops import webp as W
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    with open(paths["webp_lossy"], "rb") as fh:
+        data = fh.read()
+    payload = {c: body for c, body, _ in _chunks(data, 12, len(data))}[
+        b"VP8 "]
+    host = []
+    for _ in range(WEBP_LOSSY_REPS):
+        t0 = time.perf_counter()
+        decode_vp8_native(payload, pinned=True)
+        host.append((time.perf_counter() - t0) * 1e3)
+    f, coeffs, modes, filters = W.vp8_frame(payload, torch.device("cuda"))
+    planes = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
+    filtered = W.vp8_filter(*(p.clone() for p in planes), filters,
+                            f.filter_type, f.mb_w, f.mb_h)
+    calls = {
+        "vp8_reconstruct": (
+            lambda: W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h),
+            lambda: W.reconstruct_reference(coeffs, modes, f.mb_w, f.mb_h)),
+        "vp8_filter": (
+            lambda: W.vp8_filter(*(p.clone() for p in planes), filters,
+                                 f.filter_type, f.mb_w, f.mb_h),
+            lambda: W.filter_reference(*planes, filters, f.filter_type,
+                                       f.mb_w, f.mb_h)),
+        "vp8_colour": (
+            lambda: W.vp8_colour(*filtered, f.width, f.height, 3),
+            lambda: W.colour_reference(*filtered, f.width, f.height, 3))}
+    bounds = vp8_bounds(f)
+    kernels = {}
+    for name, (kernel, twin) in calls.items():
+        ms = [device_ms(torch, kernel, reps=10, match=name)
+              for _ in range(2)]
+        # the twins of W1 and W2 run ~10^5 small operations a frame: one
+        # rep, or the profiler's records take minutes to sum
+        twin_ms = device_ms(torch, twin, reps=1 if name != "vp8_colour"
+                            else 5, one_kernel=False)
+        kernels[name] = dict(device_ms=ms, twin_device_ms=twin_ms,
+                             **bounds[name])
+    order = {k: paths[k] for k in ("webp_lossy", "png", "jpeg")}
+    load_ms = {k: [] for k in order}
+    for _ in range(WEBP_LOSSY_REPS):
+        for kind, p in order.items():
+            t0 = time.perf_counter()
+            load_gray_image(p)
+            load_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    log(f"[webp] host entropy stage on the {f.width} x {f.height} lossy "
+        f"frame ({f.mb_w * f.mb_h} macroblocks): {min(host):.3f} ms (host "
+        f"clock, best of {WEBP_LOSSY_REPS})")
+    for name, t in kernels.items():
+        extra = (f", critical path {t['critical_path_steps']} macroblock "
+                 "steps" if "critical_path_steps" in t else "")
+        log(f"[webp] {name}: " + " / ".join(f"{v:.5f}" for v in
+                                            t["device_ms"])
+            + f" ms (device, torch.profiler), bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}: {t['bytes']} bytes, {t['ops']} ops){extra}, "
+            f"twin {t['twin_device_ms']:.4f} ms device")
+    log("[webp] load_gray_image of the 768 x 1024 frame, ms (host clock, "
+        f"best of {WEBP_LOSSY_REPS}, in turns): " + ", ".join(
+            f"{k} {min(v):.2f}" for k, v in load_ms.items()))
+    return dict(host_entropy_ms=host, kernels=kernels, load_gray_ms=load_ms,
+                frame=dict(width=f.width, height=f.height, mb_w=f.mb_w,
+                           mb_h=f.mb_h, filter_type=f.filter_type))
+
+
+def webp_lossy_entries(webp):
+    """The kernels line's entries of W1, W2 and W3: device ms on the 768 x
+    1024 lossy frame, launches of the main path's run."""
+    out = []
+    for name in WEBP_KERNELS:
+        source, replaces = SOURCES[name]
+        t = webp["times"]["kernels"][name]
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            replaces_note="no pallas_call: the JAX package reads images with "
+            "PIL on the host; W1-W3 are hand kernels of the io slice",
+            launches=webp["launches"][name], max_abs_err=webp["max_abs_err"],
+            ms=min(t["device_ms"]), plain_ms=t["twin_device_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            ms_source="torch.profiler",
+            **({"critical_path_steps": t["critical_path_steps"]}
+               if "critical_path_steps" in t else {})))
+    return out
+
+
+def phase_webp_lossy(torch, data, name, smi):
+    """Lossy WebP on the card: every committed lossy fixture through the
+    C++ entropy stage and W1-W3 (each kernel against its twin, the planes
+    against libwebp's, the pixels against PIL's), the lossy clip frame
+    through load_gray_image and K3 (rows equal to its PNG's), rcr_detect
+    -i on it, and the times."""
+    import shutil
+    import tempfile
+    with open(os.path.join(IMAGEIO_DIR, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_webp_")
+    try:
+        checked, worst = webp_lossy_fixtures(torch, manifest)
+        launches, paths = webp_lossy_k3(torch, data, manifest, root)
+        detect = webp_lossy_detect(torch, root)
+        times = webp_lossy_times(torch, paths)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[webp] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, files_checked=checked,
+                max_abs_err=worst, launches=launches, detect=detect,
+                times=times, seconds=seconds)
+
+
+# ---------------------------------------------------------------- #
 # The last slice: dense training, data parallel, checkpoints
 # ---------------------------------------------------------------- #
 DENSE_SAMPLINGS = ("exact", "high", "fast")
@@ -5960,6 +6347,12 @@ def main():
                         "and lossless WebP: every new fixture to PIL's "
                         "digests, the clip frame in each kind through K3, "
                         "the readers' times (the main run includes it)")
+    parser.add_argument("--webp", action="store_true",
+                        help="only lossy WebP: every lossy fixture through "
+                        "the C++ entropy stage and W1-W3 against the twins, "
+                        "libwebp's planes and PIL's digests, the lossy clip "
+                        "frame through K3, rcr_detect -i on it, the times "
+                        "(the main run includes it)")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
@@ -6081,6 +6474,13 @@ def main():
         print(json.dumps({"tiffwebp": tiffwebp,
                           "kernels": [tiffwebp_entry(tiffwebp)]}))
         return 0
+    if opts.webp:
+        name, smi = phase_device(torch)
+        phase_build()
+        webp = phase_webp_lossy(torch, load_data(torch), name, smi)
+        print(json.dumps({"webp": webp,
+                          "kernels": webp_lossy_entries(webp)}))
+        return 0
     if opts.remainder:
         name, smi = phase_device(torch)
         phase_build()
@@ -6115,10 +6515,12 @@ def main():
     jpeg = phase_jpeg(torch, name, smi)
     imageio = phase_imageio(torch, name, smi)
     tiffwebp = phase_tiffwebp(torch, data, name, smi)
+    webp = phase_webp_lossy(torch, data, name, smi)
     remainder = phase_remainder(torch, data, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                              families, remainder) + [
-        jpeg_entry(jpeg, tiffwebp), imageio_entry(imageio)]
+        jpeg_entry(jpeg, tiffwebp), imageio_entry(imageio)] + \
+        webp_lossy_entries(webp)
     k3_shapes = {
         "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
         "rcr22_batch1": tracking["k3_batch1_ms"],
@@ -6141,7 +6543,7 @@ def main():
                        kernels=entries, k3_shapes=k3_shapes,
                        k3_batches=batches, facedetect=facedetect,
                        apps=apps, jpeg=jpeg, imageio=imageio,
-                       tiffwebp=tiffwebp, remainder=remainder,
+                       tiffwebp=tiffwebp, webp=webp, remainder=remainder,
                        seconds=time.perf_counter() - t0), f,
                   indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")

@@ -1,5 +1,6 @@
-// Lossless WebP (VP8L, RFC 9649): the host decoder of the port's WebP
-// reader.
+// WebP's host decoders: lossless WebP (VP8L, RFC 9649) whole, and the
+// entropy stage of lossy WebP (VP8 key frames, RFC 6386), whose pixel
+// stage runs on the card (csrc/vp8_pixels.cu, kernels W1-W3).
 //
 // No TPU kernel is replaced: the JAX package reads images with PIL on the
 // host (superviseddescent_tpu/ops/patches.py::load_gray_image), and PIL
@@ -22,6 +23,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <vector>
+
+#include "vp8_tables.h"
 
 namespace {
 
@@ -471,6 +474,431 @@ extern "C" int webp_decode_vp8l(const uint8_t* data, int len, int width,
     return err;
   } catch (...) {
     return kTooLarge;  // std::bad_alloc
+  }
+  return kOk;
+}
+
+// ---------------------------------------------------------------------
+// VP8 key frames: the entropy stage. The plain twin is io/vp8.py's
+// decode_vp8, which this follows step for step (libwebp's vp8_dec.c,
+// tree_dec.c and quant_dec.c): the frame header, segmentation, the filter
+// header, the token partitions, the quantisers, the coefficient
+// probabilities, then per macroblock row its modes from the first
+// partition and its tokens from partition (row & (partitions - 1)).
+// Output, host memory: coeffs (MBs, 25, 16) int16, dequantised, raster
+// order (Y2, 16 Y, 4 U, 4 V); modes (MBs, 20) uint8 (is 4x4, 16x16 mode,
+// 16 sub-block modes, chroma mode, segment); filters (MBs, 4) uint8
+// (limit, interior limit, hev threshold, inner edges); info int32[16] in
+// io/vp8.py's INFO order. Returns 0 or an io/vp8.py ERRORS code.
+// ---------------------------------------------------------------------
+namespace {
+
+enum Vp8Error {
+  kVp8TruncatedHeader = 1,
+  kVp8BadStartCode = 2,
+  kVp8InterFrame = 3,
+  kVp8BadFrameHeader = 4,
+  kVp8BadPartitionLength = 5,
+  kVp8HeaderEof = 6,
+  kVp8NoPartitions = 7,
+  kVp8ModesEof = 8,
+  kVp8TokensEof = 9,
+  kVp8TooLarge = 10
+};
+
+// RFC 6386's boolean decoder in libwebp's form: range kept less one, a
+// byte loaded whenever fewer than 8 bits are left, eof once a decode
+// needs a byte past the end.
+struct BoolDecoder {
+  const uint8_t* data = nullptr;
+  long n = 0, pos = 0;
+  uint64_t value = 0;
+  int range = 254, bits = -8;
+  bool eof = false;
+
+  void init(const uint8_t* d, long len) {
+    data = d;
+    n = len;
+    pos = 0;
+    value = 0;
+    range = 254;
+    bits = -8;
+    eof = false;
+    load();
+  }
+  void load() {
+    if (pos < n) {
+      bits += 8;
+      value = (value << 8) | data[pos++];
+    } else if (!eof) {
+      value <<= 8;
+      bits += 8;
+      eof = true;
+    } else {
+      bits = 0;
+    }
+  }
+  int bit(int prob) {
+    if (bits < 0) load();
+    int rng = range;
+    const int split = (rng * prob) >> 8;
+    int b;
+    if ((int)(value >> bits) > split) {
+      rng -= split;
+      value -= (uint64_t)(split + 1) << bits;
+      b = 1;
+    } else {
+      rng = split + 1;
+      b = 0;
+    }
+    int shift = 0;
+    while ((rng << shift) < 128) ++shift;
+    bits -= shift;
+    range = (rng << shift) - 1;
+    return b;
+  }
+  int value_bits(int count) {
+    int v = 0;
+    while (count-- > 0) v = (v << 1) | bit(0x80);
+    return v;
+  }
+  int signed_bits(int count) {
+    const int v = value_bits(count);
+    return bit(0x80) ? -v : v;
+  }
+  int optional_signed(int count) { return bit(0x80) ? signed_bits(count) : 0; }
+};
+
+struct Quant {
+  int y1[2], y2[2], uv[2];
+};
+
+int clip_q(int v, int m) { return v < 0 ? 0 : v > m ? m : v; }
+
+Quant dequant(int q, const int dq[5]) {
+  Quant m;
+  m.y1[0] = vp8::kDcTable[clip_q(q + dq[0], 127)];
+  m.y1[1] = vp8::kAcTable[clip_q(q, 127)];
+  m.y2[0] = vp8::kDcTable[clip_q(q + dq[1], 127)] * 2;
+  m.y2[1] = (vp8::kAcTable[clip_q(q + dq[2], 127)] * 101581) >> 16;
+  if (m.y2[1] < 8) m.y2[1] = 8;
+  m.uv[0] = vp8::kDcTable[clip_q(q + dq[3], 117)];
+  m.uv[1] = vp8::kAcTable[clip_q(q + dq[4], 127)];
+  return m;
+}
+
+using Band = const uint8_t (*)[11];  // one band's [context][node]
+
+int large_value(BoolDecoder& br, const uint8_t* p) {
+  if (!br.bit(p[3])) {
+    if (!br.bit(p[4])) return 2;
+    return 3 + br.bit(p[5]);
+  }
+  if (!br.bit(p[6])) {
+    if (!br.bit(p[7])) return 5 + br.bit(159);
+    const int v = 7 + 2 * br.bit(165);
+    return v + br.bit(145);
+  }
+  const int bit1 = br.bit(p[8]);
+  const int bit0 = br.bit(p[9 + bit1]);
+  const int cat = 2 * bit1 + bit0;
+  static const uint8_t* const kCats[4] = {vp8::kCat3, vp8::kCat4, vp8::kCat5,
+                                          vp8::kCat6};
+  int v = 0;
+  for (const uint8_t* tab = kCats[cat]; *tab; ++tab) v += v + br.bit(*tab);
+  return v + 3 + (8 << cat);
+}
+
+// One block's tokens from position n (libwebp's GetCoeffs); returns the
+// count libwebp returns.
+int block_coeffs(BoolDecoder& br, const Band* bands, int ctx,
+                 const int dq[2], int n, int16_t* out) {
+  const uint8_t* p = bands[n][ctx];
+  for (; n < 16; ++n) {
+    if (!br.bit(p[0])) return n;
+    while (!br.bit(p[1])) {
+      p = bands[++n][0];
+      if (n == 16) return 16;
+    }
+    const Band next = bands[n + 1];
+    int v;
+    if (!br.bit(p[2])) {
+      v = 1;
+      p = next[1];
+    } else {
+      v = large_value(br, p);
+      p = next[2];
+    }
+    if (br.bit(0x80)) v = -v;
+    out[vp8::kZigzag[n]] = (int16_t)(v * dq[n > 0]);
+  }
+  return 16;
+}
+
+// libwebp's TransformWHT: does any of the Y blocks' DCs come out non-zero?
+bool wht_nonzero(const int16_t* in) {
+  int tmp[16];
+  for (int i = 0; i < 4; ++i) {
+    const int a0 = in[i] + in[12 + i], a1 = in[4 + i] + in[8 + i];
+    const int a2 = in[4 + i] - in[8 + i], a3 = in[i] - in[12 + i];
+    tmp[i] = a0 + a1;
+    tmp[8 + i] = a0 - a1;
+    tmp[4 + i] = a3 + a2;
+    tmp[12 + i] = a3 - a2;
+  }
+  for (int i = 0; i < 4; ++i) {
+    const int dc = tmp[4 * i] + 3;
+    const int a0 = dc + tmp[4 * i + 3], a1 = tmp[4 * i + 1] + tmp[4 * i + 2];
+    const int a2 = tmp[4 * i + 1] - tmp[4 * i + 2], a3 = dc - tmp[4 * i + 3];
+    const int v[4] = {a0 + a1, a3 + a2, a0 - a1, a3 - a2};
+    for (int k = 0; k < 4; ++k)
+      if ((int16_t)(v[k] >> 3) != 0) return true;
+  }
+  return false;
+}
+
+}  // namespace
+
+extern "C" int webp_decode_vp8(const uint8_t* data, int len, int mb_w,
+                               int mb_h, int16_t* coeffs, uint8_t* modes,
+                               uint8_t* filters, int32_t* info) {
+  if (len < 10) return kVp8TruncatedHeader;
+  if (data[3] != 0x9d || data[4] != 0x01 || data[5] != 0x2a)
+    return kVp8BadStartCode;
+  const uint32_t tag = data[0] | (data[1] << 8) | (data[2] << 16);
+  if (tag & 1) return kVp8InterFrame;
+  const int width = (data[6] | (data[7] << 8)) & 0x3FFF;
+  const int height = (data[8] | (data[9] << 8)) & 0x3FFF;
+  const long part0 = tag >> 5;
+  if (((tag >> 1) & 7) > 3 || !((tag >> 4) & 1) || width == 0 ||
+      height == 0 || part0 >= len)
+    return kVp8BadFrameHeader;
+  if (part0 > len - 10) return kVp8BadPartitionLength;
+  if (mb_w != (width + 15) >> 4 || mb_h != (height + 15) >> 4 ||
+      (long)mb_w * mb_h > (1l << 20))
+    return kVp8TooLarge;
+  BoolDecoder br;
+  br.init(data + 10, part0);
+  const uint8_t* rest = data + 10 + part0;
+  const long rest_len = len - 10 - part0;
+  const int colorspace = br.bit(0x80), clamp_type = br.bit(0x80);
+  // segment header
+  const int use_segment = br.bit(0x80);
+  int update_map = 0, absolute = 1;
+  int seg_q[4] = {0, 0, 0, 0}, seg_f[4] = {0, 0, 0, 0};
+  int seg_proba[3] = {255, 255, 255};
+  if (use_segment) {
+    update_map = br.bit(0x80);
+    if (br.bit(0x80)) {
+      absolute = br.bit(0x80);
+      for (int s = 0; s < 4; ++s) seg_q[s] = br.optional_signed(7);
+      for (int s = 0; s < 4; ++s) seg_f[s] = br.optional_signed(6);
+    }
+    if (update_map)
+      for (int s = 0; s < 3; ++s)
+        seg_proba[s] = br.bit(0x80) ? br.value_bits(8) : 255;
+  }
+  if (br.eof) return kVp8HeaderEof;
+  // filter header
+  const int simple = br.bit(0x80);
+  const int level = br.value_bits(6);
+  const int sharpness = br.value_bits(3);
+  const int use_lf_delta = br.bit(0x80);
+  int ref_delta[4] = {0, 0, 0, 0}, mode_delta[4] = {0, 0, 0, 0};
+  if (use_lf_delta && br.bit(0x80)) {
+    for (int i = 0; i < 4; ++i)
+      if (br.bit(0x80)) ref_delta[i] = br.signed_bits(6);
+    for (int i = 0; i < 4; ++i)
+      if (br.bit(0x80)) mode_delta[i] = br.signed_bits(6);
+  }
+  const int filter_type = level == 0 ? 0 : simple ? 1 : 2;
+  if (br.eof) return kVp8HeaderEof;
+  // token partitions
+  const int last = (1 << br.value_bits(2)) - 1;
+  if (rest_len < 3 * last) return kVp8NoPartitions;
+  BoolDecoder parts[8];
+  long start = 3 * last, left = rest_len - 3 * last;
+  for (int p = 0; p < last; ++p) {
+    long size = rest[3 * p] | (rest[3 * p + 1] << 8) | (rest[3 * p + 2] << 16);
+    if (size > left) size = left;
+    parts[p].init(rest + start, size);
+    start += size;
+    left -= size;
+  }
+  parts[last].init(rest + start, rest_len - start);
+  if (start >= rest_len) return kVp8NoPartitions;
+  // quantisers
+  const int base_q = br.value_bits(7);
+  int dq[5];
+  for (int i = 0; i < 5; ++i) dq[i] = br.optional_signed(4);
+  Quant segq[4];
+  for (int s = 0; s < 4; ++s)
+    segq[s] = dequant(use_segment ? seg_q[s] + (absolute ? 0 : base_q)
+                                  : base_q, dq);
+  br.bit(0x80);  // update_proba: ignored
+  uint8_t proba[4][8][3][11];
+  for (int t = 0; t < 4; ++t)
+    for (int b = 0; b < 8; ++b)
+      for (int c = 0; c < 3; ++c)
+        for (int p = 0; p < 11; ++p)
+          proba[t][b][c][p] = br.bit(vp8::kCoeffsUpdateProba[t][b][c][p])
+                                  ? (uint8_t)br.value_bits(8)
+                                  : vp8::kCoeffsProba0[t][b][c][p];
+  Band bands[4][17];
+  for (int t = 0; t < 4; ++t)
+    for (int n = 0; n < 17; ++n) bands[t][n] = proba[t][vp8::kBands[n]];
+  const int use_skip = br.bit(0x80);
+  const int skip_p = use_skip ? br.value_bits(8) : 0;
+  // filter strengths [segment][is 4x4]: limit, interior limit, hev
+  int strength[4][2][3];
+  for (int s = 0; s < 4; ++s) {
+    const int base = use_segment ? seg_f[s] + (absolute ? 0 : level) : level;
+    for (int i4 = 0; i4 < 2; ++i4) {
+      int lv = base;
+      if (use_lf_delta) lv += ref_delta[0] + (i4 ? mode_delta[0] : 0);
+      lv = lv < 0 ? 0 : lv > 63 ? 63 : lv;
+      int* out = strength[s][i4];
+      if (lv == 0) {
+        out[0] = out[1] = out[2] = 0;
+        continue;
+      }
+      int ilevel = lv;
+      if (sharpness > 0) {
+        ilevel >>= sharpness > 4 ? 2 : 1;
+        if (ilevel > 9 - sharpness) ilevel = 9 - sharpness;
+      }
+      if (ilevel < 1) ilevel = 1;
+      out[0] = 2 * lv + ilevel;
+      out[1] = ilevel;
+      out[2] = lv >= 40 ? 2 : lv >= 15 ? 1 : 0;
+    }
+  }
+  const int32_t header[16] = {width, height, mb_w, mb_h, filter_type,
+                              last + 1, use_segment, update_map, absolute,
+                              use_skip, colorspace, clamp_type, data[7] >> 6,
+                              data[9] >> 6, sharpness, use_lf_delta};
+  memcpy(info, header, sizeof(header));
+  const long n_mb = (long)mb_w * mb_h;
+  memset(coeffs, 0, n_mb * 25 * 16 * sizeof(int16_t));
+  memset(modes, 0, n_mb * 20);
+  memset(filters, 0, n_mb * 4);
+  std::vector<uint8_t> intra_t(4 * mb_w, 0), nz_top(mb_w, 0),
+      nz_dc_top(mb_w, 0), skips(mb_w, 0);
+  for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
+    // the row's modes, from the first partition
+    uint8_t intra_l[4] = {0, 0, 0, 0};
+    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
+      uint8_t* m = modes + ((long)mb_y * mb_w + mb_x) * 20;
+      int segment = 0;
+      if (update_map)
+        segment = !br.bit(seg_proba[0]) ? br.bit(seg_proba[1])
+                                        : br.bit(seg_proba[2]) + 2;
+      skips[mb_x] = use_skip ? br.bit(skip_p) : 0;
+      const int is4 = !br.bit(145);
+      uint8_t* top = &intra_t[4 * mb_x];
+      if (!is4) {
+        const int ymode = br.bit(156) ? (br.bit(128) ? 1 : 3)
+                                      : (br.bit(163) ? 2 : 0);
+        m[1] = (uint8_t)ymode;
+        for (int k = 0; k < 16; ++k) m[2 + k] = (uint8_t)ymode;
+        for (int k = 0; k < 4; ++k) top[k] = intra_l[k] = (uint8_t)ymode;
+      } else {
+        for (int y = 0; y < 4; ++y) {
+          int ymode = intra_l[y];
+          for (int x = 0; x < 4; ++x) {
+            const uint8_t* prob = vp8::kBModesProba[top[x]][ymode];
+            int i = vp8::kYModesIntra4[br.bit(prob[0])];
+            while (i > 0) i = vp8::kYModesIntra4[2 * i + br.bit(prob[i])];
+            ymode = -i;
+            top[x] = (uint8_t)ymode;
+          }
+          memcpy(m + 2 + 4 * y, top, 4);
+          intra_l[y] = (uint8_t)ymode;
+        }
+      }
+      m[0] = (uint8_t)is4;
+      m[18] = !br.bit(142) ? 0 : !br.bit(114) ? 2 : br.bit(183) ? 1 : 3;
+      m[19] = (uint8_t)segment;
+    }
+    if (br.eof) return kVp8ModesEof;
+    // the row's tokens, from its partition
+    BoolDecoder& tbr = parts[mb_y & last];
+    uint32_t nz_left = 0, nz_dc_left = 0;
+    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
+      const long i = (long)mb_y * mb_w + mb_x;
+      const uint8_t* m = modes + i * 20;
+      const int is4 = m[0], segment = m[19];
+      int inner = 0;
+      if (!skips[mb_x]) {
+        const Quant& q = segq[segment];
+        int16_t* out = coeffs + i * 400;
+        int first;
+        const Band* ac;
+        if (!is4) {
+          const int ctx = nz_dc_top[mb_x] + nz_dc_left;
+          const int nz = block_coeffs(tbr, bands[1], ctx, q.y2, 0, out);
+          nz_dc_top[mb_x] = nz_dc_left = nz > 0;
+          first = 1;
+          ac = bands[0];
+        } else {
+          first = 0;
+          ac = bands[3];
+        }
+        // coded: a count past 1 or a non-zero DC in any block (a 16x16
+        // macroblock's DCs from its WHT), libwebp's non_zero_y / _uv
+        bool coded = !is4 && wht_nonzero(out);
+        uint32_t tnz = nz_top[mb_x] & 0x0F, lnz = nz_left & 0x0F;
+        for (int y = 0; y < 4; ++y) {
+          uint32_t l = lnz & 1;
+          for (int x = 0; x < 4; ++x) {
+            int16_t* o = out + 16 * (1 + 4 * y + x);
+            const int nz = block_coeffs(tbr, ac, l + (tnz & 1), q.y1, first,
+                                        o);
+            l = nz > first;
+            tnz = (tnz >> 1) | (l << 7);
+            coded |= nz > 1 || o[0] != 0;
+          }
+          tnz >>= 4;
+          lnz = (lnz >> 1) | (l << 7);
+        }
+        uint32_t out_t = tnz, out_l = lnz >> 4;
+        for (int ch = 0; ch < 4; ch += 2) {
+          tnz = nz_top[mb_x] >> (4 + ch);
+          lnz = nz_left >> (4 + ch);
+          for (int y = 0; y < 2; ++y) {
+            uint32_t l = lnz & 1;
+            for (int x = 0; x < 2; ++x) {
+              int16_t* o = out + 16 * (17 + 2 * ch + 2 * y + x);
+              const int nz = block_coeffs(tbr, bands[2], l + (tnz & 1), q.uv,
+                                          0, o);
+              l = nz > 0;
+              tnz = (tnz >> 1) | (l << 3);
+              coded |= nz > 1 || o[0] != 0;
+            }
+            tnz >>= 2;
+            lnz = (lnz >> 1) | (l << 5);
+          }
+          out_t |= (tnz << 4) << ch;
+          out_l |= (lnz & 0xF0) << ch;
+        }
+        nz_top[mb_x] = (uint8_t)out_t;
+        nz_left = out_l;
+        inner = coded;
+      } else {
+        nz_top[mb_x] = 0;
+        nz_left = 0;
+        if (!is4) nz_dc_top[mb_x] = nz_dc_left = 0;
+      }
+      if (filter_type) {
+        const int* st = strength[segment][is4];
+        uint8_t* f = filters + i * 4;
+        f[0] = (uint8_t)st[0];
+        f[1] = (uint8_t)st[1];
+        f[2] = (uint8_t)st[2];
+        f[3] = (uint8_t)(is4 ? 1 : inner);
+      }
+    }
+    if (tbr.eof) return kVp8TokensEof;
   }
   return kOk;
 }

@@ -4,8 +4,8 @@
 PNM (every prefix PIL's ``PpmImagePlugin._accept`` takes: ``P0``-``P6``,
 ``Pf`` and ``Py``; ``decode_pnm`` reads grey PFM and refuses PIL's own
 extensions by name), TIFF (``II*\\0``, ``MM\\0*``), GIF (``GIF87a``,
-``GIF89a``) and WebP (``RIFF....WEBP``; ``io/webp`` reads lossless WebP
-and refuses lossy by name); a format PIL reads that is not ported (JPEG
+``GIF89a``) and WebP (``RIFF....WEBP``, lossless and lossy, an
+animation's first frame); a format PIL reads that is not ported (JPEG
 2000, PSD, QOI) raises naming it. ``read_rgb`` is
 ``Image.open(p).convert("RGB")``;
 ``read_gray`` is the JAX package's ``load_gray_image``: PIL's mode ``L``
@@ -14,10 +14,12 @@ wherever r = g = b (4899 + 9617 + 1868 = 2^14), so a reader that returns
 one grey plane (modes 1, L, LA, and PIL's I;16, I and F clipped by
 ``convert("RGB")``) gives both. JPEG's pixel stage runs on ``device``
 (kernel J1, ``ops/jpeg.read_jpeg``; the card unless the caller names
-one), and so does a JPEG-compressed TIFF's (``ops/jpeg.read_tiff_jpeg``);
-a WebP decodes on the host, by the C++ decoder where ``device`` is the
-card and by its Python twin on the CPU (``io/webp``); every other format
-decodes on the host (``io/png``, ``bmp``, ``pnm``, ``tiff``, ``gif``).
+one), and so does a JPEG-compressed TIFF's (``ops/jpeg.read_tiff_jpeg``)
+and a lossy WebP's (kernels W1-W3 after the host entropy stage,
+``ops/webp.read_webp``); a lossless WebP decodes on the host, by the C++
+decoder where ``device`` is the card and by its Python twin on the CPU
+(``io/webp``); every other format decodes on the host (``io/png``,
+``bmp``, ``pnm``, ``tiff``, ``gif``).
 
 ``format_for`` is PIL's extension table (``Image.registered_extensions``
 of PIL 12.1) for the formats the port writes, case-insensitive;
@@ -40,7 +42,6 @@ from superviseddescent_tpu_torch.io.png import (
 from superviseddescent_tpu_torch.io.pnm import decode_pnm, encode_pnm
 from superviseddescent_tpu_torch.io.tiff import (
     compression as tiff_compression, decode_tiff, encode_tiff)
-from superviseddescent_tpu_torch.io.webp import decode_webp
 
 # the written formats of PIL's extension table
 WRITTEN = {".png": "PNG", ".apng": "PNG",
@@ -121,8 +122,9 @@ def decode_host(data: bytes, fmt: str, channels: int = 3) -> np.ndarray:
 
 
 def _read(path, channels: int, device):
-    """An image file's pixels: a JPEG's or a JPEG-compressed TIFF's as a
-    tensor on ``device`` (J1), any other format's as a host array."""
+    """An image file's pixels: a JPEG's, a JPEG-compressed TIFF's (J1) or a
+    lossy WebP's (W1-W3) as a tensor on ``device``, any other format's as
+    a host array."""
     with open(os.fspath(path), "rb") as f:
         data = f.read()
     try:
@@ -134,9 +136,9 @@ def _read(path, channels: int, device):
             from superviseddescent_tpu_torch.ops.jpeg import read_tiff_jpeg
             return read_tiff_jpeg(data, channels, device)
         if fmt == "WEBP":
-            px = decode_webp(data, device)
-        else:
-            px = decode_host(data, fmt, channels)
+            from superviseddescent_tpu_torch.ops.webp import read_webp
+            return read_webp(data, channels, device)
+        px = decode_host(data, fmt, channels)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     if channels == 3 and px.ndim == 2:
@@ -161,7 +163,8 @@ def read_rgb(path, device=None) -> np.ndarray:
 
 
 def read_rgb_tensor(path, device) -> torch.Tensor:
-    """uint8 (H, W, 3) on ``device``: a JPEG's pixels never leave it."""
+    """uint8 (H, W, 3) on ``device``: a JPEG's or a lossy WebP's pixels
+    never leave it."""
     px = _read(path, 3, device)
     if isinstance(px, torch.Tensor):
         return px

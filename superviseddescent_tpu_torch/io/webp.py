@@ -1,28 +1,38 @@
-"""WebP: a reader of lossless WebP as PIL reads it (no PIL, no libwebp).
+"""WebP: a reader of every still WebP and an animation's first frame, as
+PIL reads them (no PIL, no libwebp).
 
-The container: ``RIFF`` / ``WEBP`` holding a ``VP8L`` bitstream, or
-``VP8X`` with ``ICCP``, ``EXIF`` and ``XMP `` skipped, and for an
-animation (``ANIM`` / ``ANMF``) its first frame as PIL composes it: PIL
-reads every WebP through libwebp's animation decoder, which starts a
-canvas of the ``VP8X`` size in transparent black and decodes the first
-frame (a key frame: never blended) into its rectangle, so the canvas
-outside the frame reads black. Alpha is dropped as ``convert("RGB")``
-drops it (libwebp hands PIL unpremultiplied RGBA).
+The container: ``RIFF`` / ``WEBP`` holding a ``VP8L`` (lossless) or
+``VP8 `` (lossy) bitstream, or ``VP8X`` with ``ICCP``, ``EXIF`` and
+``XMP `` skipped and an ``ALPH`` chunk before a ``VP8 `` one, and for an
+animation (``ANIM`` / ``ANMF``) its first frame, lossless or lossy with
+or without its own ``ALPH``, as PIL composes it: PIL reads every WebP
+through libwebp's animation decoder, which starts a canvas of the
+``VP8X`` size in transparent black and decodes the first frame (a key
+frame: never blended) into its rectangle, so the canvas outside the frame
+reads black. Alpha is dropped as ``convert("RGB")`` drops it (libwebp
+hands PIL unpremultiplied RGBA); an ``ALPH`` chunk is still decoded
+(``decode_alpha``: raw or VP8L-compressed, the four unfilters), so that a
+damaged one fails where libwebp fails.
 
-The bitstream (RFC 9649): the header, the four transforms (predictor
-with its 14 modes, cross-colour, subtract-green, colour indexing with
-pixel bundling at 2, 4 and 16 colours), simple and normal prefix codes,
-the meta prefix (entropy) image, LZ77 backward references with the
-120-entry distance map, and the colour cache. ``decode_vp8l`` here is
-the plain Python twin; the host C++ decoder ``csrc/webp_decode.cu``
-(``webp_decode_vp8l``, built by ``ops/_build.py``) decodes the same
-bitstream wherever the caller names the card. Nothing falls back from
-one to the other.
+The lossless bitstream (RFC 9649): the header, the four transforms
+(predictor with its 14 modes, cross-colour, subtract-green, colour
+indexing with pixel bundling at 2, 4 and 16 colours), simple and normal
+prefix codes, the meta prefix (entropy) image, LZ77 backward references
+with the 120-entry distance map, and the colour cache. ``decode_vp8l``
+here is the plain Python twin; the host C++ decoder
+``csrc/webp_decode.cu`` (``webp_decode_vp8l``, built by
+``ops/_build.py``) decodes the same bitstream wherever the caller names
+the card. Nothing falls back from one to the other.
 
-Refused by name: lossy WebP (a ``VP8 `` bitstream, an ``ALPH`` chunk, a
-lossy animation frame), "lossy WebP (VP8) is not ported"; and what is
-malformed (an unknown transform twice, a prefix code that is not
-complete, a backward reference before the image).
+The lossy bitstream (RFC 6386 key frames) goes to ``lossy``: by default
+the CPU twins (``io/vp8.py``'s entropy stage, then ``ops/webp.py``'s
+pixel twins); ``ops/webp.read_webp`` passes the card's path (the C++
+entropy stage, then kernels W1-W3).
+
+Refused by name: what is malformed (an unknown transform twice, a prefix
+code that is not complete, a backward reference before the image; a VP8
+frame that is not a key frame or runs out, ``io/vp8.ERRORS``; a bad
+``ALPH`` header or a truncated one).
 """
 
 from __future__ import annotations
@@ -32,7 +42,6 @@ import struct
 
 import numpy as np
 
-LOSSY = "lossy WebP (VP8) is not ported"
 CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12,
                      13, 14, 15)
 # RFC 9649 5.2.2: the (x, y) offsets of distance codes 1..120
@@ -455,35 +464,123 @@ def decode_vp8l_native(data: bytes, library=None) -> np.ndarray:
 
 
 def _chunks(data: bytes, start: int, end: int):
-    """(fourcc, payload) of the RIFF chunks in data[start:end]."""
+    """(fourcc, payload, the payload with its pad byte) of the RIFF chunks
+    in data[start:end]. libwebp hands its VP8 decoder a frame's chunk with
+    the pad byte (its last token partition runs to the end of that), so a
+    stream that needs one byte more than its chunk still decodes."""
     pos = start
     while pos + 8 <= end:
         fourcc = data[pos:pos + 4]
         (size,) = struct.unpack_from("<I", data, pos + 4)
         if pos + 8 + size > end:
             raise ValueError(f"WebP: chunk {fourcc!r} runs past the file")
-        yield fourcc, data[pos + 8:pos + 8 + size]
+        padded = min(pos + 8 + size + (size & 1), end)
+        yield fourcc, data[pos + 8:pos + 8 + size], data[pos + 8:padded]
         pos += 8 + size + (size & 1)
 
 
-def decode_webp(data: bytes, device=None) -> np.ndarray:
-    """Lossless WebP bytes -> uint8 (H, W, 3) RGB, PIL's
-    ``convert("RGB")``: the C++ decoder where ``device`` is the card (the
-    card unless the caller names one), the Python twin on the CPU."""
-    from superviseddescent_tpu_torch.utils.device import resolve_device
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        decode = decode_vp8l
-    elif dev.type == "cuda":
-        decode = decode_vp8l_native
+ALPH_FILTERS = ("none", "horizontal", "vertical", "gradient")
+
+
+def unfilter_alpha(deltas: np.ndarray, method: int) -> np.ndarray:
+    """libwebp's alpha unfilters (``src/dsp/filters.c``), mod 256: 1
+    horizontal (from the left; a row's first sample from the one above),
+    2 vertical (from above), 3 gradient (left + above - above-left,
+    clipped to 0..255; a row's first sample from the one above); under
+    each, the first row from the left, starting at 0."""
+    d = deltas.astype(np.int64)
+    h, w = d.shape
+    if method == 1:
+        first = np.cumsum(d[:, 0])
+        return ((first[:, None] + np.cumsum(d, axis=1) - d[:, :1])
+                & 0xFF).astype(np.uint8)
+    out = np.empty((h, w), np.int64)
+    out[0] = np.cumsum(d[0]) & 0xFF
+    if method == 2:
+        out[1:] = (out[0] + np.cumsum(d[1:], axis=0)) & 0xFF
+        return out.astype(np.uint8)
+    # gradient: (y, x) needs (y, x - 1), (y - 1, x) and (y - 1, x - 1), so
+    # the anti-diagonals x + y = t go in order
+    for t in range(1, h + w - 1):
+        y = np.arange(max(1, t - w + 1), min(h - 1, t) + 1)
+        if len(y) == 0:
+            continue
+        x = t - y
+        top = out[y - 1, x]
+        inner = x > 0
+        xl = np.where(inner, x - 1, 0)
+        pred = np.where(inner, np.clip(out[y, xl] + top - out[y - 1, xl], 0,
+                                       255), top)
+        out[y, x] = (d[y, x] + pred) & 0xFF
+    return out.astype(np.uint8)
+
+
+def decode_alpha(chunk: bytes, width: int, height: int, decode,
+                 stats=None) -> np.ndarray:
+    """An ``ALPH`` chunk's payload -> (height, width) uint8 alpha, as
+    libwebp's ``ALPHDecode`` reads it: raw (compression 0) or a VP8L image
+    stream without its header, the alpha in green (compression 1, through
+    ``decode``, the VP8L decoder, under a header of the frame's size),
+    then the none, horizontal, vertical or gradient unfilter; the
+    pre-processing bits are read and left (libwebp with dithering off).
+    ``convert("RGB")`` drops the alpha, but a damaged chunk fails here as
+    it fails in libwebp."""
+    if len(chunk) <= 1:
+        raise ValueError("ALPH: chunk too short")
+    method, filt = chunk[0] & 3, (chunk[0] >> 2) & 3
+    pre, reserved = (chunk[0] >> 4) & 3, chunk[0] >> 6
+    if method > 1 or pre > 1 or reserved:
+        raise ValueError("ALPH: bad header")
+    if stats is not None:
+        stats.setdefault("alph_compression", set()).add(method)
+        stats.setdefault("alph_filter", set()).add(ALPH_FILTERS[filt])
+    if method == 0:
+        if len(chunk) - 1 < width * height:
+            raise ValueError("ALPH: truncated raw alpha")
+        deltas = np.frombuffer(chunk, np.uint8, width * height, 1).reshape(
+            height, width)
     else:
-        raise ValueError(f"unsupported device {dev}")
-    return compose(data, decode)
+        header = b"\x2f" + ((width - 1) | ((height - 1) << 14)).to_bytes(
+            4, "little")
+        deltas = ((decode(header + chunk[1:]) >> 8) & 0xFF).astype(np.uint8)
+    return deltas.copy() if filt == 0 else unfilter_alpha(deltas, filt)
 
 
-def compose(data: bytes, decode) -> np.ndarray:
-    """The container around the bitstream ``decode`` turns into ARGB:
-    uint8 (H, W, 3) RGB as PIL reads the file."""
+def decode_webp(data: bytes, device=None) -> np.ndarray:
+    """WebP bytes -> uint8 (H, W, 3) RGB, PIL's ``convert("RGB")``: where
+    ``device`` is the card (the card unless the caller names one), a
+    lossless bitstream through the C++ decoder and a lossy one through the
+    C++ entropy stage and kernels W1-W3 (``ops/webp.py``); on the CPU
+    through their twins."""
+    from superviseddescent_tpu_torch.ops.webp import read_webp
+    px = read_webp(data, 3, device)
+    return px.cpu().numpy() if hasattr(px, "cpu") else px
+
+
+def _lossy_on_cpu(payload: bytes):
+    from superviseddescent_tpu_torch.ops.webp import decode_vp8_pixels
+    return decode_vp8_pixels(payload, 3, "cpu").numpy()
+
+
+def _lossy_frame(payload: bytes, alph, decode, lossy, stats):
+    """A ``VP8 `` bitstream and its ``ALPH`` chunk (or None): the alpha
+    decoded (and dropped) first, then the frame's pixels from ``lossy``."""
+    if alph is not None:
+        from superviseddescent_tpu_torch.io.vp8 import frame_size
+        w, h, _ = frame_size(payload)
+        decode_alpha(alph, w, h, decode, stats)
+    return lossy(payload)
+
+
+def compose(data: bytes, decode, lossy=None, stats=None):
+    """The container around the bitstream: uint8 (H, W, 3) RGB as PIL
+    reads the file. ``decode`` turns a VP8L bitstream into ARGB;
+    ``lossy`` a ``VP8 `` payload into the frame's pixels (an array or a
+    tensor; by default the CPU twins, RGB). An animation's first frame
+    lies on a transparent-black canvas (an array, or a tensor on the
+    frame's device). ``stats``, a dict, collects the ALPH chunks' kinds."""
+    if lossy is None:
+        lossy = _lossy_on_cpu
     if data[:4] != b"RIFF" or data[8:12] != b"WEBP" or len(data) < 20:
         raise ValueError("not a WebP file")
     (riff,) = struct.unpack_from("<I", data, 4)
@@ -491,21 +588,26 @@ def compose(data: bytes, decode) -> np.ndarray:
     chunks = list(_chunks(data, 12, end))
     if not chunks:
         raise ValueError("WebP: no chunk")
-    first, payload = chunks[0]
+    first, payload, padded = chunks[0]
     if first == b"VP8L":
         return _rgb(decode(payload))
     if first == b"VP8 ":
-        raise ValueError(LOSSY)
+        return lossy(padded)
     if first != b"VP8X":
         raise ValueError(f"WebP: first chunk {first!r}")
     if len(payload) < 10:
         raise ValueError("WebP: VP8X chunk too short")
     cw = int.from_bytes(payload[4:7], "little") + 1
     ch = int.from_bytes(payload[7:10], "little") + 1
-    for fourcc, body in chunks[1:]:
-        if fourcc in (b"VP8 ", b"ALPH"):
-            raise ValueError(LOSSY)
+    alph = None
+    for fourcc, body, padded in chunks[1:]:
+        if fourcc == b"ALPH" and alph is None:
+            alph = body
+        if fourcc == b"VP8 ":
+            return _lossy_frame(padded, alph, decode, lossy, stats)
         if fourcc == b"VP8L":
+            if alph is not None:
+                raise ValueError("WebP: an ALPH chunk before a VP8L one")
             return _rgb(decode(body))
         if fourcc == b"ANMF":
             if len(body) < 16:
@@ -514,17 +616,26 @@ def compose(data: bytes, decode) -> np.ndarray:
             y0 = 2 * int.from_bytes(body[3:6], "little")
             fw = int.from_bytes(body[6:9], "little") + 1
             fh = int.from_bytes(body[9:12], "little") + 1
-            for sub, frame in _chunks(body, 16, len(body)):
-                if sub in (b"VP8 ", b"ALPH"):
-                    raise ValueError(LOSSY)
-                if sub == b"VP8L":
-                    px = _rgb(decode(frame))
-                    if px.shape[:2] != (fh, fw) or x0 + fw > cw or \
-                            y0 + fh > ch:
-                        raise ValueError("WebP: a frame outside its canvas")
-                    canvas = np.zeros((ch, cw, 3), np.uint8)
-                    canvas[y0:y0 + fh, x0:x0 + fw] = px
-                    return canvas
+            frame_alph = None
+            for sub, frame, padded in _chunks(body, 16, len(body)):
+                if sub == b"ALPH" and frame_alph is None:
+                    frame_alph = frame
+                    continue
+                if sub == b"VP8L" and frame_alph is not None:
+                    raise ValueError("WebP: an ALPH chunk before a VP8L one")
+                if sub not in (b"VP8L", b"VP8 "):
+                    continue
+                px = _rgb(decode(frame)) if sub == b"VP8L" else \
+                    _lossy_frame(padded, frame_alph, decode, lossy, stats)
+                if tuple(px.shape[:2]) != (fh, fw) or x0 + fw > cw or \
+                        y0 + fh > ch:
+                    raise ValueError("WebP: a frame outside its canvas")
+                if isinstance(px, np.ndarray):
+                    canvas = np.zeros((ch, cw) + px.shape[2:], np.uint8)
+                else:
+                    canvas = px.new_zeros((ch, cw) + tuple(px.shape[2:]))
+                canvas[y0:y0 + fh, x0:x0 + fw] = px
+                return canvas
             raise ValueError("WebP: an animation frame without a bitstream")
     raise ValueError("WebP: no image bitstream")
 

@@ -4,7 +4,8 @@ Each source compiles on its own with nvcc into a shared library with a
 plain C interface, loaded with ctypes: pointers and the stream pass as
 ``c_void_p``, and every C entry point returns ``cudaGetLastError()``.
 Libraries go to ``build/torch_kernels/`` beside the package (git-ignored),
-named by a hash of the source, the headers (``csrc/*.cuh``) and the flags,
+named by a hash of the source, the headers (``csrc/*.cuh``, ``*.h``) and
+the flags,
 so an edited source rebuilds and an unchanged one is reused.
 
 ``-fmad=false`` keeps every float multiply and add rounding on its own, as
@@ -62,8 +63,14 @@ KERNELS = {
     # JPEG writing (ops/jpeg.py): J2 and the host Huffman coder
     "jpeg_encode": {"jpeg_coefficients_launch": [_P] * 5,
                     "jpeg_huffman_encode": [_P, _I, _P, _P, _P, _I]},
-    # lossless WebP (io/webp.py): the host VP8L decoder, no kernel
-    "webp_decode": {"webp_decode_vp8l": [_P, _I, _I, _I, _P]},
+    # WebP (io/webp.py, io/vp8.py): the host VP8L decoder and the host
+    # entropy stage of lossy WebP, no kernel
+    "webp_decode": {"webp_decode_vp8l": [_P, _I, _I, _I, _P],
+                    "webp_decode_vp8": [_P, _I, _I, _I] + [_P] * 4},
+    # lossy WebP's pixel stage (ops/webp.py): W1, W2 and W3
+    "vp8_pixels": {"vp8_reconstruct_launch": [_P] * 6 + [_I] * 3 + [_P],
+                   "vp8_filter_launch": [_P] * 5 + [_I] * 4 + [_P],
+                   "vp8_colour_launch": [_P] * 4 + [_I] * 4 + [_P]},
 }
 
 
@@ -81,7 +88,8 @@ def _flags(defines: tuple) -> list:
 
 def library_path(name: str, defines: tuple = ()) -> Path:
     source = (CSRC / f"{name}.cu").read_bytes()
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for h in sorted(
+        [*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]))
     key = hashlib.sha256(source + headers
                          + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"

@@ -205,15 +205,16 @@ def load_gray_image(path, device=None) -> np.ndarray:
     """Load an image file as (H, W) float32 gray in [0, 255], as the JAX
     package's ``load_gray_image`` (PIL's mode L as it is, every other
     mode through RGB with OpenCV's grey): PNG, JPEG, BMP, PNM (grey PFM
-    too), TIFF, GIF or lossless WebP, the format read from the magic bytes
-    (``io/image.read_gray``).
+    too), TIFF, GIF or WebP (lossless or lossy), the format read from the
+    magic bytes (``io/image.read_gray``).
 
     A JPEG's or a JPEG-compressed TIFF's pixel stage runs on ``device``:
     the card (kernel J1, ``ops/jpeg.py``) unless the caller passes
-    ``device="cpu"``; with no card and no device it raises. A WebP
-    decodes on the host, by the C++ decoder for the card and its Python
-    twin for the CPU. Every other format decodes on the host. Decoding
-    errors raise ``ValueError`` naming the file."""
+    ``device="cpu"``; with no card and no device it raises. So does a
+    lossy WebP's (kernels W1-W3, ``ops/webp.py``, after the host entropy
+    stage). A lossless WebP decodes on the host, by the C++ decoder for
+    the card and its Python twin for the CPU. Every other format decodes
+    on the host. Decoding errors raise ``ValueError`` naming the file."""
     from superviseddescent_tpu_torch.io.image import read_gray
     return read_gray(path, device).astype(np.float32)
 

@@ -15,7 +15,8 @@ the test records the unrounded coordinates ``DetectionModel.detect``
 returns in each package, holds the two within 1e-3, and holds each
 printed line to its own package's coordinates within half a print step.
 ``rcr_detect -o out.png`` writes the JAX app's bytes, and ``-o out.tif``
-PIL's TIFF of the same drawing.
+PIL's TIFF of the same drawing; from a lossy WebP (``-i still.webp``) the
+landmarks and the drawn PNG are the JAX app's too.
 """
 
 import io
@@ -164,6 +165,30 @@ def test_rcr_detect_matches_jax(monkeypatch, tmp_path, mode):
     assert written.shape == (450, 300, 3)
     assert (written == _draw.GREEN).all(axis=2).sum() > 0
     assert (written == _draw.RED).all(axis=2).sum() > 0
+
+
+def test_rcr_detect_on_a_lossy_webp_matches_jax(monkeypatch, tmp_path):
+    """-i still.webp (PIL's lossy writer): the port reads it through its
+    twins (the VP8 entropy stage, W1-W3), the JAX app through PIL; the
+    landmarks within 1e-3 px, and -o out.png the JAX app's bytes."""
+    with Image.open(os.path.join(SYNTH, IMAGE + ".png")) as im:
+        still = tmp_path / "still.webp"
+        im.convert("RGB").save(still, "WEBP", quality=80)
+    common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
+              str(still), "--facebox", "60.5,120.25,170,175"]
+    want, got = [], []
+    record_detect(monkeypatch, jax_rcr.DetectionModel, want)
+    record_detect(monkeypatch, port_rcr.DetectionModel, got)
+    jax_out, out = tmp_path / "jax.png", tmp_path / "out.png"
+    rc, _ = run_app(monkeypatch, jax_detect, common + ["-o", str(jax_out)])
+    assert rc == 0
+    rc, text = run_app(monkeypatch, rcr_detect, common + [
+        "-o", str(out), "--device", "cpu"])
+    assert rc == 0 and f"Wrote {out}" in text
+    (box, coords), (jax_box, jax_coords) = got[0], want[0]
+    np.testing.assert_allclose(box, jax_box, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(coords, jax_coords, atol=EXACT_PX, rtol=0)
+    assert out.read_bytes() == jax_out.read_bytes()
 
 
 def test_rcr_detect_png_and_tiff_are_the_jax_apps_bytes(monkeypatch,

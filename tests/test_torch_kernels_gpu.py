@@ -1472,3 +1472,41 @@ def test_webp_native_decoder_on_the_card_path(cuda):
             got = read(path, device=cuda)
             assert hashlib.sha256(got.tobytes()).hexdigest() == \
                 m["files"][name][key], name
+
+
+def test_webp_lossy_kernels_match_twins(cuda):
+    """W1, W2 and W3 (ops/webp.py) each equal to its twin on the same
+    inputs for every lossy WebP fixture, and read_gray / read_rgb on the
+    card equal to PIL's digests."""
+    import hashlib
+    import json
+    from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
+    from superviseddescent_tpu_torch.io.webp import compose, decode_vp8l_native
+    from superviseddescent_tpu_torch.ops import webp as W
+    with open(os.path.join(IMAGEIO_FIXTURES, "manifest.json")) as f:
+        m = json.load(f)
+
+    def stages(payload):
+        f, coeffs, modes, filters = W.vp8_frame(payload, cuda)
+        planes = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
+        want = W.reconstruct_reference(coeffs, modes, f.mb_w, f.mb_h)
+        assert all(torch.equal(a, b) for a, b in zip(planes, want))
+        want = W.filter_reference(*planes, filters, f.filter_type, f.mb_w,
+                                  f.mb_h)
+        planes = W.vp8_filter(*(p.clone() for p in planes), filters,
+                              f.filter_type, f.mb_w, f.mb_h)
+        assert all(torch.equal(a, b) for a, b in zip(planes, want))
+        for channels in (1, 3):
+            got = W.vp8_colour(*planes, f.width, f.height, channels)
+            assert torch.equal(got, W.colour_reference(
+                *planes, f.width, f.height, channels))
+        return got
+    for name in m["groups"]["webp_lossy"]:
+        path = os.path.join(IMAGEIO_FIXTURES, name)
+        with open(path, "rb") as f:
+            compose(f.read(), decode_vp8l_native, stages)
+        for read, key in ((read_gray, "grey_sha256"), (read_rgb,
+                                                       "rgb_sha256")):
+            got = read(path, device=cuda)
+            assert hashlib.sha256(got.tobytes()).hexdigest() == \
+                m["files"][name][key], name

@@ -9,7 +9,9 @@ animation's first frame as PIL composes it. The fixtures together use
 every VP8L transform, all 14 predictor modes, each pixel-bundling width,
 the colour cache and backward references (counted in the twin). The
 host C++ decoder (``csrc/webp_decode.cu``, built here with g++) returns
-the twin's ARGB for every fixture. Lossy WebP is refused by name.
+the twin's ARGB for every fixture. The three lossy kinds once refused by
+name (a ``VP8 `` file, ``ALPH`` + ``VP8 ``, a lossy animation frame) now
+read as PIL reads them (``tests/test_torch_webp_lossy.py`` has the rest).
 """
 
 import ctypes
@@ -27,7 +29,7 @@ from PIL import Image
 from superviseddescent_tpu.ops.patches import load_gray_image as jax_load_gray
 from superviseddescent_tpu_torch.io import image as imageio
 from superviseddescent_tpu_torch.io.webp import (
-    LOSSY, compose, decode_vp8l, decode_vp8l_native, decode_webp)
+    compose, decode_vp8l, decode_vp8l_native, decode_webp)
 from superviseddescent_tpu_torch.ops.patches import (
     load_gray_image, rgb_to_gray_u8)
 from torch_imageio_fixtures import OUT as FIXTURES
@@ -135,14 +137,16 @@ def lossy_files():
 
 @pytest.mark.parametrize("kind", ["VP8", "ALPH", "lossy frame"])
 def test_lossy_webp_is_refused_by_name(kind):
+    """The three lossy kinds the reader once refused by name: each now
+    reads equal to PIL's pixels (the test's name kept)."""
     data = lossy_files()[kind]
     chunks = data[12:16]
     assert chunks == (b"VP8 " if kind == "VP8" else b"VP8X")
     assert imageio.sniff(data) == "WEBP"
-    with pytest.raises(ValueError, match="lossy WebP \\(VP8\\) is not "
-                       "ported"):
-        decode_webp(data, device="cpu")
-    assert LOSSY == "lossy WebP (VP8) is not ported"
+    with Image.open(io.BytesIO(data)) as im:
+        want = np.asarray(im.convert("RGB"))
+    got = decode_webp(data, device="cpu")
+    assert sha(got) == sha(want)
 
 
 def test_webp_container_and_writes():

@@ -1072,6 +1072,412 @@ def webp_fixtures() -> dict:
     return files
 
 
+# ---- lossy WebP (VP8, and its ALPH chunk) ----
+# the C writer over libwebp's encoder, for what PIL's save() cannot set
+WEBP_WRITER = os.path.join(HERE, "torch_webp_writer.c")
+# a taller crop of the clip frame, for 8 token partitions (9 macroblock
+# rows: each partition takes rows)
+PARTITIONS_CROP = (200, 300, 136, 45)        # row, column, height, width
+
+
+def clip_rgb() -> np.ndarray:
+    with Image.open(os.path.join(JPEG_DIR, CLIP_FRAME)) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def webp_writer(rgb: np.ndarray, **options) -> bytes:
+    """libwebp's lossy encoder through tests/torch_webp_writer.c (built
+    with gcc against the system's -lwebp): RGB or RGBA pixels, WebPConfig
+    fields by name."""
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "writer")
+        subprocess.run(["gcc", "-O2", "-o", exe, WEBP_WRITER, "-lwebp"],
+                       check=True)
+        raw, out = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.webp")
+        np.ascontiguousarray(rgb, np.uint8).tofile(raw)
+        h, w, c = rgb.shape
+        subprocess.run([exe, raw, str(w), str(h), str(c), out] + [
+            f"{k}={v}" for k, v in options.items()], check=True)
+        with open(out, "rb") as f:
+            return f.read()
+
+
+class BoolEncoder:
+    """RFC 6386's boolean encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob: int, bit: int):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def literal(self, v: int, n: int):
+        for k in range(n - 1, -1, -1):
+            self.put(128, (v >> k) & 1)
+
+    def signed(self, v: int, n: int):
+        self.literal(abs(v), n)
+        self.put(128, int(v < 0))
+
+    def flush(self) -> bytes:
+        for _ in range(32):
+            self.put(128, 0)
+        return bytes(self.out)
+
+
+def _recorded_partition0(payload: bytes) -> list:
+    """(probability, bit) of every decode of a VP8 frame's first
+    partition, in order, as the port's twin reads it."""
+    from superviseddescent_tpu_torch.io import vp8
+    seen = []
+
+    class Recording(vp8.BoolDecoder):
+        def __init__(self, data):
+            super().__init__(data)
+            self.log = []
+            seen.append(self)
+
+        def bit(self, prob):
+            b = super().bit(prob)
+            self.log.append((prob, b))
+            return b
+    plain, vp8.BoolDecoder = vp8.BoolDecoder, Recording
+    try:
+        vp8.decode_vp8(payload)
+    finally:
+        vp8.BoolDecoder = plain
+    return seen[0].log
+
+
+def vp8_rewrite_header(payload: bytes, delta_segments=False,
+                       lf_delta=None) -> bytes:
+    """A VP8 key frame with its first partition's header rewritten:
+    ``delta_segments`` the segment quantisers and filter levels as deltas
+    to the frame's (segment_feature_mode 0, which libwebp's encoder never
+    writes); ``lf_delta`` (reference delta, B_PRED mode delta) switches on
+    mode_ref_lf_delta with those deltas (libwebp's encoder writes none).
+    Every other bit is re-encoded as it was; the token partitions are
+    kept."""
+    bits = _recorded_partition0(payload)
+    pos = [0]
+
+    def take(n=1):
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | bits[pos[0]][1]
+            pos[0] += 1
+        return v
+
+    def take_signed(n):
+        v = take(n)
+        return -v if take() else v
+
+    def opt(n):
+        return take_signed(n) if take() else None
+    colour, clamp, use_segment = take(), take(), take()
+    seg = None
+    if use_segment:
+        update_map, update_data = take(), take()
+        if update_data:
+            absolute = take()
+            qs, fs = [opt(7) for _ in range(4)], [opt(6) for _ in range(4)]
+            seg = (absolute, qs, fs)
+        probas = [take(8) if take() else None for _ in range(3)] \
+            if update_map else []
+    simple, level, sharpness = take(), take(6), take(3)
+    use_lf = take()
+    deltas = None
+    if use_lf and take():
+        deltas = [[opt(6) for _ in range(4)] for _ in range(2)]
+    rest_bits = bits[pos[0]:]
+    # base_q is the first thing after the partition count
+    q_pos = 2
+    base_q = 0
+    for k in range(7):
+        base_q = (base_q << 1) | rest_bits[q_pos + k][1]
+    enc = BoolEncoder()
+    enc.literal(colour, 1)
+    enc.literal(clamp, 1)
+    enc.literal(use_segment, 1)
+    if use_segment:
+        enc.literal(update_map, 1)
+        enc.literal(int(seg is not None), 1)
+        if seg is not None:
+            absolute, qs, fs = seg
+            rel = delta_segments and absolute
+            enc.literal(0 if rel else absolute, 1)
+            for vals, n, base in ((qs, 7, base_q), (fs, 6, level)):
+                for v in vals:
+                    if v is not None and rel:
+                        v -= base
+                    enc.literal(int(v is not None), 1)
+                    if v is not None:
+                        enc.signed(v, n)
+        for p in probas:
+            enc.literal(int(p is not None), 1)
+            if p is not None:
+                enc.literal(p, 8)
+    enc.literal(simple, 1)
+    enc.literal(level, 6)
+    enc.literal(sharpness, 3)
+    if lf_delta is not None:
+        deltas = [[lf_delta[0], None, None, None],
+                  [lf_delta[1], None, None, None]]
+    enc.literal(int(deltas is not None or use_lf), 1)
+    if deltas is not None or use_lf:
+        enc.literal(int(deltas is not None), 1)
+        for row in deltas or []:
+            for v in row:
+                enc.literal(int(v is not None), 1)
+                if v is not None:
+                    enc.signed(v, 6)
+    for prob, b in rest_bits:
+        enc.put(prob, b)
+    part0 = enc.flush()
+    tag = int.from_bytes(payload[:3], "little")
+    old_len = tag >> 5
+    tag = (tag & 0x1F) | (len(part0) << 5)
+    return (tag.to_bytes(3, "little") + payload[3:10] + part0
+            + payload[10 + old_len:])
+
+
+def vp8_of(data: bytes) -> bytes:
+    """The VP8 payload of a simple lossy WebP."""
+    assert data[12:16] == b"VP8 "
+    (n,) = struct.unpack_from("<I", data, 16)
+    return data[20:20 + n]
+
+
+def vp8x(width: int, height: int, flags: int) -> bytes:
+    return struct.pack("<B3x", flags) + (width - 1).to_bytes(
+        3, "little") + (height - 1).to_bytes(3, "little")
+
+
+def filtered_alpha(alpha: np.ndarray, method: int) -> np.ndarray:
+    """libwebp's alpha filters (the deltas ``ALPH`` stores): 1
+    horizontal, 2 vertical, 3 gradient; each row's first sample from the
+    one above, the first row from the left starting at 0."""
+    a = alpha.astype(np.int64)
+    h, w = a.shape
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    else:
+        pred[1:, 0] = a[:-1, 0]
+        if method == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1],
+                                   0, 255)
+    if method == 1:
+        pred[1:, 0] = a[:-1, 0]
+    return ((a - pred) & 0xFF).astype(np.uint8)
+
+
+def alph_chunk(alpha: np.ndarray, method: int, compressed: bool) -> bytes:
+    """An ALPH chunk of this script's: ``alpha`` filtered by ``method``,
+    raw or as a VP8L image stream (PIL's lossless WebP of the deltas as
+    green, its 5-byte header cut)."""
+    deltas = filtered_alpha(alpha, method) if method else alpha
+    header = bytes([(method << 2) | int(compressed)])
+    if not compressed:
+        return header + deltas.tobytes()
+    grey = np.repeat(deltas[..., None], 3, axis=2)
+    return header + vp8l_of(pil_bytes(Image.fromarray(grey), "WEBP",
+                                      lossless=True))[5:]
+
+
+def lossy_alpha(h: int, w: int) -> np.ndarray:
+    yy, xx = np.mgrid[:h, :w]
+    a = ((xx * 7 + yy * 11) % 256).astype(np.uint8)
+    a[::5, ::3] = 255
+    return a
+
+
+def webp_lossy_fixtures() -> dict:
+    rgb = small_rgb()
+    h, w = rgb.shape[:2]
+    clip = clip_rgb()
+    y, x, ph, pw = PARTITIONS_CROP
+    tall = np.ascontiguousarray(clip[y:y + ph, x:x + pw])
+    alpha = lossy_alpha(h, w)
+    rgba = np.concatenate([rgb, alpha[..., None]], axis=2)
+    plain = vp8_of(pil_bytes(Image.fromarray(rgb), "WEBP", quality=60))
+    files = {
+        "v00_q0_m4.webp": pil_bytes(Image.fromarray(rgb), "WEBP", quality=0),
+        "v01_q50_m4.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                     quality=50),
+        "v02_q75_m0.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                     quality=75, method=0),
+        "v03_q100_m6.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                      quality=100, method=6),
+        "v04_q75_m6.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                     quality=75, method=6),
+        "v05_sharp_yuv.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                        quality=75, use_sharp_yuv=True),
+        "v06_1x37.webp": pil_bytes(Image.fromarray(rgb[:1, :37].copy()),
+                                   "WEBP", quality=75),
+        "v07_37x1.webp": pil_bytes(Image.fromarray(rgb[:37, :1].copy()),
+                                   "WEBP", quality=75),
+        "v08_33x17.webp": pil_bytes(Image.fromarray(rgb[:17, :33].copy()),
+                                    "WEBP", quality=75),
+        "v09_16x32.webp": pil_bytes(Image.fromarray(rgb[:32, :16].copy()),
+                                    "WEBP", quality=30),
+        "v10_rgba_aq0.webp": pil_bytes(Image.fromarray(rgba, "RGBA"), "WEBP",
+                                       quality=75, alpha_quality=0),
+        "v11_rgba_aq50.webp": pil_bytes(Image.fromarray(rgba, "RGBA"),
+                                        "WEBP", quality=75, alpha_quality=50),
+        "v12_rgba_aq100.webp": pil_bytes(Image.fromarray(rgba, "RGBA"),
+                                         "WEBP", quality=75,
+                                         alpha_quality=100),
+    }
+    anim = io.BytesIO()
+    Image.fromarray(rgba, "RGBA").save(
+        anim, "WEBP", quality=70, save_all=True, duration=80,
+        append_images=[Image.fromarray(rgba[::-1].copy(), "RGBA")])
+    files["v13_animated.webp"] = anim.getvalue()
+    # a lossy first frame with its own ALPH inside a larger canvas
+    fw, fh = 40, 30
+    frame = vp8_of(pil_bytes(Image.fromarray(rgb[:fh, :fw].copy()), "WEBP",
+                             quality=70))
+    falph = alph_chunk(alpha[:fh, :fw], 3, True)
+    anmf = ((4 // 2).to_bytes(3, "little") + (6 // 2).to_bytes(3, "little")
+            + (fw - 1).to_bytes(3, "little") + (fh - 1).to_bytes(3, "little")
+            + (100).to_bytes(3, "little") + b"\x00")
+    sub = riff([(b"ALPH", falph), (b"VP8 ", frame)])[12:]
+    files["v14_animated_offset_frame.webp"] = riff([
+        (b"VP8X", vp8x(w + 6, h + 4, 0x12)), (b"ANIM", bytes(6)),
+        (b"ANMF", anmf + sub)])
+    # what PIL cannot set: libwebp's encoder through the C writer
+    writer = {
+        "v15_simple_filter.webp": (rgb, dict(filter_type=0, autofilter=0,
+                                             filter_strength=60)),
+        "v16_simple_sharp7.webp": (rgb, dict(
+            filter_type=0, autofilter=0, filter_strength=100,
+            filter_sharpness=7)),
+        "v17_normal_sharp5.webp": (rgb, dict(
+            filter_type=1, autofilter=0, filter_strength=100,
+            filter_sharpness=5)),
+        "v18_strength0.webp": (rgb, dict(autofilter=0, filter_strength=0)),
+        # libwebp writes one token partition from method 3 (its token
+        # buffer); methods 0-2 also write the skip probability
+        "v19_partitions2.webp": (tall, dict(partitions=1, segments=2,
+                                            method=2)),
+        "v20_partitions4.webp": (tall, dict(partitions=2, segments=3,
+                                            method=1)),
+        "v21_partitions8.webp": (tall, dict(partitions=3, segments=4,
+                                            method=0, filter_type=0,
+                                            autofilter=0,
+                                            filter_strength=40)),
+        "v22_segments1.webp": (rgb, dict(segments=1, quality=40)),
+        "v23_alpha_raw.webp": (rgba, dict(alpha_compression=0)),
+        "v24_alpha_filter1.webp": (rgba, dict(alpha_compression=1,
+                                              alpha_filtering=1)),
+        "v25_alpha_filter2.webp": (rgba, dict(alpha_compression=1,
+                                              alpha_filtering=2)),
+        "v36_alpha_filter0.webp": (rgba, dict(alpha_compression=1,
+                                              alpha_filtering=0)),
+    }
+    for name, (px, options) in writer.items():
+        files[name] = webp_writer(px, **options)
+    # the header paths libwebp's encoder never writes
+    seg = vp8_of(files["v20_partitions4.webp"])
+    files["v26_segment_deltas.webp"] = riff([(b"VP8 ", vp8_rewrite_header(
+        seg, delta_segments=True))])
+    files["v27_lf_deltas.webp"] = riff([(b"VP8 ", vp8_rewrite_header(
+        plain, lf_delta=(-3, 6)))])
+    # ALPH chunks of this script's: every filter, raw and compressed
+    for method in range(4):
+        for compressed in (False, True):
+            name = (f"v{28 + 2 * method + compressed}_alph_"
+                    f"{('none', 'horizontal', 'vertical', 'gradient')[method]}"
+                    f"_{'vp8l' if compressed else 'raw'}.webp")
+            files[name] = riff([
+                (b"VP8X", vp8x(w, h, 0x10)),
+                (b"ALPH", alph_chunk(alpha, method, compressed)),
+                (b"VP8 ", plain)])
+    files["f08_clip_lossy.webp"] = pil_bytes(Image.fromarray(clip), "WEBP",
+                                             quality=75)
+    return files
+
+
+def libwebp_yuv(data: bytes):
+    """libwebp's own Y, U and V planes of a still lossy WebP
+    (``WebPDecodeYUV`` of the system's libwebp.so.7), or None where that
+    library is absent or refuses the file (an animation)."""
+    import ctypes
+    try:
+        lib = ctypes.CDLL("libwebp.so.7")
+    except OSError:
+        return None
+    lib.WebPDecodeYUV.restype = ctypes.c_void_p
+    lib.WebPDecodeYUV.argtypes = [ctypes.c_char_p, ctypes.c_size_t] + [
+        ctypes.c_void_p] * 6
+    lib.WebPFree.argtypes = [ctypes.c_void_p]
+    w, h, stride, uv_stride = (ctypes.c_int() for _ in range(4))
+    u, v = ctypes.c_void_p(), ctypes.c_void_p()
+    y = lib.WebPDecodeYUV(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                          ctypes.byref(u), ctypes.byref(v),
+                          ctypes.byref(stride), ctypes.byref(uv_stride))
+    if not y:
+        return None
+    width, height = w.value, h.value
+    uw, uh = (width + 1) // 2, (height + 1) // 2
+
+    def plane(ptr, s, pw, ph):
+        buf = (ctypes.c_uint8 * (s * ph)).from_address(ptr)
+        return np.ctypeslib.as_array(buf).reshape(ph, s)[:, :pw].copy()
+    out = (plane(y, stride.value, width, height),
+           plane(u.value, uv_stride.value, uw, uh),
+           plane(v.value, uv_stride.value, uw, uh))
+    lib.WebPFree(ctypes.c_void_p(y))
+    return out
+
+
+def lossy_digests(path) -> dict:
+    """A lossy WebP's digests beyond PIL's pixels: libwebp's Y / U / V
+    planes (``yuv_sha256``, a still only) and PIL's alpha
+    (``alpha_sha256``, a still whose ALPH chunk follows its VP8X)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out = {}
+    planes = libwebp_yuv(data)
+    if planes is not None:
+        out["yuv_sha256"] = [hashlib.sha256(p.tobytes()).hexdigest()
+                             for p in planes]
+    if data[12:16] == b"VP8X" and data[30:34] == b"ALPH":
+        with Image.open(path) as im:
+            a = np.asarray(im.convert("RGBA"))[..., 3]
+        out["alpha_sha256"] = hashlib.sha256(a.tobytes()).hexdigest()
+    return out
+
+
 def jpeg_writes() -> list:
     """PIL's JPEG files of the pixels the card decodes from
     ``tests/torch_jpeg``: name, channels, subsampling, quality, digest."""
@@ -1155,7 +1561,7 @@ def png_tiff_writes() -> list:
 # the manifest's groups: each writer's files under its name
 GROUPS = (bmp_fixtures, pnm_fixtures, tiff_fixtures, gif_fixtures,
           full_fixtures, tiff_kind_fixtures, tiff_more_fixtures,
-          pfm_fixtures, webp_fixtures, clip_fixtures)
+          pfm_fixtures, webp_fixtures, clip_fixtures, webp_lossy_fixtures)
 
 
 def write_fixtures(out: str = OUT) -> dict:
@@ -1174,6 +1580,8 @@ def write_fixtures(out: str = OUT) -> dict:
         with open(path, "wb") as f:
             f.write(data)
         manifest["files"][name] = dict(pil_digests(path), bytes=len(data))
+        if name in groups["webp_lossy"]:
+            manifest["files"][name].update(lossy_digests(path))
     manifest["png_tiff_writes"] = png_tiff_writes()
     with open(os.path.join(out, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
