@@ -123,17 +123,27 @@ runs only that phase after the builds. Then the lossy WebP phase
 Python twin) and kernels W1, W2 and W3 of ``csrc/vp8_pixels.cu``, each
 against its twin on the same inputs, the planes after W2 against
 libwebp's ``WebPDecodeYUV`` digests, RGB and grey against PIL's and an
-ALPH chunk's alpha against PIL's; the lossy clip frame through
+ALPH chunk's alpha against PIL's, W1 and W2 also at 1, 2 and 5 rows in
+flight against the plan's; the lossy clip frame through
 ``load_gray_image`` (W1-W3 once each) and K3 on the 4,096 faces' boxes,
 rows equal to those from the PNG of its pixels; ``rcr_detect -i`` on
 that frame, landmarks and drawing equal to those from the PNG; the host
 entropy ms, W1-W3's device ms beside their twins', their byte bounds and
-the wavefront's critical path, and ``load_gray_image`` ms against the
-PNG and the JPEG of the same frame.
+the wavefront's critical path, ``load_gray_image`` ms against the PNG and
+the JPEG of the same frame, W1 and W2 on a frame ten times as wide
+(``webp_wide_frame``), and W1's and W2's split (``webp_times``:
+measurement builds with the hand-off alone and the work alone).
 
-    python3 chip_smoke.py --webp
+    python3 chip_smoke.py --webp [--sweep] [--package-root DIR]
 
-runs only that phase after the builds;
+runs only that phase after the builds; with ``--package-root`` also W1 and
+W2 of another checkout (e.g. the package of commit ceed2b4, a CTA a
+macroblock row, unpacked into a git-ignored directory under ``build/``;
+its split where its source has the measurement builds, or is that
+commit's, then through a copy with VP8_CTA_ROWS_SPLIT's lines in), in a
+child process, in the order other, this, this, other; with ``--sweep``
+also W1 and W2 at WEBP_SWEEP rows a CTA and WEBP_IN_FLIGHT rows in
+flight;
 
     python3 chip_smoke.py --j1 [--j2] [--sweep] [--package-root DIR]
 
@@ -408,9 +418,10 @@ def phase_build():
     from superviseddescent_tpu_torch.ops._build import build_all
     logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
                      + list(K12_BUILDS) + list(K5_BUILDS)
-                     + list(JPEG_BUILDS))
-    log(f"[build] K1-K6, J1, J2, the probes and K1's, K2's, K3's, K5's, "
-        f"J1's and J2's measurement builds in "
+                     + list(JPEG_BUILDS)
+                     + [("vp8_pixels", (d,)) for _, d in WEBP_BUILDS])
+    log(f"[build] K1-K6, J1, J2, W1-W3, the probes and K1's, K2's, K3's, "
+        f"K5's, J1's, J2's, W1's and W2's measurement builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -3569,25 +3580,34 @@ def probe_sweep(torch, seed):
     return out
 
 
-def probe_levels(torch, seed, root, sweep=False):
-    """``--probes``: ``probe_times`` of this checkout's package and, with
-    another checkout's (``root``), of that package in a child process, in
-    the order other, this, this, other; the per-variant lines side by side;
-    ``probe_split``, the launch floor and, with ``sweep``, ``probe_sweep``
-    for this checkout's package."""
+def other_runs(root, times, flags):
+    """``times()`` of this checkout's package and, where ``root`` is
+    another checkout, the same times of that checkout's package: the last
+    line of a child ``chip_smoke.py *flags --package-root root``; in the
+    order other, this, this, other. Returns {"this": [...], "other":
+    [...]}."""
     runs = {"this": [], "other": []}
     order = ["other", "this", "this", "other"] if root != REPO else ["this"]
     for who in order:
         if who == "this":
-            runs["this"].append(probe_times(torch, seed))
+            runs["this"].append(times())
             continue
         child = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--probes",
-             "--probe-times", "--package-root", root, "--seed", str(seed)],
-            capture_output=True, text=True)
-        check(child.returncode == 0, "the other package's probe times: "
+            [sys.executable, os.path.abspath(__file__), *flags,
+             "--package-root", root], capture_output=True, text=True)
+        check(child.returncode == 0, f"the other package's {flags[-1]}: "
               + child.stdout[-2000:] + child.stderr[-2000:])
         runs["other"].append(json.loads(child.stdout.strip().splitlines()[-1]))
+    return runs
+
+
+def probe_levels(torch, seed, root, sweep=False):
+    """``--probes``: ``probe_times`` of this checkout's package and, with
+    another checkout's (``root``), of that package (``other_runs``); the
+    per-variant lines side by side; ``probe_split``, the launch floor and,
+    with ``sweep``, ``probe_sweep`` for this checkout's package."""
+    runs = other_runs(root, lambda: probe_times(torch, seed),
+                      ["--probes", "--seed", str(seed), "--probe-times"])
     for label in runs["this"][0]:
         def fmt(who):
             return " / ".join(f"{r[label]['ms']:.4f}" for r in runs[who])
@@ -4666,22 +4686,9 @@ def jpeg_sweep(torch):
 
 def jpeg_compare(torch, root, which):
     """``--j1`` / ``--j2``: ``jpeg_times`` of this checkout's package and,
-    with another checkout's (``root``), of that package in a child process,
-    in the order other, this, this, other; the lines of ``which`` ("j1",
-    "j2" or both) printed side by side."""
-    runs = {"this": [], "other": []}
-    order = ["other", "this", "this", "other"] if root != REPO else ["this"]
-    for who in order:
-        if who == "this":
-            runs["this"].append(jpeg_times(torch))
-            continue
-        child = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--jpeg-times",
-             "--package-root", root], capture_output=True, text=True)
-        check(child.returncode == 0, "the other package's JPEG times: "
-              + child.stdout[-2000:] + child.stderr[-2000:])
-        runs["other"].append(json.loads(
-            child.stdout.strip().splitlines()[-1]))
+    with another checkout's (``root``), of that package (``other_runs``);
+    the lines of ``which`` ("j1", "j2" or both) printed side by side."""
+    runs = other_runs(root, lambda: jpeg_times(torch), ["--jpeg-times"])
 
     def text(run_list, key):
         total = " / ".join(f"{sum(r[key].values()):.5f}" for r in run_list)
@@ -5423,8 +5430,9 @@ def phase_tiffwebp(torch, data, name, smi):
 # ---------------------------------------------------------------- #
 WEBP_LOSSY_FRAME = "f08_clip_lossy.webp"     # the clip frame, PIL's q75
 WEBP_LOSSY_REPS = 5
-# W1 and W2 also run on this few CTAs, each taking several macroblock rows
-WEBP_FEW_CTAS = 5
+# W1 and W2 also run at these rows in flight (the plan's otherwise), each
+# warp then taking several macroblock rows: the planes must not change
+WEBP_FORCED_ROWS = (1, 2, 5)
 WEBP_KERNELS = ("vp8_reconstruct", "vp8_filter", "vp8_colour")
 # W1's and W2's integer operations per macroblock, W3's per output sample
 # (counted from csrc/vp8_pixels.cu: the WHT and 24 inverse DCTs with their
@@ -5464,8 +5472,9 @@ def vp8_bounds(f, channels=3):
 def vp8_stages(torch, payload):
     """A VP8 payload through the card's path stage by stage, each kernel
     against its twin on the same inputs (the twins as plain PyTorch on the
-    card). Returns (frame, planes after W2, the largest difference of any
-    kernel from its twin, RGB, grey)."""
+    card), W1 and W2 also at WEBP_FORCED_ROWS rows in flight, their planes
+    equal to those at the plan's. Returns (frame, planes after W2, the
+    largest difference of any kernel from its twin, RGB, grey)."""
     import numpy as np
     from superviseddescent_tpu_torch.io.vp8 import decode_vp8
     from superviseddescent_tpu_torch.ops import webp as W
@@ -5479,14 +5488,22 @@ def vp8_stages(torch, payload):
 
     def diff(a, b):
         return max(int((x.int() - y.int()).abs().max()) for x, y in zip(a, b))
-    planes = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
-    worst = max(worst, diff(planes, W.reconstruct_reference(
+    unfiltered = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
+    worst = max(worst, diff(unfiltered, W.reconstruct_reference(
         coeffs, modes, f.mb_w, f.mb_h)))
-    want = W.filter_reference(*planes, filters, f.filter_type, f.mb_w,
+    want = W.filter_reference(*unfiltered, filters, f.filter_type, f.mb_w,
                               f.mb_h)
-    planes = W.vp8_filter(*(p.clone() for p in planes), filters,
+    planes = W.vp8_filter(*(p.clone() for p in unfiltered), filters,
                           f.filter_type, f.mb_w, f.mb_h)
     worst = max(worst, diff(planes, want))
+    for rows in WEBP_FORCED_ROWS:
+        again = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h, grid=rows)
+        check(all(torch.equal(a, b) for a, b in zip(again, unfiltered)),
+              f"W1 at {rows} rows in flight differs from W1 at the plan's")
+        again = W.vp8_filter(*again, filters, f.filter_type, f.mb_w, f.mb_h,
+                             grid=rows)
+        check(all(torch.equal(a, b) for a, b in zip(again, planes)),
+              f"W2 at {rows} rows in flight differs from W2 at the plan's")
     out = {}
     for channels in (3, 1):
         out[channels] = W.vp8_colour(*planes, f.width, f.height, channels)
@@ -5498,8 +5515,8 @@ def vp8_stages(torch, payload):
 def webp_lossy_fixtures(torch, manifest):
     """Every committed lossy fixture on the card: the C++ entropy stage
     against the Python twin, W1, W2 and W3 each bit-equal to its twin on
-    the same inputs (and W1, W2 on the clip frame on WEBP_FEW_CTAS CTAs
-    equal to a CTA a row), the planes after W2 equal to libwebp's
+    the same inputs (W1 and W2 also at WEBP_FORCED_ROWS rows in flight,
+    equal to the plan's), the planes after W2 equal to libwebp's
     ``WebPDecodeYUV`` digests, the RGB and grey of ``read_rgb`` /
     ``read_gray`` (every stage on the card) equal to PIL's, and an ALPH
     chunk's alpha (through the C++ VP8L decoder) equal to PIL's. Returns
@@ -5550,28 +5567,12 @@ def webp_lossy_fixtures(torch, manifest):
                                                        "rgb_sha256")):
             check(digest(read(path)) == want[key], f"{name}: the port's "
                   f"{key[:-7]} on the card differs from PIL's")
-    # a grid smaller than the rows: each CTA takes several rows in turn
-    from superviseddescent_tpu_torch.ops import webp as W
-    with open(os.path.join(IMAGEIO_DIR, WEBP_LOSSY_FRAME), "rb") as fh:
-        clip = fh.read()
-    payload = {c: body for c, body, _ in webp._chunks(clip, 12, len(clip))}[
-        b"VP8 "]
-    f, coeffs, modes, filters = W.vp8_frame(payload, torch.device("cuda"))
-    full = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
-    few = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h, grid=WEBP_FEW_CTAS)
-    check(all(torch.equal(a, b) for a, b in zip(full, few)),
-          f"W1 on {WEBP_FEW_CTAS} CTAs differs from W1 on a CTA a row")
-    full = W.vp8_filter(*full, filters, f.filter_type, f.mb_w, f.mb_h)
-    few = W.vp8_filter(*few, filters, f.filter_type, f.mb_w, f.mb_h,
-                       grid=WEBP_FEW_CTAS)
-    check(all(torch.equal(a, b) for a, b in zip(full, few)),
-          f"W2 on {WEBP_FEW_CTAS} CTAs differs from W2 on a CTA a row")
     check(worst == 0, f"W1-W3 differ from their twins by {worst}")
     log(f"[webp] {len(names)} lossy fixtures on the card: the C++ entropy "
         "stage equal to the Python twin, W1, W2 and W3 each equal to its "
         "twin, the planes to libwebp's WebPDecodeYUV, RGB and grey to PIL's, "
-        f"ALPH to PIL's alpha; W1 and W2 on {WEBP_FEW_CTAS} CTAs (several "
-        "rows each) equal to a CTA a row")
+        f"ALPH to PIL's alpha; W1 and W2 at {WEBP_FORCED_ROWS} rows in "
+        "flight (a warp taking several rows) equal to the plan's")
     return len(names), worst
 
 
@@ -5732,13 +5733,307 @@ def webp_lossy_times(torch, paths):
                            mb_h=f.mb_h, filter_type=f.filter_type))
 
 
+# measurement builds of W1's and W2's source for ``webp_times``, never
+# entry points: the wavefront with each macroblock's work removed (waits and
+# publishes only), and the work with no waits and no publishes, every row
+# at once (its planes are wrong; it is timed only)
+WEBP_BUILDS = (("handoff_only", "VP8_HANDOFF_ONLY"),
+               ("work_only", "VP8_WORK_ONLY"))
+WEBP_TIME_REPS = 10
+# W1 and W2 at these rows a CTA beside the plan's (``--webp --sweep``)
+WEBP_SWEEP = (1, 2, 4, 8, 16)
+# ... and at these rows in flight (the plan's: every row)
+WEBP_IN_FLIGHT = (12, 24, 32, 48)
+# csrc/vp8_pixels.cu of commit ceed2b4 (a CTA a macroblock row; this
+# sha256) gains WEBP_BUILDS' defines through these lines, inserted after the
+# original's line n (a normal diff, "nam,k" then the lines): ``webp_compare``
+# times such a checkout through a copy of its package with them in
+VP8_CTA_ROWS_SHA256 = ("7e2e565e3077bc0afc7a8c246ee2844165294feebcbf5d0d38b337"
+                   "5562875ef8")
+VP8_CTA_ROWS_SPLIT = """\
+288a289
+> #ifndef VP8_WORK_ONLY
+289a291,292
+> #endif
+> #ifndef VP8_HANDOFF_ONLY
+380a384,385
+> #endif
+> #ifndef VP8_WORK_ONLY
+381a387,389
+> #else
+>       __syncthreads();
+> #endif
+474a483
+> #ifndef VP8_WORK_ONLY
+475a485,486
+> #endif
+> #ifndef VP8_HANDOFF_ONLY
+493a505,506
+> #endif
+> #ifndef VP8_WORK_ONLY
+494a508,510
+> #else
+>       __syncthreads();
+> #endif
+"""
+# the clip frame's macroblocks repeated side by side, a frame this many
+# times as wide (7,680 x 1,024 pixels, ten times the widest fixture), W1
+# and W2 also at WEBP_WIDE_PER_CTA rows a CTA (the most, one CTA's 1,024
+# threads in W1)
+WEBP_WIDE_COPIES = 10
+WEBP_WIDE_PER_CTA = 16
+
+
+def webp_time_inputs(torch):
+    """WEBP_LOSSY_FRAME's VP8 frame on the card: (frame, coefficients,
+    modes, filter bytes, W1's planes)."""
+    from superviseddescent_tpu_torch.io.webp import _chunks
+    from superviseddescent_tpu_torch.ops import webp as W
+    with open(os.path.join(IMAGEIO_DIR, WEBP_LOSSY_FRAME), "rb") as fh:
+        data = fh.read()
+    payload = {c: body for c, body, _ in _chunks(data, 12, len(data))}[
+        b"VP8 "]
+    f, coeffs, modes, filters = W.vp8_frame(payload, torch.device("cuda"))
+    planes = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
+    torch.cuda.synchronize()
+    return f, coeffs, modes, filters, planes
+
+
+def webp_times(torch):
+    """Device ms (torch.profiler) of W1 and W2 on WEBP_LOSSY_FRAME, from
+    ``vp8_pixels`` of the package on ``sys.path`` launched as its entry
+    points launch it (at ``vp8_launch_plan``'s plan where the package has
+    one), in the plain build ("whole") and in each of WEBP_BUILDS that its
+    source has (``load_library``'s defines, as J1's and J2's split)."""
+    from superviseddescent_tpu_torch.ops import webp as W
+    from superviseddescent_tpu_torch.ops._build import CSRC, load_library
+    f, coeffs, modes, filters, planes = webp_time_inputs(torch)
+    out = {"frame": dict(mb_w=f.mb_w, mb_h=f.mb_h,
+                         steps=f.mb_w + 2 * (f.mb_h - 1))}
+    extent = (0,)   # an older launcher's grid: every row
+    if hasattr(W, "vp8_launch_plan"):
+        plan = W.vp8_launch_plan(f.mb_w, f.mb_h,
+                                 sms=W._sm_count(coeffs.device))
+        extent = (plan.rows, plan.ctas)
+        out["plan"] = {name: plan._asdict() for name in WEBP_KERNELS[:2]}
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def ptrs(*ts):
+        return [ctypes.c_void_p(t.data_ptr()) for t in ts]
+
+    def launch(lib, name):
+        def call():
+            progress = torch.zeros(f.mb_h, dtype=torch.int32, device="cuda")
+            if name == "vp8_reconstruct":
+                err = lib.vp8_reconstruct_launch(
+                    *ptrs(coeffs, modes, *(torch.empty_like(p)
+                                           for p in planes), progress),
+                    f.mb_w, f.mb_h, *extent, stream)
+            else:
+                err = lib.vp8_filter_launch(
+                    *ptrs(*(p.clone() for p in planes), filters, progress),
+                    f.mb_w, f.mb_h, f.filter_type, *extent, stream)
+            check(err == 0, f"{name}'s launch failed: CUDA error {err}")
+        return call
+    source = (CSRC / "vp8_pixels.cu").read_text()
+    for name in WEBP_KERNELS[:2]:
+        out[name] = {}
+        for build, define in (("whole", None),) + WEBP_BUILDS:
+            if define and define not in source:  # a source without the build
+                continue
+            lib = load_library("vp8_pixels", (define,) if define else ())
+            out[name][build] = device_ms(torch, launch(lib, name),
+                                         reps=WEBP_TIME_REPS, match=name)
+    return out
+
+
+def webp_sweep(torch):
+    """This checkout's W1 and W2 on WEBP_LOSSY_FRAME through their entry
+    points at WEBP_SWEEP rows a CTA (their planes equal to the plan's) and
+    at WEBP_IN_FLIGHT rows in flight: device ms."""
+    from superviseddescent_tpu_torch.ops import webp as W
+    f, coeffs, modes, filters, planes = webp_time_inputs(torch)
+
+    def w1(rows=0):
+        return W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h, grid=rows)
+
+    def w2(rows=0):
+        return W.vp8_filter(*(p.clone() for p in planes), filters,
+                            f.filter_type, f.mb_w, f.mb_h, grid=rows)
+    calls = {"vp8_reconstruct": w1, "vp8_filter": w2}
+    want = {name: call() for name, call in calls.items()}
+    default = W.ROWS_PER_CTA
+    out = {"rows_a_cta": {}, "in_flight": {}}
+    try:
+        for rows in WEBP_SWEEP:
+            W.ROWS_PER_CTA = rows
+            row = out["rows_a_cta"][rows] = {}
+            for name, call in calls.items():
+                check(all(torch.equal(a, b) for a, b in zip(
+                    call(), want[name])), f"{name} at {rows} rows a CTA "
+                      "differs from the plan's")
+                row[name] = device_ms(torch, call, reps=WEBP_TIME_REPS,
+                                      match=name)
+            log(f"[webp] sweep {rows} rows a CTA: " + ", ".join(
+                f"{name} {ms:.5f} ms" for name, ms in row.items())
+                + " (device), planes equal to the plan's")
+    finally:
+        W.ROWS_PER_CTA = default
+    for rows in WEBP_IN_FLIGHT:
+        out["in_flight"][rows] = {
+            name: device_ms(torch, lambda: call(rows), reps=WEBP_TIME_REPS,
+                            match=name) for name, call in calls.items()}
+    return out
+
+
+def webp_split(times):
+    """The split of ``webp_times``' W1 and W2: us a step of the wavefront
+    alone (hand-off only over the critical path's steps), us a macroblock
+    of the work alone (work only over the macroblocks of a warp's rows, all
+    in flight) and the critical-path bound (the steps times the hand-off
+    step), where the source has those builds."""
+    steps = times["frame"]["steps"]
+    mbs = times["frame"]["mb_w"] * times["frame"]["mb_h"]
+    out = {}
+    for name in WEBP_KERNELS[:2]:
+        plan = times.get("plan", {}).get(name)
+        in_flight = (plan["rows"] * plan["ctas"] if plan
+                     else times["frame"]["mb_h"])
+        per_warp = -(-mbs // min(in_flight, times["frame"]["mb_h"]))
+        t = times[name]
+        out[name] = dict(whole_ms=t["whole"], step_us=t["whole"] / steps * 1e3)
+        if "handoff_only" in t:
+            step_us = t["handoff_only"] / steps * 1e3
+            out[name].update(
+                handoff_only_ms=t["handoff_only"], work_only_ms=t["work_only"],
+                handoff_step_us=step_us,
+                work_mb_us=t["work_only"] / per_warp * 1e3,
+                critical_path_bound_ms=steps * step_us / 1e3)
+    return out
+
+
+def with_split_builds(root, tmp):
+    """``root``, or, where its vp8_pixels.cu is commit ceed2b4's
+    (VP8_CTA_ROWS_SHA256), a copy of its package under ``tmp`` with
+    VP8_CTA_ROWS_SPLIT's lines in."""
+    import hashlib
+    import shutil
+    package = os.path.join(root, "superviseddescent_tpu_torch")
+    with open(os.path.join(package, "csrc", "vp8_pixels.cu"), "rb") as fh:
+        text = fh.read()
+    if hashlib.sha256(text).hexdigest() != VP8_CTA_ROWS_SHA256:
+        return root
+    lines = text.decode().split("\n")
+    inserts = []
+    for line in VP8_CTA_ROWS_SPLIT.splitlines():
+        if line.startswith("> "):
+            inserts[-1][1].append(line[2:])
+        else:
+            inserts.append((int(line.split("a")[0]), []))
+    for after, new in reversed(inserts):
+        lines[after:after] = new
+    copy = os.path.join(tmp, "superviseddescent_tpu_torch")
+    shutil.copytree(package, copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    with open(os.path.join(copy, "csrc", "vp8_pixels.cu"), "w") as fh:
+        fh.write("\n".join(lines))
+    return tmp
+
+
+def webp_compare(torch, root):
+    """``--webp``: ``webp_times`` of this checkout's package and, with
+    another checkout's (``root``; commit ceed2b4's through
+    ``with_split_builds``), of that package (``other_runs``); W1 and W2
+    whole and split side by side (a split only where the package's source
+    has the measurement builds)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_split_")
+    try:
+        runs = other_runs(with_split_builds(root, tmp) if root != REPO
+                          else root, lambda: webp_times(torch),
+                          ["--webp-times"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    splits = {who: [webp_split(r) for r in rs] for who, rs in runs.items()}
+    for name in WEBP_KERNELS[:2]:
+        def text(who):
+            return " / ".join(
+                f"{sp[name]['whole_ms']:.5f} ms" + (
+                    f" (hand-off only {sp[name]['handoff_only_ms']:.5f}: "
+                    f"{sp[name]['handoff_step_us']:.3f} us a step; work only "
+                    f"{sp[name]['work_only_ms']:.5f}: "
+                    f"{sp[name]['work_mb_us']:.3f} us a macroblock)"
+                    if "handoff_only_ms" in sp[name] else "")
+                for sp in splits[who])
+        line = f"[webp] {name} on {WEBP_LOSSY_FRAME}: this tree {text('this')}"
+        if splits["other"]:
+            ratio = (min(sp[name]["whole_ms"] for sp in splits["other"])
+                     / max(sp[name]["whole_ms"] for sp in splits["this"]))
+            line += f" | other {text('other')} (x{ratio:.2f})"
+        log(line + " (device, torch.profiler)")
+    return dict(this=runs["this"], other=runs["other"], split=splits,
+                package_root=root)
+
+
+def webp_wide_frame(torch):
+    """W1 and W2 on the clip frame's coefficients, modes and filter bytes
+    repeated WEBP_WIDE_COPIES times side by side, each bit-equal to its
+    twin at the plan's rows in flight, at WEBP_FORCED_ROWS and at
+    WEBP_WIDE_PER_CTA rows a CTA."""
+    from superviseddescent_tpu_torch.ops import webp as W
+    f, coeffs, modes, filters, _ = webp_time_inputs(torch)
+    n, mb_h = WEBP_WIDE_COPIES, f.mb_h
+    mb_w = n * f.mb_w
+
+    def wide(t):
+        rows = t.reshape(mb_h, f.mb_w, -1).repeat(1, n, 1)
+        return rows.reshape(mb_w * mb_h, *t.shape[1:]).contiguous()
+    coeffs, modes, filters = wide(coeffs), wide(modes), wide(filters)
+    unfiltered = W.reconstruct_reference(coeffs, modes, mb_w, mb_h)
+    filtered = W.filter_reference(*unfiltered, filters, f.filter_type, mb_w,
+                                  mb_h)
+    default = W.ROWS_PER_CTA
+    cases = ([(default, 0)] + [(default, r) for r in WEBP_FORCED_ROWS]
+             + [(WEBP_WIDE_PER_CTA, 0)])
+    try:
+        for per_cta, rows in cases:
+            W.ROWS_PER_CTA = per_cta
+            what = f"{per_cta} rows a CTA, {rows or 'every'} rows in flight"
+            got = W.vp8_reconstruct(coeffs, modes, mb_w, mb_h, grid=rows)
+            check(all(torch.equal(a, b) for a, b in zip(got, unfiltered)),
+                  f"W1 on the wide frame at {what} differs from its twin")
+            got = W.vp8_filter(*got, filters, f.filter_type, mb_w, mb_h,
+                               grid=rows)
+            check(all(torch.equal(a, b) for a, b in zip(got, filtered)),
+                  f"W2 on the wide frame at {what} differs from its twin")
+    finally:
+        W.ROWS_PER_CTA = default
+    log(f"[webp] W1 and W2 on a {16 * mb_w} x {16 * mb_h} frame (the clip "
+        f"frame's macroblocks {n} times side by side) equal to their twins "
+        f"at (rows a CTA, rows in flight; 0 every row) {cases}")
+    return dict(mb_w=mb_w, mb_h=mb_h, cases=cases)
+
+
 def webp_lossy_entries(webp):
     """The kernels line's entries of W1, W2 and W3: device ms on the 768 x
-    1024 lossy frame, launches of the main path's run."""
+    1024 lossy frame, launches of the main path's run; W1 and W2 with their
+    split (``webp_split``), the critical-path bound and the plan."""
     out = []
+    compare = webp["compare"]
     for name in WEBP_KERNELS:
         source, replaces = SOURCES[name]
         t = webp["times"]["kernels"][name]
+        extra = {}
+        if "critical_path_steps" in t:
+            split = compare["split"]["this"][0][name]
+            extra = dict(critical_path_steps=t["critical_path_steps"],
+                         critical_path_bound_ms=split[
+                             "critical_path_bound_ms"],
+                         split=split, plan=compare["this"][0]["plan"][name])
+            if compare["other"]:
+                extra["other_package_ms"] = [
+                    sp[name]["whole_ms"] for sp in compare["split"]["other"]]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             replaces_note="no pallas_call: the JAX package reads images with "
@@ -5746,36 +6041,42 @@ def webp_lossy_entries(webp):
             launches=webp["launches"][name], max_abs_err=webp["max_abs_err"],
             ms=min(t["device_ms"]), plain_ms=t["twin_device_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-            ms_source="torch.profiler",
-            **({"critical_path_steps": t["critical_path_steps"]}
-               if "critical_path_steps" in t else {})))
+            ms_source="torch.profiler", **extra))
     return out
 
 
-def phase_webp_lossy(torch, data, name, smi):
+def phase_webp_lossy(torch, data, name, smi, root=REPO, sweep=False):
     """Lossy WebP on the card: every committed lossy fixture through the
     C++ entropy stage and W1-W3 (each kernel against its twin, the planes
     against libwebp's, the pixels against PIL's), the lossy clip frame
     through load_gray_image and K3 (rows equal to its PNG's), rcr_detect
-    -i on it, and the times."""
+    -i on it, W1 and W2 on a wide frame (``webp_wide_frame``), and the
+    times: ``webp_lossy_times``, and ``webp_compare``'s W1 and W2 with
+    their split, beside the package of checkout ``root`` where it is
+    another; with ``sweep`` ``webp_sweep``."""
     import shutil
     import tempfile
     with open(os.path.join(IMAGEIO_DIR, "manifest.json")) as fh:
         manifest = json.load(fh)
     t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="chip_smoke_webp_")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_webp_")
     try:
         checked, worst = webp_lossy_fixtures(torch, manifest)
-        launches, paths = webp_lossy_k3(torch, data, manifest, root)
-        detect = webp_lossy_detect(torch, root)
+        launches, paths = webp_lossy_k3(torch, data, manifest, tmp)
+        detect = webp_lossy_detect(torch, tmp)
         times = webp_lossy_times(torch, paths)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    wide = webp_wide_frame(torch)
+    compare = webp_compare(torch, root)
+    if sweep:
+        compare["sweep"] = webp_sweep(torch)
     seconds = time.perf_counter() - t0
     log(f"[webp] {seconds:.1f} s in all ({name}; {smi})")
     return dict(device=name, nvidia_smi=smi, files_checked=checked,
                 max_abs_err=worst, launches=launches, detect=detect,
-                times=times, seconds=seconds)
+                wide_frame=wide, times=times, compare=compare,
+                seconds=seconds)
 
 
 # ---------------------------------------------------------------- #
@@ -6314,7 +6615,8 @@ def main():
     parser.add_argument("--sweep", action="store_true",
                         help="with --k12: also time K2 and K1 at other "
                         "numbers of patches per block (RCR-22); with --k5: "
-                        "K5 at other launch plans (K5_SWEEP)")
+                        "K5 at other launch plans (K5_SWEEP); with --webp: "
+                        "W1 and W2 at other rows a CTA (WEBP_SWEEP)")
     parser.add_argument("--k5", action="store_true",
                         help="only time K5 and K6 per level of training "
                         "and K5 over the families' 4,096 faces, with the "
@@ -6351,8 +6653,10 @@ def main():
                         help="only lossy WebP: every lossy fixture through "
                         "the C++ entropy stage and W1-W3 against the twins, "
                         "libwebp's planes and PIL's digests, the lossy clip "
-                        "frame through K3, rcr_detect -i on it, the times "
-                        "(the main run includes it)")
+                        "frame through K3, rcr_detect -i on it, the times, "
+                        "W1's and W2's split; with --package-root W1 and W2 "
+                        "of another checkout in turns (the main run "
+                        "includes it)")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
@@ -6373,9 +6677,11 @@ def main():
                         help=argparse.SUPPRESS)   # --probes' child process
     parser.add_argument("--jpeg-times", action="store_true",
                         help=argparse.SUPPRESS)   # --j1 / --j2's child
+    parser.add_argument("--webp-times", action="store_true",
+                        help=argparse.SUPPRESS)   # --webp's child
     parser.add_argument("--package-root", default=REPO,
                         help="with --k3-batches, --k12, --k5, --probes, "
-                        "--j1 or --j2: the "
+                        "--j1, --j2 or --webp: the "
                         "checkout whose "
                         "superviseddescent_tpu_torch is timed (the data "
                         "stay this checkout's)")
@@ -6392,7 +6698,11 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, root if opts.k3_batches or opts.k12 or opts.k5
-                    or opts.probe_times or opts.jpeg_times else REPO)
+                    or opts.probe_times or opts.jpeg_times or opts.webp_times
+                    else REPO)
+    if opts.webp_times:
+        print(json.dumps(webp_times(torch)))
+        return 0
     if opts.probe_times:
         print(json.dumps(probe_times(torch, seed)))
         return 0
@@ -6477,7 +6787,8 @@ def main():
     if opts.webp:
         name, smi = phase_device(torch)
         phase_build()
-        webp = phase_webp_lossy(torch, load_data(torch), name, smi)
+        webp = phase_webp_lossy(torch, load_data(torch), name, smi, root,
+                                opts.sweep)
         print(json.dumps({"webp": webp,
                           "kernels": webp_lossy_entries(webp)}))
         return 0

@@ -68,8 +68,8 @@ KERNELS = {
     "webp_decode": {"webp_decode_vp8l": [_P, _I, _I, _I, _P],
                     "webp_decode_vp8": [_P, _I, _I, _I] + [_P] * 4},
     # lossy WebP's pixel stage (ops/webp.py): W1, W2 and W3
-    "vp8_pixels": {"vp8_reconstruct_launch": [_P] * 6 + [_I] * 3 + [_P],
-                   "vp8_filter_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "vp8_pixels": {"vp8_reconstruct_launch": [_P] * 6 + [_I] * 4 + [_P],
+                   "vp8_filter_launch": [_P] * 5 + [_I] * 5 + [_P],
                    "vp8_colour_launch": [_P] * 4 + [_I] * 4 + [_P]},
 }
 

@@ -21,13 +21,16 @@ the card a failed build or launch raises, and nothing falls back.
 
 W1 and W2 run the macroblocks as libwebp does, in raster order, in a
 wavefront: macroblock (r, c) after (r, c - 1) and (r - 1, c + 1), so the
-twins take a diagonal ``c + 2 r`` at a time and the kernels one CTA per
-macroblock row waiting on the row above (``csrc/vp8_pixels.cu``).
+twins take a diagonal ``c + 2 r`` at a time and the kernels a warp per
+macroblock row, waiting on the row above (``csrc/vp8_pixels.cu``), on the
+rows a CTA and CTAs ``vp8_launch_plan`` chooses.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -125,6 +128,12 @@ def _mode_weights() -> np.ndarray:
 
 
 MODE_WEIGHTS = _mode_weights()
+# the order reconstruct_reference predicts a B_PRED macroblock's 4x4 blocks
+# in: raster, as libwebp. W1 runs them in their own wavefront, block (i, j)
+# at step j + 2 i: each reads only blocks done before it (left, top,
+# top-left, top-right), so the planes are the same
+# (tests/test_torch_webp_plan.py runs the twin in that order too).
+SUBBLOCK_ORDER = tuple(range(16))
 
 
 def _int16(x: torch.Tensor) -> torch.Tensor:
@@ -275,7 +284,7 @@ def reconstruct_reference(coeffs: torch.Tensor, modes: torch.Tensor,
             wb[:, 4:13:4, 17:] = top[k, None, 16:]
             sub = md[i[k], 2:18]
             res = yres[i[k]]
-            for n in range(16):
+            for n in SUBBLOCK_ORDER:
                 by, bx = 4 * (n // 4), 4 * (n % 4)
                 ctx = torch.cat([wb[:, by + 1:by + 5, bx],
                                  wb[:, by, bx:bx + 9]], dim=1)   # (n4, 13)
@@ -474,6 +483,60 @@ def colour_reference(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------- #
+# the kernels' launch plan
+# ---------------------------------------------------------------- #
+# W1 and W2 put a macroblock row on a warp (W1: on a pair of warps, one
+# making the residuals, one predicting). Row r runs on CTA (r / rows) %
+# ctas as its row r % rows, which takes rows r, r + rows ctas, ...; so
+# ``rows * ctas`` rows are in flight. Rows of one CTA hand off inside the
+# SM, rows of two CTAs through global memory (one row in ``rows``).
+MAX_ROWS = 16             # csrc/vp8_pixels.cu's kMaxRows: W1's 1,024 threads
+# rows a CTA, W1's and W2's (chip_smoke.py --webp --sweep): a step is one
+# warp's chain of dependent instructions, so few warps to an SM keep it
+# short; rows on other CTAs hand off through L2 instead
+ROWS_PER_CTA = 4
+SMS = 132                 # an H100 SXM's SMs: the plan's default cap
+
+
+class Vp8Plan(NamedTuple):
+    """W1's and W2's launch: ``rows`` macroblock rows a CTA, ``ctas``
+    CTAs."""
+    rows: int
+    ctas: int
+
+    @property
+    def rows_in_flight(self) -> int:
+        return self.rows * self.ctas
+
+
+def vp8_launch_plan(mb_w: int, mb_h: int, rows: int = 0,
+                    sms: int = SMS) -> Vp8Plan:
+    """W1's and W2's plan for a frame of ``mb_w`` x ``mb_h`` macroblocks:
+    every row in flight, on CTAs of ROWS_PER_CTA rows, more where the
+    card's ``sms`` run out. ``mb_w / 2`` rows in flight already keep the
+    wavefront's critical path at ``mb_w + 2 (mb_h - 1)`` steps, but a warp
+    then takes several rows one after another, and on the card a step of
+    the path takes about as long as a macroblock of a row, so more rows cut
+    the time (chip_smoke.py --webp --sweep). ``rows`` > 0: at most that
+    many rows in flight, so that a warp takes several rows (a longer path,
+    the same planes)."""
+    cap = min(MAX_ROWS, ROWS_PER_CTA)
+    want = mb_h
+    if rows > 0:
+        want = min(want, rows)
+    ctas = min(-(-want // cap), max(1, sms))
+    per_cta = min(MAX_ROWS, -(-want // ctas))
+    if rows > 0 and per_cta * ctas > rows:
+        per_cta = max(1, rows // ctas)
+    return Vp8Plan(per_cta, ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------- #
 # the kernels
 # ---------------------------------------------------------------- #
 def _stream(t: torch.Tensor):
@@ -504,8 +567,8 @@ def vp8_reconstruct(coeffs: torch.Tensor, modes: torch.Tensor, mb_w: int,
     """W1: (MBs, 25, 16) int16 coefficients and (MBs, 20) uint8 modes ->
     the unfiltered (Y, U, V) planes on their device. A CUDA tensor
     launches the kernel; a CPU tensor takes the plain twin. ``grid``: at
-    most that many CTAs (0: as many as the card holds, up to a CTA a
-    macroblock row), so that a CTA takes several rows."""
+    most that many macroblock rows in flight (0: ``vp8_launch_plan``'s),
+    so that a warp takes several rows."""
     _check_frame(mb_w, mb_h)
     if coeffs.device.type == "cpu":
         return reconstruct_reference(coeffs, modes, mb_w, mb_h)
@@ -519,11 +582,12 @@ def vp8_reconstruct(coeffs: torch.Tensor, modes: torch.Tensor, mb_w: int,
         raise ValueError(f"W1 takes contiguous int16 ({n}, 25, 16) and "
                          f"uint8 ({n}, 20) on one device")
     from superviseddescent_tpu_torch.ops._build import load_library
+    plan = vp8_launch_plan(mb_w, mb_h, grid, _sm_count(coeffs.device))
     y, u, v = _planes(mb_w, mb_h, coeffs.device)
     progress = torch.zeros(mb_h, dtype=torch.int32, device=coeffs.device)
     err = load_library("vp8_pixels").vp8_reconstruct_launch(
         _ptr(coeffs), _ptr(modes), _ptr(y), _ptr(u), _ptr(v), _ptr(progress),
-        mb_w, mb_h, grid, _stream(coeffs))
+        mb_w, mb_h, plan.rows, plan.ctas, _stream(coeffs))
     if err != 0:
         raise RuntimeError(f"vp8_pixels (W1) launch failed: CUDA error {err}")
     vp8_reconstruct.launches += 1
@@ -558,10 +622,11 @@ def vp8_filter(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if filter_type == 0:
         return y, u, v
     from superviseddescent_tpu_torch.ops._build import load_library
+    plan = vp8_launch_plan(mb_w, mb_h, grid, _sm_count(y.device))
     progress = torch.zeros(mb_h, dtype=torch.int32, device=y.device)
     err = load_library("vp8_pixels").vp8_filter_launch(
         _ptr(y), _ptr(u), _ptr(v), _ptr(filters), _ptr(progress), mb_w, mb_h,
-        filter_type, grid, _stream(y))
+        filter_type, plan.rows, plan.ctas, _stream(y))
     if err != 0:
         raise RuntimeError(f"vp8_pixels (W2) launch failed: CUDA error {err}")
     vp8_filter.launches += 1

@@ -1474,10 +1474,12 @@ def test_webp_native_decoder_on_the_card_path(cuda):
                 m["files"][name][key], name
 
 
-def test_webp_lossy_kernels_match_twins(cuda):
+@pytest.mark.parametrize("rows", [0, 1, 2, 5])
+def test_webp_lossy_kernels_match_twins(cuda, rows):
     """W1, W2 and W3 (ops/webp.py) each equal to its twin on the same
-    inputs for every lossy WebP fixture, and read_gray / read_rgb on the
-    card equal to PIL's digests."""
+    inputs for every lossy WebP fixture, W1 and W2 at the launch plan's
+    rows in flight (0) and at 1, 2 and 5 (a warp taking several rows), and
+    read_gray / read_rgb on the card equal to PIL's digests."""
     import hashlib
     import json
     from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
@@ -1488,13 +1490,13 @@ def test_webp_lossy_kernels_match_twins(cuda):
 
     def stages(payload):
         f, coeffs, modes, filters = W.vp8_frame(payload, cuda)
-        planes = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h)
+        planes = W.vp8_reconstruct(coeffs, modes, f.mb_w, f.mb_h, grid=rows)
         want = W.reconstruct_reference(coeffs, modes, f.mb_w, f.mb_h)
         assert all(torch.equal(a, b) for a, b in zip(planes, want))
         want = W.filter_reference(*planes, filters, f.filter_type, f.mb_w,
                                   f.mb_h)
         planes = W.vp8_filter(*(p.clone() for p in planes), filters,
-                              f.filter_type, f.mb_w, f.mb_h)
+                              f.filter_type, f.mb_w, f.mb_h, grid=rows)
         assert all(torch.equal(a, b) for a, b in zip(planes, want))
         for channels in (1, 3):
             got = W.vp8_colour(*planes, f.width, f.height, channels)
@@ -1510,3 +1512,35 @@ def test_webp_lossy_kernels_match_twins(cuda):
             got = read(path, device=cuda)
             assert hashlib.sha256(got.tobytes()).hexdigest() == \
                 m["files"][name][key], name
+
+
+@pytest.mark.parametrize("per_cta, rows", [(None, 0), (None, 1), (None, 2),
+                                           (None, 5), (16, 0)])
+def test_webp_lossy_kernels_on_a_wide_frame(cuda, per_cta, rows,
+                                            monkeypatch):
+    """W1 and W2 equal to their twins on the lossy clip frame's
+    coefficients, modes and filter bytes repeated ten times side by side
+    (7,680 pixels, ten times the widest fixture), at the plan's rows in
+    flight (0) and at 1, 2 and 5, and at 16 rows a CTA."""
+    from superviseddescent_tpu_torch.io.webp import _chunks
+    from superviseddescent_tpu_torch.ops import webp as W
+    if per_cta:
+        monkeypatch.setattr(W, "ROWS_PER_CTA", per_cta)
+    with open(os.path.join(IMAGEIO_FIXTURES, "f08_clip_lossy.webp"),
+              "rb") as f:
+        data = f.read()
+    payload = {c: b for c, b, _ in _chunks(data, 12, len(data))}[b"VP8 "]
+    f, coeffs, modes, filters = W.vp8_frame(payload, cuda)
+    mb_w, mb_h = 10 * f.mb_w, f.mb_h
+
+    def wide(t):
+        rows_of = t.reshape(mb_h, f.mb_w, -1).repeat(1, 10, 1)
+        return rows_of.reshape(mb_w * mb_h, *t.shape[1:]).contiguous()
+    coeffs, modes, filters = wide(coeffs), wide(modes), wide(filters)
+    planes = W.vp8_reconstruct(coeffs, modes, mb_w, mb_h, grid=rows)
+    want = W.reconstruct_reference(coeffs, modes, mb_w, mb_h)
+    assert all(torch.equal(a, b) for a, b in zip(planes, want))
+    want = W.filter_reference(*planes, filters, f.filter_type, mb_w, mb_h)
+    planes = W.vp8_filter(*(p.clone() for p in planes), filters,
+                          f.filter_type, mb_w, mb_h, grid=rows)
+    assert all(torch.equal(a, b) for a, b in zip(planes, want))
