@@ -124,26 +124,29 @@ Python twin) and kernels W1, W2 and W3 of ``csrc/vp8_pixels.cu``, each
 against its twin on the same inputs, the planes after W2 against
 libwebp's ``WebPDecodeYUV`` digests, RGB and grey against PIL's and an
 ALPH chunk's alpha against PIL's, W1 and W2 also at 1, 2 and 5 rows in
-flight against the plan's; the lossy clip frame through
+flight against the plan's, W3 also at COLOUR_SWEEP rows a band; the lossy
+clip frame through
 ``load_gray_image`` (W1-W3 once each) and K3 on the 4,096 faces' boxes,
 rows equal to those from the PNG of its pixels; ``rcr_detect -i`` on
 that frame, landmarks and drawing equal to those from the PNG; the host
 entropy ms, W1-W3's device ms beside their twins', their byte bounds and
 the wavefront's critical path, ``load_gray_image`` ms against the PNG and
 the JPEG of the same frame, W1 and W2 on a frame ten times as wide
-(``webp_wide_frame``), and W1's and W2's split (``webp_times``:
-measurement builds with the hand-off alone and the work alone).
+(``webp_wide_frame``), W1's and W2's split (``webp_times``:
+measurement builds with the hand-off alone and the work alone) and W3's
+(``colour_times``: RGB and grey, warm and with the L2 flushed, whole,
+without its stores, without its loads, and an empty kernel on its grid).
 
     python3 chip_smoke.py --webp [--sweep] [--package-root DIR]
 
-runs only that phase after the builds; with ``--package-root`` also W1 and
-W2 of another checkout (e.g. the package of commit ceed2b4, a CTA a
-macroblock row, unpacked into a git-ignored directory under ``build/``;
-its split where its source has the measurement builds, or is that
-commit's, then through a copy with VP8_CTA_ROWS_SPLIT's lines in), in a
-child process, in the order other, this, this, other; with ``--sweep``
-also W1 and W2 at WEBP_SWEEP rows a CTA and WEBP_IN_FLIGHT rows in
-flight;
+runs only that phase after the builds; with ``--package-root`` also W1-W3
+of another checkout (e.g. the package of commit eeb94ea, W3 a thread an
+output sample, or ceed2b4, a CTA a macroblock row, unpacked into a
+git-ignored directory under ``build/``; its split where its source has the
+measurement builds, or is one of those commits', then through a copy with
+SPLIT_PATCHES' lines in), in a child process, in the order other, this,
+this, other; with ``--sweep`` also W1 and W2 at WEBP_SWEEP rows a CTA and
+WEBP_IN_FLIGHT rows in flight, and W3 at COLOUR_SWEEP rows a band;
 
     python3 chip_smoke.py --j1 [--j2] [--sweep] [--package-root DIR]
 
@@ -419,9 +422,10 @@ def phase_build():
     logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
                      + list(K12_BUILDS) + list(K5_BUILDS)
                      + list(JPEG_BUILDS)
-                     + [("vp8_pixels", (d,)) for _, d in WEBP_BUILDS])
+                     + [("vp8_pixels", (d,)) for _, d in WEBP_BUILDS]
+                     + [("vp8_pixels", (d,)) for _, d in COLOUR_BUILDS])
     log(f"[build] K1-K6, J1, J2, W1-W3, the probes and K1's, K2's, K3's, "
-        f"K5's, J1's, J2's, W1's and W2's measurement builds in "
+        f"K5's, J1's, J2's, W1's, W2's and W3's measurement builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -5473,8 +5477,9 @@ def vp8_stages(torch, payload):
     """A VP8 payload through the card's path stage by stage, each kernel
     against its twin on the same inputs (the twins as plain PyTorch on the
     card), W1 and W2 also at WEBP_FORCED_ROWS rows in flight, their planes
-    equal to those at the plan's. Returns (frame, planes after W2, the
-    largest difference of any kernel from its twin, RGB, grey)."""
+    equal to those at the plan's, W3 also at COLOUR_SWEEP rows a band.
+    Returns (frame, planes after W2, the largest difference of any kernel
+    from its twin, RGB, grey)."""
     import numpy as np
     from superviseddescent_tpu_torch.io.vp8 import decode_vp8
     from superviseddescent_tpu_torch.ops import webp as W
@@ -5507,8 +5512,11 @@ def vp8_stages(torch, payload):
     out = {}
     for channels in (3, 1):
         out[channels] = W.vp8_colour(*planes, f.width, f.height, channels)
-        worst = max(worst, diff([out[channels]], [W.colour_reference(
-            *planes, f.width, f.height, channels)]))
+        want = W.colour_reference(*planes, f.width, f.height, channels)
+        worst = max(worst, diff([out[channels]], [want]))
+        for rows in COLOUR_SWEEP:
+            worst = max(worst, diff([W.vp8_colour(
+                *planes, f.width, f.height, channels, rows=rows)], [want]))
     return f, planes, worst, out[3], out[1]
 
 
@@ -5516,11 +5524,11 @@ def webp_lossy_fixtures(torch, manifest):
     """Every committed lossy fixture on the card: the C++ entropy stage
     against the Python twin, W1, W2 and W3 each bit-equal to its twin on
     the same inputs (W1 and W2 also at WEBP_FORCED_ROWS rows in flight,
-    equal to the plan's), the planes after W2 equal to libwebp's
-    ``WebPDecodeYUV`` digests, the RGB and grey of ``read_rgb`` /
-    ``read_gray`` (every stage on the card) equal to PIL's, and an ALPH
-    chunk's alpha (through the C++ VP8L decoder) equal to PIL's. Returns
-    (files, largest kernel-twin difference)."""
+    equal to the plan's; W3 also at COLOUR_SWEEP rows a band), the planes
+    after W2 equal to libwebp's ``WebPDecodeYUV`` digests, the RGB and
+    grey of ``read_rgb`` / ``read_gray`` (every stage on the card) equal
+    to PIL's, and an ALPH chunk's alpha (through the C++ VP8L decoder)
+    equal to PIL's. Returns (files, largest kernel-twin difference)."""
     import hashlib
     import numpy as np
     from superviseddescent_tpu_torch.io import webp
@@ -5572,7 +5580,8 @@ def webp_lossy_fixtures(torch, manifest):
         "stage equal to the Python twin, W1, W2 and W3 each equal to its "
         "twin, the planes to libwebp's WebPDecodeYUV, RGB and grey to PIL's, "
         f"ALPH to PIL's alpha; W1 and W2 at {WEBP_FORCED_ROWS} rows in "
-        "flight (a warp taking several rows) equal to the plan's")
+        "flight (a warp taking several rows) equal to the plan's, W3 at "
+        f"{COLOUR_SWEEP} rows a band equal to its twin")
     return len(names), worst
 
 
@@ -5740,6 +5749,16 @@ def webp_lossy_times(torch, paths):
 WEBP_BUILDS = (("handoff_only", "VP8_HANDOFF_ONLY"),
                ("work_only", "VP8_WORK_ONLY"))
 WEBP_TIME_REPS = 10
+# W3's: the global stores behind a test that never passes (loads and
+# arithmetic only), values made from the coordinates stored with no loads,
+# and an empty kernel on the same grid (the launch floor)
+COLOUR_BUILDS = (("no_store", "VP8_COLOUR_NO_STORE"),
+                 ("no_load", "VP8_COLOUR_NO_LOAD"),
+                 ("empty", "VP8_COLOUR_EMPTY"))
+COLOUR_TIME_REPS = 20
+# W3 at these rows a band beside the plan's (every fixture; ``--webp
+# --sweep`` times them)
+COLOUR_SWEEP = (2, 4, 8, 16, 32)
 # W1 and W2 at these rows a CTA beside the plan's (``--webp --sweep``)
 WEBP_SWEEP = (1, 2, 4, 8, 16)
 # ... and at these rows in flight (the plan's: every row)
@@ -5776,6 +5795,33 @@ VP8_CTA_ROWS_SPLIT = """\
 >       __syncthreads();
 > #endif
 """
+# ... and that of commit eeb94ea (a warp a macroblock row; W3 a thread an
+# output sample) gains COLOUR_BUILDS' defines through these
+VP8_WARP_ROWS_SHA256 = ("ad62b694d117f73d964b9d360c0e4a529a156a9b5248cff357a5"
+                        "96233a81743c")
+VP8_WARP_ROWS_SPLIT = """\
+1018a1019,1021
+> #ifdef VP8_COLOUR_EMPTY
+>   return;
+> #endif
+1021a1025,1034
+> #ifdef VP8_COLOUR_NO_LOAD
+>   if (channels == 1) {
+>     out[i] = (uint8_t)(x + y);
+>   } else {
+>     out[3 * i + 0] = (uint8_t)x;
+>     out[3 * i + 1] = (uint8_t)y;
+>     out[3 * i + 2] = (uint8_t)(x + y);
+>   }
+>   return;
+> #endif
+1043a1057,1059
+> #ifdef VP8_COLOUR_NO_STORE
+>   if (width > 0) return;  // always: built, never run
+> #endif
+"""
+SPLIT_PATCHES = {VP8_CTA_ROWS_SHA256: VP8_CTA_ROWS_SPLIT,
+                 VP8_WARP_ROWS_SHA256: VP8_WARP_ROWS_SPLIT}
 # the clip frame's macroblocks repeated side by side, a frame this many
 # times as wide (7,680 x 1,024 pixels, ten times the widest fixture), W1
 # and W2 also at WEBP_WIDE_PER_CTA rows a CTA (the most, one CTA's 1,024
@@ -5799,12 +5845,47 @@ def webp_time_inputs(torch):
     return f, coeffs, modes, filters, planes
 
 
+def colour_times(torch, W, planes, f, source):
+    """W3's device ms (torch.profiler) on WEBP_LOSSY_FRAME's filtered
+    ``planes`` through the entry point of the package ``W``, RGB and grey,
+    warm (each launch straight after the last, as after W2) and with the L2
+    flushed before each launch, in the plain build ("whole") and in each of
+    COLOUR_BUILDS that ``source`` has (``load_library`` made to hand the
+    entry point that build); with the package's plan where it has one."""
+    from superviseddescent_tpu_torch.ops import _build
+    load = _build.load_library
+    flush = l2_flusher(torch)
+    out = {"rgb": {"warm": {}, "flushed": {}},
+           "grey": {"warm": {}, "flushed": {}}}
+    if hasattr(W, "vp8_colour_plan"):
+        out["plan"] = W.vp8_colour_plan(
+            f.width, f.height, W._sm_count(planes[0].device))._asdict()
+    try:
+        for build, define in (("whole", None),) + COLOUR_BUILDS:
+            if define and define not in source:  # a source without it
+                continue
+            _build.load_library = load if define is None else (
+                lambda name, defines=(), d=define: load(
+                    name, (d,) if name == "vp8_pixels" else defines))
+            for label, channels in (("rgb", 3), ("grey", 1)):
+                def call():
+                    return W.vp8_colour(*planes, f.width, f.height, channels)
+                for heat, before in (("warm", None), ("flushed", flush)):
+                    out[label][heat][build] = device_ms(
+                        torch, call, reps=COLOUR_TIME_REPS,
+                        match="vp8_colour", before=before)
+    finally:
+        _build.load_library = load
+    return out
+
+
 def webp_times(torch):
     """Device ms (torch.profiler) of W1 and W2 on WEBP_LOSSY_FRAME, from
     ``vp8_pixels`` of the package on ``sys.path`` launched as its entry
     points launch it (at ``vp8_launch_plan``'s plan where the package has
     one), in the plain build ("whole") and in each of WEBP_BUILDS that its
-    source has (``load_library``'s defines, as J1's and J2's split)."""
+    source has (``load_library``'s defines, as J1's and J2's split); and
+    W3's (``colour_times``) on W2's planes."""
     from superviseddescent_tpu_torch.ops import webp as W
     from superviseddescent_tpu_torch.ops._build import CSRC, load_library
     f, coeffs, modes, filters, planes = webp_time_inputs(torch)
@@ -5844,13 +5925,17 @@ def webp_times(torch):
             lib = load_library("vp8_pixels", (define,) if define else ())
             out[name][build] = device_ms(torch, launch(lib, name),
                                          reps=WEBP_TIME_REPS, match=name)
+    filtered = W.vp8_filter(*(p.clone() for p in planes), filters,
+                            f.filter_type, f.mb_w, f.mb_h)
+    out["vp8_colour"] = colour_times(torch, W, filtered, f, source)
     return out
 
 
 def webp_sweep(torch):
     """This checkout's W1 and W2 on WEBP_LOSSY_FRAME through their entry
     points at WEBP_SWEEP rows a CTA (their planes equal to the plan's) and
-    at WEBP_IN_FLIGHT rows in flight: device ms."""
+    at WEBP_IN_FLIGHT rows in flight, and W3 at COLOUR_SWEEP rows a band
+    (RGB and grey equal to the twin): device ms."""
     from superviseddescent_tpu_torch.ops import webp as W
     f, coeffs, modes, filters, planes = webp_time_inputs(torch)
 
@@ -5883,6 +5968,22 @@ def webp_sweep(torch):
         out["in_flight"][rows] = {
             name: device_ms(torch, lambda: call(rows), reps=WEBP_TIME_REPS,
                             match=name) for name, call in calls.items()}
+    filtered = want["vp8_filter"]
+    out["colour_rows"] = {}
+    for rows in COLOUR_SWEEP:
+        row = out["colour_rows"][rows] = {}
+        for label, channels in (("rgb", 3), ("grey", 1)):
+            def w3():
+                return W.vp8_colour(*filtered, f.width, f.height, channels,
+                                    rows=rows)
+            check(torch.equal(w3(), W.colour_reference(
+                *filtered, f.width, f.height, channels)),
+                  f"W3 at {rows} rows a band differs from its twin")
+            row[label] = device_ms(torch, w3, reps=COLOUR_TIME_REPS,
+                                   match="vp8_colour")
+        log(f"[webp] sweep W3 at {rows} rows a band "
+            f"({-(-f.height // rows)} CTAs): RGB {row['rgb']:.5f} ms, grey "
+            f"{row['grey']:.5f} ms (device), equal to the twin")
     return out
 
 
@@ -5891,7 +5992,8 @@ def webp_split(times):
     alone (hand-off only over the critical path's steps), us a macroblock
     of the work alone (work only over the macroblocks of a warp's rows, all
     in flight) and the critical-path bound (the steps times the hand-off
-    step), where the source has those builds."""
+    step), where the source has those builds; W3's builds as
+    ``colour_times`` timed them."""
     steps = times["frame"]["steps"]
     mbs = times["frame"]["mb_w"] * times["frame"]["mb_h"]
     out = {}
@@ -5909,23 +6011,27 @@ def webp_split(times):
                 handoff_step_us=step_us,
                 work_mb_us=t["work_only"] / per_warp * 1e3,
                 critical_path_bound_ms=steps * step_us / 1e3)
+    if "vp8_colour" in times:   # W3: whole and each build, as timed
+        out["vp8_colour"] = {k: v for k, v in times["vp8_colour"].items()
+                             if k != "plan"}
     return out
 
 
 def with_split_builds(root, tmp):
-    """``root``, or, where its vp8_pixels.cu is commit ceed2b4's
-    (VP8_CTA_ROWS_SHA256), a copy of its package under ``tmp`` with
-    VP8_CTA_ROWS_SPLIT's lines in."""
+    """``root``, or, where its vp8_pixels.cu is one of SPLIT_PATCHES'
+    (commit ceed2b4's or eeb94ea's, by sha256), a copy of its package
+    under ``tmp`` with that patch's lines in."""
     import hashlib
     import shutil
     package = os.path.join(root, "superviseddescent_tpu_torch")
     with open(os.path.join(package, "csrc", "vp8_pixels.cu"), "rb") as fh:
         text = fh.read()
-    if hashlib.sha256(text).hexdigest() != VP8_CTA_ROWS_SHA256:
+    patch = SPLIT_PATCHES.get(hashlib.sha256(text).hexdigest())
+    if patch is None:
         return root
     lines = text.decode().split("\n")
     inserts = []
-    for line in VP8_CTA_ROWS_SPLIT.splitlines():
+    for line in patch.splitlines():
         if line.startswith("> "):
             inserts[-1][1].append(line[2:])
         else:
@@ -5942,8 +6048,8 @@ def with_split_builds(root, tmp):
 
 def webp_compare(torch, root):
     """``--webp``: ``webp_times`` of this checkout's package and, with
-    another checkout's (``root``; commit ceed2b4's through
-    ``with_split_builds``), of that package (``other_runs``); W1 and W2
+    another checkout's (``root``; commit ceed2b4's or eeb94ea's through
+    ``with_split_builds``), of that package (``other_runs``); W1, W2 and W3
     whole and split side by side (a split only where the package's source
     has the measurement builds)."""
     import shutil
@@ -5972,6 +6078,22 @@ def webp_compare(torch, root):
                      / max(sp[name]["whole_ms"] for sp in splits["this"]))
             line += f" | other {text('other')} (x{ratio:.2f})"
         log(line + " (device, torch.profiler)")
+    for label in ("rgb", "grey"):
+        for heat in ("warm", "flushed"):
+            def w3(who):
+                return " / ".join(", ".join(
+                    f"{build} {ms:.5f}" for build, ms in
+                    sp["vp8_colour"][label][heat].items())
+                    for sp in splits[who])
+            line = (f"[webp] vp8_colour {label} {heat} on {WEBP_LOSSY_FRAME}"
+                    f": this tree {w3('this')} ms")
+            if splits["other"]:
+                ratio = (min(sp["vp8_colour"][label][heat]["whole"]
+                             for sp in splits["other"])
+                         / max(sp["vp8_colour"][label][heat]["whole"]
+                               for sp in splits["this"]))
+                line += f" | other {w3('other')} ms (x{ratio:.2f})"
+            log(line + " (device, torch.profiler)")
     return dict(this=runs["this"], other=runs["other"], split=splits,
                 package_root=root)
 
@@ -6018,7 +6140,8 @@ def webp_wide_frame(torch):
 def webp_lossy_entries(webp):
     """The kernels line's entries of W1, W2 and W3: device ms on the 768 x
     1024 lossy frame, launches of the main path's run; W1 and W2 with their
-    split (``webp_split``), the critical-path bound and the plan."""
+    split (``webp_split``), the critical-path bound and the plan; W3 with
+    its split (RGB and grey, warm and flushed) and its plan."""
     out = []
     compare = webp["compare"]
     for name in WEBP_KERNELS:
@@ -6034,6 +6157,13 @@ def webp_lossy_entries(webp):
             if compare["other"]:
                 extra["other_package_ms"] = [
                     sp[name]["whole_ms"] for sp in compare["split"]["other"]]
+        else:   # W3: its plan and its split on the same frame
+            extra = dict(plan=compare["this"][0]["vp8_colour"].get("plan"),
+                         split=compare["split"]["this"][0][name])
+            if compare["other"]:
+                extra["other_package_ms"] = [
+                    sp[name]["rgb"]["warm"]["whole"]
+                    for sp in compare["split"]["other"]]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             replaces_note="no pallas_call: the JAX package reads images with "
@@ -6616,7 +6746,8 @@ def main():
                         help="with --k12: also time K2 and K1 at other "
                         "numbers of patches per block (RCR-22); with --k5: "
                         "K5 at other launch plans (K5_SWEEP); with --webp: "
-                        "W1 and W2 at other rows a CTA (WEBP_SWEEP)")
+                        "W1 and W2 at other rows a CTA (WEBP_SWEEP), W3 at "
+                        "other rows a band (COLOUR_SWEEP)")
     parser.add_argument("--k5", action="store_true",
                         help="only time K5 and K6 per level of training "
                         "and K5 over the families' 4,096 faces, with the "
@@ -6654,7 +6785,7 @@ def main():
                         "the C++ entropy stage and W1-W3 against the twins, "
                         "libwebp's planes and PIL's digests, the lossy clip "
                         "frame through K3, rcr_detect -i on it, the times, "
-                        "W1's and W2's split; with --package-root W1 and W2 "
+                        "W1-W3's split; with --package-root W1-W3 "
                         "of another checkout in turns (the main run "
                         "includes it)")
     parser.add_argument("--remainder", action="store_true",

@@ -66,10 +66,40 @@
 // -DVP8_WORK_ONLY the work without waits or publishes, every row at once
 // (its planes are wrong).
 //
-// W3 (vp8_colour): one thread an output sample: libwebp's fancy upsampling
-// of 4:2:0 chroma (UpsampleRgbLinePair) and VP8YUVToR/G/B (src/dsp/yuv.h),
-// cropped to the frame, writing RGB, or the grey OpenCV's formula gives of
-// that RGB ((4899 r + 9617 g + 1868 b + 8192) >> 14).
+// W3 (vp8_colour): libwebp's fancy upsampling of 4:2:0 chroma
+// (UpsampleRgbLinePair) and VP8YUVToR/G/B (src/dsp/yuv.h), cropped to the
+// frame, writing RGB, or the grey OpenCV's formula gives of that RGB
+// ((4899 r + 9617 g + 1868 b + 8192) >> 14). No chain here: each output
+// byte is written once from bytes read once (3.5 MB a 768 x 1024 RGB
+// frame); on this card what bounds it is the launch, one round trip of
+// staging and ~40 integer instructions a sample. The design:
+//
+// * A CTA takes a band of full-width output rows, an even number (ops/
+//   webp.py's vp8_colour_plan: two bands an SM, each within the shared
+//   memory a CTA may take). Output rows 2k - 1 and 2k read the same two
+//   chroma rows, and a band's output is one contiguous byte range.
+// * Staging: the band's Y rows and the U / V rows they read (y0 / 2 - 1 to
+//   (y1 - 1) / 2 + 1, clamped to the frame) go to shared memory by
+//   cp.async, a warp a row, in 16-byte pieces (8 where an odd mb_w puts
+//   chroma rows off 16 bytes); each input byte is read once a CTA.
+// * Compute: a thread takes 8 adjacent samples of a row at a time, its row
+//   and column stepped from threadIdx (no division an item or a sample):
+//   one 8-byte load of Y and, per chroma row, one word and two bytes of U
+//   and of V. U and V are upsampled together, packed in the two halves of
+//   a word as libwebp packs them; output columns 2j and 2j + 1 share chroma
+//   column j. Each (x * c) >> 8 is the high word of (x << 24) * c, the
+//   clip one min-and-relu. The item's RGB or grey bytes go to the band's
+//   output in shared memory, as words where they fall on words.
+// * Writing: the band's bytes leave in 16-byte stores from its first
+//   16-byte-aligned address to its last; only the ragged head and tail
+//   (under 16 bytes each) are stored byte by byte.
+//
+// Measurement builds of W3, never entry points (chip_smoke.py's
+// webp_times): -DVP8_COLOUR_NO_STORE keeps the global stores only behind a
+// run-time test that never passes (staging and compute only);
+// -DVP8_COLOUR_NO_LOAD stores values made from the coordinates (no loads,
+// no compute); -DVP8_COLOUR_EMPTY returns at once on the same grid (the
+// launch floor).
 //
 // Every entry point returns cudaGetLastError(), or the error of a plan it
 // refuses.
@@ -1007,47 +1037,277 @@ __global__ void __launch_bounds__(32 * kMaxRows)
 }
 
 // ---------------------------------------------------------------- W3 --
-__device__ __forceinline__ int clip8(int v) {
-  return (v & ~16383) == 0 ? v >> 6 : v < 0 ? 0 : 255;
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src)
+               : "memory");
 }
 
+__host__ __device__ __forceinline__ int round16(int n) {
+  return (n + 15) & ~15;
+}
+
+// a band's shared memory (ops/webp.py's colour_smem): `rows` Y rows, the
+// rows / 2 + 2 U and V rows they read, then the band's output bytes from
+// its first byte's 16-byte residue on
+struct ColourLayout {
+  int y_pitch, c_pitch, c_rows, u_off, v_off, out_off, bytes;
+  __host__ __device__ ColourLayout(int rows, int width, int channels)
+      : y_pitch(round16(width)),
+        c_pitch(round16((width + 1) / 2)),
+        c_rows(rows / 2 + 2),
+        u_off(rows * y_pitch),
+        v_off(u_off + c_rows * c_pitch),
+        out_off(v_off + c_rows * c_pitch),
+        bytes(out_off + round16(rows * width * channels + 15)) {}
+};
+
+// libwebp's VP8Clip8 of a 6-bit fixed-point value
+__device__ __forceinline__ int clip8(int v) {
+  return __vimin_s32_relu(v, 16383) >> 6;
+}
+
+// the fancy upsampler on U and V at once, packed u | v << 16 (libwebp's
+// trick): (((nn + 3 nf + 3 fn + ff + 8) >> 3) + nn) >> 1 in each half,
+// and the edge columns' (3 nn + fn + 2) >> 2; every sum stays below 2^16,
+// the bits a shift carries down from the high half are masked or land
+// above the low byte
+__device__ __forceinline__ uint32_t fancy(uint32_t nn, uint32_t nf,
+                                          uint32_t fn, uint32_t ff) {
+  const uint32_t t = ((nn + 3 * nf + 3 * fn + ff + 0x00080008u) >> 3) &
+                     0x01ff01ffu;
+  return (t + nn) >> 1;
+}
+
+__device__ __forceinline__ uint32_t edge(uint32_t nn, uint32_t fn) {
+  return (3 * nn + fn + 0x00020002u) >> 2;
+}
+
+// a chroma row's columns j0 - 1 .. j0 + 4 (clamped to the row) of U and V,
+// packed: one word of each plane and two bytes
+__device__ __forceinline__ void chroma6(const uint8_t* u, const uint8_t* v,
+                                        int j0, int jl, int jr,
+                                        uint32_t (&c)[6]) {
+  const uint32_t uw = *(const uint32_t*)(u + j0);
+  const uint32_t vw = *(const uint32_t*)(v + j0);
+  c[0] = u[jl] | (uint32_t)v[jl] << 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c[1 + i] = __byte_perm(uw, vw, 0x0400 | (0x0101 * i)) & 0x00ff00ffu;
+  }
+  c[5] = u[jr] | (uint32_t)v[jr] << 16;
+}
+
+// a band in shared memory and where its rows come from
+struct ColourBand {
+  const uint8_t *y_plane, *u_plane, *v_plane;
+  int W, Wc, width, y0, n, c0, c1, uw, uh;
+  int yb, cb, piece_y, piece_c;  // a Y / chroma row's bytes staged, pieces
+  uint8_t *sy, *su, *sv, *so;
+};
+
+// the band's Y rows and the chroma rows they read into shared memory, a
+// warp a row: cp.async in pieces of 16, 8 or 4 bytes, plain loads where
+// the planes allow no piece of 4
+__device__ __forceinline__ void stage(const ColourBand& b,
+                                      const ColourLayout& L) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ny = b.n, nc = b.c1 - b.c0 + 1;
+  for (int k = warp; k < ny + 2 * nc; k += kColourThreads / 32) {
+    uint8_t* d;
+    const uint8_t* src;
+    int size, piece;
+    if (k < ny) {
+      d = b.sy + k * L.y_pitch;
+      src = b.y_plane + (long)(b.y0 + k) * b.W;
+      size = b.yb;
+      piece = b.piece_y;
+    } else {
+      const int q = k - ny < nc ? k - ny : k - ny - nc;
+      d = (k - ny < nc ? b.su : b.sv) + q * L.c_pitch;
+      src = (k - ny < nc ? b.u_plane : b.v_plane) + (long)(b.c0 + q) * b.Wc;
+      size = b.cb;
+      piece = b.piece_c;
+    }
+    for (int q = lane * piece; q < size; q += 32 * piece) {
+      if (piece == 16) {
+        cp_async16(d + q, src + q);
+      } else if (piece == 8) {
+        cp_async8(d + q, src + q);
+      } else if (piece == 4) {
+        cp_async4(d + q, src + q);
+      } else {
+        d[q] = src[q];
+      }
+    }
+  }
+}
+
+// the band's rows from shared memory into its staged output: a thread's
+// item is 8 adjacent samples of a row, x0 = 8 g .. x0 + 7, from chroma
+// columns 4 g - 1 .. 4 g + 4; output columns 2 j and 2 j + 1 share chroma
+// column j as their nearest
+template <int channels>
+__device__ __forceinline__ void colour_rows(const ColourBand& b,
+                                            const ColourLayout& L, int mis) {
+  const int width = b.width;
+  const int groups = (width + 7) >> 3;
+  // the last column of an even width takes the edge rule, as the first
+  const int last = (width & 1) ? -1 : width - 1;
+  // items tid, tid + threads, ...: row and group stepped, no division
+  const int dr = kColourThreads / groups, dg = kColourThreads - dr * groups;
+  int r = (int)threadIdx.x / groups;
+  int g = (int)threadIdx.x - r * groups;
+  while (r < b.n) {
+    const int y = b.y0 + r, nr = y >> 1;
+    const int fr = min(max((y & 1) ? nr + 1 : nr - 1, 0), b.uh - 1);
+    const int j0 = 4 * g, jl = max(j0 - 1, 0), jr = min(j0 + 4, b.uw - 1);
+    uint32_t nc[6], fc[6];
+    chroma6(b.su + (nr - b.c0) * L.c_pitch, b.sv + (nr - b.c0) * L.c_pitch,
+            j0, jl, jr, nc);
+    chroma6(b.su + (fr - b.c0) * L.c_pitch, b.sv + (fr - b.c0) * L.c_pitch,
+            j0, jl, jr, fc);
+    const uint2 yw = *(const uint2*)(b.sy + r * L.y_pitch + 8 * g);
+    const int x0 = 8 * g;
+    uint32_t uv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uv[2 * i] = fancy(nc[1 + i], nc[i], fc[1 + i], fc[i]);
+      uv[2 * i + 1] = fancy(nc[1 + i], nc[2 + i], fc[1 + i], fc[2 + i]);
+    }
+    if (g == 0) uv[0] = edge(nc[1], fc[1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (x0 + 2 * i + 1 == last) uv[2 * i + 1] = edge(nc[1 + i], fc[1 + i]);
+    }
+    uint32_t w[6] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      // (x * c) >> 8 of a byte x as the high word of (x << 24) * c
+      const uint32_t y24 =
+          __byte_perm(s < 4 ? yw.x : yw.y, 0, 0x0444 | ((s & 3) << 12));
+      const uint32_t u24 = uv[s] << 24, v24 = (uv[s] << 8) & 0xff000000u;
+      const int yy = (int)__umulhi(y24, 19077);
+      const int R = clip8(yy + (int)__umulhi(v24, 26149) - 14234);
+      const int G = clip8(yy - (int)__umulhi(u24, 6419) -
+                          (int)__umulhi(v24, 13320) + 8708);
+      const int B = clip8(yy + (int)__umulhi(u24, 33050) - 17685);
+      if (channels == 1) {
+        w[s >> 2] |= (uint32_t)((R * 4899 + G * 9617 + B * 1868 + 8192) >> 14)
+                     << (8 * (s & 3));
+      } else {
+        w[(3 * s) >> 2] |= (uint32_t)R << (8 * ((3 * s) & 3));
+        w[(3 * s + 1) >> 2] |= (uint32_t)G << (8 * ((3 * s + 1) & 3));
+        w[(3 * s + 2) >> 2] |= (uint32_t)B << (8 * ((3 * s + 2) & 3));
+      }
+    }
+    // into the staged band: whole words where the item is whole and its
+    // bytes fall on a word, else byte by byte
+    const int off = (r * width + x0) * channels;
+    uint8_t* p = b.so + off;
+    const int nb = min(8, width - x0) * channels;
+    const int a = (mis + off) & 7;
+    if (nb == 8 * channels && a == 0) {
+      *(uint2*)p = make_uint2(w[0], w[1]);
+      if (channels == 3) {
+        *(uint2*)(p + 8) = make_uint2(w[2], w[3]);
+        *(uint2*)(p + 16) = make_uint2(w[4], w[5]);
+      }
+    } else if (nb == 8 * channels && (a & 3) == 0) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        if (q < 2 * channels) *(uint32_t*)(p + 4 * q) = w[q];
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 24; ++q) {
+        if (q < nb) p[q] = (uint8_t)(w[q >> 2] >> (8 * (q & 3)));
+      }
+    }
+    g += dg;
+    r += dr;
+    if (g >= groups) {
+      g -= groups;
+      ++r;
+    }
+  }
+}
+
+// the band's bytes out of the staged band: the ragged head byte by byte,
+// 16-byte stores from the first 16-byte-aligned address to the last, the
+// ragged tail byte by byte
+__device__ __forceinline__ void write_out(uint8_t* dst, const uint8_t* so,
+                                          int mis, int bytes) {
+  const int head = min((16 - mis) & 15, bytes);
+  const int words = (bytes - head) >> 4, tail = head + 16 * words;
+#ifdef VP8_COLOUR_NO_STORE
+  if (bytes > 0) return;  // always: built, never run
+#endif
+  for (int k = threadIdx.x; k < words; k += kColourThreads) {
+#ifdef VP8_COLOUR_NO_LOAD
+    *(uint4*)(dst + head + 16 * k) = make_uint4(k, bytes, k ^ bytes, head);
+#else
+    *(uint4*)(dst + head + 16 * k) = *(const uint4*)(so + head + 16 * k);
+#endif
+  }
+  const int t = threadIdx.x;
+  if (t < head + (bytes - tail)) {
+    const int i = t < head ? t : tail + t - head;
+#ifdef VP8_COLOUR_NO_LOAD
+    dst[i] = (uint8_t)(i + bytes);
+#else
+    dst[i] = so[i];
+#endif
+  }
+}
+
+template <int channels>
 __global__ void __launch_bounds__(kColourThreads)
     vp8_colour(const uint8_t* __restrict__ y_plane,
                const uint8_t* __restrict__ u_plane,
-               const uint8_t* __restrict__ v_plane, uint8_t* out, int width,
-               int height, int W, int Wc, int channels) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long)width * height) return;
-  const int y = (int)(i / width), x = (int)(i % width);
-  const int uw = (width + 1) / 2, uh = (height + 1) / 2;
-  const int nr = y >> 1, nc = x >> 1;
-  int fr = (y & 1) ? nr + 1 : nr - 1, fc = (x & 1) ? nc + 1 : nc - 1;
-  fr = fr < 0 ? 0 : fr > uh - 1 ? uh - 1 : fr;
-  fc = fc < 0 ? 0 : fc > uw - 1 ? uw - 1 : fc;
-  const bool edge = x == 0 || (x == width - 1 && !(width & 1));
-  int uv[2];
-  for (int p = 0; p < 2; ++p) {
-    const uint8_t* C = p ? v_plane : u_plane;
-    const int nn = C[(long)nr * Wc + nc], fn = C[(long)fr * Wc + nc];
-    if (edge) {
-      uv[p] = (3 * nn + fn + 2) >> 2;
-    } else {
-      const int nf = C[(long)nr * Wc + fc], ff = C[(long)fr * Wc + fc];
-      uv[p] = (((nn + 3 * nf + 3 * fn + ff + 8) >> 3) + nn) >> 1;
-    }
-  }
-  const int yy = (y_plane[(long)y * W + x] * 19077) >> 8;
-  const int u = uv[0], v = uv[1];
-  const int R = clip8(yy + ((v * 26149) >> 8) - 14234);
-  const int G = clip8(yy - ((u * 6419) >> 8) - ((v * 13320) >> 8) + 8708);
-  const int B = clip8(yy + ((u * 33050) >> 8) - 17685);
-  if (channels == 1) {
-    out[i] = (uint8_t)((R * 4899 + G * 9617 + B * 1868 + 8192) >> 14);
-  } else {
-    out[3 * i + 0] = (uint8_t)R;
-    out[3 * i + 1] = (uint8_t)G;
-    out[3 * i + 2] = (uint8_t)B;
-  }
+               const uint8_t* __restrict__ v_plane,
+               uint8_t* __restrict__ out, int width, int height, int W,
+               int Wc, int rows, int piece_y, int piece_c) {
+#ifdef VP8_COLOUR_EMPTY
+  return;
+#endif
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ColourLayout L(rows, width, channels);
+  ColourBand b;
+  b.y_plane = y_plane;
+  b.u_plane = u_plane;
+  b.v_plane = v_plane;
+  b.W = W;
+  b.Wc = Wc;
+  b.width = width;
+  b.y0 = blockIdx.x * rows;
+  b.n = min(rows, height - b.y0);  // the band's rows
+  b.uw = (width + 1) >> 1;
+  b.uh = (height + 1) >> 1;
+  // the chroma rows the band reads, clamped as the twin clamps them
+  b.c0 = max((b.y0 >> 1) - 1, 0);
+  b.c1 = min(((b.y0 + b.n - 1) >> 1) + 1, b.uh - 1);
+  b.piece_y = piece_y;
+  b.piece_c = piece_c;
+  b.yb = (width + piece_y - 1) / piece_y * piece_y;
+  b.cb = (b.uw + piece_c - 1) / piece_c * piece_c;
+  b.sy = smem;
+  b.su = smem + L.u_off;
+  b.sv = smem + L.v_off;
+  const int bytes = b.n * width * channels;
+  uint8_t* dst = out + (long)b.y0 * width * channels;
+  const int mis = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+  // the staged output: byte i of the band at smem[out_off + mis + i], so
+  // that a 16-byte-aligned address of the band is one in shared memory
+  b.so = smem + L.out_off + mis;
+#ifndef VP8_COLOUR_NO_LOAD
+  stage(b, L);
+  cp_async_wait_all();
+  __syncthreads();
+  colour_rows<channels>(b, L, mis);
+  __syncthreads();
+#endif
+  write_out(dst, b.so, mis, bytes);
 }
 
 // the plan's CTAs must all be resident at once: row r waits on row r - 1,
@@ -1107,16 +1367,45 @@ extern "C" int vp8_filter_launch(uint8_t* y, uint8_t* u, uint8_t* v,
   return (int)cudaGetLastError();
 }
 
+// the largest cp.async piece (16, 8 or 4 bytes; else 1: plain loads) that
+// every row of a plane at `p`, `pitch` bytes apart, starts on
+static int piece_of(const void* p, int pitch) {
+  const unsigned a = (unsigned)(reinterpret_cast<uintptr_t>(p) | pitch);
+  return (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : (a & 3) == 0 ? 4 : 1;
+}
+
 // W3: the filtered planes -> out, height x width x 3 RGB or height x
-// width grey (channels 1).
+// width grey (channels 1); a CTA a band of `rows` output rows (even; ops/
+// webp.py's vp8_colour_plan). A band whose shared memory the card cannot
+// give is refused.
 extern "C" int vp8_colour_launch(const uint8_t* y, const uint8_t* u,
                                  const uint8_t* v, uint8_t* out, int width,
-                                 int height, int mb_w, int channels,
+                                 int height, int mb_w, int channels, int rows,
                                  cudaStream_t stream) {
-  const long n = (long)width * height;
-  const int grid = (int)((n + kColourThreads - 1) / kColourThreads);
-  vp8_colour<<<grid, kColourThreads, 0, stream>>>(y, u, v, out, width, height,
-                                                   16 * mb_w, 8 * mb_w,
-                                                   channels);
+  if (rows < 2 || (rows & 1) || rows > 16384 || width < 1 || height < 1 ||
+      (channels != 1 && channels != 3)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = ColourLayout(rows, width, channels).bytes;
+  int device = 0, limit = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  if (smem > limit) return (int)cudaErrorInvalidConfiguration;
+  const auto kernel = channels == 1 ? vp8_colour<1> : vp8_colour<3>;
+  // above the 48 KB any kernel may take, once for each build of the kernel
+  static int granted[2] = {48 << 10, 48 << 10};
+  int& mine = granted[channels == 1 ? 0 : 1];
+  if (smem > mine) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    mine = smem;
+  }
+  const int W = 16 * mb_w, Wc = 8 * mb_w;
+  const int pu = piece_of(u, Wc), pv = piece_of(v, Wc);
+  kernel<<<(height + rows - 1) / rows, kColourThreads, smem, stream>>>(
+      y, u, v, out, width, height, W, Wc, rows, piece_of(y, W),
+      pu < pv ? pu : pv);
   return (int)cudaGetLastError();
 }

@@ -70,7 +70,7 @@ KERNELS = {
     # lossy WebP's pixel stage (ops/webp.py): W1, W2 and W3
     "vp8_pixels": {"vp8_reconstruct_launch": [_P] * 6 + [_I] * 4 + [_P],
                    "vp8_filter_launch": [_P] * 5 + [_I] * 5 + [_P],
-                   "vp8_colour_launch": [_P] * 4 + [_I] * 4 + [_P]},
+                   "vp8_colour_launch": [_P] * 4 + [_I] * 5 + [_P]},
 }
 
 

@@ -23,7 +23,9 @@ W1 and W2 run the macroblocks as libwebp does, in raster order, in a
 wavefront: macroblock (r, c) after (r, c - 1) and (r - 1, c + 1), so the
 twins take a diagonal ``c + 2 r`` at a time and the kernels a warp per
 macroblock row, waiting on the row above (``csrc/vp8_pixels.cu``), on the
-rows a CTA and CTAs ``vp8_launch_plan`` chooses.
+rows a CTA and CTAs ``vp8_launch_plan`` chooses. W3 has no chain: a CTA
+takes a band of full-width output rows staged in shared memory, on the
+bands ``vp8_colour_plan`` chooses.
 """
 
 from __future__ import annotations
@@ -531,6 +533,58 @@ def vp8_launch_plan(mb_w: int, mb_h: int, rows: int = 0,
     return Vp8Plan(per_cta, ctas)
 
 
+# W3 puts a band of ``rows`` full-width output rows (even: output rows 2k
+# - 1 and 2k read the same two chroma rows) on a CTA, its Y rows, the
+# chroma rows they read and its output bytes in shared memory
+# (csrc/vp8_pixels.cu's ColourLayout)
+SMEM_OPTIN = 232448       # sm_90: the shared memory a CTA may opt in to
+# bands for each SM the plan aims at (chip_smoke.py --webp --sweep: on the
+# 768 x 1024 frame 4 rows a band, two CTAs an SM, beat 8 and 2 by ~5-10%)
+COLOUR_BANDS_PER_SM = 2
+
+
+class ColourPlan(NamedTuple):
+    """W3's launch: a CTA a band of ``rows`` output rows, ``ctas``
+    CTAs."""
+    rows: int
+    ctas: int
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def colour_smem(rows: int, width: int, channels: int = 3) -> int:
+    """W3's shared memory for a band of ``rows`` rows of a frame
+    ``width`` wide: the Y rows, the rows / 2 + 2 rows of U and of V they
+    read, and the band's output bytes after up to 15 bytes that align them
+    as their device address is aligned, each part in rows of 16-byte
+    multiples."""
+    return (rows * _round16(width)
+            + 2 * (rows // 2 + 2) * _round16((width + 1) // 2)
+            + _round16(rows * width * channels + 15))
+
+
+def vp8_colour_plan(width: int, height: int, sms: int = SMS, rows: int = 0,
+                    channels: int = 3) -> ColourPlan:
+    """W3's bands for a ``width`` x ``height`` frame: the fewest even rows
+    a band that make at most COLOUR_BANDS_PER_SM bands an SM of ``sms``
+    (768 x 1024 on 132 SMs: 4 rows, 256 CTAs), fewer where a band would
+    not fit SMEM_OPTIN (2 rows at 16,383 px wide), never under 2. ``rows``
+    > 0 forces that many rows a band (even; the launcher refuses a band
+    that does not fit)."""
+    if rows:
+        if rows < 2 or rows % 2:
+            raise ValueError(f"W3's bands take an even number of rows, "
+                             f"got {rows}")
+    else:
+        bands = max(1, COLOUR_BANDS_PER_SM * sms)
+        rows = 2 * -(-height // (2 * bands))
+        while rows > 2 and colour_smem(rows, width, channels) > SMEM_OPTIN:
+            rows -= 2
+    return ColourPlan(rows, -(-height // rows))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -637,10 +691,12 @@ vp8_filter.launches = 0
 
 
 def vp8_colour(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-               width: int, height: int, channels: int = 3) -> torch.Tensor:
+               width: int, height: int, channels: int = 3,
+               rows: int = 0) -> torch.Tensor:
     """W3: the filtered planes -> uint8 (H, W, 3) RGB or (H, W) grey on
     their device, as PIL's ``convert("RGB")`` and the JAX package's
-    ``load_gray_image`` read the frame."""
+    ``load_gray_image`` read the frame. ``rows``: that many output rows a
+    CTA (even; 0: ``vp8_colour_plan``'s)."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")
     mb_w, mb_h = y.shape[1] // 16, y.shape[0] // 16
@@ -658,11 +714,13 @@ def vp8_colour(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if width * height * channels > _INT32_MAX:
         raise ValueError(f"a {width} x {height} frame is too large")
     from superviseddescent_tpu_torch.ops._build import load_library
+    plan = vp8_colour_plan(width, height, _sm_count(y.device), rows,
+                           channels)
     out = torch.empty((height, width) + ((3,) if channels == 3 else ()),
                       dtype=torch.uint8, device=y.device)
     err = load_library("vp8_pixels").vp8_colour_launch(
         _ptr(y), _ptr(u), _ptr(v), _ptr(out), width, height, mb_w, channels,
-        _stream(y))
+        plan.rows, _stream(y))
     if err != 0:
         raise RuntimeError(f"vp8_pixels (W3) launch failed: CUDA error {err}")
     vp8_colour.launches += 1

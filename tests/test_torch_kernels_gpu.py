@@ -1544,3 +1544,64 @@ def test_webp_lossy_kernels_on_a_wide_frame(cuda, per_cta, rows,
     planes = W.vp8_filter(*(p.clone() for p in planes), filters,
                           f.filter_type, mb_w, mb_h, grid=rows)
     assert all(torch.equal(a, b) for a, b in zip(planes, want))
+
+
+def colour_planes(cuda, width, height, seed, offset=0):
+    """Seeded W2-shaped planes for a ``width`` x ``height`` frame on the
+    card, each starting ``offset`` bytes into its allocation (a contiguous
+    view: 1 and 4 take W3's plain and 4-byte copies)."""
+    rng = np.random.default_rng(seed)
+    mb_w, mb_h = -(-width // 16), -(-height // 16)
+    out = []
+    for s in (16, 8, 8):
+        shape = (s * mb_h, s * mb_w)
+        buf = torch.empty(shape[0] * shape[1] + offset, dtype=torch.uint8,
+                          device=cuda)
+        p = buf[offset:].view(shape)
+        p.copy_(torch.from_numpy(rng.integers(0, 256, shape,
+                                              dtype=np.uint8)))
+        out.append(p)
+    return tuple(out)
+
+
+def check_colour(planes, width, height, rows=0):
+    from superviseddescent_tpu_torch.ops import webp as W
+    for channels in (1, 3):
+        got = W.vp8_colour(*planes, width, height, channels, rows=rows)
+        want = W.colour_reference(*planes, width, height, channels)
+        assert torch.equal(got, want), (width, height, channels, rows)
+
+
+@pytest.mark.parametrize("height", (1, 2, 3, 17, 1024))
+def test_webp_colour_equals_twin_at_every_width(cuda, height):
+    """W3 (ops/webp.vp8_colour) on seeded planes at every width 1-48,
+    every residue of a row's bytes mod 16, RGB and grey, at the plan's
+    bands: equal to colour_reference."""
+    for width in range(1, 49):
+        check_colour(colour_planes(cuda, width, height, 100 * height + width),
+                     width, height)
+
+
+@pytest.mark.parametrize("rows", (0, 2, 4, 8, 16, 32))
+def test_webp_colour_at_every_plan_of_the_sweep(cuda, rows):
+    """W3 at the plan's rows a band (0) and at chip_smoke.py's COLOUR_SWEEP
+    on a 768 x 1024 frame, on one whose odd mb_w puts the chroma rows off
+    16 bytes (8-byte copies), and on planes 1, 4 and 8 bytes into their
+    allocations."""
+    check_colour(colour_planes(cuda, 768, 1024, rows), 768, 1024, rows)
+    check_colour(colour_planes(cuda, 741, 999, rows + 1), 741, 999, rows)
+    for offset in (1, 4, 8):
+        check_colour(colour_planes(cuda, 75, 37, offset, offset), 75, 37,
+                     rows)
+
+
+def test_webp_colour_on_the_widest_frame(cuda):
+    """W3 on a frame 16,383 px wide (VP8's widest) and a few rows high, at
+    the plan's two rows a band; four rows a band do not fit the shared
+    memory and the launcher refuses them."""
+    from superviseddescent_tpu_torch.ops import webp as W
+    planes = colour_planes(cuda, 16383, 5, 7)
+    assert W.vp8_colour_plan(16383, 5, W._sm_count(cuda)).rows == 2
+    check_colour(planes, 16383, 5)
+    with pytest.raises(RuntimeError, match="W3"):
+        W.vp8_colour(*planes, 16383, 5, 3, rows=4)
