@@ -345,9 +345,12 @@ SOURCES = {
     "probe_abde": (_CSRC + "probe_dyn.cu", "scripts/probe_dyn.py:94"),
     "probe_c": (_CSRC + "probe_dyn.cu", "scripts/probe_dyn.py:126"),
     "probe_c4": (_CSRC + "probe_dyn.cu", "scripts/probe_dyn.py:153"),
-    # J1 replaces no pallas_call: the JAX package's image reader
+    # J1 replaces no pallas_call: the JAX package's image reader; its
+    # samples source (a lossless JPEG's samples) neither
     "jpeg_decode": (_CSRC + "jpeg_decode.cu",
                     "superviseddescent_tpu/ops/patches.py:279"),
+    "jpeg_samples": (_CSRC + "jpeg_decode.cu",
+                     "superviseddescent_tpu/ops/patches.py:279"),
     # J2 replaces no pallas_call: the JAX apps' PIL writer (img.save)
     "jpeg_encode": (_CSRC + "jpeg_encode.cu",
                     "superviseddescent_tpu/apps/rcr_detect.py:76"),
@@ -802,7 +805,7 @@ def counted_ops():
         extract_features_fused, extract_features_fused_frames)
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
     from superviseddescent_tpu_torch.ops.jpeg import (
-        jpeg_coefficients, jpeg_pixels)
+        jpeg_coefficients, jpeg_pixels, jpeg_samples)
     from superviseddescent_tpu_torch.ops.patches_window import (
         sample_patches_window)
     from superviseddescent_tpu_torch.ops.webp import (
@@ -823,7 +826,8 @@ def counted_ops():
             "probe_sampler_pre": probe_sampler_pre,
             "probe_flatout": probe_flatout, "probe_abde": probe_abde,
             "probe_c": probe_c, "probe_c4": probe_c4,
-            "jpeg_decode": jpeg_pixels, "jpeg_encode": jpeg_coefficients,
+            "jpeg_decode": jpeg_pixels, "jpeg_samples": jpeg_samples,
+            "jpeg_encode": jpeg_coefficients,
             "vp8_reconstruct": vp8_reconstruct, "vp8_filter": vp8_filter,
             "vp8_colour": vp8_colour}
 
@@ -1760,8 +1764,15 @@ def l2_flusher(torch):
     return lambda: buf.fill_(1.0)
 
 
-# profiler sessions device_ms takes before it gives up on a kernel
-PROFILE_TRIES = 3
+# profiler sessions device_ms takes before it times a call with CUDA
+# events instead
+PROFILE_TRIES = 6
+# cycles of torch.cuda._sleep ahead of an events-timed batch (~10 ms at
+# the H100's 1.98 GHz): the stream waits while the host queues the calls
+EVENTS_SPIN_CYCLES = 20_000_000
+# the calls timed with CUDA events because no profiler session held a
+# record of their kernel: (match, reps), in the run's JSON
+PROFILE_FALLBACKS = []
 
 
 def device_ms(torch, call, reps=20, match=None, one_kernel=True,
@@ -1775,11 +1786,14 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True,
     of them (a plain twin of several operations). Each kernel counts with
     its mean time over the launches recorded (the profiler may miss the
     first few) times its launches per call. before: ``l2_flusher``'s call,
-    made ahead of each ``call``; its kernel is not counted. The profiler
-    has been seen to return a session without a single kernel record of a
-    few-microsecond kernel: such a session is profiled again, up to
-    ``PROFILE_TRIES`` times in all, and the run fails when none holds a
-    record: no other clock stands in for it."""
+    made ahead of each ``call``; its kernel is not counted. Late in a long
+    run the profiler loses kernel records: some launches of a session, or
+    every launch of every other session (on the H100, after some minutes
+    of the smoke run). Such a session is profiled again, up to
+    ``PROFILE_TRIES`` times in all; when none holds a record, ``call`` is
+    timed with CUDA events instead (``events_us``: every kernel of the
+    call, not only ``match``'s), logged and listed in
+    ``PROFILE_FALLBACKS``."""
     found = device_kernels(torch, call, reps, match, before)
     if one_kernel:
         check(len(found) == 1 and found[0][1] == 1,
@@ -1788,13 +1802,41 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True,
     return sum(per_call * us for _, per_call, us in found) / 1e3
 
 
-def device_kernels(torch, call, reps=20, match=None, before=None):
+def events_us(torch, call, reps, before=None):
+    """Device us per ``call`` between two CUDA events around ``reps``
+    calls queued behind a spin kernel, so that the host's enqueue does not
+    set the time; ``before``'s share, timed the same way, is taken off."""
+    def batch(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(EVENTS_SPIN_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) * 1e3 / reps
+    if before is None:
+        return batch(call)
+
+    def both():
+        before()
+        call()
+    return batch(both) - batch(before)
+
+
+def device_kernels(torch, call, reps=20, match=None, before=None,
+                   launches_per_call=1):
     """``device_ms``'s profiled kernels of ``call``: (name, launches per
     call, device us per launch) of each kernel whose name holds
-    ``match``."""
+    ``match``. When no profiler session holds one, one entry timed by
+    ``events_us``, split evenly over ``launches_per_call``."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
+    found = []
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1816,7 +1858,14 @@ def device_kernels(torch, call, reps=20, match=None, before=None):
             break
         log(f"[profile] session {attempt} of {PROFILE_TRIES} recorded no "
             f"kernel (match {match!r})")
-    check(found, f"torch.profiler recorded no kernel (match {match!r})")
+    if not found:
+        us = events_us(torch, call, reps, before)
+        check(us > 0, f"CUDA events timed {us} us (match {match!r})")
+        PROFILE_FALLBACKS.append((match, reps))
+        log(f"[profile] no session held a record (match {match!r}): "
+            f"{us / 1e3:.5f} ms a call from CUDA events instead")
+        found = [(f"CUDA events ({match})", launches_per_call,
+                  us / launches_per_call)]
     return found
 
 
@@ -4067,10 +4116,11 @@ def phase_apps(torch, data, seed, name, smi):
 # The io slice: baseline JPEG, the host entropy decoder and J1
 # ---------------------------------------------------------------- #
 JPEG_DIR = os.path.join(REPO, "tests", "torch_jpeg")
-# rcr_detect -f -o on a baseline (728 x 1023), a progressive (412 x 600)
-# and an Adobe CMYK (300 x 450) still
+# rcr_detect -f -o on a baseline (728 x 1023), a progressive (412 x 600),
+# an Adobe CMYK (300 x 450) and an arithmetic-coded progressive (SOF10,
+# 412 x 600) still
 JPEG_DETECT_STILLS = ("s04_420_q95_restart.jpg", "p02_422_q50_prog.jpg",
-                      "c00_cmyk_q75.jpg")
+                      "c00_cmyk_q75.jpg", "a17_420_q75_prog_still.jpg")
 JPEG_CLIPS = ("clip", "clip_progressive")
 JPEG_TRACK_DEPTHS = (1, 4)
 JPEG_TRACK_COPIES = 8
@@ -4163,10 +4213,12 @@ def jpeg_stills(torch, manifest):
     log(f"[jpeg] {len(out)} stills (baseline grey, 4:4:4, 4:2:2, 4:2:0 at q "
         "50 / 75 / 95, restart markers, optimised tables, 301 x 451; "
         "progressive; multi-scan sequential; Adobe CMYK and YCCK; 4:1:1, "
-        "4:4:0, 2x2/1x2/2x1 and 3x2 sampling): J1's grey and RGB equal "
-        "PIL's digests and the twin bit for bit, the host coefficients the "
-        f"Python twin's; {len(pairs)} progressive stills' coefficients "
-        "equal their baseline stills'")
+        "4:4:0, 2x2/1x2/2x1 and 3x2 sampling; arithmetic SOF9 / SOF10; "
+        "block-smoothed SOF2 / SOF10; lossless SOF3 through J1's samples "
+        "source): J1's grey and RGB equal PIL's digests and the twin bit "
+        "for bit, the host coefficients (samples) the Python twin's; "
+        f"{len(pairs)} progressive stills' coefficients equal their "
+        "baseline stills'")
     return out, worst
 
 
@@ -4267,6 +4319,138 @@ def jpeg_clip_times(torch, manifest, png_dir):
         "every progressive frame's host coefficients equal the baseline "
         "frame's")
     return out, worst
+
+
+# the coded kinds' frames: frame 0 of the clip as arithmetic SOF9 and SOF10
+# and as a grey lossless SOF3 (tests/torch_jpeg/timing), beside the
+# Huffman clips' frame 0
+JPEG_CODED_FRAMES = {"sof9": "timing/t00_clip_f000_sof9.jpg",
+                     "sof10": "timing/t01_clip_f000_sof10.jpg",
+                     "sof3": "timing/t02_clip_f000_sof3_grey.jpg",
+                     "huffman": "clip/f000.jpg",
+                     "huffman_progressive": "clip_progressive/f000.jpg"}
+JPEG_CODED_REPS = 10
+# load_gray_image calls on the SOF3 frame in the samples source's counted
+# run (the entry point a user calls)
+JPEG_SAMPLES_LOADS = 4
+
+
+def jpeg_samples_bound(f, channels):
+    """J1's samples source's least time: the uint8 samples read once and
+    the output written once at the memory rate, or its ~40 integer
+    operations per output pixel at 67 TOP/s, whichever is longer."""
+    in_bytes = f.blocks * 64
+    out_bytes = f.width * f.height * channels
+    ops = f.width * f.height * JPEG_OPS_PER_PIXEL
+    return dict(bytes_ms=(in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3,
+                ops_ms=ops / OPS_PER_S * 1e3, in_bytes=in_bytes,
+                out_bytes=out_bytes)
+
+
+def jpeg_coded_kinds(torch, manifest):
+    """The arithmetic and lossless kinds beyond the stills: each 768 x 1024
+    frame of ``tests/torch_jpeg/timing`` through the host decoder and J1
+    (both sources) against PIL's digests and the twins; the files PIL
+    refuses refused by name; the host stage's ms on each frame beside the
+    Huffman clips' frame 0 (the frames in turns); J1 on each (device,
+    torch.profiler), the samples source beside its twin and its byte
+    bound; ``load_gray_image`` of each; and the samples source's counted
+    run: ``load_gray_image`` on the SOF3 frame with every count at 0 just
+    before."""
+    import numpy as np
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels)
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    worst, frames = 0, {}
+    for key, name in JPEG_CODED_FRAMES.items():
+        with open(os.path.join(JPEG_DIR, name), "rb") as fh:
+            data = fh.read()
+        f = jpeg.parse_jpeg(data)
+        host = entropy_decode_native(f)
+        values = host.cuda()
+        frames[key] = (f, values, os.path.join(JPEG_DIR, name))
+        want = manifest["timing"].get(name)
+        if want is None:
+            continue
+        check(np.array_equal(host.numpy(), jpeg.entropy_decode(f)),
+              f"{name}: the host decoder differs from the Python twin")
+        for channels, digest_key in ((1, "grey_sha256"), (3, "rgb_sha256")):
+            got = jpeg_pixels(values, f, channels)
+            err = int((got.int() - jpeg.pixels_reference(
+                values, f, channels).int()).abs().max())
+            worst = max(worst, err)
+            check(err == 0, f"{name}: J1 differs from its twin by {err}")
+            check(sha256_of(got) == want[digest_key], f"{name}: J1's "
+                  f"{'grey' if channels == 1 else 'RGB'} digest differs "
+                  "from PIL's")
+    refused = {}
+    for name, info in sorted(manifest["refused"].items()):
+        with open(os.path.join(JPEG_DIR, name), "rb") as fh:
+            data = fh.read()
+        try:
+            jpeg.parse_jpeg(data)
+            message = None
+        except ValueError as e:
+            message = str(e)
+        check(message is not None, f"{name}: read, though PIL refuses it "
+              f"({info['libjpeg_turbo_message']})")
+        refused[name] = message
+    host_ms = {key: [] for key in JPEG_CODED_FRAMES}
+    for key in list(JPEG_CODED_FRAMES) * 2:
+        f = frames[key][0]
+        t0 = time.perf_counter()
+        for _ in range(JPEG_CODED_REPS):
+            entropy_decode_native(f)
+        host_ms[key].append((time.perf_counter() - t0) * 1e3
+                            / JPEG_CODED_REPS)
+    j1_ms = {}
+    for key in ("sof9", "sof10", "sof3"):
+        f, values, _ = frames[key]
+        j1_ms[key] = device_ms(torch, lambda: jpeg_pixels(values, f, 1),
+                               match="jpeg")
+    f3, samples, path3 = frames["sof3"]
+    twin_ms = device_ms(torch, lambda: jpeg.pixels_reference(samples, f3, 1),
+                        one_kernel=False, reps=2)
+    bound = jpeg_samples_bound(f3, 1)
+    loads = {key: [] for key in ("sof9", "sof10", "sof3")}
+    for key in list(loads) * 2:
+        t0 = time.perf_counter()
+        for _ in range(JPEG_CODED_REPS):
+            load_gray_image(frames[key][2])
+        loads[key].append((time.perf_counter() - t0) * 1e3 / JPEG_CODED_REPS)
+    torch.cuda.synchronize()
+    zero_counts()
+    for _ in range(JPEG_SAMPLES_LOADS):
+        load_gray_image(path3)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts(launches, f"load_gray_image on {JPEG_CODED_FRAMES['sof3']}"
+                  f" x {JPEG_SAMPLES_LOADS}", jpeg_samples=JPEG_SAMPLES_LOADS)
+    out = dict(host_ms=host_ms, j1_device_ms=j1_ms,
+               samples_device_ms=j1_ms["sof3"], samples_twin_device_ms=twin_ms,
+               samples_bound_ms=max(bound["bytes_ms"], bound["ops_ms"]),
+               samples_bound_by=("bytes" if bound["bytes_ms"] >= bound[
+                   "ops_ms"] else "operations"), samples_bound=bound,
+               load_gray_ms=loads, samples_launches=launches["jpeg_samples"],
+               refused=refused, max_abs_err=worst)
+
+    def ms(values, digits=3):
+        return " / ".join(f"{v:.{digits}f}" for v in values)
+    log("[jpeg] frame 0 of the clip (768 x 1024), host entropy stage ms "
+        "(the frames in turns): " + ", ".join(
+            f"{key} {ms(v)}" for key, v in host_ms.items()))
+    log("[jpeg] J1 device ms (torch.profiler, grey): " + ", ".join(
+        f"{key} {v:.4f}" for key, v in j1_ms.items()) + "; the samples "
+        f"source on the SOF3 frame {j1_ms['sof3']:.4f} ms, bound "
+        f"{out['samples_bound_ms']:.5f} ms ({out['samples_bound_by']}: "
+        f"{bound['in_bytes'] / 1e6:.2f} MB in, {bound['out_bytes'] / 1e6:.2f}"
+        f" MB out), twin {twin_ms:.4f} ms device; load_gray_image "
+        + ", ".join(f"{key} {ms(v, 2)} ms" for key, v in loads.items())
+        + f"; {len(refused)} files PIL refuses refused by name; "
+        f"load_gray_image x {JPEG_SAMPLES_LOADS} on the SOF3 frame: "
+        f"{launches['jpeg_samples']} launches of the samples source")
+    return out
 
 
 def clip_track_model(torch, manifest, root):
@@ -4448,9 +4632,10 @@ def jpeg_detect(torch, root):
 def phase_jpeg(torch, name, smi):
     """The io slices on the card: the committed JPEG fixtures
     (``tests/torch_jpeg``, PIL's digests in its manifest) through the host
-    entropy decoder and J1, rcr_track over the progressive and the baseline
+    entropy decoder and J1, the arithmetic and lossless frames' times
+    (``jpeg_coded_kinds``), rcr_track over the progressive and the baseline
     clip against PNG frames of the same pixels, rcr_detect on a baseline,
-    a progressive and a CMYK still."""
+    a progressive, a CMYK and an arithmetic progressive still."""
     import shutil
     import tempfile
     with open(os.path.join(JPEG_DIR, "manifest.json")) as fh:
@@ -4462,6 +4647,7 @@ def phase_jpeg(torch, name, smi):
         os.makedirs(png_dir)
         stills, err_stills = jpeg_stills(torch, manifest)
         times, err_clip = jpeg_clip_times(torch, manifest, png_dir)
+        coded = jpeg_coded_kinds(torch, manifest)
         track = jpeg_track(torch, manifest, png_dir, root)
         detect = jpeg_detect(torch, root)
     finally:
@@ -4469,8 +4655,8 @@ def phase_jpeg(torch, name, smi):
     seconds = time.perf_counter() - t0
     log(f"[jpeg] {seconds:.1f} s in all ({name}; {smi})")
     return dict(device=name, nvidia_smi=smi, stills=stills, times=times,
-                track=track, detect=detect, seconds=seconds,
-                max_abs_err=max(err_stills, err_clip))
+                coded=coded, track=track, detect=detect, seconds=seconds,
+                max_abs_err=max(err_stills, err_clip, coded["max_abs_err"]))
 
 
 # J1's and J2's measurement builds: -DJPEG_*_LAUNCH_ONLY returns at once
@@ -4738,6 +4924,23 @@ def jpeg_entry(jpeg, tiffwebp=None):
         plain_ms=t["twin_device_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None, ms_source="torch.profiler",
         **extra)
+
+
+def jpeg_samples_entry(jpeg):
+    """The kernels line's entry of J1's samples source (a lossless JPEG's
+    samples): device ms on the grey SOF3 frame of the clip, launches of
+    the counted ``load_gray_image`` run on it."""
+    source, replaces = SOURCES["jpeg_samples"]
+    c = jpeg["coded"]
+    return dict(
+        name="jpeg_samples", route="cuda", source=source, replaces=replaces,
+        replaces_note="no pallas_call: the JAX package decodes images with "
+        "PIL on the host; J1's samples source is a hand kernel of the io "
+        "slice",
+        launches=c["samples_launches"], max_abs_err=c["max_abs_err"],
+        ms=c["samples_device_ms"], plain_ms=c["samples_twin_device_ms"],
+        bound_ms=c["samples_bound_ms"], bound_by=c["samples_bound_by"],
+        library_ms=None, ms_source="torch.profiler")
 
 
 # ---------------------------------------------------------------- #
@@ -5324,8 +5527,9 @@ def tiffwebp_times(torch, paths, pngs):
     twin's and its bound."""
     from superviseddescent_tpu_torch.io import jpeg
     from superviseddescent_tpu_torch.io.tiff import jpeg_chunks
+    from superviseddescent_tpu_torch.ops import jpeg as ops_jpeg
     from superviseddescent_tpu_torch.ops.jpeg import (
-        entropy_decode_native, jpeg_pixels, read_tiff_jpeg)
+        jpeg_pixels, read_tiff_jpeg)
     from superviseddescent_tpu_torch.ops.patches import load_gray_image
     order = dict(paths, png=pngs["webp"])
     ms = {kind: [] for kind in order}
@@ -5338,30 +5542,43 @@ def tiffwebp_times(torch, paths, pngs):
     for kind, name in TIFFWEBP_J1.items():
         with open(os.path.join(IMAGEIO_DIR, name), "rb") as fh:
             data = fh.read()
+        # J1's launches of one read, caught with their inputs and replayed:
+        # the profiled calls hold J1 alone, not the host's entropy stage
+        # between its launches (the profiler lost every launch of three
+        # such sessions in a row late in a run)
+        launched = []
+        launch_j1 = ops_jpeg._launch_j1
+
+        def spy(symbol, values, dtype, f, channels, tile):
+            launched.append((values, f, channels))
+            return launch_j1(symbol, values, dtype, f, channels, tile)
+        before = jpeg_pixels.launches
+        ops_jpeg._launch_j1 = spy
+        try:
+            read_tiff_jpeg(data, 1)
+        finally:
+            ops_jpeg._launch_j1 = launch_j1
+        per_call = jpeg_pixels.launches - before
+        check(per_call == len(launched), f"J1 on {name}: {per_call} "
+              f"launches counted, {len(launched)} caught")
+
+        def replay(kernel):
+            return lambda: [kernel(c, f, ch) for c, f, ch in launched]
         # a read's launches are one kernel by name: its mean over the
         # session times the launches a read counts (the profiler may miss
-        # a session's first launches, which rounding per read would halve)
-        before = jpeg_pixels.launches
-        read_tiff_jpeg(data, 1)
-        per_call = jpeg_pixels.launches - before
+        # some of a session's launches, which rounding per read would halve)
         j1_ms = []
         for _ in range(2):
-            found = device_kernels(torch, lambda: read_tiff_jpeg(data, 1),
-                                   reps=10, match="jpeg_pixels")
+            found = device_kernels(torch, replay(jpeg_pixels), reps=10,
+                                   match="jpeg_pixels",
+                                   launches_per_call=per_call)
             check(len(found) == 1, f"J1 on {name}: kernels {found}")
             j1_ms.append(per_call * found[0][2] / 1e3)
         frames = [jpeg.parse_jpeg(st) for st in jpeg_chunks(data).streams]
-        f = frames[0]
-        groups = [[g for g in frames if (g.width, g.height) == (
-            f.width, f.height)]]
-        groups += [grp for grp in [frames[len(groups[0]):]] if grp]
-        coefs = [torch.stack([entropy_decode_native(g) for g in grp]).cuda()
-                 for grp in groups]
         # the twin runs some 10^5 small operations a page: two reps, or
         # the profiler's records take minutes to sum
-        twin_ms = device_ms(torch, lambda: [jpeg.pixels_reference(
-            c, grp[0], 1) for c, grp in zip(coefs, groups)], reps=2,
-            one_kernel=False)
+        twin_ms = device_ms(torch, replay(jpeg.pixels_reference), reps=2,
+                            one_kernel=False)
         bounds = [jpeg_bound(g, 1) for g in frames]
         bound = {k: sum(b[k] for b in bounds) for k in bounds[0]}
         j1[kind] = dict(
@@ -6899,7 +7116,8 @@ def main():
         name, smi = phase_device(torch)
         phase_build()
         jpeg = phase_jpeg(torch, name, smi)
-        print(json.dumps({"jpeg": jpeg, "kernels": [jpeg_entry(jpeg)]}))
+        print(json.dumps({"jpeg": jpeg, "kernels": [
+            jpeg_entry(jpeg), jpeg_samples_entry(jpeg)]}))
         return 0
     if opts.imageio:
         name, smi = phase_device(torch)
@@ -6961,8 +7179,8 @@ def main():
     remainder = phase_remainder(torch, data, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                              families, remainder) + [
-        jpeg_entry(jpeg, tiffwebp), imageio_entry(imageio)] + \
-        webp_lossy_entries(webp)
+        jpeg_entry(jpeg, tiffwebp), jpeg_samples_entry(jpeg),
+        imageio_entry(imageio)] + webp_lossy_entries(webp)
     k3_shapes = {
         "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
         "rcr22_batch1": tracking["k3_batch1_ms"],
@@ -6986,9 +7204,13 @@ def main():
                        k3_batches=batches, facedetect=facedetect,
                        apps=apps, jpeg=jpeg, imageio=imageio,
                        tiffwebp=tiffwebp, webp=webp, remainder=remainder,
+                       profile_fallbacks=PROFILE_FALLBACKS,
                        seconds=time.perf_counter() - t0), f,
                   indent=1)
     check(all(math.isfinite(e["ms"]) for e in entries), "bad kernel times")
+    if PROFILE_FALLBACKS:
+        log(f"[profile] timed with CUDA events, no profiler session holding "
+            f"a record (match, reps): {PROFILE_FALLBACKS}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -59,7 +59,8 @@ KERNELS = {
                   "probe_empty_launch": [_P]},
     # JPEG (ops/jpeg.py): the host entropy decoder and J1
     "jpeg_decode": {"jpeg_entropy_decode": [_P, _I, _P, _P, _P],
-                    "jpeg_pixels_launch": [_P] * 5},
+                    "jpeg_pixels_launch": [_P] * 5,
+                    "jpeg_samples_launch": [_P] * 5},
     # JPEG writing (ops/jpeg.py): J2 and the host Huffman coder
     "jpeg_encode": {"jpeg_coefficients_launch": [_P] * 5,
                     "jpeg_huffman_encode": [_P, _I, _P, _P, _P, _I]},

@@ -3,10 +3,12 @@ and ``write_jpeg``.
 
 ``read_jpeg`` parses the stream (``io/jpeg.py``), decodes its entropy-coded
 data on the host and runs the pixel stage where the caller asks: on the
-card, the host C++ entropy decoder of ``csrc/jpeg_decode.cu`` decodes every
-scan in one call and writes the coefficients into pinned memory, they go to
-the card asynchronously and J1 (``jpeg_pixels``) turns them into uint8 grey
-or RGB there; on the CPU, the plain twins of both stages run
+card, the host C++ entropy decoder of ``csrc/jpeg_decode.cu`` (Huffman or
+arithmetic, with libjpeg's block smoothing; or lossless) decodes every scan
+in one call and writes the coefficients (a lossless frame's samples) into
+pinned memory, they go to the card asynchronously and J1 (``jpeg_pixels``;
+``jpeg_samples``, its samples source, for a lossless frame) turns them into
+uint8 grey or RGB there; on the CPU, the plain twins of both stages run
 (``io/jpeg.entropy_decode`` and ``io/jpeg.pixels_reference``). A failed
 build or launch raises; nothing falls back to the twins.
 ``read_tiff_jpeg`` decodes a JPEG-compressed TIFF the same way, its
@@ -31,8 +33,8 @@ import numpy as np
 import torch
 
 from superviseddescent_tpu_torch.io.jpeg import (
-    COLOR_GREY, COLOR_RGB, COLOR_YCC, ERRORS, JpegFrame, entropy_decode,
-    parse_jpeg, pixels_reference)
+    COLOR_GREY, COLOR_RGB, COLOR_YCC, ERRORS, SMOOTHING_COEFS, ZIGZAG,
+    JpegFrame, entropy_decode, parse_jpeg, pixels_reference)
 from superviseddescent_tpu_torch.io.jpeg_write import (
     DEFAULT_QUALITY, EncLayout, assemble, coefficients_reference,
     encode_jpeg, layout, std_tables)
@@ -74,7 +76,9 @@ def quant_on_card(quant: np.ndarray, device) -> torch.Tensor:
 
 def entropy_params(f: JpegFrame):
     """The host decoder's inputs: every scan's bytes one after another, its
-    int32 parameters (see ``csrc/jpeg_decode.cu``) and its Huffman tables,
+    int32 parameters (see ``csrc/jpeg_decode.cu``: the frame, then per
+    component its layout and what block smoothing needs, then per scan its
+    tables and an arithmetic scan's conditioning) and its Huffman tables,
     rows of 16 length counts and 256 symbols, each table once."""
     rows, index = [], {}
 
@@ -87,18 +91,35 @@ def entropy_params(f: JpegFrame):
         return index[id(table)]
 
     params = [len(f.components), f.mcux, f.mcuy, f.blocks, len(f.scans),
-              int(f.progressive)]
+              int(f.progressive), int(f.arithmetic), int(f.lossless),
+              int(f.smooth is not None), f.width, f.height, 0]
+    firsts = ZIGZAG[:SMOOTHING_COEFS]
     for i in range(MAX_COMPONENTS):
-        c = f.components[i] if i < len(f.components) else None
-        params += ([c.h, c.v, c.nbx, c.offset, c.bw, c.bh] if c else
-                   [0] * 6)
+        if i >= len(f.components):
+            params += [0] * 32
+            continue
+        c = f.components[i]
+        bits = (f.smooth[i].tolist() if f.smooth is not None
+                else [0] * SMOOTHING_COEFS)
+        quant = (c.quant[firsts].tolist() if c.quant is not None
+                 else [0] * SMOOTHING_COEFS)
+        params += [c.h, c.v, c.nbx, c.offset, c.bw, c.bh, c.nby, c.dw, c.dh,
+                   c.sh, c.sv, 0] + bits + quant
     offset = 0
     for s in f.scans:
         pad = [-1] * (MAX_COMPONENTS - len(s.comps))
+        zero = [0] * len(pad)
         params += [offset, len(s.data), len(s.comps), s.ss, s.se, s.ah, s.al,
                    s.restart]
-        params += s.comps + [0] * len(pad)
-        params += [row(t) for t in s.dc] + pad + [row(t) for t in s.ac] + pad
+        params += s.comps + zero
+        if f.arithmetic:
+            params += [t[0] for t in s.tables] + zero
+            params += [t[1] for t in s.tables] + zero
+            for j in range(3):
+                params += [cond[j] for cond in s.cond] + zero
+        else:
+            params += [row(t) for t in s.dc] + pad + [row(t) for t in s.ac]
+            params += pad + [0] * 12
         offset += len(s.data)
     huff = np.zeros((max(len(rows), 1), 272), np.uint8)
     for i, (bits, vals) in enumerate(rows):
@@ -108,24 +129,29 @@ def entropy_params(f: JpegFrame):
     return data, np.asarray(params, np.int32), huff
 
 
-def entropy_decode_native(f: JpegFrame, out=None) -> torch.Tensor:
+def entropy_decode_native(f: JpegFrame, out=None,
+                          library=None) -> torch.Tensor:
     """The host C++ entropy decoder, every scan in one call: (blocks, 64)
-    int16 coefficients in pinned memory, equal to
-    ``io/jpeg.entropy_decode``'s; into ``out`` (a contiguous host tensor
-    of that shape, a batch's row) where given."""
-    from superviseddescent_tpu_torch.ops._build import load_library
-    lib = load_library("jpeg_decode")
+    int16 coefficients (a lossless frame's uint8 samples) in pinned
+    memory, equal to ``io/jpeg.entropy_decode``'s; into ``out`` (a
+    contiguous host tensor of that shape and type, a batch's row) where
+    given. ``library``: a loaded build of the decoder (the CPU tests build
+    its host half with g++); the output is pinned where a card is."""
+    if library is None:
+        from superviseddescent_tpu_torch.ops._build import load_library
+        library = load_library("jpeg_decode")
     _check_sizes(f, 1)
     data, params, huff = entropy_params(f)
     scan = np.frombuffer(data, np.uint8)
+    dtype = torch.uint8 if f.lossless else torch.int16
     if out is not None and (
-            out.device.type != "cpu" or out.dtype != torch.int16
+            out.device.type != "cpu" or out.dtype != dtype
             or tuple(out.shape) != (f.blocks, 64) or not out.is_contiguous()):
-        raise ValueError(f"the decoder writes contiguous int16 host "
-                         f"coefficients of shape ({f.blocks}, 64)")
+        raise ValueError(f"the decoder writes contiguous {dtype} host "
+                         f"values of shape ({f.blocks}, 64)")
     coef = out if out is not None else torch.empty(
-        (f.blocks, 64), dtype=torch.int16, pin_memory=True)
-    err = lib.jpeg_entropy_decode(
+        (f.blocks, 64), dtype=dtype, pin_memory=torch.cuda.is_available())
+    err = library.jpeg_entropy_decode(
         ctypes.c_void_p(scan.ctypes.data), len(scan),
         ctypes.c_void_p(params.ctypes.data), ctypes.c_void_p(huff.ctypes.data),
         ctypes.c_void_p(coef.data_ptr()))
@@ -167,46 +193,80 @@ def pixel_params(f: JpegFrame, channels: int, tile=None, batch: int = 1):
     return np.asarray(geom, np.int32), quant
 
 
+def _launch_j1(symbol: str, values: torch.Tensor, dtype, f: JpegFrame,
+               channels: int, tile) -> torch.Tensor:
+    """One launch of J1's coefficient or samples source on ``values``, a
+    CUDA tensor ([N,] blocks, 64) of ``dtype``."""
+    batch = values.shape[0] if values.dim() == 3 else 1
+    if (values.dtype != dtype or tuple(values.shape[-2:]) != (f.blocks, 64)
+            or values.dim() not in (2, 3) or not values.is_contiguous()
+            or not 1 <= batch <= J1_MAX_BATCH
+            or batch * f.width * f.height * channels > _INT32_MAX):
+        raise ValueError(f"J1 takes contiguous {dtype} of shape ([N,] "
+                         f"{f.blocks}, 64) with N at most {J1_MAX_BATCH}, "
+                         f"got {values.dtype} {tuple(values.shape)}")
+    from superviseddescent_tpu_torch.ops._build import load_library
+    geom, quant = pixel_params(f, channels, tile, batch)
+    shape = values.shape[:-2] + (f.height, f.width) + (
+        (3,) if channels == 3 else ())
+    out = torch.empty(shape, dtype=torch.uint8, device=values.device)
+    tables = quant_on_card(quant, values.device)
+    err = getattr(load_library("jpeg_decode"), symbol)(
+        ctypes.c_void_p(values.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(tables.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(values.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"jpeg_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
 def jpeg_pixels(coef: torch.Tensor, f: JpegFrame, channels: int = 1,
                 tile=None) -> torch.Tensor:
     """J1: (blocks, 64) int16 coefficients -> uint8 (H, W) grey (OpenCV's
     formula on the RGB; a 1-component image's Y) or (H, W, 3) RGB, on the
     coefficients' device; (N, blocks, 64), N images of ``f``'s geometry
-    and tables, -> (N, H, W[, 3]) in the same one launch. A CUDA tensor
-    launches the kernel; a CPU tensor takes the plain twin. ``tile``:
-    another launch plan than ``J1_TILE``'s (for the sweep)."""
+    and tables, -> (N, H, W[, 3]) in the same one launch. A lossless
+    frame's uint8 samples go to J1's samples source (``jpeg_samples``). A
+    CUDA tensor launches the kernel; a CPU tensor takes the plain twin.
+    ``tile``: another launch plan than ``J1_TILE``'s (for the sweep)."""
+    if f.lossless:
+        return jpeg_samples(coef, f, channels, tile)
     _check_sizes(f, channels)
     if coef.device.type == "cpu":
         return pixels_reference(coef, f, channels)
     if coef.device.type != "cuda":
         raise ValueError(f"unsupported device {coef.device}")
-    batch = coef.shape[0] if coef.dim() == 3 else 1
-    if (coef.dtype != torch.int16 or tuple(coef.shape[-2:]) != (f.blocks, 64)
-            or coef.dim() not in (2, 3) or not coef.is_contiguous()
-            or not 1 <= batch <= J1_MAX_BATCH
-            or batch * f.width * f.height * channels > _INT32_MAX):
-        raise ValueError(f"coefficients must be contiguous int16 of shape "
-                         f"([N,] {f.blocks}, 64) with N at most "
-                         f"{J1_MAX_BATCH}, got {coef.dtype} "
-                         f"{tuple(coef.shape)}")
-    from superviseddescent_tpu_torch.ops._build import load_library
-    geom, quant = pixel_params(f, channels, tile, batch)
-    shape = coef.shape[:-2] + (f.height, f.width) + (
-        (3,) if channels == 3 else ())
-    out = torch.empty(shape, dtype=torch.uint8, device=coef.device)
-    tables = quant_on_card(quant, coef.device)
-    err = load_library("jpeg_decode").jpeg_pixels_launch(
-        ctypes.c_void_p(coef.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(geom.ctypes.data), ctypes.c_void_p(tables.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(coef.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"jpeg_decode kernel launch failed: CUDA error "
-                           f"{err}")
+    out = _launch_j1("jpeg_pixels_launch", coef, torch.int16, f, channels,
+                     tile)
     jpeg_pixels.launches += 1
     return out
 
 
 jpeg_pixels.launches = 0
+
+
+def jpeg_samples(samples: torch.Tensor, f: JpegFrame, channels: int = 1,
+                 tile=None) -> torch.Tensor:
+    """J1's samples source: a lossless frame's (blocks, 64) uint8 samples
+    (``io/jpeg.lossless_decode``'s layout) -> uint8 (H, W) grey or (H, W,
+    3) RGB, upsampled and converted as J1 does it, with no dequantisation
+    and no IDCT. A CUDA tensor launches the kernel; a CPU tensor takes the
+    plain twin."""
+    if not f.lossless:
+        raise ValueError("J1's samples source takes a lossless frame")
+    _check_sizes(f, channels)
+    if samples.device.type == "cpu":
+        return pixels_reference(samples, f, channels)
+    if samples.device.type != "cuda":
+        raise ValueError(f"unsupported device {samples.device}")
+    out = _launch_j1("jpeg_samples_launch", samples, torch.uint8, f,
+                     channels, tile)
+    jpeg_samples.launches += 1
+    return out
+
+
+jpeg_samples.launches = 0
 
 
 def read_jpeg(path_or_bytes, channels: int = 1, device=None) -> torch.Tensor:
@@ -236,6 +296,9 @@ def _tiff_frame(stream: bytes, page, width: int, height: int) -> JpegFrame:
     luma at the YCbCrSubsampling tag's factors, chroma 1 x 1) and colour
     space (grey, RGB as it is, YCbCr converted)."""
     f = parse_jpeg(stream)
+    if f.arithmetic or f.lossless:
+        raise ValueError("TIFF JPEG: an arithmetic-coded or lossless stream "
+                         "(JPEG-in-TIFF is read Huffman-coded, DCT only)")
     if (f.width, f.height) != (width, height):
         raise ValueError(f"TIFF JPEG: a {f.width} x {f.height} frame in a "
                          f"{width} x {height} strip or tile")

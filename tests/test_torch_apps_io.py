@@ -15,7 +15,8 @@ the test records the unrounded coordinates ``DetectionModel.detect``
 returns in each package, holds the two within 1e-3, and holds each
 printed line to its own package's coordinates within half a print step.
 ``rcr_detect -o out.png`` writes the JAX app's bytes, and ``-o out.tif``
-PIL's TIFF of the same drawing; from a lossy WebP (``-i still.webp``) the
+PIL's TIFF of the same drawing; from a lossy WebP (``-i still.webp``), an
+arithmetic-coded progressive JPEG (SOF10) and a lossless one (SOF3) the
 landmarks and the drawn PNG are the JAX app's too.
 """
 
@@ -174,6 +175,46 @@ def test_rcr_detect_on_a_lossy_webp_matches_jax(monkeypatch, tmp_path):
     with Image.open(os.path.join(SYNTH, IMAGE + ".png")) as im:
         still = tmp_path / "still.webp"
         im.convert("RGB").save(still, "WEBP", quality=80)
+    common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
+              str(still), "--facebox", "60.5,120.25,170,175"]
+    want, got = [], []
+    record_detect(monkeypatch, jax_rcr.DetectionModel, want)
+    record_detect(monkeypatch, port_rcr.DetectionModel, got)
+    jax_out, out = tmp_path / "jax.png", tmp_path / "out.png"
+    rc, _ = run_app(monkeypatch, jax_detect, common + ["-o", str(jax_out)])
+    assert rc == 0
+    rc, text = run_app(monkeypatch, rcr_detect, common + [
+        "-o", str(out), "--device", "cpu"])
+    assert rc == 0 and f"Wrote {out}" in text
+    (box, coords), (jax_box, jax_coords) = got[0], want[0]
+    np.testing.assert_allclose(box, jax_box, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(coords, jax_coords, atol=EXACT_PX, rtol=0)
+    assert out.read_bytes() == jax_out.read_bytes()
+
+
+@pytest.mark.parametrize("kind", ["sof10", "sof3"])
+def test_rcr_detect_on_arithmetic_and_lossless_jpeg_matches_jax(
+        monkeypatch, tmp_path, kind):
+    """-i still.jpg, arithmetic-coded progressive (SOF10, the system
+    libjpeg's writer through tests/torch_jpeg_writer.c) or lossless (SOF3,
+    RGB, the numpy writer): the port reads it through its twins, the JAX
+    app through PIL; the landmarks within 1e-3 px, and -o out.png the JAX
+    app's bytes."""
+    from torch_jpeg_coders import Libjpeg, write_lossless
+    with Image.open(os.path.join(SYNTH, IMAGE + ".png")) as im:
+        rgb = np.asarray(im.convert("RGB"))
+    if kind == "sof10":
+        try:
+            data = Libjpeg(tmp_path).write(
+                rgb, 75, sampling=[(2, 2), (1, 1), (1, 1)], progressive=True)
+        except OSError as e:
+            pytest.skip(f"no gcc or -ljpeg: {e}")
+    else:
+        data = write_lossless([np.ascontiguousarray(rgb[..., c])
+                               for c in range(3)], rgb.shape[1],
+                              rgb.shape[0], predictor=4, table="optimal")
+    still = tmp_path / "still.jpg"
+    still.write_bytes(data)
     common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
               str(still), "--facebox", "60.5,120.25,170,175"]
     want, got = [], []

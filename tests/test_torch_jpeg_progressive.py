@@ -11,8 +11,9 @@ and none), 4:1:1 and 4:4:0 (a PIL file's SOF relabelled), and sequential
 streams in several scans or with other sampling factors, written by the
 fixture script's coefficient-level encoder (``write_sequential``). A
 progressive stream's coefficients equal the baseline stream's of the same
-pixels; a DQT after a component's first scan does not apply to it; and
-what stays refused raises a ``ValueError`` naming it.
+pixels; a DQT after a component's first scan does not apply to it; a
+stream whose last refinement scans are missing is block-smoothed as PIL
+reads it; and what stays refused raises a ``ValueError`` naming it.
 """
 
 import io
@@ -266,10 +267,10 @@ def progressive_refusal_cases():
     pos = progressive_scans(prog)[1][0]                 # Y 1-5, Al 2
     two_sos = (prog[:pos] + b"\xff\xda\x00\x0a\x02\x01\x00\x02\x00"
                + bytes([1, 5, 0x02]) + prog[pos + 10:])
+    # the first case was refused until libjpeg's block smoothing came in:
+    # its bytes now read as PIL reads them (message None)
     return {
-        "incomplete refinement": (
-            without_scans(prog, {7, 8, 9}), "not fully refined; libjpeg's "
-            "block smoothing is not ported"),
+        "incomplete refinement": (without_scans(prog, {7, 8, 9}), None),
         "fractional sampling": (
             relabel(relabel(colour, 11, 0x31), 14, 0x21),
             "fractional sampling not implemented"),
@@ -310,8 +311,12 @@ def progressive_refusal_cases():
 
 
 @pytest.mark.parametrize("case", sorted(progressive_refusal_cases()))
-def test_refusals_name_what_stays_unsupported(case):
+def test_refusals_name_what_stays_unsupported(case, tmp_path):
     data, message = progressive_refusal_cases()[case]
+    if message is None:
+        assert jpeg.parse_jpeg(data).smooth is not None
+        check_against_pil(save(tmp_path / "x.jpg", data))
+        return
     with pytest.raises(ValueError, match=message):
         read_jpeg(data, device="cpu")
 
@@ -326,6 +331,14 @@ def test_damaged_progressive_streams_raise(kind):
             len(data) - 40, scans[-1][0]]
     for cut in cuts:
         for tail in (b"", b"\xff\xd9"):
+            if cut == scans[-1][0] and tail:
+                # the last scan dropped: a well-formed stream whose last
+                # refinement is missing, which libjpeg block-smooths
+                np.testing.assert_array_equal(
+                    read_jpeg(data[:cut] + tail, 3, device="cpu"),
+                    np.asarray(Image.open(io.BytesIO(
+                        data[:cut] + tail)).convert("RGB")))
+                continue
             with pytest.raises(ValueError, match="JPEG"):
                 read_jpeg(data[:cut] + tail, device="cpu")
     for start, end in scans[::3]:

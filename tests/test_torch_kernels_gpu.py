@@ -1195,6 +1195,43 @@ def test_jpeg_kernel_equals_twin_and_pil(cuda, name):
 
 
 @pytest.mark.parametrize("name", [
+    "a00_grey_q50.jpg", "a07_420_q75.jpg", "a12_420_q75_restart.jpg",
+    "a13_444_q75_dac.jpg", "a15_420_q75_prog.jpg",
+    "b00_420_q75_arith_never.jpg", "b03_444_q75_huffman_unrefined.jpg",
+    "l00_grey_p1.jpg", "l08_rgb_ids123_p6.jpg", "l11_420_p7.jpg",
+    "l12_420_3scans_restart_p4.jpg", "l13_cmyk_p1.jpg",
+    "timing/t02_clip_f000_sof3_grey.jpg"])
+def test_jpeg_coded_kinds_equal_twin_and_pil(cuda, name):
+    """Arithmetic-coded, block-smoothed and lossless stills: the host
+    decoder equal to the Python twins, J1 (the samples source for a
+    lossless frame, with its own launch count) bit-equal to its twin on
+    the same tensors and to PIL's digests."""
+    import hashlib
+    from superviseddescent_tpu_torch.io import jpeg
+    from superviseddescent_tpu_torch.ops.jpeg import (
+        entropy_decode_native, jpeg_pixels, jpeg_samples, read_jpeg)
+    m = jpeg_manifest()
+    want = m["stills"].get(name) or m["timing"][name]
+    data = open(os.path.join(JPEG_FIXTURES, name), "rb").read()
+    f = jpeg.parse_jpeg(data)
+    host = entropy_decode_native(f)
+    assert host.is_pinned()
+    assert host.dtype == (torch.uint8 if f.lossless else torch.int16)
+    np.testing.assert_array_equal(host.numpy(), jpeg.entropy_decode(f))
+    values = host.to(cuda)
+    counter = jpeg_samples if f.lossless else jpeg_pixels
+    for channels, key in ((1, "grey_sha256"), (3, "rgb_sha256")):
+        before = counter.launches
+        got = jpeg_pixels(values, f, channels)
+        assert counter.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, jpeg.pixels_reference(values, f, channels))
+        assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == \
+            want[key]
+        assert torch.equal(read_jpeg(data, channels), got)
+
+
+@pytest.mark.parametrize("name", [
     "s00_grey_q75.jpg", "s01_444_q95.jpg", "s02_422_q50.jpg",
     "s03_420_q75.jpg", "c00_cmyk_q75.jpg", "c01_ycck_q75.jpg",
     "r00_411_q75.jpg", "r01_440_q75.jpg", "x00_mixed_2x2_1x2_2x1.jpg",

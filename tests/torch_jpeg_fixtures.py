@@ -40,6 +40,27 @@ OpenCV's grey) and of PIL's ``convert("RGB")``, per file.
   luma 3x2 over 1x1 chroma (replication by 3 and 2).
 * clip_progressive: the clip's frames again with ``progressive=True``.
 
+* the coded kinds PIL does not write (``write_coded_kinds``; ``python
+  tests/torch_jpeg_fixtures.py --coded-kinds`` writes only these into the
+  manifest), from ``.synth120`` crops of at most 64 x 64:
+  arithmetic-coded SOF9 (grey, 4:4:4, 4:2:2, 4:2:0 at q 50 / 75 / 95, one
+  with restarts, one with DAC conditioning other than T.81's defaults, one
+  with its DAC segment dropped) and SOF10 (libjpeg's simple progression),
+  written by libjpeg through ``tests/torch_jpeg_writer.c`` (gcc, the
+  system's ``-ljpeg``: libjpeg-turbo 2.1.5 here); progressive streams whose
+  scan script stops refining early, Huffman SOF2 and arithmetic SOF10, the
+  first coefficients never sent or sent and not refined to bit 0, which
+  libjpeg block-smooths (``s``-less ``b0*``); lossless SOF3 (``l0*``/``l1*``)
+  from ``tests/torch_jpeg_coders.write_lossless``: predictors 1-7, point
+  transforms 0 and 2, restarts, grey, RGB under ids 1-2-3, 'R'-'G'-'B' and
+  Adobe, subsampled chroma interleaved and in scans of their own, CMYK.
+  ``refused``: files PIL cannot read, with libjpeg-turbo's own message
+  (PIL's bundled library through the same helper): SOF11, a lossless
+  stream with no DHT, a lossless JFIF (YCbCr) frame. ``timing``: frame 0
+  of the clip as SOF9 4:2:0 q75, as SOF10 and as a grey SOF3, for the
+  card's times (PIL's digests, outside ``stills``: the Python twins take
+  seconds on a frame of that size).
+
 The reference is always PIL's decode of the bytes written: a relabelled
 or re-encoded image's scrambled content is fine. The same seed gives the
 same bytes for the same PIL and libjpeg-turbo; ``tests/test_torch_jpeg.py``
@@ -51,9 +72,11 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import sys
 
 import numpy as np
+import PIL
 from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -323,13 +346,10 @@ def write_fixtures(out: str = OUT) -> dict:
             source=f"synth_{index:04d}", kind=kind, quality=quality,
             options=options, **pil_digests(path))
     _write_new_stills(out, manifest)
-    image = tint(synth(CLIP_IMAGE), SEED + 100)
     offsets = clip_offsets()
     frames, prog_frames = [], []
-    for k, (oy, ox) in enumerate(offsets):
-        frame = np.zeros(CLIP_SHAPE + (3,), np.uint8)
-        src = image[:CLIP_SHAPE[0] - oy, :CLIP_SHAPE[1] - ox]
-        frame[oy:oy + src.shape[0], ox:ox + src.shape[1]] = src
+    for k in range(len(offsets)):
+        frame = clip_frame(k)
         name = f"clip/f{k:03d}.jpg"
         os.makedirs(os.path.join(out, "clip"), exist_ok=True)
         path = os.path.join(out, name)
@@ -349,6 +369,7 @@ def write_fixtures(out: str = OUT) -> dict:
         source=f"synth_{CLIP_IMAGE:04d}", kind="4:2:0",
         quality=CLIP_QUALITY, options={"progressive": True},
         offsets=offsets.tolist(), frames=prog_frames)
+    write_coded_kinds(out, manifest)
     with open(os.path.join(out, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -415,6 +436,229 @@ def _write_new_stills(out, manifest):
             options={"scans": scans, "restart_interval": restart})
 
 
+# ------------------------------------------------------------ coded kinds
+# arithmetic SOF9 / SOF10: name -> (.synth120 image, kind, quality, crop (h,
+# w), libjpeg options)
+SAMPLING = {"grey": None, "4:4:4": [(1, 1)] * 3,
+            "4:2:2": [(2, 1), (1, 1), (1, 1)],
+            "4:2:0": [(2, 2), (1, 1), (1, 1)]}
+ARITHMETIC = {
+    **{f"a{4 * k + j:02d}_{kind.replace(':', '')}_q{q}":
+       (20 + 4 * k + j, kind, q, (61, 53), {})
+       for k, q in enumerate((50, 75, 95))
+       for j, kind in enumerate(("grey", "4:4:4", "4:2:2", "4:2:0"))},
+    "a12_420_q75_restart": (32, "4:2:0", 75, (64, 64), {"restart": 2}),
+    "a13_444_q75_dac": (33, "4:4:4", 75, (48, 64), {"dac": {
+        ("dc", 0): (2, 6), ("dc", 1): (1, 4), ("ac", 0): 12, ("ac", 1): 2}}),
+    "a14_420_q75_nodac": (34, "4:2:0", 75, (64, 40), {"strip_dac": True}),
+    "a15_420_q75_prog": (35, "4:2:0", 75, (64, 64), {"progressive": True}),
+    "a16_grey_q90_prog_restart": (36, "grey", 90, (57, 64),
+                                  {"progressive": True, "restart": 3}),
+    # a whole image (a face for rcr_detect -f on the card)
+    "a17_420_q75_prog_still": (2, "4:2:0", 75, None, {"progressive": True}),
+}
+# progressive scan scripts that stop refining early: the first ten
+# coefficients never sent (DC only, then 10-63), or sent and left at Al 1-2
+
+
+def _never(n):
+    return ([(list(range(n)), 0, 0, 0, 1)]
+            + [([c], 10, 63, 0, 0) for c in range(n)]
+            + [(list(range(n)), 0, 0, 1, 0)])
+
+
+def _unrefined(n):
+    return ([(list(range(n)), 0, 0, 0, 0)]
+            + [([c], 1, 5, 0, 2) for c in range(n)]
+            + [([c], 6, 63, 0, 1) for c in range(n)]
+            + [([c], 6, 63, 1, 0) for c in range(n)])
+
+
+# name -> (.synth120 image, kind, crop, arithmetic, script)
+SMOOTHED = {
+    "b00_420_q75_arith_never": (40, "4:2:0", (64, 64), True, _never),
+    "b01_420_q75_arith_unrefined": (41, "4:2:0", (64, 56), True, _unrefined),
+    "b02_420_q75_huffman_never": (42, "4:2:0", (56, 64), False, _never),
+    "b03_444_q75_huffman_unrefined": (43, "4:4:4", (40, 48), False,
+                                      _unrefined),
+    # two blocks wide: libjpeg-turbo 2.1.5 and 3.x smooth it differently
+    "b04_grey_q75_huffman_unrefined_16": (44, "grey", (48, 16), False,
+                                          _unrefined),
+    "b05_422_q75_arith_never_24": (45, "4:2:2", (40, 24), True, _never),
+}
+# lossless SOF3: name -> (.synth120 image, kind, crop, write_lossless
+# options)
+LOSSLESS = {
+    **{f"l{p - 1:02d}_grey_p{p}{'_pt2' if p % 2 == 0 else ''}":
+       (50 + p, "grey", (45, 61), {"predictor": p, "pt": 2 * (p % 2 == 0)})
+       for p in range(1, 8)},
+    "l07_grey_p4_restart": (58, "grey", (64, 64), {"predictor": 4,
+                                                   "restart": 2 * 64}),
+    "l08_rgb_ids123_p6": (59, "rgb", (45, 61), {"predictor": 6}),
+    "l09_rgb_adobe_p5_pt2": (60, "rgb", (45, 61), {
+        "predictor": 5, "pt": 2, "markers": ("adobe0",)}),
+    "l10_rgb_idsRGB_p2": (61, "rgb", (45, 61), {"predictor": 2,
+                                                "ids": [82, 71, 66]}),
+    "l11_420_p7": (62, "rgb", (45, 61), {
+        "predictor": 7, "sampling": [(2, 2), (1, 1), (1, 1)]}),
+    "l12_420_3scans_restart_p4": (63, "rgb", (40, 32), {
+        "predictor": 4, "sampling": [(2, 2), (1, 1), (1, 1)],
+        "scans": [[0], [1], [2]], "restart": 32}),
+    "l13_cmyk_p1": (64, "cmyk", (37, 29), {"predictor": 1,
+                                           "markers": ("adobe0",)}),
+    "l14_422_2scans_p3": (65, "rgb", (45, 62), {
+        "predictor": 3, "sampling": [(2, 1), (1, 1), (1, 1)],
+        "scans": [[0], [1, 2]], "restart": 62}),
+}
+# what PIL cannot read: name -> (.synth120 image, kind, crop, options)
+REFUSED = {
+    "z00_sof11_grey": (66, "grey", (37, 29), {"arithmetic": True}),
+    "z01_lossless_no_dht": (67, "grey", (37, 29), {"table": None}),
+    "z02_lossless_jfif": (68, "rgb", (37, 29), {"markers": ("jfif",)}),
+}
+# PIL's own libjpeg-turbo (its wheel's bundled libraries)
+PILS_LIBJPEG = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                            "pillow.libs")
+
+
+def _coded_pixels(index, kind, crop, seed):
+    grey = _cropped(index, crop)
+    if kind == "grey":
+        return grey
+    rgb = tint(grey, seed)
+    if kind == "cmyk":
+        return np.concatenate([rgb, 255 - grey[..., None]], axis=-1)
+    return rgb
+
+
+def _planes(pixels, options):
+    """The component planes ``write_lossless`` takes (chroma subsampled by
+    taking every h-th / v-th sample)."""
+    from torch_jpeg_coders import lossless_layout
+    px = pixels[..., None] if pixels.ndim == 2 else pixels
+    h, w = px.shape[:2]
+    sampling = options.get("sampling") or [(1, 1)] * px.shape[2]
+    hmax = max(a for a, _ in sampling)
+    vmax = max(b for _, b in sampling)
+    out = []
+    for c, ((dh, dw), (sh, sv)) in enumerate(zip(
+            lossless_layout(w, h, sampling), sampling)):
+        out.append(np.ascontiguousarray(
+            px[::vmax // sv, ::hmax // sh, c][:dh, :dw]))
+    return out
+
+
+def _strip_dac(data: bytes) -> bytes:
+    at = data.index(b"\xff\xcc")
+    length = int.from_bytes(data[at + 2:at + 4], "big")
+    return data[:at] + data[at + 2 + length:]
+
+
+def clip_frame(k: int) -> np.ndarray:
+    """Frame ``k`` of the clip, RGB: the tinted image at its offset."""
+    image = tint(synth(CLIP_IMAGE), SEED + 100)
+    oy, ox = clip_offsets()[k]
+    frame = np.zeros(CLIP_SHAPE + (3,), np.uint8)
+    src = image[:CLIP_SHAPE[0] - oy, :CLIP_SHAPE[1] - ox]
+    frame[oy:oy + src.shape[0], ox:ox + src.shape[1]] = src
+    return frame
+
+
+def write_coded_kinds(out: str, manifest: dict) -> dict:
+    """The arithmetic, smoothed and lossless stills into ``stills``, the
+    refused files into ``refused`` and the clip frame's three kinds into
+    ``timing``."""
+    import tempfile
+    from torch_jpeg_coders import Libjpeg, write_lossless
+    build = tempfile.mkdtemp(prefix="torch_jpeg_writer_")
+    lj = Libjpeg(build)
+    pil_lj = Libjpeg(build, link=(f"-L{PILS_LIBJPEG}",
+                                  "-l:" + os.path.basename(glob.glob(
+                                      os.path.join(PILS_LIBJPEG,
+                                                   "libjpeg-*.so*"))[0]),
+                                  f"-Wl,-rpath,{PILS_LIBJPEG}"),
+                     name="tjw_pil")
+
+    def put(name, data, section="stills", **info):
+        path = os.path.join(out, name + ".jpg")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        if section == "refused":
+            try:
+                pil_lj.pixels(data)
+                message = None
+            except ValueError as e:
+                message = str(e)
+            manifest.setdefault("refused", {})[name + ".jpg"] = dict(
+                info, libjpeg_turbo_message=message)
+            return
+        manifest.setdefault(section, {})[name + ".jpg"] = dict(
+            info, **pil_digests(path))
+
+    for k, (name, (index, kind, q, crop, opts)) in enumerate(
+            ARITHMETIC.items()):
+        opts = dict(opts)
+        strip = opts.pop("strip_dac", False)
+        data = lj.write(_coded_pixels(index, kind, crop, SEED + 600 + k), q,
+                        sampling=SAMPLING[kind], arithmetic=True, **opts)
+        put(name, _strip_dac(data) if strip else data,
+            source=f"synth_{index:04d}", kind=kind, quality=q,
+            options=dict({key: str(v) for key, v in opts.items()},
+                         coding="arithmetic", dac_dropped=strip))
+    for k, (name, (index, kind, crop, arith, script)) in enumerate(
+            SMOOTHED.items()):
+        n = 1 if kind == "grey" else 3
+        data = lj.write(_coded_pixels(index, kind, crop, SEED + 700 + k), 75,
+                        sampling=SAMPLING[kind], arithmetic=arith,
+                        scans=script(n))
+        put(name, data, source=f"synth_{index:04d}", kind=kind, quality=75,
+            options={"coding": "arithmetic" if arith else "huffman",
+                     "scans": [list(map(str, s)) for s in script(n)],
+                     "smoothed": True})
+    for k, (name, (index, kind, crop, opts)) in enumerate(LOSSLESS.items()):
+        px = _coded_pixels(index, kind, crop, SEED + 800 + k)
+        put(name, write_lossless(_planes(px, opts), crop[1], crop[0],
+                                 table="optimal", **opts),
+            source=f"synth_{index:04d}", kind=kind, quality=0,
+            options={key: str(v) for key, v in opts.items()})
+    for k, (name, (index, kind, crop, opts)) in enumerate(REFUSED.items()):
+        px = _coded_pixels(index, kind, crop, SEED + 900 + k)
+        opts = dict(opts)
+        opts.setdefault("table", "optimal")
+        put(name, write_lossless(_planes(px, opts), crop[1], crop[0],
+                                 **opts), section="refused",
+            source=f"synth_{index:04d}", kind=kind,
+            options={key: str(v) for key, v in opts.items()})
+    from superviseddescent_tpu.ops.patches import rgb_to_gray_u8
+    frame = clip_frame(0)
+    grey = rgb_to_gray_u8(frame)
+    put("timing/t00_clip_f000_sof9",
+        lj.write(frame, CLIP_QUALITY, sampling=SAMPLING["4:2:0"]),
+        section="timing", kind="4:2:0", quality=CLIP_QUALITY,
+        options={"coding": "arithmetic"})
+    put("timing/t01_clip_f000_sof10",
+        lj.write(frame, CLIP_QUALITY, sampling=SAMPLING["4:2:0"],
+                 progressive=True), section="timing", kind="4:2:0",
+        quality=CLIP_QUALITY, options={"coding": "arithmetic",
+                                       "progressive": True})
+    put("timing/t02_clip_f000_sof3_grey",
+        write_lossless([grey], grey.shape[1], grey.shape[0], predictor=1,
+                       table="optimal"), section="timing", kind="grey",
+        quality=0, options={"predictor": 1, "lossless": True})
+    shutil.rmtree(build, ignore_errors=True)
+    return manifest
+
+
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
-    write_fixtures()
+    sys.path.insert(0, HERE)
+    if "--coded-kinds" in sys.argv:
+        with open(os.path.join(OUT, "manifest.json")) as f:
+            manifest = json.load(f)
+        write_coded_kinds(OUT, manifest)
+        with open(os.path.join(OUT, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1, sort_keys=True)
+            f.write("\n")
+    else:
+        write_fixtures()
