@@ -106,12 +106,19 @@ WebP in ``tests/torch_imageio`` read on the card to PIL's digests (a
 JPEG-compressed TIFF through J1, its batch of strips or tiles against
 J1's twin; WebP through the host C++ decoder, against the Python twin on
 the small files; a kind PIL cannot read refused by name);
+the rest of the TIFF files PIL reads (BigTIFF, CCITT RLE / Group 3 /
+Group 4 and Zstandard through the host C++ decoders of
+``csrc/tiff_decode.cu``, each against its Python twin, and YCbCr under
+the lossless compressions; a JPEG-compressed BigTIFF through J1);
 the clip frame's pixels as a lossless WebP, a JPEG-in-TIFF as PIL's
-writer and as libtiff's lay it out, an I;16 and an F TIFF and a PFM
+writer and as libtiff's lay it out, a JPEG-compressed BigTIFF, a
+Zstandard TIFF, a YCbCr 2x2 LZW TIFF, a CCITT RLE TIFF (coded here from
+the frame's grey), an I;16 and an F TIFF and a PFM
 through ``load_gray_image`` (each frame equal to the pixels the kind
 holds) and K3 on the 4,096 faces' boxes (rows equal to those of the same
 pixels as PNG; J1 once a JPEG-in-TIFF, K3 once a kind); each reader's ms
-on that 768 x 1024 frame and J1's device ms on each JPEG-in-TIFF layout
+on that 768 x 1024 frame, the CCITT and Zstandard host decoders' ms
+(C++ and twin) and J1's device ms on each JPEG-in-TIFF layout
 (and on strips of 80 rows, the worst case of two launches) beside its
 twin and its bound.
 
@@ -5331,7 +5338,8 @@ def imageio_entry(imageio):
 # ---------------------------------------------------------------- #
 # Every TIFF kind PIL reads, JPEG-in-TIFF (J1), PFM, lossless WebP
 # ---------------------------------------------------------------- #
-TIFFWEBP_GROUPS = ("tiff_kind", "tiff_more", "pfm", "webp", "clip")
+TIFFWEBP_GROUPS = ("tiff_kind", "tiff_more", "pfm", "webp", "clip",
+                   "tiff_remainder")
 # the committed 768 x 1024 files of the clip frame's pixels: a lossless
 # WebP, JPEG-in-TIFF as PIL's writer lays it out (RGB, 32 strips of 32
 # rows) and as libtiff's does (YCbCr 4:2:0, 64 strips of 16 rows), one J1
@@ -5342,6 +5350,13 @@ TIFFWEBP_COMMITTED = {"webp": "f04_clip.webp",
                       "jpeg_tiff_libtiff": "f07_clip_ycbcr420_libtiff.tif"}
 TIFFWEBP_J1 = dict(TIFFWEBP_COMMITTED, jpeg_tiff_worst="f05_clip_ycbcr420.tif")
 del TIFFWEBP_J1["webp"]
+# the rest of the TIFF files PIL reads, on the clip frame: PIL's
+# JPEG-in-TIFF (f06) re-laid as BigTIFF (one J1 launch), PIL's Zstandard
+# (predictor 2) and libtiff's YCbCr 2x2 units under LZW (strips of 16
+# rows); a CCITT RLE TIFF is coded here (tiff_ccitt_rle)
+TIFF_REMAINDER_COMMITTED = {"jpeg_tiff_big": "f09_clip_bigtiff_jpeg.tif",
+                            "zstd_tiff": "f10_clip_zstd.tif",
+                            "ycbcr_tiff": "f11_clip_ycbcr22_lzw.tif"}
 TIFFWEBP_REPS = 5
 
 
@@ -5352,14 +5367,15 @@ def tiffwebp_readers(torch, manifest):
     kind PIL cannot read raises. J1 on each JPEG-compressed
     TIFF's batch of strips or tiles against its twin on the same
     coefficients; the C++ WebP decoder against the Python twin on the
-    small WebP fixtures. Returns (files checked, J1's largest difference
-    from its twin)."""
+    small WebP fixtures; the C++ CCITT and Zstandard decoders against
+    their twins. Returns (files checked, J1's largest difference from its
+    twin)."""
     import hashlib
     import numpy as np
     from superviseddescent_tpu_torch.io import jpeg
     from superviseddescent_tpu_torch.io.image import read_gray, read_rgb
     from superviseddescent_tpu_torch.io.tiff import (
-        compression as tiff_compression, jpeg_chunks)
+        NATIVE, compression as tiff_compression, decode_tiff, jpeg_chunks)
     from superviseddescent_tpu_torch.io.webp import (
         compose, decode_vp8l, decode_vp8l_native)
     from superviseddescent_tpu_torch.ops.jpeg import (
@@ -5401,12 +5417,17 @@ def tiffwebp_readers(torch, manifest):
             check(np.array_equal(compose(data, decode_vp8l_native),
                                  compose(data, decode_vp8l)),
                   f"{name}: the C++ decoder differs from the Python twin")
+        if name.endswith(".tif") and tiff_compression(data) in NATIVE:
+            check(np.array_equal(decode_tiff(data, native=True),
+                                 decode_tiff(data)),
+                  f"{name}: the C++ TIFF decoder differs from the twin")
     check(worst == 0, f"J1 on the TIFF batches differs from its twin by "
           f"{worst}")
     log(f"[tiffwebp] {len(names)} fixtures on the card ({refused} refused "
         "by name as PIL refuses them), the rest equal to PIL's "
-        "grey and RGB digests; J1 on every JPEG-in-TIFF batch equal to its "
-        "twin; the C++ WebP decoder equal to the Python twin")
+        "grey and RGB digests; J1 on every JPEG-in-TIFF batch (BigTIFF's "
+        "too) equal to its twin; the C++ WebP, CCITT and Zstandard decoders "
+        "equal to their Python twins")
     return len(names), worst
 
 
@@ -5425,6 +5446,43 @@ def tiff_bytes(samples, bits: int, sample_format: int) -> bytes:
     return b"II*\x00" + struct.pack("<I", 8 + len(body)) + body + ifd
 
 
+def tiff_ccitt_rle(black) -> bytes:
+    """Bilevel rows (True black) as a CCITT RLE TIFF (compression 2,
+    white-is-zero, one strip): each row's runs in modified Huffman codes
+    from white (io/ccitt.py's tables), the row padded to a byte."""
+    import struct
+    import numpy as np
+    from superviseddescent_tpu_torch.io import ccitt
+    h, w = black.shape
+
+    def run(n, colour):
+        codes = ccitt.BLACK_CODES if colour else ccitt.WHITE_CODES
+        makeup = ccitt.BLACK_MAKEUP if colour else ccitt.WHITE_MAKEUP
+        out = ""
+        while n >= 2624:
+            out += ccitt.EXTENDED_MAKEUP[-1]
+            n -= 2560
+        if n >= 64:
+            m = n // 64
+            out += makeup[m - 1] if m <= 27 else ccitt.EXTENDED_MAKEUP[m - 28]
+            n -= 64 * m
+        return out + codes[n]
+    body = bytearray()
+    for row in black.astype(np.int8):
+        changes = (np.flatnonzero(np.diff(row)) + 1).tolist()
+        bounds = [0] + [0] * int(row[0]) + changes + [w]
+        code = "".join(run(b - a, k & 1)
+                       for k, (a, b) in enumerate(zip(bounds, bounds[1:])))
+        code += "0" * (-len(code) % 8)
+        body += int(code, 2).to_bytes(len(code) // 8, "big")
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 1), (259, 3, 2), (262, 3, 0),
+            (273, 4, 8), (277, 3, 1), (278, 4, h), (279, 4, len(body))]
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHI", t, k, 1) + struct.pack(
+            "<I" if k == 4 else "<H2x", v) for t, k, v in tags) + bytes(4)
+    return b"II*\x00" + struct.pack("<I", 8 + len(body)) + bytes(body) + ifd
+
+
 def tiffwebp_files(torch, manifest, root):
     """The clip frame's pixels in every new kind, as files under ``root``,
     and the grey that ``load_gray_image`` must give for each: the
@@ -5432,8 +5490,11 @@ def tiffwebp_files(torch, manifest, root):
     (the grey of their RGB read on the card, both digests PIL's), and
     built here from the clip frame's grey (the card has no PIL) an I;16
     TIFF (twice the grey: clipped past 127), an F TIFF (the grey plus 0.7:
-    truncated back) and a PFM (1.5 times less 20, rows bottom up:
-    truncated and clipped). Returns (paths, greys) by kind."""
+    truncated back), a PFM (1.5 times less 20, rows bottom up:
+    truncated and clipped) and a CCITT RLE TIFF (the grey below 128
+    black, white-is-zero: 0 and 255); the rest of the TIFF kinds' files
+    (``TIFF_REMAINDER_COMMITTED``) as the JPEG-in-TIFFs. Returns (paths,
+    greys) by kind."""
     import hashlib
     import shutil
     import numpy as np
@@ -5449,7 +5510,8 @@ def tiffwebp_files(torch, manifest, root):
         "its lossless WebP")
     g = grey.astype("<f4")
     paths, greys = {}, {"webp": grey}
-    for kind, name in TIFFWEBP_COMMITTED.items():
+    for kind, name in {**TIFFWEBP_COMMITTED,
+                       **TIFF_REMAINDER_COMMITTED}.items():
         paths[kind] = os.path.join(root, name)
         shutil.copy(os.path.join(IMAGEIO_DIR, name), paths[kind])
         if kind != "webp":
@@ -5463,6 +5525,8 @@ def tiffwebp_files(torch, manifest, root):
     built = {"i16_tiff.tif": (tiff_bytes(grey.astype("<u2") * 2, 16, 1),
                               np.clip(2 * grey.astype(np.int32), 0, 255)),
              "f_tiff.tif": (tiff_bytes(g + 0.7, 32, 3), grey),
+             "ccitt_tiff.tif": (tiff_ccitt_rle(grey < 128),
+                                np.where(grey < 128, 0, 255)),
              "pfm.pfm": (b"Pf\n%d %d\n-1.0\n" % (g.shape[1], g.shape[0])
                          + (g * 1.5 - 20)[::-1].astype("<f4").tobytes(),
                          np.clip(np.trunc(g * 1.5 - 20), 0, 255))}
@@ -5599,6 +5663,34 @@ def tiffwebp_times(torch, paths, pngs):
     return dict(load_gray_ms=ms, j1=j1)
 
 
+def tiff_decoder_times(paths, name, smi):
+    """The host TIFF decoders' ms on the 768 x 1024 frame (host clock):
+    ``decode_tiff`` of the Zstandard and CCITT RLE frames through the C++
+    decoders (best of TIFFWEBP_REPS) and through their Python twins (best
+    of 2: the Zstandard twin takes seconds a frame), and of the YCbCr 2x2
+    LZW frame (LZW and the colour conversion in numpy on the host, no C++
+    form)."""
+    from superviseddescent_tpu_torch.io.tiff import decode_tiff
+    ways = {"zstd_tiff": {"cpp": True, "twin": False},
+            "ccitt_tiff": {"cpp": True, "twin": False},
+            "ycbcr_tiff": {"host": False}}
+    out = {}
+    for kind, by in ways.items():
+        with open(paths[kind], "rb") as fh:
+            data = fh.read()
+        for way, native in by.items():
+            ms = []
+            for _ in range(2 if way == "twin" else TIFFWEBP_REPS):
+                t0 = time.perf_counter()
+                decode_tiff(data, native)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[f"{kind}_{way}"] = ms
+    log("[tiffwebp] decode_tiff of the 768 x 1024 frame, host ms (best of "
+        f"{TIFFWEBP_REPS}, twins of 2): " + ", ".join(
+            f"{k} {min(v):.2f}" for k, v in out.items()) + f" ({name}; {smi})")
+    return out
+
+
 def tiffwebp_entry(tiffwebp):
     """J1's entry of a ``--tiffwebp`` run: launches and device ms per 768
     x 1024 JPEG-in-TIFF page as PIL's writer lays it out, the other
@@ -5622,10 +5714,12 @@ def tiff_page_times(j1):
 
 
 def phase_tiffwebp(torch, data, name, smi):
-    """The TIFF kinds, JPEG-in-TIFF (J1), PFM and lossless WebP on the
-    card: every new fixture to PIL's digests, J1's TIFF batches against
-    the twin, the clip frame in each new kind through load_gray_image and
-    K3 (rows equal to its PNG's), the readers' and J1's times."""
+    """The TIFF kinds (BigTIFF, CCITT, Zstandard and YCbCr too),
+    JPEG-in-TIFF (J1), PFM and lossless WebP on the card: every new
+    fixture to PIL's digests, J1's TIFF batches and the C++ TIFF and WebP
+    decoders against their twins, the clip frame in each new kind through
+    load_gray_image and K3 (rows equal to its PNG's), the readers', the
+    host decoders' and J1's times."""
     import shutil
     import tempfile
     with open(os.path.join(IMAGEIO_DIR, "manifest.json")) as fh:
@@ -5637,13 +5731,14 @@ def phase_tiffwebp(torch, data, name, smi):
         paths, greys = tiffwebp_files(torch, manifest, root)
         launches, pngs = tiffwebp_k3(torch, data, paths, greys, root)
         times = tiffwebp_times(torch, paths, pngs)
+        decoders = tiff_decoder_times(paths, name, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     seconds = time.perf_counter() - t0
     log(f"[tiffwebp] {seconds:.1f} s in all ({name}; {smi})")
     return dict(device=name, nvidia_smi=smi, files_checked=checked,
                 max_abs_err=worst, launches=launches, times=times,
-                seconds=seconds)
+                host_decoders_ms=decoders, seconds=seconds)
 
 
 # ---------------------------------------------------------------- #

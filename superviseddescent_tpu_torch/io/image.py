@@ -3,7 +3,8 @@
 ``sniff`` reads the format from the magic bytes: PNG, JPEG, BMP (``BM``),
 PNM (every prefix PIL's ``PpmImagePlugin._accept`` takes: ``P0``-``P6``,
 ``Pf`` and ``Py``; ``decode_pnm`` reads grey PFM and refuses PIL's own
-extensions by name), TIFF (``II*\\0``, ``MM\\0*``), GIF (``GIF87a``,
+extensions by name), TIFF (``II*\\0``, ``MM\\0*`` and BigTIFF's ``II+\\0``,
+``MM\\0+``), GIF (``GIF87a``,
 ``GIF89a``) and WebP (``RIFF....WEBP``, lossless and lossy, an
 animation's first frame); a format PIL reads that is not ported (JPEG
 2000, PSD, QOI) raises naming it. ``read_rgb`` is
@@ -18,8 +19,10 @@ one), and so does a JPEG-compressed TIFF's (``ops/jpeg.read_tiff_jpeg``)
 and a lossy WebP's (kernels W1-W3 after the host entropy stage,
 ``ops/webp.read_webp``); a lossless WebP decodes on the host, by the C++
 decoder where ``device`` is the card and by its Python twin on the CPU
-(``io/webp``); every other format decodes on the host (``io/png``,
-``bmp``, ``pnm``, ``tiff``, ``gif``).
+(``io/webp``), and so do a TIFF's CCITT and Zstandard strips (the C++
+decoders of ``csrc/tiff_decode.cu``, or ``io/ccitt`` and ``io/zstd``);
+every other format decodes on the host (``io/png``, ``bmp``, ``pnm``,
+``tiff``, ``gif``). TIFF is classic or BigTIFF.
 
 ``format_for`` is PIL's extension table (``Image.registered_extensions``
 of PIL 12.1) for the formats the port writes, case-insensitive;
@@ -41,7 +44,9 @@ from superviseddescent_tpu_torch.io.png import (
     SIGNATURE as PNG_SIGNATURE, decode_png, encode_png)
 from superviseddescent_tpu_torch.io.pnm import decode_pnm, encode_pnm
 from superviseddescent_tpu_torch.io.tiff import (
-    compression as tiff_compression, decode_tiff, encode_tiff)
+    NATIVE as TIFF_NATIVE, compression as tiff_compression, decode_tiff,
+    encode_tiff)
+from superviseddescent_tpu_torch.utils.device import resolve_device
 
 # the written formats of PIL's extension table
 WRITTEN = {".png": "PNG", ".apng": "PNG",
@@ -104,11 +109,13 @@ def sniff(data: bytes) -> str:
                      "WebP)")
 
 
-def decode_host(data: bytes, fmt: str, channels: int = 3) -> np.ndarray:
+def decode_host(data: bytes, fmt: str, channels: int = 3,
+                native=False) -> np.ndarray:
     """A host-decoded format's pixels: uint8 (H, W) grey or (H, W, 3)
     RGB; ``channels`` 1 for ``load_gray_image``'s reading where it
     differs from ``convert("RGB")``'s (a GIF's mode-L frame that keeps a
-    palette)."""
+    palette); ``native`` (TIFF) the C++ CCITT and Zstandard decoders in
+    place of their Python twins."""
     if fmt == "PNG":
         px = decode_png(data)
         return px[..., 0] if px.shape[2] <= 2 else np.ascontiguousarray(
@@ -117,8 +124,9 @@ def decode_host(data: bytes, fmt: str, channels: int = 3) -> np.ndarray:
         return decode_bmp(data, dib=True)
     if fmt == "GIF":
         return decode_gif(data, channels)
-    return {"BMP": decode_bmp, "PPM": decode_pnm, "TIFF": decode_tiff}[fmt](
-        data)
+    if fmt == "TIFF":
+        return decode_tiff(data, native)
+    return {"BMP": decode_bmp, "PPM": decode_pnm}[fmt](data)
 
 
 def _read(path, channels: int, device):
@@ -132,13 +140,22 @@ def _read(path, channels: int, device):
         if fmt == "JPEG":
             from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
             return read_jpeg(data, channels, device)
-        if fmt == "TIFF" and tiff_compression(data) == 7:
-            from superviseddescent_tpu_torch.ops.jpeg import read_tiff_jpeg
-            return read_tiff_jpeg(data, channels, device)
+        native = False
+        if fmt == "TIFF":
+            kind = tiff_compression(data)
+            if kind == 7:
+                from superviseddescent_tpu_torch.ops.jpeg import (
+                    read_tiff_jpeg)
+                return read_tiff_jpeg(data, channels, device)
+            if kind in TIFF_NATIVE:   # the card's C++ decoders, or the twins
+                dev = resolve_device(device)
+                if dev.type not in ("cpu", "cuda"):
+                    raise ValueError(f"unsupported device {dev}")
+                native = dev.type == "cuda"
         if fmt == "WEBP":
             from superviseddescent_tpu_torch.ops.webp import read_webp
             return read_webp(data, channels, device)
-        px = decode_host(data, fmt, channels)
+        px = decode_host(data, fmt, channels, native)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     if channels == 3 and px.ndim == 2:

@@ -1,16 +1,21 @@
 """TIFF: a reader of the first page and a writer, as PIL reads and writes
 them (no PIL, no libtiff).
 
-Reads the first image of a classic TIFF (``II*\\0`` or ``MM\\0*``) of
-every kind in PIL's ``TiffImagePlugin.OPEN_INFO`` (``OPEN_INFO`` below,
-PIL 12.1's 120 keys: byte order, photometric, sample format, fill order,
-bits per sample and extra samples), in strips or tiles, planar
-configuration 1 or 2; uncompressed, PackBits, LZW (the TIFF 6 variant),
-Adobe Deflate (8, and the old 32946), LZMA (34925, the standard library's
-``lzma``) and JPEG (7, ``jpeg_chunks``: each strip or tile an abbreviated
-stream under the JPEGTables tag, decoded by ``ops/jpeg.read_tiff_jpeg``,
-kernel J1 on the card). Each kind turns into uint8 as PIL's unpacker and
-``convert("RGB")`` turn it:
+Reads the first image of a classic TIFF (``II*\\0`` or ``MM\\0*``) or a
+little-endian BigTIFF (``II+\\0``: 64-bit offsets and counts, 20-byte
+entries, LONG8 / SLONG8 / IFD8) of every kind in PIL's
+``TiffImagePlugin.OPEN_INFO`` (``OPEN_INFO`` below, PIL 12.1's 120 keys:
+byte order, photometric, sample format, fill order, bits per sample and
+extra samples), in strips or tiles, planar configuration 1 or 2;
+uncompressed, PackBits, LZW (the TIFF 6 variant), Adobe Deflate (8, and
+the old 32946), LZMA (34925, the standard library's ``lzma``), CCITT RLE,
+Group 3 and Group 4 (2, 3, 4: ``io/ccitt.py``), Zstandard (50000:
+``io/zstd.py``) and JPEG (7, ``jpeg_chunks``: each strip or tile an
+abbreviated stream under the JPEGTables tag, decoded by
+``ops/jpeg.read_tiff_jpeg``, kernel J1 on the card). CCITT and Zstandard
+strips decode by the Python twins or, for the card's path, by their host
+C++ forms (``csrc/tiff_decode.cu``). Each kind turns into uint8 as PIL's
+unpacker and ``convert("RGB")`` turn it:
 
 * 1, 2 and 4-bit grey scaled by 255, 85 and 17 (white-is-zero inverted),
   12 and 16-bit grey (I;16) and 16 / 32-bit signed or 32-bit unsigned
@@ -29,25 +34,34 @@ kernel J1 on the card). Each kind turns into uint8 as PIL's unpacker and
 * CMYK of 8 or 16 bits through PIL's ``cmyk2rgb`` (``nk - MULDIV255(c,
   nk)``, nk = 255 - k);
 * CIELab through LittleCMS's Lab to sRGB transform as PIL builds it
-  (``io/cielab.lab_to_rgb``).
+  (``io/cielab.lab_to_rgb``);
+* YCbCr under any compression but JPEG as libtiff's ``TIFFRGBAImage``
+  hands it to PIL: units of hs x vs Y samples then Cb and Cr
+  (YCbCrSubSampling 1x1, 2x1, 1x2, 2x2, 4x1, 4x2, 4x4, ragged at the
+  edges; 4x4 with libtiff's quirks, ``_as_libtiff_4x4``), the chroma over
+  its unit, through ``TIFFYCbCrToRGBInit``'s integer tables
+  (``ycbcr_tables``: YCbCrCoefficients and ReferenceBlackWhite, libtiff's
+  defaults where absent).
 
 Fill order 2 reverses the bits of each byte: of the samples where a strip
 is uncompressed (PIL's ``...R`` unpackers; PIL has none for ``L;IR`` and
 ``P;1R`` / ``P;2R`` / ``P;4R``, and those raise by name), of the
 compressed bytes before they decompress otherwise (libtiff, which PIL
 reads every compressed file with). Predictors act where libtiff's codecs
-apply them (LZW, Deflate, LZMA): horizontal differencing (2) on 8, 16 or
-32-bit samples, floating point (3) on float samples; uncompressed and
-PackBits strips ignore the tag as PIL does.
+apply them (LZW, Deflate, LZMA, Zstandard): horizontal differencing (2)
+on 8, 16 or 32-bit samples, floating point (3) on float samples;
+uncompressed and PackBits strips ignore the tag as PIL does.
 
 Refused by name: what PIL cannot read (a key not in ``OPEN_INFO``,
-uncompressed YCbCr, which PIL unpacks past its strip), YCbCr under the
-other compressions (PIL converts it with libtiff's TIFFReadRGBA),
-BigTIFF, CCITT (2, 3, 4), old-style JPEG (6), Zstandard, WebP-in-TIFF and
-the other compressions, old-style LZW, and planar configuration 2 except
+uncompressed YCbCr, which PIL unpacks past its strip, YCbCr subsampled
+1x4 or 2x4, CCITT of other than one 1-bit sample, a big-endian BigTIFF,
+whose header PIL 12.1 takes for a classic one), old-style JPEG (6),
+WebP-in-TIFF, ThunderScan, SGILog and the other compressions, old-style
+LZW, a predictor on subsampled YCbCr, and planar configuration 2 except
 for 8-bit RGB and CMYK (and RGBA uncompressed): PIL reads the others with
 one raw mode a plane, which drops fill order 2 and has no unpacker for
-most extra samples.
+most extra samples. A damaged CCITT or Zstandard strip raises (libtiff
+warns and fills the row; ``io/ccitt.py``, ``io/zstd.py``).
 
 Writes grey (H, W) and RGB (H, W, 3) uint8 uncompressed, little-endian,
 in one strip, byte for byte PIL's file (its tags: SamplesPerPixel only
@@ -67,16 +81,24 @@ from superviseddescent_tpu_torch.io.pnm import float_to_u8
 
 TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
          6: ("b", 1), 7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8),
-         11: ("f", 4), 12: ("d", 8), 16: ("Q", 8)}
+         11: ("f", 4), 12: ("d", 8), 16: ("Q", 8), 17: ("q", 8),
+         18: ("Q", 8)}
 COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
                 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG", 7: "JPEG",
                 8: "Adobe Deflate", 32773: "PackBits", 32946: "Deflate",
                 32771: "raw 16-bit padding", 32809: "ThunderScan",
                 34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
                 50000: "Zstandard", 50001: "WebP"}
-PORTED = (1, 5, 7, 8, 32773, 32946, 34925)
+PORTED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
+CCITT = (2, 3, 4)
+# the compressions whose host decoder has a C++ form for the card's path
+NATIVE = (*CCITT, 50000)
 # the codecs of libtiff that apply the Predictor tag
-PREDICTED = (5, 8, 32946, 34925)
+PREDICTED = (5, 8, 32946, 34925, 50000)
+# the YCbCr subsamplings (horizontal, vertical) that libtiff's
+# TIFFRGBAImage puts, which PIL reads YCbCr with
+YCBCR_SUBSAMPLING = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2),
+                     (4, 4))
 PHOTOMETRIC = {0: "white is zero", 1: "black is zero", 2: "RGB",
                3: "palette", 4: "transparency mask", 5: "CMYK (separated)",
                6: "YCbCr", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
@@ -160,28 +182,45 @@ REVERSED = np.packbits(REVERSED, axis=1)[:, 0]
 
 
 def _ifd(data: bytes):
-    """The first IFD's tags: {tag: tuple of values}."""
-    if data[:4] in (b"II\x2b\x00", b"MM\x00\x2b"):
-        raise ValueError("BigTIFF is not ported (classic TIFF only)")
-    if data[:4] not in (b"II*\x00", b"MM\x00*"):
+    """The first IFD's tags: {tag: tuple of values}, of a classic TIFF (a
+    32-bit first-IFD offset, a 16-bit entry count, 12-byte entries with
+    values of up to 4 bytes inline) or a BigTIFF (byte size 8, a 64-bit
+    offset and entry count, 20-byte entries, values of up to 8 bytes
+    inline)."""
+    head = data[:4]
+    if head not in (b"II*\x00", b"MM\x00*", b"II\x2b\x00", b"MM\x00\x2b"):
         raise ValueError("not a TIFF file")
     e = "<" if data[:2] == b"II" else ">"
-    (offset,) = struct.unpack_from(e + "I", data, 4)
-    if offset + 2 > len(data):
+    if head == b"MM\x00\x2b":
+        raise ValueError("BigTIFF in big-endian byte order is not a kind PIL "
+                         "reads (PIL 12.1 takes its header for a classic "
+                         "TIFF's)")
+    if head == b"II\x2b\x00":
+        if len(data) < 16 or struct.unpack_from(e + "HH", data, 4) != (8, 0):
+            raise ValueError("BigTIFF: bad header (byte size not 8)")
+        (offset,) = struct.unpack_from(e + "Q", data, 8)
+        count_fmt, entry_fmt, inline = "Q", "HHQ", 8
+    else:
+        (offset,) = struct.unpack_from(e + "I", data, 4)
+        count_fmt, entry_fmt, inline = "H", "HHI", 4
+    pointer = "Q" if inline == 8 else "I"
+    entry = struct.calcsize("<" + entry_fmt) + inline
+    start = offset + struct.calcsize("<" + count_fmt)
+    if start > len(data):
         raise ValueError("TIFF: truncated IFD")
-    (count,) = struct.unpack_from(e + "H", data, offset)
+    (count,) = struct.unpack_from(e + count_fmt, data, offset)
     tags = {}
     for i in range(count):
-        at = offset + 2 + 12 * i
-        if at + 12 > len(data):
+        at = start + entry * i
+        if at + entry > len(data):
             raise ValueError("TIFF: truncated IFD")
-        tag, kind, n = struct.unpack_from(e + "HHI", data, at)
+        tag, kind, n = struct.unpack_from(e + entry_fmt, data, at)
         if kind not in TYPES:
             continue
         fmt, size = TYPES[kind]
-        where = at + 8
-        if size * n > 4:
-            (where,) = struct.unpack_from(e + "I", data, at + 8)
+        where = at + entry - inline
+        if size * n > inline:
+            (where,) = struct.unpack_from(e + pointer, data, where)
         if where + size * n > len(data):
             raise ValueError(f"TIFF: tag {tag} runs past the end of the file")
         if kind == 2:
@@ -371,11 +410,116 @@ def _to_uint8(samples: np.ndarray, mode: str, photometric: int, bits: int,
     return rgb
 
 
-def decode_tiff(data: bytes) -> np.ndarray:
+def _rational(values) -> list:
+    """RATIONAL values (numerator, denominator pairs) as libtiff's floats:
+    float32 quotients, 0 where either is 0."""
+    return [np.float32(0) if not n or not d else np.float32(n) / np.float32(d)
+            for n, d in zip(values[::2], values[1::2])]
+
+
+def ycbcr_tables(luma=None, ref=None):
+    """libtiff's ``TIFFYCbCrToRGBInit`` in its arithmetic: float32
+    ``Code2V`` of each code against ReferenceBlackWhite (``ref``, its
+    YCbCr default where absent), clamped to +-4096 and truncated, then the
+    16-bit fixed-point factors of YCbCrCoefficients (``luma``, 0.299 /
+    0.587 / 0.114 where absent). Returns the int64 tables (Y, Cr to red,
+    Cb to blue, Cr to green, Cb to green), each indexed by a code 0-255."""
+    f = np.float32
+    red, green, blue = (f(v) for v in (luma or (0.299, 0.587, 0.114)))
+    ref = [f(v) for v in (ref or (0, 255, 128, 255, 128, 255))]
+
+    def fix(v):       # FIX(CLAMP(v, 0, 2)): float, then + 0.5 in double
+        v = min(max(v, f(0)), f(2))
+        return int(float(v * f(65536)) + 0.5)
+
+    def code2v(c, black, white, top):
+        den = white - black
+        v = (c - np.int64(np.trunc(black))).astype(np.float32) * f(top) / (
+            den if den != 0 else f(1))
+        return np.trunc(np.clip(v, f(-4096), f(4096))).astype(np.int64)
+    f1 = f(2) - f(2) * red
+    f3 = f(2) - f(2) * blue
+    d1, d2 = fix(f1), -fix(red * f1 / green)
+    d3, d4 = fix(f3), -fix(blue * f3 / green)
+    x = np.arange(-128, 128, dtype=np.int64)
+    cr = code2v(x, ref[4] - f(128), ref[5] - f(128), 127)
+    cb = code2v(x, ref[2] - f(128), ref[3] - f(128), 127)
+    y = code2v(x + 128, ref[0], ref[1], 255)
+    half = 1 << 15
+    return (y, (d1 * cr + half) >> 16, (d3 * cb + half) >> 16, d2 * cr,
+            d4 * cb + half)
+
+
+def ycbcr_to_rgb(y, cb, cr, tables) -> np.ndarray:
+    """libtiff's ``TIFFYCbCrtoRGB`` on uint8 codes: (..., 3) uint8 RGB."""
+    ty, crr, cbb, crg, cbg = tables
+    base = ty[y]
+    rgb = np.stack([base + crr[cr], base + ((cbg[cb] + crg[cr]) >> 16),
+                    base + cbb[cb]], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _ycbcr_units(block: np.ndarray, width: int, rows: int, hs: int,
+                 vs: int) -> tuple:
+    """A strip or tile's YCbCr units (each hs x vs Y samples in rows, then
+    Cb and Cr) -> Y, Cb and Cr of (rows, width), the chroma over its
+    unit."""
+    across, down = -(-width // hs), -(-rows // vs)
+    u = block[:across * down * (hs * vs + 2)].reshape(down, across,
+                                                       hs * vs + 2)
+    y = u[..., :hs * vs].reshape(down, across, vs, hs).transpose(
+        0, 2, 1, 3).reshape(down * vs, across * hs)
+    cb, cr = (np.repeat(np.repeat(u[..., k], vs, 0), hs, 1)
+              for k in (hs * vs, hs * vs + 1))
+    return tuple(a[:rows, :width] for a in (y, cb, cr))
+
+
+def _as_libtiff_4x4(block: np.ndarray, tw: int, rows: int, seen: int,
+                    tiled: bool) -> np.ndarray:
+    """A 4 x 4 subsampled YCbCr strip or tile's units as libtiff's
+    TIFFRGBAImage hands them to its 4 x 4 put routine, which PIL reads:
+    a strip decoded only as far as whole scanlines reach (its scanline is
+    a unit row's bytes over 4, rounded down: with an odd count of units a
+    row, the last unit's chroma of each unit row is cut off and reads 0),
+    and a tile clipped at the image's right edge (``seen`` columns) with
+    its unit rows stepped as 4 x 2 units (10 bytes) are, not 18."""
+    across, down = -(-tw // 4), -(-rows // 4)
+    row_bytes = across * 18
+    if not tiled:
+        out = np.zeros_like(block)
+        keep = down * 4 * (row_bytes // 4)
+        out[:keep] = block[:keep]
+        return out
+    if seen == tw:
+        return block
+    used = -(-seen // 4)
+    step = used * 18 + (tw - seen) // 4 * 10
+    out = np.zeros(down * row_bytes, np.uint8)
+    for r in range(down):
+        out[r * row_bytes:r * row_bytes + used * 18] = block[
+            r * step:r * step + used * 18]
+    return out
+
+
+def _codecs(native):
+    """The CCITT and Zstandard decoders: the Python twins where ``native``
+    is false, else the host C++ ones (``csrc/tiff_decode.cu``; ``native``
+    True loads ``ops/_build``'s build, or names a loaded library)."""
+    from superviseddescent_tpu_torch.io import ccitt, zstd
+    if not native:
+        return ccitt.decode_ccitt, zstd.read_strip
+    library = None if native is True else native
+    return (lambda *a: ccitt.decode_ccitt_native(*a, library=library),
+            lambda *a: zstd.read_strip_native(*a, library=library))
+
+
+def decode_tiff(data: bytes, native=False) -> np.ndarray:
     """TIFF bytes -> the first page as uint8 (H, W) grey (PIL's modes 1,
     L, LA, I;16, I and F) or (H, W, 3) RGB, decoded on the host. A
     JPEG-compressed page is not the host's: ``ops/jpeg.read_tiff_jpeg``
-    reads it (kernel J1)."""
+    reads it (kernel J1). CCITT and Zstandard strips decode by the Python
+    twins, or where ``native`` is true by the host C++ decoders
+    (``csrc/tiff_decode.cu``), which the card's path takes."""
     e, tags = _ifd(data)
 
     def one(tag, default=None):
@@ -393,18 +537,24 @@ def decode_tiff(data: bytes) -> np.ndarray:
                          "ops/jpeg.read_tiff_jpeg reads it (kernel J1)")
     key, mode, raw = kind_of(tags, e)
     photometric, fmt, fill, bits, extra = key[1:]
-    if photometric == 6 and len(bits) == 3:
-        raise ValueError(
-            "TIFF photometric 6 (YCbCr), uncompressed, is not a kind PIL "
-            "reads (it unpacks 3 samples as 4)" if kind == 1 else
-            f"TIFF photometric 6 (YCbCr) with {COMPRESSIONS[kind]} "
-            "compression is not ported (PIL converts it with libtiff's "
-            "TIFFReadRGBA; JPEG-compressed YCbCr is read)")
+    depth, spp = bits[0], len(bits)
+    if kind in CCITT and (depth, spp) != (1, 1):
+        raise ValueError(f"TIFF {COMPRESSIONS[kind]} compression of {spp} "
+                         f"{depth}-bit samples is not a kind PIL reads "
+                         "(libtiff's codec takes one 1-bit sample)")
+    ycbcr = photometric == 6 and spp == 3
+    hs, vs = tags.get(530, (2, 2))[:2] if ycbcr else (1, 1)
+    if ycbcr and kind == 1:
+        raise ValueError("TIFF photometric 6 (YCbCr), uncompressed, is not a "
+                         "kind PIL reads (it unpacks 3 samples as 4)")
+    if ycbcr and (hs, vs) not in YCBCR_SUBSAMPLING:
+        raise ValueError(f"TIFF YCbCr subsampling {hs} x {vs} is not a kind "
+                         "PIL reads (libtiff's TIFFReadRGBA takes 1x1, 2x1, "
+                         "1x2, 2x2, 4x1, 4x2 and 4x4)")
     if fill == 2 and kind == 1 and raw in NO_UNPACKER:
         raise ValueError(f"TIFF fill order 2 of {PHOTOMETRIC[photometric]} "
                          f"{bits[0]}-bit samples, uncompressed, is not a kind "
                          f"PIL reads (it has no {raw} unpacker)")
-    depth, spp = bits[0], len(bits)
     predictor = one(317, 1) if kind in PREDICTED else 1
     if predictor not in (1, 2, 3):
         raise ValueError(f"TIFF predictor {predictor} is not ported")
@@ -415,6 +565,9 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError(f"TIFF predictor 3 on {depth}-bit "
                          f"{SAMPLE_FORMATS[fmt[0]]} samples is not a kind "
                          "PIL reads (libtiff takes float samples only)")
+    if predictor != 1 and (hs, vs) != (1, 1):
+        raise ValueError(f"TIFF predictor {predictor} on YCbCr subsampled "
+                         f"{hs} x {vs} is not ported")
     planar = one(284, 1) if spp > 1 else 1
     if planar == 2 and not (raw in ("RGB", "CMYK") or (
             raw == "RGBA" and kind == 1)):
@@ -444,6 +597,11 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError("TIFF: no strip or tile offsets")
     if len(offsets) < planes * across * down:
         raise ValueError("TIFF: fewer strips or tiles than the image needs")
+    ccitt, zstd = _codecs(native) if kind in NATIVE else (None, None)
+    options = one(292 if kind == 3 else 293, 0)
+    tables = ycbcr_tables(_rational(tags[529]) if 529 in tags else None,
+                          _rational(tags[532]) if 532 in tags else None
+                          ) if ycbcr else None
     row_bytes = -(-tw * per_pixel * depth // 8)
     per_row = tw * per_pixel
     sample_fmt = fmt[0]
@@ -460,12 +618,30 @@ def decode_tiff(data: bytes) -> np.ndarray:
                 if fill == 2 and kind != 1:
                     chunk = REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
                 size = rows * row_bytes
-                unpacked = _decompress(kind, chunk, size)
+                if ycbcr:
+                    size = -(-tw // hs) * -(-rows // vs) * (hs * vs + 2)
+                if kind in CCITT:
+                    unpacked = ccitt(chunk, kind, tw, rows, options)
+                elif kind == 50000:
+                    unpacked = zstd(chunk, size)
+                else:
+                    unpacked = _decompress(kind, chunk, size)
                 if len(unpacked) < size:
                     raise ValueError("TIFF: a strip or tile decodes to too "
                                      "little data")
-                block = np.frombuffer(unpacked[:size], np.uint8).reshape(
-                    rows, row_bytes)
+                block = np.frombuffer(unpacked[:size], np.uint8)
+                if ycbcr:
+                    if predictor != 1:
+                        block = _unpredict(block.reshape(rows, -1), e, 8, 1,
+                                           3, predictor).ravel()
+                    seen = min(tw, width - tx * tw)
+                    if (hs, vs) == (4, 4):
+                        block = _as_libtiff_4x4(block, tw, rows, seen,
+                                                322 in tags)
+                    band.append(ycbcr_to_rgb(*_ycbcr_units(
+                        block, tw, rows, hs, vs), tables))
+                    continue
+                block = block.reshape(rows, row_bytes)
                 if fill == 2 and kind == 1:
                     block = REVERSED[block]
                 if predictor != 1:
@@ -473,11 +649,14 @@ def decode_tiff(data: bytes) -> np.ndarray:
                                        per_pixel, predictor)
                 band.append(_samples(block, e, depth, sample_fmt, per_row))
             band = np.concatenate(band, axis=1).reshape(
-                rows, across * tw, per_pixel)[:, :width]
+                rows, across * tw, -1)[:, :width]
             if out is None:
-                out = np.zeros((height + tl, width, spp), band.dtype)
-            out[ty * tl:ty * tl + rows, :, p:p + per_pixel] = band
+                out = np.zeros((height + tl, width, 3 if ycbcr else spp),
+                               band.dtype)
+            out[ty * tl:ty * tl + rows, :, p:p + band.shape[2]] = band
     out = out[:height]
+    if ycbcr:
+        return out
     if kind != 1 and raw in SWAPPED:
         out = out.byteswap()
     return _to_uint8(out, mode, photometric, depth, extra, palette)

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # C entry points: source name -> {symbol: argument types}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # the cascade kernels' common tail: x0, out, weights, level tables, tents,
 # eyes; n, levels, L, C, RY, RX, Fp, quantize, S_max, faces per block,
 # landmarks per group, threads per block; stream
@@ -68,6 +68,10 @@ KERNELS = {
     # entropy stage of lossy WebP, no kernel
     "webp_decode": {"webp_decode_vp8l": [_P, _I, _I, _I, _P],
                     "webp_decode_vp8": [_P, _I, _I, _I] + [_P] * 4},
+    # TIFF (io/tiff.py, io/ccitt.py, io/zstd.py): the host CCITT and
+    # Zstandard decoders, no kernel
+    "tiff_decode": {"tiff_ccitt_decode": [_P, _L] + [_I] * 4 + [_P],
+                    "tiff_zstd_decode": [_P, _L, _P, _L, _P]},
     # lossy WebP's pixel stage (ops/webp.py): W1, W2 and W3
     "vp8_pixels": {"vp8_reconstruct_launch": [_P] * 6 + [_I] * 4 + [_P],
                    "vp8_filter_launch": [_P] * 5 + [_I] * 5 + [_P],

@@ -213,7 +213,11 @@ def load_gray_image(path, device=None) -> np.ndarray:
     ``device="cpu"``; with no card and no device it raises. So does a
     lossy WebP's (kernels W1-W3, ``ops/webp.py``, after the host entropy
     stage). A lossless WebP decodes on the host, by the C++ decoder for
-    the card and its Python twin for the CPU. Every other format decodes
+    the card and its Python twin for the CPU, and so do a TIFF's CCITT
+    RLE / Group 3 / Group 4 and Zstandard strips (``csrc/tiff_decode.cu``
+    or ``io/ccitt.py`` / ``io/zstd.py``; with no card and no device they
+    raise too). TIFF is read classic or BigTIFF, YCbCr under every
+    lossless compression as PIL converts it. Every other format decodes
     on the host. Decoding errors raise ``ValueError`` naming the file."""
     from superviseddescent_tpu_torch.io.image import read_gray
     return read_gray(path, device).astype(np.float32)

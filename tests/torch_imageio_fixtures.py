@@ -56,6 +56,14 @@ sha256 of its filtered rows, which holds whatever zlib deflates them;
   one J1 launch each; and 4:2:0 strips of 80 rows, the worst case of two
   launches (a batch and a short last strip).
 
+* the rest of the TIFF files PIL reads (``r*``, ``tiff_remainder_fixtures``):
+  BigTIFF, CCITT RLE / Group 3 / Group 4, Zstandard and YCbCr under the
+  lossless compressions; and the clip frame as BigTIFF-JPEG, Zstandard
+  and YCbCr 2x2 LZW (``f09``-``f11``) for the card.
+
+    python tests/torch_imageio_fixtures.py tiff_remainder clip_remainder
+
+writes only the groups named, their entries updated in the manifest.
 The reference is PIL's decode of the bytes written; the same seed gives
 the same bytes for the same PIL and libtiff. ``tests/test_torch_imageio.py``
 checks that the files still match the manifest.
@@ -119,8 +127,9 @@ def pil_digests(path) -> dict:
     from superviseddescent_tpu.ops.patches import load_gray_image
     try:
         grey = load_gray_image(path).astype(np.uint8)
-    except (OSError, ValueError, SyntaxError) as e:
-        return dict(pil_error=str(e))
+    except (OSError, ValueError, SyntaxError) as e:   # the file by name
+        return dict(pil_error=str(e).replace(os.fspath(path),
+                                             os.path.basename(path)))
     with Image.open(path) as im:
         mode = im.mode
         rgb = np.asarray(im.convert("RGB"), np.uint8)
@@ -334,12 +343,13 @@ def pnm_fixtures() -> dict:
 # ----------------------------------------------------------------- TIFF
 def tiff(chunks, tags: dict, big_endian=False, data_last=False) -> bytes:
     """A TIFF of one IFD: ``chunks`` (strips or tiles, in order) and
-    ``tags`` {tag: (type, values)}; the offsets and byte counts of the
+    ``tags`` {tag: (type, values)} (a RATIONAL's values its numerators
+    and denominators in turn); the offsets and byte counts of the
     chunks go under the offsets tag named in ``tags`` with values None.
     ``data_last``: the chunks after the IFD, as PIL writes them (a reader
     that runs past a strip then meets the end of the file)."""
     e = ">" if big_endian else "<"
-    fmt = {1: "B", 3: "H", 4: "I", 7: "B"}
+    fmt = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B"}
 
     def layout(start):
         body, offsets = bytearray(), []
@@ -362,11 +372,12 @@ def tiff(chunks, tags: dict, big_endian=False, data_last=False) -> bytes:
         for tag in sorted(entries):
             kind, values = entries[tag]
             packed = struct.pack(e + fmt[kind] * len(values), *values)
+            count = len(values) // 2 if kind == 5 else len(values)
             if len(packed) <= 4:
-                ifd += struct.pack(e + "HHI", tag, kind, len(values))
+                ifd += struct.pack(e + "HHI", tag, kind, count)
                 ifd += packed.ljust(4, b"\x00")
             else:
-                ifd += struct.pack(e + "HHII", tag, kind, len(values),
+                ifd += struct.pack(e + "HHII", tag, kind, count,
                                    extra_at + len(extra))
                 extra += packed
                 if len(extra) % 2:
@@ -1558,19 +1569,354 @@ def png_tiff_writes() -> list:
     return out
 
 
+# ------------------------- BigTIFF, CCITT, Zstandard and YCbCr (the rest)
+TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
+              11: 4, 12: 8, 16: 8}
+# the strip and tile offsets and byte counts, re-laid as LONG8
+OFFSET_TAGS = (273, 279, 324, 325)
+
+
+def bigtiff(classic: bytes) -> bytes:
+    """A classic TIFF's first IFD re-laid as BigTIFF in the same byte
+    order: the 16-byte header, the classic file's bytes after its header
+    (each offset into them moved by 8), then the IFD of 20-byte entries,
+    values of up to 8 bytes inline, the strip and tile offsets and byte
+    counts as LONG8."""
+    e = "<" if classic[:2] == b"II" else ">"
+    (ifd_at,) = struct.unpack_from(e + "I", classic, 4)
+    (n,) = struct.unpack_from(e + "H", classic, ifd_at)
+    body = bytearray(classic[8:])
+    entries = []
+    for i in range(n):
+        tag, kind, count, value = struct.unpack_from(
+            e + "HHI4s", classic, ifd_at + 2 + 12 * i)
+        size = TYPE_SIZES[kind] * count
+        raw = value[:size] if size <= 4 else classic[
+            struct.unpack(e + "I", value)[0]:][:size]
+        if tag in OFFSET_TAGS:
+            fmt = {3: "H", 4: "I"}[kind]
+            values = struct.unpack(e + fmt * count, raw)
+            if tag in (273, 324):
+                values = [v + 8 for v in values]
+            kind, raw = 16, struct.pack(e + "Q" * count, *values)
+        entries.append((tag, kind, count, raw))
+    extra_at = 16 + len(body)
+    extra = bytearray()
+    ifd = struct.pack(e + "Q", len(entries))
+    out_ifd_at = extra_at + sum(-(-len(r) // 8) * 8 for *_, r in entries
+                                if len(r) > 8)
+    for tag, kind, count, raw in entries:
+        if len(raw) <= 8:
+            ifd += struct.pack(e + "HHQ", tag, kind, count) + raw.ljust(
+                8, b"\x00")
+        else:
+            ifd += struct.pack(e + "HHQQ", tag, kind, count,
+                               extra_at + len(extra))
+            extra += raw + bytes(-len(raw) % 8)
+    ifd += struct.pack(e + "Q", 0)
+    head = classic[:2] + struct.pack(e + "HHHQ", 43, 8, 0, out_ifd_at)[
+        :14]
+    return head + bytes(body) + bytes(extra) + ifd
+
+
+def libtiff_file(width: int, height: int, tags: list, chunks=(),
+                 rows=None, tiled=False) -> bytes:
+    """A TIFF written by the system's libtiff through ctypes: ``tags``
+    ((tag, ctypes values...) in order, as ``TIFFSetField`` takes them),
+    then either ``chunks`` (each strip's or tile's raw bytes, which libtiff
+    compresses: ``TIFFWriteEncodedStrip`` / ``Tile``) or ``rows`` (packed
+    rows, ``TIFFWriteScanline``)."""
+    import ctypes
+    import ctypes.util
+    import tempfile
+    lib = ctypes.CDLL(ctypes.util.find_library("tiff"))
+    lib.TIFFOpen.restype = ctypes.c_void_p
+    u32 = ctypes.c_uint32
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "page.tif")
+        tif = ctypes.c_void_p(lib.TIFFOpen(path.encode(), b"w"))
+        assert tif.value, "libtiff cannot open " + path
+        for tag, *values in [(256, u32(width)), (257, u32(height)), *tags]:
+            assert lib.TIFFSetField(tif, u32(tag), *values), tag
+        write = lib.TIFFWriteEncodedTile if tiled else \
+            lib.TIFFWriteEncodedStrip
+        for k, chunk in enumerate(chunks):
+            buf = np.frombuffer(bytes(chunk), np.uint8).copy()
+            assert write(tif, u32(k), buf.ctypes.data_as(ctypes.c_void_p),
+                         ctypes.c_ssize_t(len(buf))) >= 0
+        for y, row in enumerate([] if rows is None else rows):
+            row = np.ascontiguousarray(row, np.uint8)
+            assert lib.TIFFWriteScanline(
+                tif, row.ctypes.data_as(ctypes.c_void_p), u32(y), 0) == 1
+        lib.TIFFClose(tif)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def t4_rows(bits: np.ndarray, eol: bool) -> bytes:
+    """Bilevel rows (h, w) of 0 / 1 (1 black) coded one-dimensionally as
+    T.4 (modified Huffman), each after an EOL or, with ``eol`` false,
+    straight after the one before, as some writers leave them."""
+    from superviseddescent_tpu_torch.io import ccitt
+
+    def run(n, colour):
+        codes = ccitt.BLACK_CODES if colour else ccitt.WHITE_CODES
+        makeup = ccitt.BLACK_MAKEUP if colour else ccitt.WHITE_MAKEUP
+        out = ""
+        while n >= 2624:
+            out += ccitt.EXTENDED_MAKEUP[-1]
+            n -= 2560
+        if n >= 64:
+            m = n // 64
+            out += makeup[m - 1] if m <= 27 else ccitt.EXTENDED_MAKEUP[m - 28]
+            n -= 64 * m
+        return out + codes[n]
+    code = ""
+    for row in bits:
+        code += ccitt.EOL if eol else ""
+        x, colour = 0, 0
+        while x < len(row):
+            end = x
+            while end < len(row) and row[end] == colour:
+                end += 1
+            code += run(end - x, colour)
+            x, colour = end, colour ^ 1
+    code += "0" * (-len(code) % 8)
+    return int(code, 2).to_bytes(len(code) // 8, "big")
+
+
+def ycbcr_units(rgb: np.ndarray, hs: int, vs: int, rows=None,
+                tile=None) -> list:
+    """RGB pixels as YCbCr strips (``rows`` a strip) or tiles (``tile`` =
+    width, height; zero-padded) of hs x vs units: PIL's YCbCr, each
+    unit's Y samples in rows, then its Cb and Cr, the means of its
+    pixels (the padding's too at a ragged edge)."""
+    ycc = np.asarray(Image.fromarray(rgb).convert("YCbCr")).astype(
+        np.int64)
+    h, w = ycc.shape[:2]
+    pieces = []
+    if tile:
+        tw, tl = tile
+        for ty in range(0, h, tl):
+            for tx in range(0, w, tw):
+                t = np.zeros((tl, tw, 3), np.int64)
+                part = ycc[ty:ty + tl, tx:tx + tw]
+                t[:part.shape[0], :part.shape[1]] = part
+                pieces.append(t)
+    else:
+        pieces = [ycc[y0:y0 + rows] for y0 in range(0, h, rows)]
+    out = []
+    for p in pieces:
+        ph, pw = -(-p.shape[0] // vs) * vs, -(-p.shape[1] // hs) * hs
+        full = np.zeros((ph, pw, 3), np.int64)
+        full[:p.shape[0], :p.shape[1]] = p
+        u = full.reshape(ph // vs, vs, pw // hs, hs, 3).transpose(0, 2, 1, 3,
+                                                                  4)
+        y = u[..., 0].reshape(ph // vs, pw // hs, vs * hs)
+        c = (u[..., 1:].reshape(ph // vs, pw // hs, vs * hs, 2).sum(axis=2)
+             + vs * hs // 2) // (vs * hs)
+        out.append(np.concatenate([y, c], axis=2).astype(np.uint8).tobytes())
+    return out
+
+
+def zstd_tiff(px: np.ndarray, rows: int, level: int, checksum=False,
+              predictor=False, big_endian=False) -> bytes:
+    """uint8 grey (h, w) or RGB (h, w, 3) pixels as a Zstandard-compressed
+    TIFF in strips of ``rows`` rows, each strip one frame of the
+    ``zstandard`` package at ``level``, as libtiff's codec stores one."""
+    import zstandard
+    h, w = px.shape[:2]
+    spp = 1 if px.ndim == 2 else 3
+    cctx = zstandard.ZstdCompressor(level=level, write_checksum=checksum)
+    strips = []
+    for y0 in range(0, h, rows):
+        part = px[y0:y0 + rows].reshape(-1, w * spp)
+        if predictor:
+            part = predicted(part, spp)
+        strips.append(cctx.compress(part.tobytes()))
+    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [8] * spp),
+            259: (3, [50000]), 262: (3, [1 if spp == 1 else 2]), 273: None,
+            277: (3, [spp]), 278: (3, [rows])}
+    if predictor:
+        tags[317] = (3, [2])
+    return tiff(strips, tags, big_endian=big_endian)
+
+
+def tiff_remainder_fixtures() -> dict:
+    """BigTIFF (``r0*``: PIL's own, and classic files re-laid by
+    ``bigtiff``: tiles, LZW, JPEG, and big-endian Deflate, which PIL
+    cannot read: it takes ``MM\\0+`` for a classic header), CCITT (``r1*``:
+    PIL's three writers; libtiff's T.4 2-D with fill bits, fill order 2,
+    white-is-zero, strips; one-dimensional T.4 without EOLs; widths 1, 13
+    and 3,000), Zstandard (``r2*``: PIL's; the ``zstandard`` package's at
+    levels 1, 3, 19 and -5, with the checksum, a strip of several 128 KiB
+    blocks, predictor 2, big-endian) and YCbCr (``r3*``: PIL's 1x1 under
+    LZW and Deflate; libtiff's units at 2x1, 1x2, 2x2, 4x1, 4x2 and 4x4 in
+    strips and tiles with ragged edges under LZW, Deflate, PackBits and
+    Zstandard; explicit YCbCrCoefficients and ReferenceBlackWhite)."""
+    import ctypes
+    u32, i = ctypes.c_uint32, ctypes.c_int
+    rgb = small_rgb()
+    grey = rgb[..., 1]
+    h, w = grey.shape
+    rng = np.random.default_rng(SEED + 5)
+    bits = grey > 120
+    tiles = [t.tobytes() for t in tiles_of(rgb, 16)]
+    files = {
+        "r00_bigtiff_grey_pil.tif": pil_bytes(Image.fromarray(grey), "TIFF",
+                                              big_tiff=True),
+        "r01_bigtiff_rgb_pil.tif": pil_bytes(Image.fromarray(rgb), "TIFF",
+                                             big_tiff=True),
+        "r02_bigtiff_rgb_tiles.tif": bigtiff(tiff(tiles, {
+            256: (3, [w]), 257: (3, [h]), 258: (3, [8] * 3), 259: (3, [1]),
+            262: (3, [2]), 277: (3, [3]), 322: (3, [16]), 323: (3, [16]),
+            324: None})),
+        "r03_bigtiff_rgb_lzw_predictor.tif": bigtiff(pil_bytes(
+            Image.fromarray(rgb), "TIFF", compression="tiff_lzw",
+            tiffinfo={317: 2, 278: 16})),
+        "r04_bigtiff_grey_deflate_be.tif": bigtiff(tiff(
+            [zlib.compress(grey[y0:y0 + 10].tobytes())
+             for y0 in range(0, h, 10)], {
+                256: (3, [w]), 257: (3, [h]), 258: (3, [8]), 259: (3, [8]),
+                262: (3, [1]), 273: None, 277: (3, [1]), 278: (3, [10])},
+            big_endian=True)),
+        "r05_bigtiff_jpeg_ycbcr420.tif": bigtiff(jpeg_tiff(rgb, rows=16)),
+        "r10_ccitt_rle_pil.tif": pil_bytes(Image.fromarray(bits), "TIFF",
+                                           compression="tiff_ccitt"),
+        "r11_group3_pil.tif": pil_bytes(Image.fromarray(bits), "TIFF",
+                                        compression="group3"),
+        "r12_group4_pil.tif": pil_bytes(Image.fromarray(bits), "TIFF",
+                                        compression="group4"),
+        "r1a_group3_no_eol.tif": tiff([t4_rows(bits, False)], {
+            256: (3, [w]), 257: (3, [h]), 258: (3, [1]), 259: (3, [3]),
+            262: (3, [0]), 273: None, 277: (3, [1]), 278: (3, [h])}),
+    }
+    bilevel = [(1, 3, 3, [(292, u32(5))], 8, bits),
+               (1, 3, 4, [(292, u32(1)), (266, i(2))], 6, bits),
+               (0, 4, 5, [(266, i(2))], 5, bits)]
+    wide = np.zeros((6, 3000), bool)
+    wide[1, 5:2900] = True
+    wide[3, 2700:] = True
+    wide[4, ::7] = True
+    bilevel += [(0, 2, 6, [], 3, bits[:, :1]), (1, 4, 7, [], 4, bits[:, :13]),
+                (0, 3, 8, [(292, u32(1))], 4, wide),
+                (0, 4, 9, [], 2, wide[:, :2600])]
+    for photometric, kind, n, extra, rows, px in bilevel:
+        name = {2: "ccitt_rle", 3: "group3", 4: "group4"}[kind]
+        fill = "_fill2" if any(t[0] == 266 for t in extra) else ""
+        files[f"r1{n}_{name}_w{px.shape[1]}_p{photometric}{fill}.tif"] = \
+            libtiff_file(px.shape[1], px.shape[0], [
+                (258, i(1)), (277, i(1)), (259, i(kind)),
+                (262, i(photometric)), *extra, (278, u32(rows))],
+                rows=np.packbits(px, axis=1))
+    long_grey = np.clip(np.kron(rng.integers(0, 256, (50, 50)),
+                                np.ones((8, 8))) + rng.integers(0, 2, (400,
+                                                                        400)),
+                        0, 255).astype(np.uint8)
+    files.update({
+        "r20_zstd_grey_pil.tif": pil_bytes(Image.fromarray(grey), "TIFF",
+                                           compression="zstd"),
+        "r21_zstd_rgb_predictor_pil.tif": pil_bytes(
+            Image.fromarray(rgb), "TIFF", compression="zstd",
+            tiffinfo={317: 2}),
+        "r22_zstd_level1.tif": zstd_tiff(rgb, 16, 1),
+        "r23_zstd_level3_checksum.tif": zstd_tiff(grey, 47, 3,
+                                                  checksum=True),
+        "r24_zstd_level19.tif": zstd_tiff(rgb, 24, 19),
+        "r25_zstd_level_neg5_be.tif": zstd_tiff(rgb, 10, -5,
+                                                big_endian=True),
+        "r26_zstd_blocks_checksum.tif": zstd_tiff(long_grey, 400, 3,
+                                                  checksum=True),
+        "r27_zstd_predictor2_level19.tif": zstd_tiff(rgb, 47, 19,
+                                                     predictor=True),
+    })
+    files["r30_ycbcr11_lzw_pil.tif"] = pil_bytes(
+        Image.fromarray(rgb).convert("YCbCr"), "TIFF",
+        compression="tiff_lzw")
+    files["r31_ycbcr11_deflate_pil.tif"] = pil_bytes(
+        Image.fromarray(rgb).convert("YCbCr"), "TIFF",
+        compression="tiff_adobe_deflate")
+    subsampled = [((2, 1), 5, 8, None), ((1, 2), 50000, 6, None),
+                  ((2, 2), 8, 10, None), ((4, 1), 32773, 9, None),
+                  ((4, 2), 32773, None, (32, 16)), ((4, 4), 5, 12, None),
+                  ((4, 4), 8, None, (32, 32)), ((2, 2), 50000, None,
+                                                (16, 16))]
+    for n, ((hs, vs), kind, rows, tile) in enumerate(subsampled, 2):
+        tags = [(258, i(8)), (277, i(3)), (259, i(kind)), (262, i(6)),
+                (284, i(1)), (530, i(hs), i(vs))]
+        if tile:
+            tags += [(322, u32(tile[0])), (323, u32(tile[1]))]
+        else:
+            tags.append((278, u32(rows)))
+        name = {5: "lzw", 8: "deflate", 32773: "packbits", 50000: "zstd"}[
+            kind]
+        layout = f"tiles{tile[0]}x{tile[1]}" if tile else f"strips{rows}"
+        files[f"r3{n}_ycbcr{hs}{vs}_{name}_{layout}.tif"] = libtiff_file(
+            w, h, tags, ycbcr_units(rgb, hs, vs, rows, tile), tiled=bool(tile))
+    files["r3a_ycbcr22_deflate_coefficients.tif"] = tiff(
+        [zlib.compress(u) for u in ycbcr_units(rgb, 2, 2, 12)], {
+            256: (3, [w]), 257: (3, [h]), 258: (3, [8] * 3), 259: (3, [8]),
+            262: (3, [6]), 273: None, 277: (3, [3]), 278: (3, [12]),
+            529: (5, [2126, 10000, 7152, 10000, 722, 10000]),
+            530: (3, [2, 2]),
+            532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])})
+    return files
+
+
+def clip_remainder_fixtures() -> dict:
+    """The clip frame's pixels for the card's reading of the new kinds:
+    BigTIFF with JPEG (PIL's JPEG-in-TIFF, ``f06``, re-laid: one J1
+    launch), Zstandard (PIL's writer, predictor 2) and YCbCr 2x2 under
+    LZW (libtiff's units, strips of 16 rows)."""
+    import ctypes
+    u32, i = ctypes.c_uint32, ctypes.c_int
+    with Image.open(os.path.join(JPEG_DIR, CLIP_FRAME)) as im:
+        clip = np.asarray(im.convert("RGB"))
+    h, w = clip.shape[:2]
+    return {
+        "f09_clip_bigtiff_jpeg.tif": bigtiff(pil_bytes(
+            Image.fromarray(clip), "TIFF", compression="jpeg")),
+        "f10_clip_zstd.tif": pil_bytes(Image.fromarray(clip), "TIFF",
+                                       compression="zstd",
+                                       tiffinfo={317: 2}),
+        "f11_clip_ycbcr22_lzw.tif": libtiff_file(w, h, [
+            (258, i(8)), (277, i(3)), (259, i(5)), (262, i(6)), (284, i(1)),
+            (530, i(2), i(2)), (278, u32(16))],
+            ycbcr_units(clip, 2, 2, 16)),
+    }
+
+
 # the manifest's groups: each writer's files under its name
 GROUPS = (bmp_fixtures, pnm_fixtures, tiff_fixtures, gif_fixtures,
           full_fixtures, tiff_kind_fixtures, tiff_more_fixtures,
-          pfm_fixtures, webp_fixtures, clip_fixtures, webp_lossy_fixtures)
+          pfm_fixtures, webp_fixtures, clip_fixtures, webp_lossy_fixtures,
+          tiff_remainder_fixtures, clip_remainder_fixtures)
 
 
-def write_fixtures(out: str = OUT) -> dict:
+def write_fixtures(out: str = OUT, only=None) -> dict:
+    """Write every group's files and the manifest, or with ``only`` (group
+    names) those groups' files, their entries updated in the manifest
+    that is there."""
     os.makedirs(out, exist_ok=True)
     files, groups = {}, {}
     for group in GROUPS:
-        made = group()
-        files.update(made)
-        groups[group.__name__[:-len("_fixtures")]] = sorted(made)
+        name = group.__name__[:-len("_fixtures")]
+        if only is None or name in only:
+            made = group()
+            files.update(made)
+            groups[name] = sorted(made)
+    if only is not None:
+        with open(os.path.join(out, "manifest.json")) as f:
+            manifest = json.load(f)
+        manifest["groups"].update(groups)
+        for name, data in sorted(files.items()):
+            with open(os.path.join(out, name), "wb") as f:
+                f.write(data)
+            manifest["files"][name] = dict(
+                pil_digests(os.path.join(out, name)), bytes=len(data))
+        with open(os.path.join(out, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1, sort_keys=True)
+        return manifest
     manifest = {"files": {}, "groups": groups, "jpeg_writes": jpeg_writes(),
                 "crop": list(CROP), "full_image": FULL_IMAGE,
                 "drawn_points": DRAWN_POINTS,
@@ -1590,7 +1936,7 @@ def write_fixtures(out: str = OUT) -> dict:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(HERE))
-    m = write_fixtures()
+    m = write_fixtures(only=sys.argv[1:] or None)
     total = sum(v["bytes"] for v in m["files"].values())
     print(f"{len(m['files'])} files, {total} bytes, "
           f"{len(m['jpeg_writes'])} JPEG digests")
