@@ -99,6 +99,20 @@ frame and each reader's ms on a full-size still.
 
     python3 chip_smoke.py --imageio
 
+runs only that phase after the builds. Then GIF and WebP writing
+(``phase_imagewrite``): every fixture of the manifest's ``gif_writes`` and
+``webp_writes`` (pixels from ``tests/torch_write_inputs.py``'s recipes,
+read on the card where a recipe reads a file) written by ``write_image``
+from a card tensor through the host C++ coders of ``csrc/gif_encode.cu``
+(PIL's median-cut quantiser and LZW) and ``csrc/webp_encode.cu``
+(libwebp's lossy encoder at PIL's defaults), each file equal to PIL's
+digest, no kernel launched; ``rcr_detect -o .gif`` and ``-o .webp`` on a
+``.synth120`` still equal to the JAX app's files (digests from a CPU
+run); the host ms per 768 x 1024 frame of both coders and their Python
+twins beside ``encode_png`` and ``encode_jpeg`` (J2 and its host coder).
+
+    python3 chip_smoke.py --imagewrite
+
 runs only that phase after the builds. Then the TIFF / PFM / WebP phase
 (``phase_tiffwebp``): every fixture of the TIFF kinds (one per key of
 PIL's ``OPEN_INFO``), the compressed kinds, JPEG-in-TIFF, PFM and lossless
@@ -5320,6 +5334,156 @@ def phase_imageio(torch, name, smi):
                 times=times, track=track, detect=detect, seconds=seconds)
 
 
+
+# GIF and WebP writing (phase_imagewrite): the repetitions of the host
+# coders' timing on the clip frame (the Python twins run once: the WebP
+# twin takes tens of seconds a frame)
+IMAGEWRITE_REPS = 5
+
+
+def imagewrite_inputs():
+    """(manifest, make) with ``make(entry)`` the pixels of a write
+    fixture through the port (``tests/torch_write_inputs.py``: numpy, the
+    port's readers on the card, ``apps/_draw``)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_write_inputs import digest, make_pixels, port_readers
+    with open(os.path.join(IMAGEIO_DIR, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    read, drawn_px = port_readers("cuda")
+
+    def make(entry):
+        px = make_pixels(entry["recipe"], read, drawn_px)
+        check(digest(px.tobytes()) == entry["pixels_sha256"],
+              f"{entry['name']}: the recipe's pixels differ from those "
+              "PIL's digest was taken of")
+        return px
+    return manifest, make
+
+
+def imagewrite_files(torch, manifest, make, root):
+    """Every GIF and WebP write fixture written by ``write_image`` from a
+    card tensor, as ``apps/_draw`` hands it (the host C++ coders), each
+    file against PIL's committed digest; no kernel launched."""
+    import hashlib
+    from superviseddescent_tpu_torch.io.image import write_image
+    checked = {}
+    for key, ext in (("gif_writes", ".gif"), ("webp_writes", ".webp")):
+        checked[key] = 0
+        for e in manifest[key]:
+            px = torch.from_numpy(make(e)).cuda()
+            target = os.path.join(root, e["name"] + ext)
+            zero_counts()
+            check(write_image(target, px) == ext[1:].upper(),
+                  f"write_image {target}: the format")
+            expect_counts(read_counts(), f"write_image {target}")
+            with open(target, "rb") as fh:
+                data = fh.read()
+            check(hashlib.sha256(data).hexdigest() == e["sha256"]
+                  and len(data) == e["bytes"],
+                  f"{e['name']}{ext} ({'x'.join(map(str, e['shape']))}): "
+                  "the file differs from PIL's digest")
+            checked[key] += 1
+    log(f"[imagewrite] {checked['gif_writes']} GIF and "
+        f"{checked['webp_writes']} WebP writes from card tensors equal to "
+        "PIL's digests (the host C++ coders)")
+    return checked
+
+
+def imagewrite_detect(torch, manifest, root):
+    """rcr_detect -i <still> --pts -o out.gif / out.webp on the card: each
+    file the JAX app's (its digest from a CPU run); no kernel launched for
+    a PNG still. Returns the wall ms of each."""
+    import hashlib
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_detect
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    out = {}
+    for e in manifest["app_writes"]:
+        image = os.path.join(REPO, e["image"])
+        target = os.path.join(root, "detect" + e["ext"])
+        fits = []
+        zero_counts()
+        with recorded(DetectionModel, "detect", fits,
+                      lambda a, lms: np.asarray(lms.coordinates)):
+            rc, text, wall = run_app_main(rcr_detect, [
+                "-m", os.path.join(REPO, "pretrained", "rcr22_lfpw5.bin"),
+                "-i", image, "--pts", image[:-4] + ".pts", "-o", target,
+                "--device", "cuda"])
+        torch.cuda.synchronize()
+        check(rc == 0 and len(fits) == 1 and f"Wrote {target}" in text,
+              f"rcr_detect -o {target}:\n{text}")
+        expect_counts(read_counts(), f"rcr_detect -o {target}")
+        with open(target, "rb") as fh:
+            data = fh.read()
+        check(hashlib.sha256(data).hexdigest() == e["sha256"],
+              f"rcr_detect -i {e['image']} -o out{e['ext']}: the file "
+              "differs from the JAX app's (the JAX run's drawn corners lie "
+              f"{e['corner_margin']:.4f} px from the next integer at least)")
+        out[e["ext"]] = wall * 1e3
+    log("[imagewrite] rcr_detect -o .gif / .webp on the card equal to the "
+        "JAX app's files, ms: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def imagewrite_times(torch, manifest, make):
+    """Host ms per 768 x 1024 RGB frame (the clip frame) of each writer's
+    encoding: GIF and WebP through the C++ coders (best of
+    IMAGEWRITE_REPS) and their Python twins (once), PNG, and JPEG through
+    J2 and the host coder from a card tensor (best of IMAGEWRITE_REPS)."""
+    from superviseddescent_tpu_torch.io.gif_write import encode_gif
+    from superviseddescent_tpu_torch.io.jpeg_write import encode_jpeg
+    from superviseddescent_tpu_torch.io.png import encode_png
+    from superviseddescent_tpu_torch.io.vp8_write import encode_webp
+    frame, = [e for e in manifest["webp_writes"] if e["name"] == "clip_frame"]
+    px = make(frame)
+    on_card = torch.from_numpy(px).cuda()
+
+    def best(call, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+    encode_jpeg(on_card)                  # J2's first launch out of the way
+    times = {
+        "gif_cpp_ms": best(lambda: encode_gif(px, native=True),
+                           IMAGEWRITE_REPS),
+        "webp_cpp_ms": best(lambda: encode_webp(px, native=True),
+                            IMAGEWRITE_REPS),
+        "png_ms": best(lambda: encode_png(px), IMAGEWRITE_REPS),
+        "jpeg_j2_ms": best(lambda: encode_jpeg(on_card), IMAGEWRITE_REPS),
+        "gif_twin_ms": best(lambda: encode_gif(px), 1),
+        "webp_twin_ms": best(lambda: encode_webp(px), 1)}
+    log("[imagewrite] host ms per 768 x 1024 RGB frame: " + ", ".join(
+        f"{k[:-3]} {v:.1f}" for k, v in times.items()))
+    return times
+
+
+def phase_imagewrite(torch, name, smi):
+    """GIF and WebP writing on the card's path: every write fixture from a
+    card tensor to PIL's digest through the host C++ coders, rcr_detect -o
+    .gif / .webp to the JAX app's files, the host times beside PNG's and
+    JPEG's."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    manifest, make = imagewrite_inputs()
+    root = tempfile.mkdtemp(prefix="chip_smoke_imagewrite_")
+    try:
+        files = imagewrite_files(torch, manifest, make, root)
+        detect = imagewrite_detect(torch, manifest, root)
+        times = imagewrite_times(torch, manifest, make)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[imagewrite] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, files=files, detect=detect,
+                times=times, seconds=seconds)
+
 def imageio_entry(imageio):
     """The kernels line's entry of J2: device ms per 768 x 1024 RGB 4:2:0
     frame, launches of the rcr_track -o run."""
@@ -7087,6 +7251,10 @@ def main():
                         "PNM / TIFF / GIF readers, rcr_track -o on the JPEG "
                         "clip, rcr_detect -o to four formats) after the "
                         "builds")
+    parser.add_argument("--imagewrite", action="store_true",
+                        help="only GIF and WebP writing (the host C++ "
+                        "coders against PIL's digests, rcr_detect -o .gif "
+                        "/ .webp against the JAX app's files, the times)")
     parser.add_argument("--tiffwebp", action="store_true",
                         help="only the TIFF kinds, JPEG-in-TIFF (J1), PFM "
                         "and lossless WebP: every new fixture to PIL's "
@@ -7221,6 +7389,11 @@ def main():
         print(json.dumps({"imageio": imageio,
                           "kernels": [imageio_entry(imageio)]}))
         return 0
+    if opts.imagewrite:
+        name, smi = phase_device(torch)
+        phase_build()
+        print(json.dumps({"imagewrite": phase_imagewrite(torch, name, smi)}))
+        return 0
     if opts.tiffwebp:
         name, smi = phase_device(torch)
         phase_build()
@@ -7269,6 +7442,7 @@ def main():
     apps = phase_apps(torch, data, seed, name, smi)
     jpeg = phase_jpeg(torch, name, smi)
     imageio = phase_imageio(torch, name, smi)
+    imagewrite = phase_imagewrite(torch, name, smi)
     tiffwebp = phase_tiffwebp(torch, data, name, smi)
     webp = phase_webp_lossy(torch, data, name, smi)
     remainder = phase_remainder(torch, data, name, smi)
@@ -7298,7 +7472,8 @@ def main():
                        kernels=entries, k3_shapes=k3_shapes,
                        k3_batches=batches, facedetect=facedetect,
                        apps=apps, jpeg=jpeg, imageio=imageio,
-                       tiffwebp=tiffwebp, webp=webp, remainder=remainder,
+                       imagewrite=imagewrite, tiffwebp=tiffwebp, webp=webp,
+                       remainder=remainder,
                        profile_fallbacks=PROFILE_FALLBACKS,
                        seconds=time.perf_counter() - t0), f,
                   indent=1)

@@ -16,9 +16,9 @@ into a numpy array or a tensor on any device.
 
 ``annotate`` reads the image as RGB (``io/image``; a JPEG through J1 on
 the device), draws there and writes the format the output's extension
-names (``io/image.write_image``; a JPEG through J2), so a JPEG frame
-bound for a JPEG file never leaves the card until its coefficients are
-coded.
+names (``io/image.write_image``; a JPEG through J2, a GIF or a WebP
+through its host C++ coder on the card's path), so a JPEG frame bound for
+a JPEG file never leaves the card until its coefficients are coded.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ detector (``-f``; with no file named, the stock
 ``superviseddescent_tpu_torch/data/``). ``-o`` writes the image with the
 landmarks and the box drawn as PIL draws them (``apps/_draw.py``), in the
 format its extension names, as PIL's ``save`` chooses it: PNG, JPEG
-(through kernel J2 on the device), BMP / DIB, PNM or TIFF; GIF and WebP
-are refused by name, an unknown or missing extension raises. The image
+(through kernel J2 on the device), BMP / DIB, PNM, TIFF, GIF (PIL's
+median-cut palette) or WebP (libwebp's lossy encoder at PIL's defaults);
+a format the port does not write is refused by name, an unknown or
+missing extension raises. The image
 is a PNG, a JPEG (every kind PIL reads but arithmetic coding, 12-bit and
 lossless; its pixel stage runs on the device, kernel J1), a BMP, a PNM
 (grey PFM too), a TIFF (every kind PIL reads; a JPEG-compressed one
@@ -47,7 +49,7 @@ def main(argv=None):
     p.add_argument("-o", "--output", default=None,
                    help="write the image with the landmarks and the box "
                         "drawn, in the format of the name's extension (.png,"
-                        " .jpg, .bmp, .ppm, .tif, ...)")
+                        " .jpg, .bmp, .ppm, .tif, .gif, .webp, ...)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain PyTorch path)")

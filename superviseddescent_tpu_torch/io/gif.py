@@ -15,8 +15,8 @@ that ``load_gray_image`` reads) but keeps the global palette, which
 the frame reaches past it; pixels outside the frame are index 0, or the
 frame's transparent index where its graphic control extension names
 one. Transparency is otherwise ignored, as ``convert("RGB")`` ignores it.
-An image whose LZW data ends before its last pixel raises. Writing GIF
-is not ported.
+An image whose LZW data ends before its last pixel raises. GIF is
+written by ``io/gif_write``.
 """
 
 from __future__ import annotations

@@ -26,9 +26,14 @@ every other format decodes on the host (``io/png``, ``bmp``, ``pnm``,
 
 ``format_for`` is PIL's extension table (``Image.registered_extensions``
 of PIL 12.1) for the formats the port writes, case-insensitive;
-``write_image`` writes by it. A format PIL writes but the port does not
-yet (GIF, WebP, ...) raises ``ValueError`` naming it and "not ported"; an
-unknown or missing extension raises ``ValueError`` as PIL's ``save`` does.
+``write_image`` writes by it. GIF (``io/gif_write``: PIL's median-cut
+palette and interlaced LZW) and WebP (``io/vp8_write``: libwebp's lossy
+encoder at PIL's defaults) are written by their host C++ coders
+(``csrc/gif_encode.cu``, ``csrc/webp_encode.cu``) on the card's path and
+by their Python twins where the caller names the CPU. A format PIL writes
+but the port does not yet (AVIF, QOI, ...) raises ``ValueError`` naming it
+and "not ported"; an unknown or missing extension raises ``ValueError`` as
+PIL's ``save`` does.
 """
 
 from __future__ import annotations
@@ -40,12 +45,14 @@ import torch
 
 from superviseddescent_tpu_torch.io.bmp import decode_bmp, encode_bmp
 from superviseddescent_tpu_torch.io.gif import decode_gif
+from superviseddescent_tpu_torch.io.gif_write import encode_gif
 from superviseddescent_tpu_torch.io.png import (
     SIGNATURE as PNG_SIGNATURE, decode_png, encode_png)
 from superviseddescent_tpu_torch.io.pnm import decode_pnm, encode_pnm
 from superviseddescent_tpu_torch.io.tiff import (
     NATIVE as TIFF_NATIVE, compression as tiff_compression, decode_tiff,
     encode_tiff)
+from superviseddescent_tpu_torch.io.vp8_write import encode_webp
 from superviseddescent_tpu_torch.utils.device import resolve_device
 
 # the written formats of PIL's extension table
@@ -53,10 +60,11 @@ WRITTEN = {".png": "PNG", ".apng": "PNG",
            ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG", ".jfif": "JPEG",
            ".bmp": "BMP", ".dib": "DIB",
            ".pbm": "PPM", ".pgm": "PPM", ".ppm": "PPM", ".pnm": "PPM",
-           ".pfm": "PPM", ".tif": "TIFF", ".tiff": "TIFF"}
+           ".pfm": "PPM", ".tif": "TIFF", ".tiff": "TIFF", ".gif": "GIF",
+           ".webp": "WEBP"}
 # the rest of PIL's table: formats PIL writes that the port does not yet
 NOT_PORTED = {
-    ".gif": "GIF", ".webp": "WEBP", ".avif": "AVIF", ".avifs": "AVIF",
+    ".avif": "AVIF", ".avifs": "AVIF",
     ".blp": "BLP", ".bufr": "BUFR", ".dds": "DDS", ".ps": "EPS",
     ".eps": "EPS", ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5",
     ".icns": "ICNS", ".ico": "ICO", ".im": "IM", ".jp2": "JPEG2000",
@@ -190,7 +198,7 @@ def read_rgb_tensor(path, device) -> torch.Tensor:
 
 def format_for(name) -> str:
     """PIL's format for a file name's extension, among those the port
-    writes: PNG, JPEG, BMP, DIB, PPM or TIFF."""
+    writes: PNG, JPEG, BMP, DIB, PPM, TIFF, GIF or WEBP."""
     ext = os.path.splitext(os.fspath(name))[1].lower()
     if ext in WRITTEN:
         return WRITTEN[ext]
@@ -209,19 +217,36 @@ def write_image(path, pixels, device=None) -> str:
     """Write uint8 grey (H, W) or RGB (H, W, 3) pixels (an array, or a
     tensor) in the format ``format_for(path)`` names; returns the format.
     A JPEG is encoded on ``device`` (J2 on the card unless the caller
-    names the CPU; a tensor's own device by default), every other format
-    on the host."""
+    names the CPU; a tensor's own device by default). A GIF or a WebP is
+    encoded on the host by its C++ coder where ``device`` (resolved as for
+    JPEG) is the card, by its Python twin where it is the CPU; with no
+    card and no device named it raises. Every other format is encoded on
+    the host."""
     fmt = format_for(path)
     if fmt == "JPEG":
         from superviseddescent_tpu_torch.ops.jpeg import write_jpeg
         write_jpeg(path, pixels, device=device)
         return fmt
+    native = False
+    if fmt in ("GIF", "WEBP"):
+        if (device is None and isinstance(pixels, torch.Tensor)
+                and pixels.device.type != "cpu"):
+            device = pixels.device
+        dev = resolve_device(device)
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        native = dev.type == "cuda"
     if isinstance(pixels, torch.Tensor):
         pixels = pixels.cpu().numpy()
-    encode = {"PNG": encode_png, "BMP": encode_bmp,
-              "DIB": lambda p: encode_bmp(p, dib=True), "PPM": encode_pnm,
-              "TIFF": encode_tiff}[fmt]
-    data = encode(pixels)
+    if fmt == "GIF":
+        data = encode_gif(pixels, native=native)
+    elif fmt == "WEBP":
+        data = encode_webp(pixels, native=native)
+    else:
+        encode = {"PNG": encode_png, "BMP": encode_bmp,
+                  "DIB": lambda p: encode_bmp(p, dib=True),
+                  "PPM": encode_pnm, "TIFF": encode_tiff}[fmt]
+        data = encode(pixels)
     with open(os.fspath(path), "wb") as f:
         f.write(data)
     return fmt

@@ -72,6 +72,12 @@ KERNELS = {
     # Zstandard decoders, no kernel
     "tiff_decode": {"tiff_ccitt_decode": [_P, _L] + [_I] * 4 + [_P],
                     "tiff_zstd_decode": [_P, _L, _P, _L, _P]},
+    # GIF writing (io/gif_write.py): the host median-cut quantiser and LZW
+    # coder, no kernel
+    "gif_encode": {"gif_quantize": [_P, _L, _P, _P],
+                   "gif_lzw_encode": [_P, _I, _I, _I, _P, _L]},
+    # WebP writing (io/vp8_write.py): the host VP8 encoder, no kernel
+    "webp_encode": {"webp_encode_vp8": [_P, _I, _I, _P, _L]},
     # lossy WebP's pixel stage (ops/webp.py): W1, W2 and W3
     "vp8_pixels": {"vp8_reconstruct_launch": [_P] * 6 + [_I] * 4 + [_P],
                    "vp8_filter_launch": [_P] * 5 + [_I] * 5 + [_P],

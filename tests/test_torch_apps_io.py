@@ -14,8 +14,8 @@ stock cascade): the landmarks within 1e-3 px of JAX's
 the test records the unrounded coordinates ``DetectionModel.detect``
 returns in each package, holds the two within 1e-3, and holds each
 printed line to its own package's coordinates within half a print step.
-``rcr_detect -o out.png`` writes the JAX app's bytes, and ``-o out.tif``
-PIL's TIFF of the same drawing; from a lossy WebP (``-i still.webp``), an
+``rcr_detect -o out.png``, ``-o out.gif`` and ``-o out.webp`` write the
+JAX app's bytes, and ``-o out.tif`` PIL's TIFF of the same drawing; from a lossy WebP (``-i still.webp``), an
 arithmetic-coded progressive JPEG (SOF10) and a lossless one (SOF3) the
 landmarks and the drawn PNG are the JAX app's too.
 """
@@ -251,6 +251,24 @@ def test_rcr_detect_png_and_tiff_are_the_jax_apps_bytes(monkeypatch,
             buf = io.BytesIO()
             Image.open(jax_out).save(buf, "TIFF")
             assert out.read_bytes() == buf.getvalue()
+
+
+@pytest.mark.parametrize("ext", [".gif", ".webp"])
+def test_rcr_detect_gif_and_webp_are_the_jax_apps_bytes(monkeypatch,
+                                                        tmp_path, ext):
+    """``-o x.gif`` (PIL's median-cut palette, interlaced LZW) and ``-o
+    x.webp`` (libwebp's lossy encoder at PIL's defaults) write the JAX
+    app's bytes, the port's Python twins on the CPU."""
+    png = os.path.join(SYNTH, IMAGE + ".png")
+    common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i", png,
+              "--pts", png[:-4] + ".pts"]
+    jax_out, out = tmp_path / ("jax" + ext), tmp_path / ("out" + ext)
+    rc, _ = run_app(monkeypatch, jax_detect, common + ["-o", str(jax_out)])
+    assert rc == 0
+    rc, text = run_app(monkeypatch, rcr_detect, common + [
+        "-o", str(out), "--device", "cpu"])
+    assert rc == 0 and f"Wrote {out}" in text
+    assert out.read_bytes() == jax_out.read_bytes()
 
 
 def test_rcr_detect_without_a_box_says_so(monkeypatch):

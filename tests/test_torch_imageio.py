@@ -127,7 +127,8 @@ FORMATS = [("x.png", "PNG"), ("d/x.PNG", "PNG"), ("x.apng", "PNG"),
            ("x.jpg", "JPEG"), ("d/x.JPEG", "JPEG"), ("x.jpe", "JPEG"),
            ("x.jfif", "JPEG"), ("x.bmp", "BMP"), ("x.dib", "DIB"),
            ("x.pbm", "PPM"), ("x.pgm", "PPM"), ("x.ppm", "PPM"),
-           ("x.pnm", "PPM"), ("x.tif", "TIFF"), ("x.TIFF", "TIFF")]
+           ("x.pnm", "PPM"), ("x.tif", "TIFF"), ("x.TIFF", "TIFF"),
+           ("x.gif", "GIF"), ("d/x.WEBP", "WEBP")]
 
 
 @pytest.mark.parametrize("name,fmt", FORMATS)
@@ -137,7 +138,7 @@ def test_format_for_is_pils_table(name, fmt):
                                          ] == fmt
 
 
-@pytest.mark.parametrize("name", ["x.gif", "x.webp", "x.tga", "x.jp2",
+@pytest.mark.parametrize("name", ["x.qoi", "x.pcx", "x.tga", "x.jp2",
                                   "x.ico", "x.pdf"])
 def test_formats_not_ported_are_refused_by_name(name, tmp_path):
     fmt = Image.registered_extensions()[os.path.splitext(name)[1]]
@@ -374,7 +375,7 @@ def test_annotate_writes_pils_file(tmp_path):
     Image.fromarray(rgb).save(src)
     coords = np.float32([[10.3, 12.7], [40.5, 30.25]])
     box = (5.5, 6.25, 30.0, 25.5)
-    for ext in (".jpg", ".png", ".ppm", ".bmp", ".tif"):
+    for ext in (".jpg", ".png", ".ppm", ".bmp", ".tif", ".gif", ".webp"):
         out = tmp_path / ("out" + ext)
         assert _draw.annotate(src, out, coords, box, device="cpu") == str(out)
         im = Image.open(src).convert("RGB")
@@ -388,6 +389,6 @@ def test_annotate_writes_pils_file(tmp_path):
         assert out.read_bytes() == ref.read_bytes(), ext
         np.testing.assert_array_equal(np.asarray(Image.open(out).convert(
             "RGB")), np.asarray(Image.open(ref).convert("RGB")))
-    with pytest.raises(ValueError, match="GIF"):
-        _draw.annotate(src, tmp_path / "out.gif", coords, device="cpu")
-    assert not (tmp_path / "out.gif").exists()
+    with pytest.raises(ValueError, match="QOI"):
+        _draw.annotate(src, tmp_path / "out.qoi", coords, device="cpu")
+    assert not (tmp_path / "out.qoi").exists()

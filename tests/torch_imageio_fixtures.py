@@ -63,7 +63,11 @@ sha256 of its filtered rows, which holds whatever zlib deflates them;
 
     python tests/torch_imageio_fixtures.py tiff_remainder clip_remainder
 
-writes only the groups named, their entries updated in the manifest.
+writes only the groups named, their entries updated in the manifest;
+``gif_webp_writes`` names the GIF and WebP write digests
+(``gif_webp_writes``: PIL's GIF and WebP files of the pixels of
+``torch_write_inputs``' recipes, and ``rcr_detect -o x.gif`` / ``x.webp``
+of the JAX app), which add no file.
 The reference is PIL's decode of the bytes written; the same seed gives
 the same bytes for the same PIL and libtiff. ``tests/test_torch_imageio.py``
 checks that the files still match the manifest.
@@ -1569,6 +1573,114 @@ def png_tiff_writes() -> list:
     return out
 
 
+
+# ------------------------------------------------------- GIF and WebP writes
+APP_WRITE_IMAGE = "synth_0001"       # rcr_detect -o x.gif / x.webp's still
+APP_WRITE_EXTS = (".gif", ".webp")
+
+
+def _read_for_writes(path: str, grey: bool) -> np.ndarray:
+    with Image.open(os.path.join(os.path.dirname(HERE), path)) as im:
+        return np.asarray(im.convert("L" if grey else "RGB"))
+
+
+def _drawn_for_writes(path: str, points: str) -> np.ndarray:
+    """``path`` drawn with ``points``' landmarks and their box as the JAX
+    ``rcr_detect -o`` draws them (PIL's ImageDraw)."""
+    from PIL import ImageDraw
+    from superviseddescent_tpu.io.pts import read_pts_landmarks
+    coords = np.asarray(read_pts_landmarks(os.path.join(
+        os.path.dirname(HERE), ".synth120", points + ".pts")).coordinates,
+        np.float32)
+    x0, y0 = coords.min(axis=0)
+    w, h = coords.max(axis=0) - (x0, y0)
+    with Image.open(os.path.join(os.path.dirname(HERE), path)) as im:
+        img = im.convert("RGB")
+    draw = ImageDraw.Draw(img)
+    for x, y in coords:
+        draw.ellipse([x - 2, y - 2, x + 2, y + 2], outline=(0, 255, 0))
+    draw.rectangle([x0, y0, x0 + w, y0 + h], outline=(255, 0, 0))
+    return np.asarray(img)
+
+
+def gif_webp_writes() -> dict:
+    """PIL's GIF and WebP files of the pixels ``torch_write_inputs``'
+    recipes make: per file its recipe, the pixels' shape and sha256, the
+    file's size and sha256, and for a WebP the PSNR (dB) of PIL's decode
+    of it against the pixels (RGB; a grey picture's RGB is its grey
+    thrice). ``app_writes``: the files the JAX ``rcr_detect -o`` writes
+    for ``.synth120/APP_WRITE_IMAGE`` with its ``--pts`` box, on the CPU,
+    and the least distance of a drawn corner (float32, before PIL
+    truncates it) to the next integer, so that a run elsewhere knows how
+    far its landmarks may move before a corner does."""
+    from torch_write_inputs import (GIF_WRITES, WEBP_WRITES, digest,
+                                    make_pixels, psnr)
+    out = {"gif_writes": [], "webp_writes": [], "app_writes": []}
+    for key, table, fmt in (("gif_writes", GIF_WRITES, "GIF"),
+                            ("webp_writes", WEBP_WRITES, "WEBP")):
+        for name, recipe in table.items():
+            px = make_pixels(recipe, _read_for_writes, _drawn_for_writes)
+            data = pil_bytes(Image.fromarray(px), fmt)
+            entry = dict(name=name, recipe=recipe, shape=list(px.shape),
+                         pixels_sha256=digest(px.tobytes()), bytes=len(data),
+                         sha256=digest(data))
+            if fmt == "WEBP":
+                with Image.open(io.BytesIO(data)) as im:
+                    back = np.asarray(im.convert("RGB"))
+                rgb = px if px.ndim == 3 else np.repeat(px[..., None], 3, 2)
+                entry["psnr"] = psnr(rgb, back)
+            out[key].append(entry)
+    out["app_writes"] = app_writes()
+    return out
+
+
+def app_writes() -> list:
+    import contextlib
+    import tempfile
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from superviseddescent_tpu.apps import rcr_detect
+    from superviseddescent_tpu.models import rcr
+    root = os.path.dirname(HERE)
+    image = os.path.join(root, ".synth120", APP_WRITE_IMAGE + ".png")
+    fits = []
+    fit = rcr.DetectionModel.detect
+
+    def recording(self, img, box):
+        lms = fit(self, img, box)
+        fits.append(np.asarray(lms.coordinates, np.float32))
+        return lms
+    rcr.DetectionModel.detect = recording
+    out = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for ext in APP_WRITE_EXTS:
+                target = os.path.join(tmp, "out" + ext)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = rcr_detect.main([
+                        "-m", os.path.join(root, "pretrained",
+                                           "rcr22_lfpw5.bin"),
+                        "-i", image, "--pts", image[:-4] + ".pts",
+                        "-o", target])
+                assert rc == 0, ext
+                with open(target, "rb") as f:
+                    data = f.read()
+                coords = fits[-1]
+                x0, y0 = coords.min(axis=0)
+                w, h = coords.max(axis=0) - (x0, y0)
+                corners = np.concatenate([(coords - 2).ravel(),
+                                          (coords + 2).ravel(),
+                                          [x0, y0, x0 + w, y0 + h]])
+                frac = np.abs(corners - np.trunc(corners))
+                margin = float(np.minimum(frac, 1 - frac).min())
+                out.append(dict(image=f".synth120/{APP_WRITE_IMAGE}.png",
+                                ext=ext, bytes=len(data),
+                                sha256=hashlib.sha256(data).hexdigest(),
+                                corner_margin=margin))
+    finally:
+        rcr.DetectionModel.detect = fit
+    return out
+
 # ------------------------- BigTIFF, CCITT, Zstandard and YCbCr (the rest)
 TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
               11: 4, 12: 8, 16: 8}
@@ -1909,6 +2021,8 @@ def write_fixtures(out: str = OUT, only=None) -> dict:
         with open(os.path.join(out, "manifest.json")) as f:
             manifest = json.load(f)
         manifest["groups"].update(groups)
+        if "gif_webp_writes" in only:
+            manifest.update(gif_webp_writes())
         for name, data in sorted(files.items()):
             with open(os.path.join(out, name), "wb") as f:
                 f.write(data)
@@ -1929,6 +2043,7 @@ def write_fixtures(out: str = OUT, only=None) -> dict:
         if name in groups["webp_lossy"]:
             manifest["files"][name].update(lossy_digests(path))
     manifest["png_tiff_writes"] = png_tiff_writes()
+    manifest.update(gif_webp_writes())
     with open(os.path.join(out, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
     return manifest
