@@ -178,7 +178,23 @@ parent's, unpacked into ``build/parent/``: its two J1 launches by name),
 in the order other, this, this, other; then this tree's split of each
 kernel (staging, transform, stores) from its measurement builds and,
 with ``--sweep``, each kernel at the other launch plans ``J1_SWEEP`` /
-``J2_SWEEP``, each output held against its twin. Last, the phase of the
+``J2_SWEEP``, each output held against its twin. Then JPEG 2000
+(``phase_j2k``): every committed fixture of ``tests/torch_j2k/`` through
+the host C++ stage, D1 and M1 to PIL's RGB and grey digests (D1 at most
+twice a level and M1 once a read, no other kernel), every file PIL
+cannot read refused; D1 and M1 against their twins on both 768 x 1024
+clip frames (9/7 RPCL, 5/3 in 256 x 256 tiles) and on small tiled,
+offset and subsampled files, the host stage against its Python twin on
+both frames; the 9/7 frame through ``load_gray_image`` and K3 (rows equal
+to its PNG's; the main path's counts); ``rcr_detect -i`` on it with the
+manifest's face box, the landmarks within J2K_DETECT_PX of the JAX app's
+and equal to those from its PNG; the host stage's ms beside its twin's,
+D1 and M1 warm and L2-flushed beside their twins' and bounds, and
+``load_gray_image`` against PNG and JPEG.
+
+    python3 chip_smoke.py --j2k
+
+runs only that phase after the builds. Last, the phase of the
 port's last
 slice (``phase_remainder``): ``train_rcr`` with the dense sampler and K1
 on the 1,408 samples of the window run in exact, high and fast sampling
@@ -382,6 +398,11 @@ SOURCES = {
                    "superviseddescent_tpu/ops/patches.py:279"),
     "vp8_colour": (_CSRC + "vp8_pixels.cu",
                    "superviseddescent_tpu/ops/patches.py:279"),
+    # D1 and M1 replace no pallas_call: the JAX package's image reader
+    "j2k_idwt": (_CSRC + "j2k_pixels.cu",
+                 "superviseddescent_tpu/ops/patches.py:279"),
+    "j2k_colour": (_CSRC + "j2k_pixels.cu",
+                   "superviseddescent_tpu/ops/patches.py:279"),
 }
 
 
@@ -448,7 +469,8 @@ def phase_build():
                      + list(JPEG_BUILDS)
                      + [("vp8_pixels", (d,)) for _, d in WEBP_BUILDS]
                      + [("vp8_pixels", (d,)) for _, d in COLOUR_BUILDS])
-    log(f"[build] K1-K6, J1, J2, W1-W3, the probes and K1's, K2's, K3's, "
+    log(f"[build] K1-K6, J1, J2, W1-W3, D1, M1, the host decoders and "
+        f"coders, the probes and K1's, K2's, K3's, "
         f"K5's, J1's, J2's, W1's, W2's and W3's measurement builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
@@ -825,6 +847,7 @@ def counted_ops():
         detect_cascade_fused, detect_cascade_fused_frames,
         extract_features_fused, extract_features_fused_frames)
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
+    from superviseddescent_tpu_torch.ops.j2k import j2k_colour, j2k_idwt
     from superviseddescent_tpu_torch.ops.jpeg import (
         jpeg_coefficients, jpeg_pixels, jpeg_samples)
     from superviseddescent_tpu_torch.ops.patches_window import (
@@ -850,7 +873,8 @@ def counted_ops():
             "jpeg_decode": jpeg_pixels, "jpeg_samples": jpeg_samples,
             "jpeg_encode": jpeg_coefficients,
             "vp8_reconstruct": vp8_reconstruct, "vp8_filter": vp8_filter,
-            "vp8_colour": vp8_colour}
+            "vp8_colour": vp8_colour, "j2k_idwt": j2k_idwt,
+            "j2k_colour": j2k_colour}
 
 
 def zero_counts():
@@ -2998,6 +3022,7 @@ def k12_device_ms(torch, args, skw, hkw):
     """K2's and K1's device ms (torch.profiler) through their entry points
     at one level's arguments, K1 on the patches that K2 returns."""
     from superviseddescent_tpu_torch.ops.hog_flat import hog_descriptor_flat
+    from superviseddescent_tpu_torch.ops.j2k import j2k_colour, j2k_idwt
     from superviseddescent_tpu_torch.ops.jpeg import (
         jpeg_coefficients, jpeg_pixels)
     from superviseddescent_tpu_torch.ops.patches_window import (
@@ -6686,6 +6711,348 @@ def phase_webp_lossy(torch, data, name, smi, root=REPO, sweep=False):
 
 
 # ---------------------------------------------------------------- #
+# JPEG 2000 reading: the host stage, D1 and M1
+# ---------------------------------------------------------------- #
+J2K_DIR = os.path.join(REPO, "tests", "torch_j2k")
+J2K_FRAME_97 = "f01_clip_97_rpcl.jp2"     # the clip frame, 9/7, RPCL
+J2K_FRAME_53 = "f02_clip_53_tiles.jp2"    # the clip frame, 5/3, 12 tiles
+# D1 and M1 against their twins on the card: both 768 x 1024 frames and
+# the small tiled files with odd origins and subsampling
+J2K_TWIN_FILES = (J2K_FRAME_97, J2K_FRAME_53, "k39_odd_tiles_97.j2k",
+                  "k16_tiles_offset_97.jp2", "o24_subsampled_offset.j2k",
+                  "e06_sycc.jp2", "k09_cmyk.jp2")
+J2K_KERNELS = ("j2k_idwt", "j2k_colour")
+J2K_REPS = 5
+# rcr_detect's landmarks on the 9/7 frame against the JAX app's in the
+# manifest (its CPU run): the card's and the CPU's float rounding, twice
+# the apps phase's tolerance of the card against the port's CPU path
+J2K_DETECT_PX = 2 * APP_DETECT_PX
+# integer or float operations a sample of one D1 pass (5/3: two lifting
+# steps of three operations over half the samples each, the load's
+# interleave; 9/7: the scaling and four steps of three), of M1 a pixel a
+# channel (the tile, the unpacker's index and component, the component
+# transform, the shift and clamp, Pillow's shift, the colour)
+J2K_D1_OPS_PER_SAMPLE = {1: 4, 0: 7}
+J2K_M1_OPS_PER_PIXEL = 48
+
+
+def j2k_frame(name):
+    """(J2kFile, J2kFrame from the host C++ stage in pinned memory)."""
+    from superviseddescent_tpu_torch.io import jp2 as J
+    from superviseddescent_tpu_torch.ops import j2k as O
+    with open(os.path.join(J2K_DIR, name), "rb") as fh:
+        f = J.read_file(fh.read())
+    return f, O.decode_native(f.codestream, pinned=True)
+
+
+def j2k_bounds(frame, channels=3):
+    """D1's and M1's least times on ``frame``: D1 reads and writes every
+    coefficient once (the whole transform, all levels), M1 reads every
+    coefficient once and writes the pixels; or their operations at 67
+    TOP/s, whichever is longer."""
+    from superviseddescent_tpu_torch.ops import j2k as O
+    n = int(frame.coeffs.numel())
+    ops = 0
+    for level in range(int(frame.tcs[:, O.TC_LEVELS].max(initial=0))):
+        for job in O.idwt_jobs(frame.tcs, level).tolist():
+            ops += 2 * job[2] * job[3] * J2K_D1_OPS_PER_SAMPLE[job[8]]
+    pixels = frame.width * frame.height
+    work = {"j2k_idwt": (8 * n, ops),
+            "j2k_colour": (4 * n + pixels * channels,
+                           pixels * channels * J2K_M1_OPS_PER_PIXEL)}
+    bounds = {}
+    for name, (nbytes, nops) in work.items():
+        b_ms, o_ms = nbytes / MEM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+        bounds[name] = dict(bytes=nbytes, ops=nops, bytes_ms=b_ms,
+                            ops_ms=o_ms, bound_ms=max(b_ms, o_ms),
+                            bound_by="bytes" if b_ms >= o_ms
+                            else "operations")
+    return bounds
+
+
+def j2k_readers(torch, manifest):
+    """Every committed fixture through the card's path (the host C++
+    stage, D1, M1) in RGB and grey, to PIL's digests; each read launches
+    D1 at most twice a level, M1 once and nothing else; what PIL cannot
+    read is refused."""
+    import hashlib
+    from superviseddescent_tpu_torch.ops import j2k as O
+    read = refused = 0
+    for name, e in sorted(manifest["files"].items()):
+        with open(os.path.join(J2K_DIR, name), "rb") as fh:
+            data = fh.read()
+        if "pil_error" in e:
+            try:
+                O.read_j2k(data, 3, "cuda")
+            except ValueError:
+                refused += 1
+                continue
+            raise SmokeFailure(f"{name}: PIL cannot read it, the port did")
+        levels = int(j2k_frame(name)[1].tcs[:, O.TC_LEVELS].max())
+        for channels, key in ((3, "rgb_sha256"), (1, "grey_sha256")):
+            zero_counts()
+            px = O.read_j2k(data, channels, "cuda")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(px.is_cuda and counts["j2k_colour"] == 1
+                  and counts["j2k_idwt"] <= 2 * levels
+                  and sum(counts.values()) == counts["j2k_colour"]
+                  + counts["j2k_idwt"], f"{name}: launches {counts}")
+            check(sha256_of(px) == e[key], f"{name}: the card's "
+                  f"{'RGB' if channels == 3 else 'grey'} differs from PIL's")
+        read += 1
+    log(f"[j2k] {read} fixtures read on the card (host C++ stage, D1, M1) "
+        f"to PIL's RGB and grey digests, D1 at most twice a level and M1 "
+        f"once a read; {refused} that PIL cannot read refused")
+    return read, refused
+
+
+def j2k_twins(torch):
+    """D1 and M1 against their twins (plain PyTorch on the card) on
+    J2K_TWIN_FILES, and the host C++ stage against its Python twin on
+    the two frames; returns the largest difference."""
+    from superviseddescent_tpu_torch.ops import j2k as O
+    worst = 0
+    for name in J2K_TWIN_FILES:
+        f, frame = j2k_frame(name)
+        plan = O.colour_plan(f, frame)
+        coeffs = frame.coeffs.to("cuda")
+        card = O.j2k_idwt(coeffs.clone(), frame.tcs)
+        twin = O.idwt_reference(coeffs, frame.tcs)
+        ints = (card.long() - twin.long()).abs()
+        fl = (card.view(torch.float32) - twin.view(torch.float32)).abs()
+        check(torch.equal(card, twin), f"D1 differs from its twin on {name}"
+              f" (int {int(ints.max())}, float {float(fl.max())})")
+        for channels in (3, 1):
+            px = O.j2k_colour(card, frame, plan, channels)
+            want = O.colour_reference(twin, frame, plan, channels)
+            d = int((px.int() - want.int()).abs().max())
+            worst = max(worst, d)
+            check(d == 0, f"M1 differs from its twin on {name} by {d}")
+        if name in (J2K_FRAME_97, J2K_FRAME_53):
+            py = O.decode_python(f.codestream)
+            check(torch.equal(py.coeffs, frame.coeffs.cpu())
+                  and (py.tcs == frame.tcs).all(), f"the host C++ stage "
+                  f"differs from its Python twin on {name}")
+    log(f"[j2k] D1 and M1 equal to their twins on {len(J2K_TWIN_FILES)} "
+        "files (both 768 x 1024 frames among them); the host C++ stage "
+        "equal to its Python twin on both frames")
+    return worst
+
+
+def j2k_k3(torch, data, manifest, root):
+    """The slice's main path: the 9/7 clip frame through
+    ``load_gray_image`` on the card (the host C++ stage, D1 twice a level,
+    M1 once) and ``make_fused_detector`` (K3) on the 4,096 faces' boxes
+    over it; the rows equal those from a PNG of the same pixels. Counts
+    from 0 before, read after. Returns (launches, paths)."""
+    import shutil
+    import numpy as np
+    from superviseddescent_tpu_torch.io.png import write_png
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    model = data["model"]
+    det = model.make_fused_detector(roi=ROI, max_ied=data["max_ied"])
+    idx = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    paths = {"j2k": os.path.join(root, J2K_FRAME_97)}
+    shutil.copy(os.path.join(J2K_DIR, J2K_FRAME_97), paths["j2k"])
+    levels = int(j2k_frame(J2K_FRAME_97)[1].tcs[:, 5].max())
+    zero_counts()
+    frame = load_gray_image(paths["j2k"])
+    rows = det(torch.from_numpy(frame.astype("uint8"))[None].cuda(),
+               data["boxes"], image_indices=idx)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts(launches, "the 9/7 JP2 frame through load_gray_image and "
+                  "K3", j2k_idwt=2 * levels, j2k_colour=1,
+                  cascade_fused_frames=1)
+    check(sha256_of(torch.from_numpy(frame.astype(np.uint8)))
+          == manifest["files"][J2K_FRAME_97]["grey_sha256"],
+          "load_gray_image of the JP2 frame differs from PIL's grey")
+    paths["png"] = os.path.join(root, "j2k_frame.png")
+    write_png(paths["png"], frame.astype(np.uint8))
+    png_rows = det(torch.from_numpy(load_gray_image(paths["png"]).astype(
+        "uint8"))[None].cuda(), data["boxes"], image_indices=idx)
+    check(rows.shape == (BATCH, 2 * len(model.landmark_ids))
+          and bool(torch.isfinite(rows).all()), "non-finite or misshapen "
+          "rows from the JP2 frame")
+    check(torch.equal(rows, png_rows), "K3's rows from the JP2 frame differ "
+          "from those from its pixels as PNG")
+    paths["jpeg"] = os.path.join(JPEG_DIR, J2_TIME_FRAME)
+    log(f"[j2k] the 9/7 clip frame through load_gray_image (D1 x "
+        f"{2 * levels}, M1 once) and K3 on {BATCH} faces: rows equal to "
+        f"the PNG of the same pixels; launches {launches}")
+    return launches, paths
+
+
+def j2k_detect(torch, manifest, root):
+    """rcr_detect -i <9/7 frame>.jp2 --facebox -o out.png on the card (D1
+    and M1 for the grey and for the RGB) and on a PNG of the same RGB
+    pixels: the same landmarks and drawn file, the landmarks within
+    J2K_DETECT_PX of the JAX app's (the manifest's ``clip_detect``)."""
+    import numpy as np
+    from superviseddescent_tpu_torch.apps import rcr_detect
+    from superviseddescent_tpu_torch.io.image import read_rgb
+    from superviseddescent_tpu_torch.io.png import write_png
+    from superviseddescent_tpu_torch.models.rcr import DetectionModel
+    want = manifest["clip_detect"]
+    image = os.path.join(J2K_DIR, J2K_FRAME_97)
+    levels = int(j2k_frame(J2K_FRAME_97)[1].tcs[:, 5].max())
+    png = os.path.join(root, "j2k_rgb.png")
+    write_png(png, read_rgb(image))
+    box = ",".join(repr(v) for v in want["facebox"])
+    runs = {}
+    for kind, src in (("j2k", image), ("png", png)):
+        out = os.path.join(root, f"detect_{kind}.png")
+        argv = ["-m", os.path.join(REPO, "pretrained", "rcr22_lfpw5.bin"),
+                "-i", src, "--facebox", box, "-o", out, "--device", "cuda"]
+        fits = []
+        zero_counts()
+        with recorded(DetectionModel, "detect", fits,
+                      lambda a, lms: np.asarray(lms.coordinates)):
+            rc, text, wall = run_app_main(rcr_detect, argv)
+        torch.cuda.synchronize()
+        n = 2 if kind == "j2k" else 0
+        expect_counts(read_counts(), f"rcr_detect -i {kind} --facebox -o",
+                      j2k_idwt=n * 2 * levels, j2k_colour=n)
+        check(rc == 0 and len(fits) == 1 and f"Wrote {out}" in text,
+              f"rcr_detect -i {os.path.basename(src)}:\n{text[-400:]}")
+        with open(out, "rb") as fh:
+            runs[kind] = (fits[0], wall, fh.read())
+    got = runs["j2k"][0]
+    delta = float(np.abs(got - np.asarray(want["landmarks"])).max())
+    check(np.array_equal(got, runs["png"][0])
+          and runs["j2k"][2] == runs["png"][2], "rcr_detect on the JP2: "
+          "landmarks or drawing differ from those of its pixels as PNG")
+    check(delta <= J2K_DETECT_PX, f"rcr_detect on the JP2: {delta} px from "
+          "the JAX app's landmarks")
+    log(f"[j2k] rcr_detect -i {J2K_FRAME_97} --facebox -o: "
+        f"{runs['j2k'][1] * 1e3:.1f} ms on the card (D1 and M1 twice; "
+        f"{runs['png'][1] * 1e3:.1f} ms from the PNG), the landmarks "
+        f"{delta:.2e} px from the JAX app's, equal to those from the PNG "
+        "of the same pixels, the drawn PNG equal")
+    return dict(ms=runs["j2k"][1] * 1e3, png_ms=runs["png"][1] * 1e3,
+                jax_delta_px=delta)
+
+
+def j2k_times(torch, paths):
+    """On both 768 x 1024 frames: the host C++ stage's ms beside its Python
+    twin's (host clock), D1 and M1's device ms (torch.profiler) warm and
+    with the L2 flushed before each call, beside their twins' and their
+    bounds; ``load_gray_image`` of the 9/7 JP2, the PNG of its pixels and
+    the JPEG it was written from, in turns."""
+    from superviseddescent_tpu_torch.ops import j2k as O
+    from superviseddescent_tpu_torch.ops.patches import load_gray_image
+    flush = l2_flusher(torch)
+    out = {}
+    for frame_name in (J2K_FRAME_97, J2K_FRAME_53):
+        f, frame = j2k_frame(frame_name)
+        host = []
+        for _ in range(J2K_REPS):
+            t0 = time.perf_counter()
+            O.decode_native(f.codestream, pinned=True)
+            host.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        O.decode_python(f.codestream)
+        twin_host = (time.perf_counter() - t0) * 1e3
+        plan = O.colour_plan(f, frame)
+        coeffs = frame.coeffs.to("cuda")
+        work = coeffs.clone()
+        done = O.j2k_idwt(coeffs.clone(), frame.tcs)
+        bounds = j2k_bounds(frame, 3)
+        calls = {
+            "j2k_idwt": (lambda: O.j2k_idwt(work, frame.tcs),
+                         lambda: O.idwt_reference(coeffs, frame.tcs), False),
+            "j2k_colour": (lambda: O.j2k_colour(done, frame, plan, 3),
+                           lambda: O.colour_reference(done, frame, plan, 3),
+                           True)}
+        kernels = {}
+        for name, (kernel, twin, one) in calls.items():
+            ms = [device_ms(torch, kernel, reps=10, match=name,
+                            one_kernel=one) for _ in range(2)]
+            flushed = device_ms(torch, kernel, reps=10, match=name,
+                                one_kernel=one, before=flush)
+            twin_ms = device_ms(torch, twin, reps=2, one_kernel=False)
+            kernels[name] = dict(device_ms=ms, flushed_ms=flushed,
+                                 twin_device_ms=twin_ms, **bounds[name])
+        out[frame_name] = dict(host_ms=host, twin_host_ms=twin_host,
+                               kernels=kernels, tiles=len(frame.tiles),
+                               levels=int(frame.tcs[:, O.TC_LEVELS].max()))
+        log(f"[j2k] {frame_name}: host C++ stage {min(host):.3f} ms (host "
+            f"clock, best of {J2K_REPS}), its Python twin {twin_host:.1f} ms")
+        for name, t in kernels.items():
+            log(f"[j2k] {frame_name} {name}: " + " / ".join(
+                f"{v:.5f}" for v in t["device_ms"]) + f" ms warm, "
+                f"{t['flushed_ms']:.5f} ms L2 flushed (device, "
+                f"torch.profiler), bound {t['bound_ms']:.5f} ms "
+                f"({t['bound_by']}: {t['bytes']} bytes, {t['ops']} ops), "
+                f"twin {t['twin_device_ms']:.4f} ms device")
+    order = {k: paths[k] for k in ("j2k", "png", "jpeg")}
+    load_ms = {k: [] for k in order}
+    for _ in range(J2K_REPS):
+        for kind, p in order.items():
+            t0 = time.perf_counter()
+            load_gray_image(p)
+            load_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    log("[j2k] load_gray_image of the 768 x 1024 frame, ms (host clock, "
+        f"best of {J2K_REPS}, in turns): " + ", ".join(
+            f"{k} {min(v):.2f}" for k, v in load_ms.items()))
+    return dict(frames=out, load_gray_ms=load_ms)
+
+
+def j2k_entries(j2k):
+    """The kernels line's entries of D1 and M1: device ms on the 9/7
+    frame (D1: all its launches of one read), launches of the main path's
+    run; the 5/3 tiled frame's beside them."""
+    out = []
+    for name in J2K_KERNELS:
+        source, replaces = SOURCES[name]
+        t = j2k["times"]["frames"][J2K_FRAME_97]["kernels"][name]
+        tiled = j2k["times"]["frames"][J2K_FRAME_53]["kernels"][name]
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            replaces_note="no pallas_call: the JAX package reads images with "
+            "PIL on the host; D1 and M1 are hand kernels of the io slice",
+            launches=j2k["launches"][name], max_abs_err=j2k["max_abs_err"],
+            ms=min(t["device_ms"]), plain_ms=t["twin_device_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            library_note="no nvJPEG2000 on the card, and it would not count",
+            flushed_ms=t["flushed_ms"], ms_source="torch.profiler",
+            tiled_frame=dict(ms=min(tiled["device_ms"]),
+                             flushed_ms=tiled["flushed_ms"],
+                             plain_ms=tiled["twin_device_ms"],
+                             bound_ms=tiled["bound_ms"])))
+    return out
+
+
+def phase_j2k(torch, data, name, smi):
+    """JPEG 2000 on the card: every committed fixture through the host C++
+    stage, D1 and M1 to PIL's digests (and the refusals), D1 and M1
+    against their twins and the host stage against its Python twin, the
+    9/7 clip frame through load_gray_image and K3 (the main path; rows
+    equal to its PNG's), rcr_detect -i on it against the JAX app's
+    landmarks, and the times (``j2k_times``)."""
+    import shutil
+    import tempfile
+    with open(os.path.join(J2K_DIR, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_j2k_")
+    try:
+        read, refused = j2k_readers(torch, manifest)
+        worst = j2k_twins(torch)
+        launches, paths = j2k_k3(torch, data, manifest, tmp)
+        detect = j2k_detect(torch, manifest, tmp)
+        times = j2k_times(torch, paths)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[j2k] {seconds:.1f} s in all ({name}; {smi})")
+    return dict(device=name, nvidia_smi=smi, files_read=read,
+                files_refused=refused, max_abs_err=worst, launches=launches,
+                detect=detect, times=times, seconds=seconds)
+
+
+# ---------------------------------------------------------------- #
 # The last slice: dense training, data parallel, checkpoints
 # ---------------------------------------------------------------- #
 DENSE_SAMPLINGS = ("exact", "high", "fast")
@@ -7268,6 +7635,12 @@ def main():
                         "W1-W3's split; with --package-root W1-W3 "
                         "of another checkout in turns (the main run "
                         "includes it)")
+    parser.add_argument("--j2k", action="store_true",
+                        help="only JPEG 2000 reading: every fixture through "
+                        "the host C++ stage, D1 and M1 to PIL's digests, D1 "
+                        "and M1 against their twins, the 9/7 clip frame "
+                        "through K3 and rcr_detect -i, the times (the main "
+                        "run includes it)")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
@@ -7409,6 +7782,12 @@ def main():
         print(json.dumps({"webp": webp,
                           "kernels": webp_lossy_entries(webp)}))
         return 0
+    if opts.j2k:
+        name, smi = phase_device(torch)
+        phase_build()
+        j2k = phase_j2k(torch, load_data(torch), name, smi)
+        print(json.dumps({"j2k": j2k, "kernels": j2k_entries(j2k)}))
+        return 0
     if opts.remainder:
         name, smi = phase_device(torch)
         phase_build()
@@ -7445,11 +7824,12 @@ def main():
     imagewrite = phase_imagewrite(torch, name, smi)
     tiffwebp = phase_tiffwebp(torch, data, name, smi)
     webp = phase_webp_lossy(torch, data, name, smi)
+    j2k = phase_j2k(torch, data, name, smi)
     remainder = phase_remainder(torch, data, name, smi)
     entries = kernel_entries(results, k1_errs, k2_errs, fused, train, probes,
                              families, remainder) + [
         jpeg_entry(jpeg, tiffwebp), jpeg_samples_entry(jpeg),
-        imageio_entry(imageio)] + webp_lossy_entries(webp)
+        imageio_entry(imageio)] + webp_lossy_entries(webp) + j2k_entries(j2k)
     k3_shapes = {
         "rcr22_4096": fused["kernels"]["cascade_fused_frames"]["ms"],
         "rcr22_batch1": tracking["k3_batch1_ms"],
@@ -7473,7 +7853,7 @@ def main():
                        k3_batches=batches, facedetect=facedetect,
                        apps=apps, jpeg=jpeg, imageio=imageio,
                        imagewrite=imagewrite, tiffwebp=tiffwebp, webp=webp,
-                       remainder=remainder,
+                       j2k=j2k, remainder=remainder,
                        profile_fallbacks=PROFILE_FALLBACKS,
                        seconds=time.perf_counter() - t0), f,
                   indent=1)

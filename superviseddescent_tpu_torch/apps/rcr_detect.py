@@ -15,8 +15,8 @@ missing extension raises. The image
 is a PNG, a JPEG (every kind PIL reads but arithmetic coding, 12-bit and
 lossless; its pixel stage runs on the device, kernel J1), a BMP, a PNM
 (grey PFM too), a TIFF (every kind PIL reads; a JPEG-compressed one
-through J1), a GIF or a lossless WebP
-(``io/image.py``). Runs on the card unless ``--device cpu`` is given;
+through J1), a GIF, a WebP (a lossy one through W1-W3) or a JPEG 2000
+file (JP2 or a raw codestream, through D1 and M1) (``io/image.py``). Runs on the card unless ``--device cpu`` is given;
 the landmark fit (``DetectionModel.detect``) and the face
 detector are plain PyTorch operations on that device.
 
@@ -36,8 +36,8 @@ def main(argv=None):
                     "(PyTorch port)")
     p.add_argument("-m", "--model", required=True, help="trained model file")
     p.add_argument("-i", "--image", required=True,
-                   help="image to detect in (PNG, JPEG, BMP, PNM, TIFF, GIF "
-                        "or lossless WebP)")
+                   help="image to detect in (PNG, JPEG, BMP, PNM, TIFF, GIF, "
+                        "WebP or JPEG 2000)")
     p.add_argument("--facebox", default=None, help="x,y,w,h")
     p.add_argument("--pts", default=None,
                    help="derive the facebox from this ground-truth .pts file")

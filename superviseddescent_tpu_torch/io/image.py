@@ -5,9 +5,10 @@ PNM (every prefix PIL's ``PpmImagePlugin._accept`` takes: ``P0``-``P6``,
 ``Pf`` and ``Py``; ``decode_pnm`` reads grey PFM and refuses PIL's own
 extensions by name), TIFF (``II*\\0``, ``MM\\0*`` and BigTIFF's ``II+\\0``,
 ``MM\\0+``), GIF (``GIF87a``,
-``GIF89a``) and WebP (``RIFF....WEBP``, lossless and lossy, an
-animation's first frame); a format PIL reads that is not ported (JPEG
-2000, PSD, QOI) raises naming it. ``read_rgb`` is
+``GIF89a``), WebP (``RIFF....WEBP``, lossless and lossy, an
+animation's first frame) and JPEG 2000 (a JP2 file or a raw codestream,
+PIL's ``Jpeg2KImagePlugin._accept``); a format PIL reads that is not
+ported (PSD, QOI) raises naming it. ``read_rgb`` is
 ``Image.open(p).convert("RGB")``;
 ``read_gray`` is the JAX package's ``load_gray_image``: PIL's mode ``L``
 as it is, every other mode through RGB and OpenCV's grey, which agree
@@ -16,8 +17,9 @@ one grey plane (modes 1, L, LA, and PIL's I;16, I and F clipped by
 ``convert("RGB")``) gives both. JPEG's pixel stage runs on ``device``
 (kernel J1, ``ops/jpeg.read_jpeg``; the card unless the caller names
 one), and so does a JPEG-compressed TIFF's (``ops/jpeg.read_tiff_jpeg``)
-and a lossy WebP's (kernels W1-W3 after the host entropy stage,
-``ops/webp.read_webp``); a lossless WebP decodes on the host, by the C++
+a lossy WebP's (kernels W1-W3 after the host entropy stage,
+``ops/webp.read_webp``) and a JPEG 2000 file's (kernels D1 and M1 after
+the host tier-2 and tier-1 stage, ``ops/j2k.read_j2k``); a lossless WebP decodes on the host, by the C++
 decoder where ``device`` is the card and by its Python twin on the CPU
 (``io/webp``), and so do a TIFF's CCITT and Zstandard strips (the C++
 decoders of ``csrc/tiff_decode.cu``, or ``io/ccitt`` and ``io/zstd``);
@@ -81,16 +83,16 @@ READ_ONLY = {".cur": "CUR", ".dcx": "DCX", ".fit": "FITS", ".fits": "FITS",
              ".pcd": "PCD", ".pxr": "PIXAR", ".psd": "PSD", ".ras": "SUN",
              ".xpm": "XPM"}
 # magic bytes of formats PIL reads that the port does not (yet)
-UNPORTED_MAGIC = ((b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
-                  (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"8BPS", "PSD"),
-                  (b"qoif", "QOI"))
+UNPORTED_MAGIC = ((b"8BPS", "PSD"), (b"qoif", "QOI"))
+# JPEG 2000: a raw codestream (SOC, SIZ) or a JP2 file's signature box
+J2K_MAGIC = (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")
 # the header sizes by which PIL takes headerless bytes for a DIB
 DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 
 
 def sniff(data: bytes) -> str:
     """The format of an image file's bytes: PNG, JPEG, BMP, PPM, TIFF, GIF,
-    WEBP or DIB (PIL's names; a DIB is BMP without its file header, known
+    WEBP, JPEG2000 or DIB (PIL's names; a DIB is BMP without its file header, known
     by its header's size as PIL knows it). Raises naming a format that is
     not ported."""
     if data[:8] == PNG_SIGNATURE:
@@ -107,14 +109,16 @@ def sniff(data: bytes) -> str:
         return "GIF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WEBP"
+    if data.startswith(J2K_MAGIC):
+        return "JPEG2000"
     if len(data) >= 4 and int.from_bytes(data[:4], "little") in DIB_HEADERS:
         return "DIB"
     for magic, name in UNPORTED_MAGIC:
         if data.startswith(magic):
             raise ValueError(f"reading {name} is not ported")
     raise ValueError(f"not an image format the port reads (starts with "
-                     f"{data[:4]!r}; PNG, JPEG, BMP, PNM, TIFF, GIF or "
-                     "WebP)")
+                     f"{data[:4]!r}; PNG, JPEG, BMP, PNM, TIFF, GIF, "
+                     "WebP or JPEG 2000)")
 
 
 def decode_host(data: bytes, fmt: str, channels: int = 3,
@@ -138,9 +142,9 @@ def decode_host(data: bytes, fmt: str, channels: int = 3,
 
 
 def _read(path, channels: int, device):
-    """An image file's pixels: a JPEG's, a JPEG-compressed TIFF's (J1) or a
-    lossy WebP's (W1-W3) as a tensor on ``device``, any other format's as
-    a host array."""
+    """An image file's pixels: a JPEG's, a JPEG-compressed TIFF's (J1), a
+    lossy WebP's (W1-W3) or a JPEG 2000 file's (D1, M1) as a tensor on
+    ``device``, any other format's as a host array."""
     with open(os.fspath(path), "rb") as f:
         data = f.read()
     try:
@@ -148,6 +152,9 @@ def _read(path, channels: int, device):
         if fmt == "JPEG":
             from superviseddescent_tpu_torch.ops.jpeg import read_jpeg
             return read_jpeg(data, channels, device)
+        if fmt == "JPEG2000":
+            from superviseddescent_tpu_torch.ops.j2k import read_j2k
+            return read_j2k(data, channels, device)
         native = False
         if fmt == "TIFF":
             kind = tiff_compression(data)
@@ -188,8 +195,8 @@ def read_rgb(path, device=None) -> np.ndarray:
 
 
 def read_rgb_tensor(path, device) -> torch.Tensor:
-    """uint8 (H, W, 3) on ``device``: a JPEG's or a lossy WebP's pixels
-    never leave it."""
+    """uint8 (H, W, 3) on ``device``: a JPEG's, a lossy WebP's or a JPEG
+    2000 file's pixels never leave it."""
     px = _read(path, 3, device)
     if isinstance(px, torch.Tensor):
         return px

@@ -205,14 +205,17 @@ def load_gray_image(path, device=None) -> np.ndarray:
     """Load an image file as (H, W) float32 gray in [0, 255], as the JAX
     package's ``load_gray_image`` (PIL's mode L as it is, every other
     mode through RGB with OpenCV's grey): PNG, JPEG, BMP, PNM (grey PFM
-    too), TIFF, GIF or WebP (lossless or lossy), the format read from the
-    magic bytes (``io/image.read_gray``).
+    too), TIFF, GIF, WebP (lossless or lossy) or JPEG 2000 (JP2 or a raw
+    codestream), the format read from the magic bytes
+    (``io/image.read_gray``).
 
     A JPEG's or a JPEG-compressed TIFF's pixel stage runs on ``device``:
     the card (kernel J1, ``ops/jpeg.py``) unless the caller passes
     ``device="cpu"``; with no card and no device it raises. So does a
     lossy WebP's (kernels W1-W3, ``ops/webp.py``, after the host entropy
-    stage). A lossless WebP decodes on the host, by the C++ decoder for
+    stage), and a JPEG 2000 file's (kernels D1 and M1, ``ops/j2k.py``,
+    after the host tier-2 and tier-1 stage). A lossless WebP decodes on
+    the host, by the C++ decoder for
     the card and its Python twin for the CPU, and so do a TIFF's CCITT
     RLE / Group 3 / Group 4 and Zstandard strips (``csrc/tiff_decode.cu``
     or ``io/ccitt.py`` / ``io/zstd.py``; with no card and no device they

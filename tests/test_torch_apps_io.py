@@ -16,8 +16,9 @@ returns in each package, holds the two within 1e-3, and holds each
 printed line to its own package's coordinates within half a print step.
 ``rcr_detect -o out.png``, ``-o out.gif`` and ``-o out.webp`` write the
 JAX app's bytes, and ``-o out.tif`` PIL's TIFF of the same drawing; from a lossy WebP (``-i still.webp``), an
-arithmetic-coded progressive JPEG (SOF10) and a lossless one (SOF3) the
-landmarks and the drawn PNG are the JAX app's too.
+arithmetic-coded progressive JPEG (SOF10), a lossless one (SOF3) and a
+JPEG 2000 file of either transform (``-i still.jp2``) the landmarks and
+the drawn PNG are the JAX app's too.
 """
 
 import io
@@ -175,6 +176,34 @@ def test_rcr_detect_on_a_lossy_webp_matches_jax(monkeypatch, tmp_path):
     with Image.open(os.path.join(SYNTH, IMAGE + ".png")) as im:
         still = tmp_path / "still.webp"
         im.convert("RGB").save(still, "WEBP", quality=80)
+    common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
+              str(still), "--facebox", "60.5,120.25,170,175"]
+    want, got = [], []
+    record_detect(monkeypatch, jax_rcr.DetectionModel, want)
+    record_detect(monkeypatch, port_rcr.DetectionModel, got)
+    jax_out, out = tmp_path / "jax.png", tmp_path / "out.png"
+    rc, _ = run_app(monkeypatch, jax_detect, common + ["-o", str(jax_out)])
+    assert rc == 0
+    rc, text = run_app(monkeypatch, rcr_detect, common + [
+        "-o", str(out), "--device", "cpu"])
+    assert rc == 0 and f"Wrote {out}" in text
+    (box, coords), (jax_box, jax_coords) = got[0], want[0]
+    np.testing.assert_allclose(box, jax_box, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(coords, jax_coords, atol=EXACT_PX, rtol=0)
+    assert out.read_bytes() == jax_out.read_bytes()
+
+
+@pytest.mark.parametrize("irreversible", [False, True])
+def test_rcr_detect_on_a_jpeg2000_matches_jax(monkeypatch, tmp_path,
+                                              irreversible):
+    """-i still.jp2 (PIL's writer, the 5/3 or the 9/7 transform, one layer
+    at a rate of 40): the port reads it through its twins (tier-2,
+    tier-1, D1, M1), the JAX app through PIL; the landmarks within 1e-3
+    px, and -o out.png the JAX app's bytes."""
+    with Image.open(os.path.join(SYNTH, IMAGE + ".png")) as im:
+        still = tmp_path / "still.jp2"
+        im.save(still, "JPEG2000", quality_layers=[40],
+                irreversible=irreversible)
     common = ["-m", os.path.join(PRETRAINED, "rcr22_lfpw5.bin"), "-i",
               str(still), "--facebox", "60.5,120.25,170,175"]
     want, got = [], []

@@ -254,7 +254,7 @@ def test_old_style_lzw_is_refused_by_name():
 
 @pytest.mark.parametrize("data,match", [
     (b"qoif\x00\x00\x00\x01", "reading QOI is not ported"),
-    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "reading JPEG 2000 is not ported"),
+    (b"\x00\x00\x01\x00\x01\x00", "not an image format"),       # ICO
     (b"8BPS\x00\x01", "reading PSD is not ported"),
     (b"\x01\x02\x03\x04", "not an image format")])
 def test_sniff_names_what_is_not_ported(data, match):

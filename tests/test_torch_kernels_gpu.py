@@ -1642,3 +1642,37 @@ def test_webp_colour_on_the_widest_frame(cuda):
     check_colour(planes, 16383, 5)
     with pytest.raises(RuntimeError, match="W3"):
         W.vp8_colour(*planes, 16383, 5, 3, rows=4)
+
+
+J2K_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_j2k")
+
+
+def _j2k_readable():
+    import json
+    with open(os.path.join(J2K_DIR, "manifest.json")) as fh:
+        files = json.load(fh)["files"]
+    return sorted(n for n, e in files.items() if "pil_error" not in e)
+
+
+@pytest.mark.parametrize("name", _j2k_readable())
+def test_j2k_d1_and_m1_match_their_twins(cuda, name):
+    """D1 and M1 on the host C++ stage's planes of every readable JPEG
+    2000 fixture, equal to their twins (plain PyTorch on the CPU)."""
+    from superviseddescent_tpu_torch.io import jp2 as J
+    from superviseddescent_tpu_torch.ops import j2k as O
+    with open(os.path.join(J2K_DIR, name), "rb") as fh:
+        got = J.read_file(fh.read())
+    frame = O.decode_native(got.codestream)
+    plan = O.colour_plan(got, frame)
+    want = O.idwt_reference(frame.coeffs, frame.tcs)
+    before = O.j2k_idwt.launches
+    card = O.j2k_idwt(frame.coeffs.to(cuda), frame.tcs)
+    torch.cuda.synchronize()
+    assert O.j2k_idwt.launches - before <= 2 * int(frame.tcs[:, 5].max())
+    assert torch.equal(card.cpu(), want)
+    for channels in (3, 1):
+        px = O.j2k_colour(card, frame, plan, channels)
+        assert torch.equal(px.cpu(), O.colour_reference(want, frame, plan,
+                                                        channels))
+
