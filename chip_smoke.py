@@ -179,9 +179,10 @@ in the order other, this, this, other; then this tree's split of each
 kernel (staging, transform, stores) from its measurement builds and,
 with ``--sweep``, each kernel at the other launch plans ``J1_SWEEP`` /
 ``J2_SWEEP``, each output held against its twin. Then JPEG 2000
-(``phase_j2k``): every committed fixture of ``tests/torch_j2k/`` through
-the host C++ stage, D1 and M1 to PIL's RGB and grey digests (D1 at most
-twice a level and M1 once a read, no other kernel), every file PIL
+(``phase_j2k``): every committed fixture of ``tests/torch_j2k/`` (a
+16,400 px wide one among them) through the host C++ stage, D1 and M1 to
+PIL's RGB and grey digests (D1 exactly its plan's launches and M1 once a
+read, no other kernel; both of M1's paths taken), every file PIL
 cannot read refused; D1 and M1 against their twins on both 768 x 1024
 clip frames (9/7 RPCL, 5/3 in 256 x 256 tiles) and on small tiled,
 offset and subsampled files, the host stage against its Python twin on
@@ -192,9 +193,15 @@ and equal to those from its PNG; the host stage's ms beside its twin's,
 D1 and M1 warm and L2-flushed beside their twins' and bounds, and
 ``load_gray_image`` against PNG and JPEG.
 
-    python3 chip_smoke.py --j2k
+    python3 chip_smoke.py --j2k [--package-root DIR]
 
-runs only that phase after the builds. Last, the phase of the
+runs only that phase after the builds, then D1 and M1 on both clip
+frames, warm and L2-flushed, whole and in their measurement builds
+(``J2K_BUILDS``; D1's launches by kernel, and for a D1 of a line a CTA
+its row and column passes apart), with ``--package-root`` another
+checkout's beside them (e.g. the parent's, unpacked into
+``build/parent/``, with ``SPLIT_PATCHES``' lines in), in the order
+other, this, this, other. Last, the phase of the
 port's last
 slice (``phase_remainder``): ``train_rcr`` with the dense sampler and K1
 on the 1,408 samples of the window run in exact, high and fast sampling
@@ -462,16 +469,22 @@ K5_SWEEP = ((1, 4, 256), (2, 2, 256), (1, 5, 256), (1, 6, 256), (1, 8, 256),
             (1, 2, 128), (1, 3, 128), (1, 4, 128), (2, 2, 128))
 
 
-def phase_build():
+def phase_build(j2k=False):
+    """Every kernel and the measurement builds, in parallel; D1's and M1's
+    (``J2K_BUILDS``) only with ``j2k`` (``--j2k``, which alone runs
+    them)."""
     from superviseddescent_tpu_torch.ops._build import build_all
     logs = build_all(extra=[("cascade_fused", d) for d in SPLIT_BUILDS]
                      + list(K12_BUILDS) + list(K5_BUILDS)
                      + list(JPEG_BUILDS)
                      + [("vp8_pixels", (d,)) for _, d in WEBP_BUILDS]
-                     + [("vp8_pixels", (d,)) for _, d in COLOUR_BUILDS])
+                     + [("vp8_pixels", (d,)) for _, d in COLOUR_BUILDS]
+                     + [("j2k_pixels", (d,)) for _, d, _ in J2K_BUILDS
+                        if j2k])
     log(f"[build] K1-K6, J1, J2, W1-W3, D1, M1, the host decoders and "
         f"coders, the probes and K1's, K2's, K3's, "
-        f"K5's, J1's, J2's, W1's, W2's and W3's measurement builds in "
+        f"K5's, J1's, J2's, W1's, W2's, W3's"
+        + (", D1's and M1's" if j2k else "") + " measurement builds in "
         f"{logs.pop('seconds'):.2f} s (nvcc, sm_90a, one process per build)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1812,6 +1825,10 @@ def l2_flusher(torch):
 # profiler sessions device_ms takes before it times a call with CUDA
 # events instead
 PROFILE_TRIES = 6
+# kernel launches made ahead of the timed calls in a session that must
+# hold every launch of a call (``whole``): a session may lose its first
+# few records (on the H100, 5-6 of D1's in every session of a --j2k run)
+PROFILE_PAD_LAUNCHES = 16
 # cycles of torch.cuda._sleep ahead of an events-timed batch (~10 ms at
 # the H100's 1.98 GHz): the stream waits while the host queues the calls
 EVENTS_SPIN_CYCLES = 20_000_000
@@ -1821,7 +1838,7 @@ PROFILE_FALLBACKS = []
 
 
 def device_ms(torch, call, reps=20, match=None, one_kernel=True,
-              before=None):
+              before=None, whole=None):
     """Device time per call of the kernels that ``call`` launches, from
     torch.profiler's kernel records over ``reps`` calls: for work so short
     that the host's enqueue, not the device, sets the time between two CUDA
@@ -1838,8 +1855,13 @@ def device_ms(torch, call, reps=20, match=None, one_kernel=True,
     ``PROFILE_TRIES`` times in all; when none holds a record, ``call`` is
     timed with CUDA events instead (``events_us``: every kernel of the
     call, not only ``match``'s), logged and listed in
-    ``PROFILE_FALLBACKS``."""
-    found = device_kernels(torch, call, reps, match, before)
+    ``PROFILE_FALLBACKS``. whole: the launches a call of ``match``'s
+    kernels; only the last ``reps`` calls' records count, made after
+    PROFILE_PAD_LAUNCHES launches, and a session that recorded fewer is
+    taken again (launches of one name but of other lengths, as D1's
+    levels, would skew the mean)."""
+    found = device_kernels(torch, call, reps, match, before, whole or 1,
+                           whole)
     if one_kernel:
         check(len(found) == 1 and found[0][1] == 1,
               f"expected one kernel per call, the profiler recorded "
@@ -1873,36 +1895,62 @@ def events_us(torch, call, reps, before=None):
 
 
 def device_kernels(torch, call, reps=20, match=None, before=None,
-                   launches_per_call=1):
+                   launches_per_call=1, whole=None):
     """``device_ms``'s profiled kernels of ``call``: (name, launches per
     call, device us per launch) of each kernel whose name holds
-    ``match``. When no profiler session holds one, one entry timed by
-    ``events_us``, split evenly over ``launches_per_call``."""
+    ``match``. Where ``whole`` (launches a call) is given, the session
+    first makes PROFILE_PAD_LAUNCHES launches' worth of calls and counts
+    the last ``whole * reps`` records in the order they ran, the last
+    ``reps`` calls; a session that recorded fewer is taken again. When no
+    profiler session holds them, one entry timed by ``events_us``, split
+    evenly over ``launches_per_call``."""
     from torch.profiler import ProfilerActivity, profile
+
+    def device_us(ev, name):
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        counted = ("CUDA" in str(ev.device_type) and us > 0
+                   and not name.startswith(("Memcpy", "Memset"))
+                   and (before is None or FLUSH_KERNEL not in name)
+                   and (match is None or match in name))
+        return us if counted else 0.0
     call()
     torch.cuda.synchronize()
+    pad = -(-PROFILE_PAD_LAUNCHES // whole) if whole else 0
     found = []
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(pad + reps):
                 if before is not None:
                     before()
                 call()
             torch.cuda.synchronize()
         found = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            if ("CUDA" in str(ev.device_type) and dev_us > 0 and ev.count
-                    and not ev.key.startswith(("Memcpy", "Memset"))
-                    and (before is None or FLUSH_KERNEL not in ev.key)
-                    and (match is None or match in ev.key)):
-                found.append((ev.key, max(1, round(ev.count / reps)),
-                              dev_us / ev.count))
-        if found:
+        recorded = 0
+        if whole:
+            runs = sorted((ev for ev in prof.events()
+                           if device_us(ev, ev.name) > 0),
+                          key=lambda ev: ev.time_range.start)
+            recorded = min(len(runs), whole * reps)
+            per_name = {}
+            for ev in runs[len(runs) - recorded:]:
+                n, us = per_name.get(ev.name, (0, 0.0))
+                per_name[ev.name] = (n + 1, us + device_us(ev, ev.name))
+            found = [(key, max(1, round(n / reps)), us / n)
+                     for key, (n, us) in per_name.items()]
+        else:
+            for ev in prof.key_averages():
+                us = device_us(ev, ev.key)
+                if us > 0 and ev.count:
+                    found.append((ev.key, max(1, round(ev.count / reps)),
+                                  us / ev.count))
+                    recorded += ev.count
+        if found and (whole is None or recorded == whole * reps):
             break
-        log(f"[profile] session {attempt} of {PROFILE_TRIES} recorded no "
-            f"kernel (match {match!r})")
+        log(f"[profile] session {attempt} of {PROFILE_TRIES} recorded "
+            + (f"{recorded} of {whole * reps} launches" if found
+               else "no kernel") + f" (match {match!r})")
+        found = []
     if not found:
         us = events_us(torch, call, reps, before)
         check(us > 0, f"CUDA events timed {us} us (match {match!r})")
@@ -6518,14 +6566,15 @@ def webp_split(times):
     return out
 
 
-def with_split_builds(root, tmp):
-    """``root``, or, where its vp8_pixels.cu is one of SPLIT_PATCHES'
-    (commit ceed2b4's or eeb94ea's, by sha256), a copy of its package
-    under ``tmp`` with that patch's lines in."""
+def with_split_builds(root, tmp, source="vp8_pixels.cu"):
+    """``root``, or, where its ``source`` is one of SPLIT_PATCHES' (by
+    sha256: vp8_pixels.cu of commit ceed2b4 or eeb94ea, j2k_pixels.cu of
+    442eb6c), a copy of its package under ``tmp`` with that patch's lines
+    in."""
     import hashlib
     import shutil
     package = os.path.join(root, "superviseddescent_tpu_torch")
-    with open(os.path.join(package, "csrc", "vp8_pixels.cu"), "rb") as fh:
+    with open(os.path.join(package, "csrc", source), "rb") as fh:
         text = fh.read()
     patch = SPLIT_PATCHES.get(hashlib.sha256(text).hexdigest())
     if patch is None:
@@ -6542,7 +6591,7 @@ def with_split_builds(root, tmp):
     copy = os.path.join(tmp, "superviseddescent_tpu_torch")
     shutil.copytree(package, copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    with open(os.path.join(copy, "csrc", "vp8_pixels.cu"), "w") as fh:
+    with open(os.path.join(copy, "csrc", source), "w") as fh:
         fh.write("\n".join(lines))
     return tmp
 
@@ -6736,6 +6785,40 @@ J2K_D1_OPS_PER_SAMPLE = {1: 4, 0: 7}
 J2K_M1_OPS_PER_PIXEL = 48
 
 
+# measurement builds of D1's and M1's source for ``j2k_kernel_times``, never
+# entry points: D1 staging and writing back with no lifting step, M1 with
+# its stores behind a test that never passes, and both kernels returning
+# at once on the same grids (the launch floor)
+J2K_BUILDS = (("no_lift", "J2K_IDWT_NO_LIFT", ("j2k_idwt",)),
+              ("no_store", "J2K_COLOUR_NO_STORE", ("j2k_colour",)),
+              ("empty", "J2K_EMPTY", ("j2k_idwt", "j2k_colour")))
+J2K_TIME_REPS = 20
+# csrc/j2k_pixels.cu of commit 442eb6c (D1 a CTA a line, two launches a
+# level; M1 a thread a pixel; this sha256) gains J2K_BUILDS' defines
+# through these lines, inserted after the original's line n
+J2K_LINE_A_CTA_SHA256 = ("ac3f231954123a84a7aa49441323527c08f20184f69719336b"
+                         "6c1ac3eb1ed61c")
+J2K_LINE_A_CTA_SPLIT = """\
+50a51,53
+> #ifdef J2K_EMPTY
+>   return;
+> #endif
+73a77
+> #ifndef J2K_IDWT_NO_LIFT
+100a105
+> #endif
+164a170,172
+> #ifdef J2K_EMPTY
+>   return;
+> #endif
+248a257,259
+> #ifdef J2K_COLOUR_NO_STORE
+>   if (P.W > 0) return;  // always: built, never run
+> #endif
+"""
+SPLIT_PATCHES[J2K_LINE_A_CTA_SHA256] = J2K_LINE_A_CTA_SPLIT
+
+
 def j2k_frame(name):
     """(J2kFile, J2kFrame from the host C++ stage in pinned memory)."""
     from superviseddescent_tpu_torch.io import jp2 as J
@@ -6773,11 +6856,12 @@ def j2k_bounds(frame, channels=3):
 def j2k_readers(torch, manifest):
     """Every committed fixture through the card's path (the host C++
     stage, D1, M1) in RGB and grey, to PIL's digests; each read launches
-    D1 at most twice a level, M1 once and nothing else; what PIL cannot
-    read is refused."""
-    import hashlib
+    D1 exactly its plan's count (``idwt_plan``), M1 once and nothing else;
+    both of M1's paths (common, general) are taken; what PIL cannot read
+    is refused. Returns (read, refused, M1's launches by path)."""
     from superviseddescent_tpu_torch.ops import j2k as O
     read = refused = 0
+    O.j2k_colour.paths = dict.fromkeys(O.j2k_colour.paths, 0)
     for name, e in sorted(manifest["files"].items()):
         with open(os.path.join(J2K_DIR, name), "rb") as fh:
             data = fh.read()
@@ -6788,23 +6872,25 @@ def j2k_readers(torch, manifest):
                 refused += 1
                 continue
             raise SmokeFailure(f"{name}: PIL cannot read it, the port did")
-        levels = int(j2k_frame(name)[1].tcs[:, O.TC_LEVELS].max())
+        planned = len(O.idwt_plan(j2k_frame(name)[1].tcs).launches)
         for channels, key in ((3, "rgb_sha256"), (1, "grey_sha256")):
             zero_counts()
             px = O.read_j2k(data, channels, "cuda")
             torch.cuda.synchronize()
-            counts = read_counts()
-            check(px.is_cuda and counts["j2k_colour"] == 1
-                  and counts["j2k_idwt"] <= 2 * levels
-                  and sum(counts.values()) == counts["j2k_colour"]
-                  + counts["j2k_idwt"], f"{name}: launches {counts}")
-            check(sha256_of(px) == e[key], f"{name}: the card's "
-                  f"{'RGB' if channels == 3 else 'grey'} differs from PIL's")
+            expect_counts(read_counts(), f"{name}: a read",
+                          j2k_idwt=planned, j2k_colour=1)
+            check(px.is_cuda and sha256_of(px) == e[key], f"{name}: the "
+                  f"card's {'RGB' if channels == 3 else 'grey'} differs "
+                  "from PIL's")
         read += 1
+    taken = dict(O.j2k_colour.paths)
+    check(all(n > 0 for n in taken.values()),
+          f"a path of M1 was never taken: {taken}")
     log(f"[j2k] {read} fixtures read on the card (host C++ stage, D1, M1) "
-        f"to PIL's RGB and grey digests, D1 at most twice a level and M1 "
-        f"once a read; {refused} that PIL cannot read refused")
-    return read, refused
+        f"to PIL's RGB and grey digests, D1 exactly its plan's launches and "
+        f"M1 once a read; M1's launches by path {taken}; {refused} that PIL "
+        "cannot read refused")
+    return read, refused, taken
 
 
 def j2k_twins(torch):
@@ -6842,8 +6928,8 @@ def j2k_twins(torch):
 
 def j2k_k3(torch, data, manifest, root):
     """The slice's main path: the 9/7 clip frame through
-    ``load_gray_image`` on the card (the host C++ stage, D1 twice a level,
-    M1 once) and ``make_fused_detector`` (K3) on the 4,096 faces' boxes
+    ``load_gray_image`` on the card (the host C++ stage, D1 in its plan's
+    launches, M1 once) and ``make_fused_detector`` (K3) on the 4,096 faces' boxes
     over it; the rows equal those from a PNG of the same pixels. Counts
     from 0 before, read after. Returns (launches, paths)."""
     import shutil
@@ -6853,9 +6939,10 @@ def j2k_k3(torch, data, manifest, root):
     model = data["model"]
     det = model.make_fused_detector(roi=ROI, max_ied=data["max_ied"])
     idx = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    from superviseddescent_tpu_torch.ops.j2k import idwt_plan
     paths = {"j2k": os.path.join(root, J2K_FRAME_97)}
     shutil.copy(os.path.join(J2K_DIR, J2K_FRAME_97), paths["j2k"])
-    levels = int(j2k_frame(J2K_FRAME_97)[1].tcs[:, 5].max())
+    planned = len(idwt_plan(j2k_frame(J2K_FRAME_97)[1].tcs).launches)
     zero_counts()
     frame = load_gray_image(paths["j2k"])
     rows = det(torch.from_numpy(frame.astype("uint8"))[None].cuda(),
@@ -6863,7 +6950,7 @@ def j2k_k3(torch, data, manifest, root):
     torch.cuda.synchronize()
     launches = read_counts()
     expect_counts(launches, "the 9/7 JP2 frame through load_gray_image and "
-                  "K3", j2k_idwt=2 * levels, j2k_colour=1,
+                  "K3", j2k_idwt=planned, j2k_colour=1,
                   cascade_fused_frames=1)
     check(sha256_of(torch.from_numpy(frame.astype(np.uint8)))
           == manifest["files"][J2K_FRAME_97]["grey_sha256"],
@@ -6879,7 +6966,7 @@ def j2k_k3(torch, data, manifest, root):
           "from those from its pixels as PNG")
     paths["jpeg"] = os.path.join(JPEG_DIR, J2_TIME_FRAME)
     log(f"[j2k] the 9/7 clip frame through load_gray_image (D1 x "
-        f"{2 * levels}, M1 once) and K3 on {BATCH} faces: rows equal to "
+        f"{planned}, M1 once) and K3 on {BATCH} faces: rows equal to "
         f"the PNG of the same pixels; launches {launches}")
     return launches, paths
 
@@ -6895,8 +6982,9 @@ def j2k_detect(torch, manifest, root):
     from superviseddescent_tpu_torch.io.png import write_png
     from superviseddescent_tpu_torch.models.rcr import DetectionModel
     want = manifest["clip_detect"]
+    from superviseddescent_tpu_torch.ops.j2k import idwt_plan
     image = os.path.join(J2K_DIR, J2K_FRAME_97)
-    levels = int(j2k_frame(J2K_FRAME_97)[1].tcs[:, 5].max())
+    planned = len(idwt_plan(j2k_frame(J2K_FRAME_97)[1].tcs).launches)
     png = os.path.join(root, "j2k_rgb.png")
     write_png(png, read_rgb(image))
     box = ",".join(repr(v) for v in want["facebox"])
@@ -6913,7 +7001,7 @@ def j2k_detect(torch, manifest, root):
         torch.cuda.synchronize()
         n = 2 if kind == "j2k" else 0
         expect_counts(read_counts(), f"rcr_detect -i {kind} --facebox -o",
-                      j2k_idwt=n * 2 * levels, j2k_colour=n)
+                      j2k_idwt=n * planned, j2k_colour=n)
         check(rc == 0 and len(fits) == 1 and f"Wrote {out}" in text,
               f"rcr_detect -i {os.path.basename(src)}:\n{text[-400:]}")
         with open(out, "rb") as fh:
@@ -6959,18 +7047,20 @@ def j2k_times(torch, paths):
         work = coeffs.clone()
         done = O.j2k_idwt(coeffs.clone(), frame.tcs)
         bounds = j2k_bounds(frame, 3)
+        launches = len(O.idwt_plan(frame.tcs).launches)
         calls = {
             "j2k_idwt": (lambda: O.j2k_idwt(work, frame.tcs),
-                         lambda: O.idwt_reference(coeffs, frame.tcs), False),
+                         lambda: O.idwt_reference(coeffs, frame.tcs), False,
+                         launches),
             "j2k_colour": (lambda: O.j2k_colour(done, frame, plan, 3),
                            lambda: O.colour_reference(done, frame, plan, 3),
-                           True)}
+                           True, 1)}
         kernels = {}
-        for name, (kernel, twin, one) in calls.items():
+        for name, (kernel, twin, one, whole) in calls.items():
             ms = [device_ms(torch, kernel, reps=10, match=name,
-                            one_kernel=one) for _ in range(2)]
+                            one_kernel=one, whole=whole) for _ in range(2)]
             flushed = device_ms(torch, kernel, reps=10, match=name,
-                                one_kernel=one, before=flush)
+                                one_kernel=one, before=flush, whole=whole)
             twin_ms = device_ms(torch, twin, reps=2, one_kernel=False)
             kernels[name] = dict(device_ms=ms, flushed_ms=flushed,
                                  twin_device_ms=twin_ms, **bounds[name])
@@ -6999,15 +7089,163 @@ def j2k_times(torch, paths):
     return dict(frames=out, load_gray_ms=load_ms)
 
 
+def j2k_line_pass(torch, O, coeffs, tcs, vertical):
+    """The rows (vertical 0) or the columns (1) of every level of a D1 of a
+    line a CTA (commit 442eb6c's ``j2k_idwt_launch``), launched as its
+    wrapper launches them: the pass timed apart."""
+    import ctypes
+    import numpy as np
+    from superviseddescent_tpu_torch.ops._build import load_library
+    lib = load_library("j2k_pixels")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for level in range(int(tcs[:, O.TC_LEVELS].max(initial=0))):
+        jobs = O.idwt_jobs(tcs, level)
+        longest = int(max(jobs[:, 2].max(initial=0), jobs[:, 3].max(
+            initial=0)))
+        lines = jobs[:, 3 - vertical].astype(np.int64)
+        starts = np.concatenate([[0], np.cumsum(lines)]).astype(np.int64)
+        if starts[-1] == 0:
+            continue
+        table = torch.from_numpy(np.concatenate(
+            [jobs, starts[:-1, None].astype(np.int32)], axis=1).copy()).cuda()
+        err = lib.j2k_idwt_launch(
+            ctypes.c_void_p(coeffs.data_ptr()),
+            ctypes.c_void_p(table.data_ptr()), len(jobs), int(starts[-1]),
+            vertical, longest, stream)
+        check(err == 0, f"D1's pass launch failed: CUDA error {err}")
+
+
+def j2k_kernel_times(torch):
+    """D1 and M1 of the package on ``sys.path`` on both clip frames
+    through its entry points: D1 equal to its twin and M1's unequal
+    entries against its twin (RGB), then device ms (torch.profiler) warm
+    and with the L2 flushed before each call, in the plain build ("whole")
+    and in each of J2K_BUILDS that its source has (``load_library`` made
+    to hand the entry points that build); D1's launches by kernel name
+    and, for a source of a line a CTA, its row
+    and column passes apart."""
+    from superviseddescent_tpu_torch.ops import _build
+    from superviseddescent_tpu_torch.ops import j2k as O
+    source = (_build.CSRC / "j2k_pixels.cu").read_text()
+    load = _build.load_library
+    flush = l2_flusher(torch)
+    out = {}
+    for frame_name in (J2K_FRAME_97, J2K_FRAME_53):
+        f, frame = j2k_frame(frame_name)
+        plan = O.colour_plan(f, frame)
+        coeffs = frame.coeffs.to("cuda")
+        twin = O.idwt_reference(coeffs, frame.tcs)
+        done = O.j2k_idwt(coeffs.clone(), frame.tcs)
+        check(torch.equal(done, twin), f"D1 differs from its twin on "
+              f"{frame_name}")
+        # D1's launches a call (a source of a line a CTA: two a level), so
+        # that a profiler session that kept only some is taken again
+        levels = int(frame.tcs[:, O.TC_LEVELS].max(initial=0))
+        d1 = len(O.idwt_plan(frame.tcs).launches) if hasattr(
+            O, "idwt_plan") else 2 * levels
+        unequal = int((O.j2k_colour(done, frame, plan, 3) != O.
+                       colour_reference(twin, frame, plan, 3)).sum())
+        work = coeffs.clone()
+        calls = {"j2k_idwt": lambda: O.j2k_idwt(work, frame.tcs),
+                 "j2k_colour": lambda: O.j2k_colour(done, frame, plan, 3)}
+        t = {name: {"warm": {}, "flushed": {}} for name in calls}
+        try:
+            for build, define, kernels in (("whole", None, J2K_KERNELS),) \
+                    + J2K_BUILDS:
+                if define and define not in source:
+                    continue
+                _build.load_library = load if define is None else (
+                    lambda name, defines=(), d=define: load(
+                        name, (d,) if name == "j2k_pixels" else defines))
+                for name in kernels:
+                    call = calls[name]
+                    for heat, before in (("warm", None), ("flushed", flush)):
+                        t[name][heat][build] = device_ms(
+                            torch, call, reps=J2K_TIME_REPS, match=name,
+                            one_kernel=name == "j2k_colour", before=before,
+                            whole=d1 if name == "j2k_idwt" else None)
+        finally:
+            _build.load_library = load
+        t["j2k_idwt"]["by_kernel"] = {
+            key[:80]: dict(launches=per_call, us=us) for key, per_call, us
+            in device_kernels(torch, calls["j2k_idwt"], J2K_TIME_REPS,
+                              "j2k_idwt", None, d1, d1)}
+        if not hasattr(O, "idwt_plan"):     # rows and columns apart
+            for vertical, label in ((0, "rows"), (1, "columns")):
+                t["j2k_idwt"][label] = device_ms(
+                    torch, lambda: j2k_line_pass(torch, O, work, frame.tcs,
+                                                 vertical),
+                    reps=J2K_TIME_REPS, match="j2k_idwt", one_kernel=False,
+                    whole=levels)
+        t["j2k_colour"]["unequal"] = unequal
+        out[frame_name] = t
+    return out
+
+
+def j2k_compare(torch, root):
+    """``--j2k``: ``j2k_kernel_times`` of this checkout's package and, with
+    another checkout's (``root``; commit 442eb6c's through
+    ``with_split_builds``), of that package (``other_runs``), in the order
+    other, this, this, other; D1 and M1 whole and split side by side."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_split_")
+    try:
+        runs = other_runs(with_split_builds(root, tmp, "j2k_pixels.cu")
+                          if root != REPO else root,
+                          lambda: j2k_kernel_times(torch), ["--j2k-times"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def text(who, frame_name, name, heat):
+        return " / ".join(", ".join(
+            f"{build} {ms:.5f}" for build, ms in
+            r[frame_name][name][heat].items()) for r in runs[who])
+    for frame_name in (J2K_FRAME_97, J2K_FRAME_53):
+        for name in J2K_KERNELS:
+            for heat in ("warm", "flushed"):
+                line = (f"[j2k] {name} {heat} on {frame_name}: this tree "
+                        f"{text('this', frame_name, name, heat)} ms")
+                if runs["other"]:
+                    ratio = (min(r[frame_name][name][heat]["whole"]
+                                 for r in runs["other"])
+                             / max(r[frame_name][name][heat]["whole"]
+                                   for r in runs["this"]))
+                    line += (f" | other {text('other', frame_name, name, heat)}"
+                             f" ms (x{ratio:.2f})")
+                log(line + " (device, torch.profiler)")
+        for who in ("this", "other"):
+            for r in runs[who]:
+                d1 = r[frame_name]["j2k_idwt"]
+                log(f"[j2k] j2k_idwt on {frame_name} ({who}) by kernel: "
+                    + ", ".join(f"{k} x{v['launches']} {v['us']:.2f} us"
+                                for k, v in d1["by_kernel"].items())
+                    + (f"; rows {d1['rows']:.5f} ms, columns "
+                       f"{d1['columns']:.5f} ms" if "rows" in d1 else "")
+                    + f"; M1 unequal {r[frame_name]['j2k_colour']['unequal']}")
+    return dict(this=runs["this"], other=runs["other"], package_root=root)
+
+
 def j2k_entries(j2k):
     """The kernels line's entries of D1 and M1: device ms on the 9/7
     frame (D1: all its launches of one read), launches of the main path's
-    run; the 5/3 tiled frame's beside them."""
+    run; the 5/3 tiled frame's beside them; with ``--j2k`` the other
+    checkout's times and the split."""
     out = []
+    compare = j2k.get("compare")
     for name in J2K_KERNELS:
         source, replaces = SOURCES[name]
         t = j2k["times"]["frames"][J2K_FRAME_97]["kernels"][name]
         tiled = j2k["times"]["frames"][J2K_FRAME_53]["kernels"][name]
+        extra = {}
+        if compare:
+            extra["split"] = {f: r[name] for f, r in
+                              compare["this"][0].items()}
+            if compare["other"]:
+                extra["other_package_ms"] = {
+                    f: [r[f][name]["warm"]["whole"]
+                        for r in compare["other"]]
+                    for f in (J2K_FRAME_97, J2K_FRAME_53)}
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             replaces_note="no pallas_call: the JAX package reads images with "
@@ -7020,17 +7258,21 @@ def j2k_entries(j2k):
             tiled_frame=dict(ms=min(tiled["device_ms"]),
                              flushed_ms=tiled["flushed_ms"],
                              plain_ms=tiled["twin_device_ms"],
-                             bound_ms=tiled["bound_ms"])))
+                             bound_ms=tiled["bound_ms"]),
+            **(dict(taken=j2k["taken"]) if name == "j2k_colour" else {}),
+            **extra))
     return out
 
 
-def phase_j2k(torch, data, name, smi):
+def phase_j2k(torch, data, name, smi, root=REPO, compare=False):
     """JPEG 2000 on the card: every committed fixture through the host C++
     stage, D1 and M1 to PIL's digests (and the refusals), D1 and M1
     against their twins and the host stage against its Python twin, the
     9/7 clip frame through load_gray_image and K3 (the main path; rows
     equal to its PNG's), rcr_detect -i on it against the JAX app's
-    landmarks, and the times (``j2k_times``)."""
+    landmarks, and the times (``j2k_times``); with ``compare``
+    (``--j2k``) also ``j2k_compare``'s D1 and M1 whole and split, beside
+    the package of checkout ``root`` where it is another."""
     import shutil
     import tempfile
     with open(os.path.join(J2K_DIR, "manifest.json")) as fh:
@@ -7038,18 +7280,22 @@ def phase_j2k(torch, data, name, smi):
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_j2k_")
     try:
-        read, refused = j2k_readers(torch, manifest)
+        read, refused, taken = j2k_readers(torch, manifest)
         worst = j2k_twins(torch)
         launches, paths = j2k_k3(torch, data, manifest, tmp)
         detect = j2k_detect(torch, manifest, tmp)
         times = j2k_times(torch, paths)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    seconds = time.perf_counter() - t0
-    log(f"[j2k] {seconds:.1f} s in all ({name}; {smi})")
-    return dict(device=name, nvidia_smi=smi, files_read=read,
-                files_refused=refused, max_abs_err=worst, launches=launches,
-                detect=detect, times=times, seconds=seconds)
+    out = dict(device=name, nvidia_smi=smi, files_read=read,
+               files_refused=refused, taken=taken, max_abs_err=worst,
+               launches=launches,
+               detect=detect, times=times)
+    if compare:
+        out["compare"] = j2k_compare(torch, root)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[j2k] {out['seconds']:.1f} s in all ({name}; {smi})")
+    return out
 
 
 # ---------------------------------------------------------------- #
@@ -7640,7 +7886,9 @@ def main():
                         "the host C++ stage, D1 and M1 to PIL's digests, D1 "
                         "and M1 against their twins, the 9/7 clip frame "
                         "through K3 and rcr_detect -i, the times (the main "
-                        "run includes it)")
+                        "run includes it), and D1 and M1 whole and split; "
+                        "with --package-root also another checkout's D1 "
+                        "and M1, in turns")
     parser.add_argument("--remainder", action="store_true",
                         help="only run the last slice's phase "
                         "(phase_remainder: dense training, data parallel "
@@ -7663,9 +7911,11 @@ def main():
                         help=argparse.SUPPRESS)   # --j1 / --j2's child
     parser.add_argument("--webp-times", action="store_true",
                         help=argparse.SUPPRESS)   # --webp's child
+    parser.add_argument("--j2k-times", action="store_true",
+                        help=argparse.SUPPRESS)   # --j2k's child
     parser.add_argument("--package-root", default=REPO,
                         help="with --k3-batches, --k12, --k5, --probes, "
-                        "--j1, --j2 or --webp: the "
+                        "--j1, --j2, --webp or --j2k: the "
                         "checkout whose "
                         "superviseddescent_tpu_torch is timed (the data "
                         "stay this checkout's)")
@@ -7683,9 +7933,12 @@ def main():
         return 1
     sys.path.insert(0, root if opts.k3_batches or opts.k12 or opts.k5
                     or opts.probe_times or opts.jpeg_times or opts.webp_times
-                    else REPO)
+                    or opts.j2k_times else REPO)
     if opts.webp_times:
         print(json.dumps(webp_times(torch)))
+        return 0
+    if opts.j2k_times:
+        print(json.dumps(j2k_kernel_times(torch)))
         return 0
     if opts.probe_times:
         print(json.dumps(probe_times(torch, seed)))
@@ -7784,8 +8037,9 @@ def main():
         return 0
     if opts.j2k:
         name, smi = phase_device(torch)
-        phase_build()
-        j2k = phase_j2k(torch, load_data(torch), name, smi)
+        phase_build(j2k=True)
+        j2k = phase_j2k(torch, load_data(torch), name, smi, root,
+                        compare=True)
         print(json.dumps({"j2k": j2k, "kernels": j2k_entries(j2k)}))
         return 0
     if opts.remainder:

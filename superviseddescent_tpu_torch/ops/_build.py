@@ -82,8 +82,8 @@ KERNELS = {
     # kernel; and its pixel stage, D1 and M1
     "j2k_decode": {"j2k_decode": [_P, _L, _P, _L, _P, _I, _P, _I, _P],
                    "j2k_components": [_P, _L, _P, _I]},
-    "j2k_pixels": {"j2k_idwt_launch": [_P, _P] + [_I] * 4 + [_P],
-                   "j2k_colour_launch": [_P, _P, _I, _I, _P, _P]},
+    "j2k_pixels": {"j2k_idwt_launch": [_P] * 4 + [_I] * 2 + [_P],
+                   "j2k_colour_launch": [_P, _P] + [_I] * 4 + [_P, _P]},
     # lossy WebP's pixel stage (ops/webp.py): W1, W2 and W3
     "vp8_pixels": {"vp8_reconstruct_launch": [_P] * 6 + [_I] * 4 + [_P],
                    "vp8_filter_launch": [_P] * 5 + [_I] * 5 + [_P],

@@ -10,11 +10,12 @@ stage runs where the caller asks:
   (int32 for the 5/3 transform, float32 for 9/7, in OpenJPEG's band
   layout) and their tables into pinned memory, they go to the card, and
   two kernels of ``csrc/j2k_pixels.cu`` run there: D1 (``j2k_idwt``: the
-  inverse wavelet transform, one horizontal and one vertical launch a
-  level over every tile and component at once) and M1 (``j2k_colour``:
-  the inverse RCT or ICT, the DC level shift and clamp, Pillow's
-  unpacking of each tile into the frame, and the colour or grey PIL's
-  ``convert("RGB")`` and the JAX package's ``load_gray_image`` give);
+  inverse wavelet transform of every tile and component at once, in
+  ``idwt_plan``'s launches: one a level, in tiles) and M1
+  (``j2k_colour``: the inverse RCT or ICT, the DC level shift and clamp,
+  Pillow's unpacking of each tile into the frame, and the colour or grey
+  PIL's ``convert("RGB")`` and the JAX package's ``load_gray_image`` give,
+  a CTA a band of a tile's rows);
 * on the CPU, the Python twins of the host stage (``io/j2k.py``,
   ``io/j2k_t2.py``, ``io/j2k_t1.py``) and the plain PyTorch twins of the
   two kernels here (``idwt_reference``, ``colour_reference``).
@@ -47,8 +48,10 @@ TC_OFFSET, TC_W, TC_H, TC_X0, TC_Y0, TC_LEVELS, TC_REV, TC_COMP = range(8)
 TC_RES = 8
 TC_COLS = TC_RES + 4 * MAX_RES
 TILE_COLS = 6
-# the kinds of Pillow's unpacking (io/jp2.unpacker), as M1 takes them
+# the kinds of Pillow's unpacking (io/jp2.unpacker), as M1 takes them, and
+# the channels each unpacks
 KINDS = {"grey": 0, "grey16": 1, "rgb": 2, "sycc": 3, "cmyk": 4}
+WANTED = {0: 1, 1: 1, 2: 3, 3: 3, 4: 4}
 # OpenJPEG's 9/7 lifting (dwt.c): steps, K and the "two_invK" it scales
 # the high band by
 ALPHA, BETA, GAMMA, DELTA = -1.586134342, -0.052980118, 0.882911075, \
@@ -295,49 +298,154 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def j2k_idwt(coeffs: torch.Tensor, tcs: np.ndarray) -> torch.Tensor:
-    """D1: the inverse DWT of every tile-component's plane in place on the
-    card (two launches a level: rows, then columns, over every tile and
-    component at once; none where no plane has levels); on the CPU the
-    twin's copy."""
+def _upload(table: np.ndarray, device) -> torch.Tensor:
+    """``table`` (int32) to ``device`` in one copy from pinned memory."""
+    pinned = torch.empty(max(len(table), 1), dtype=torch.int32,
+                         pin_memory=True)
+    pinned[:len(table)] = torch.from_numpy(table)
+    return pinned.to(device, non_blocking=True)
+
+
+# D1's launch plan (``idwt_plan``): a launch a level, a CTA an output tile
+# of IDWT_TILE (columns, rows) staged with IDWT_HALO samples each side
+# (5/3: its two lifting steps, 9/7: its four; a sample of a step reads its
+# neighbours, so the k-th step spoils k samples in from a window's cut
+# edge). On an H100 this took 0.0203-0.0333 ms on 1 to 12 of the 5/3 clip
+# frame's 256 x 256 RGB tiles and 0.0276 / 0.0415 ms on the 9/7 frame's
+# grey / RGB, where a CTA a tile-component taking its levels of up to
+# 1,024, 4,096 or 16,384 samples in shared memory, in one launch, took
+# longer at every count but the 12 tiles (1% less at 16,384)
+IDWT_TILE = (64, 32)
+IDWT_HALO = {1: 2, 0: 4}
+IDWT_MAX_TILE, IDWT_MAX_HALO = (64, 64), 4   # the kernel's shared memory
+# a level's row of the plan's table: the plane's offset and stride, the
+# level's width and height, the low bands' width and height, the parities
+# of its origin (OpenJPEG's cas), 5/3 (1) or 9/7 (0), the buffers it reads
+# its LL band from and writes to, its tiles across, the tile's columns and
+# rows, the halo, and 1 where the row copies a plane with no levels
+(LV_OFF, LV_STRIDE, LV_RW, LV_RH, LV_SNH, LV_SNV, LV_CASH, LV_CASV, LV_REV,
+ LV_SRC, LV_DST, LV_TILES_X, LV_TW, LV_TH, LV_HALO, LV_COPY) = range(16)
+LEVEL_COLS = 16
+# the buffers: the host stage's planes (read only), the output, a scratch
+# plane; a tile-component's levels alternate between the last two so that
+# its last level writes the output
+HOST, OUT, SCRATCH = 0, 1, 2
+# a CTA's row of a launch: its level's row, its tile, then that level's
+# row itself (the kernel reads both in one round trip)
+TILE_CTA_COLS = 2 + LEVEL_COLS
+
+
+class IdwtLaunch(NamedTuple):
+    start: int      # the launch's first CTA row, in ints of the table
+    ctas: int
+
+
+class IdwtPlan(NamedTuple):
+    """D1's launches for one read: ``table`` (int32, uploaded once) holds
+    the level rows (``levels``, LEVEL_COLS each), then each launch's CTA
+    rows."""
+    table: np.ndarray
+    levels: np.ndarray      # (level rows, LEVEL_COLS)
+    launches: tuple         # IdwtLaunch
+
+
+def _levels_of(row: np.ndarray):
+    """(width, height, low width, low height, cash, casv) of each level of
+    a tile-component's row of ``tcs``, the coarsest first."""
+    out = []
+    for level in range(int(row[TC_LEVELS])):
+        lo = row[TC_RES + 4 * level:TC_RES + 4 * level + 4]
+        hi = row[TC_RES + 4 * (level + 1):TC_RES + 4 * (level + 1) + 4]
+        out.append((int(hi[2] - hi[0]), int(hi[3] - hi[1]),
+                    int(lo[2] - lo[0]), int(lo[3] - lo[1]), int(hi[0] & 1),
+                    int(hi[1] & 1)))
+    return out
+
+
+def idwt_plan(tcs: np.ndarray, tile: tuple = IDWT_TILE) -> IdwtPlan:
+    """D1's plan: the j-th level (the coarsest first) of every
+    tile-component runs in the j-th launch, a CTA a ``tile`` of (columns,
+    rows) of the level's output; a plane with no levels is copied, a CTA a
+    tile, in the first. So a read takes a launch for each j where some
+    tile-component's j-th level (or plane with no levels, j = 0) has
+    samples: 5 for either 768 x 1024 clip frame (5 levels)."""
+    tw, th = tile
+    if not (1 <= tw <= IDWT_MAX_TILE[0] and 1 <= th <= IDWT_MAX_TILE[1]):
+        raise ValueError(f"D1's tiles are at most {IDWT_MAX_TILE}")
+    levels, launches_rows = [], []
+    for row in tcs:
+        off, W, H = int(row[TC_OFFSET]), int(row[TC_W]), int(row[TC_H])
+        if W == 0 or H == 0:
+            continue
+        geometry = _levels_of(row)
+        n = len(geometry)
+        rev = int(row[TC_REV])
+
+        def dst(level):
+            return OUT if (n - 1 - level) % 2 == 0 else SCRATCH
+        if n == 0:
+            geometry, copy = [(W, H, W, H, 0, 0)], 1
+        else:
+            copy = 0
+        for level, (rw, rh, snh, snv, cash, casv) in enumerate(geometry):
+            if level == len(launches_rows):
+                launches_rows.append([])
+            tiles = -(-rw // tw) * -(-rh // th)
+            launches_rows[level].append(np.stack([
+                np.full(tiles, len(levels)), np.arange(tiles)], axis=1))
+            levels.append([off, W, rw, rh, snh, snv, cash, casv, rev,
+                           HOST if level == 0 else dst(level - 1),
+                           OUT if copy else dst(level), -(-rw // tw), tw, th,
+                           IDWT_HALO[rev], copy])
+    parts = [np.array(levels, np.int32).reshape(-1, LEVEL_COLS)]
+    launches = []
+    at = parts[0].size
+    for rows in launches_rows:
+        rows = np.concatenate(rows)
+        if not len(rows):   # levels of no samples
+            continue
+        rows = np.concatenate([rows, parts[0][rows[:, 0]]], axis=1).astype(
+            np.int32)
+        parts.append(rows)
+        launches.append(IdwtLaunch(at, len(rows)))
+        at += rows.size
+    table = np.concatenate([p.reshape(-1) for p in parts]).astype(np.int32)
+    return IdwtPlan(table, parts[0], tuple(launches))
+
+
+def j2k_idwt(coeffs: torch.Tensor, tcs: np.ndarray,
+             plan: IdwtPlan | None = None) -> torch.Tensor:
+    """D1: the inverse DWT of every tile-component's plane on the card,
+    into a new tensor in the same layout (the host stage's planes stay as
+    they are), in ``idwt_plan``'s launches (``plan``: another plan of the
+    same ``tcs``); on the CPU the twin's copy."""
     if coeffs.device.type == "cpu":
         return idwt_reference(coeffs, tcs)
     if coeffs.device.type != "cuda":
         raise ValueError(f"unsupported device {coeffs.device}")
     if coeffs.dtype != torch.int32 or not coeffs.is_contiguous():
         raise ValueError("D1 takes the host stage's contiguous int32 planes")
+    if coeffs.numel() > _INT32_MAX:
+        raise ValueError("too many coefficients for D1")
     from superviseddescent_tpu_torch.ops._build import load_library
     lib = load_library("j2k_pixels")
-    for level in range(int(tcs[:, TC_LEVELS].max(initial=0))):
-        jobs = idwt_jobs(tcs, level)
-        longest = int(max(jobs[:, 2].max(initial=0), jobs[:, 3].max(
-            initial=0)))
-        if longest > IDWT_MAX_LINE:
-            raise ValueError(f"a tile-component line of {longest} samples "
-                             f"is longer than D1's {IDWT_MAX_LINE}")
-        for vertical in (0, 1):
-            lines = jobs[:, 3 - vertical].astype(np.int64)  # rows / columns
-            starts = np.concatenate([[0], np.cumsum(lines)]).astype(np.int64)
-            if starts[-1] == 0:
-                continue
-            if starts[-1] > _INT32_MAX:
-                raise ValueError("too many lines for D1")
-            table = torch.from_numpy(np.concatenate(
-                [jobs, starts[:-1, None].astype(np.int32)], axis=1).copy()
-            ).to(coeffs.device, non_blocking=True)
-            err = lib.j2k_idwt_launch(
-                _ptr(coeffs), _ptr(table), len(jobs), int(starts[-1]),
-                vertical, longest, _stream(coeffs))
-            if err != 0:
-                raise RuntimeError(f"j2k_pixels (D1) launch failed: CUDA "
-                                   f"error {err}")
-            j2k_idwt.launches += 1
-    return coeffs
+    plan = idwt_plan(tcs) if plan is None else plan
+    table = _upload(plan.table, coeffs.device)
+    out = torch.empty_like(coeffs)
+    scratch = torch.empty_like(coeffs) if any(
+        plan.levels[:, LV_DST] == SCRATCH) else out
+    for launch in plan.launches:
+        err = lib.j2k_idwt_launch(
+            _ptr(coeffs), _ptr(out), _ptr(scratch), _ptr(table),
+            launch.start, launch.ctas, _stream(coeffs))
+        if err != 0:
+            raise RuntimeError(f"j2k_pixels (D1) launch failed: CUDA error "
+                               f"{err}")
+        j2k_idwt.launches += 1
+    return out
 
 
 j2k_idwt.launches = 0
-# D1 stages a line in shared memory (4 bytes a sample)
-IDWT_MAX_LINE = 16384
 
 
 # ---------------------------------------------------------------- #
@@ -345,13 +453,16 @@ IDWT_MAX_LINE = 16384
 # ---------------------------------------------------------------- #
 class ColourPlan(NamedTuple):
     """M1's parameters: the kind of Pillow's unpacking, PIL's mode, its
-    palette (P / PA), and per component precision, signedness,
-    subsampling and sample size in bytes."""
+    palette (P / PA), per component precision, signedness and
+    subsampling, and M1's path: ``common`` where every channel Pillow
+    unpacks reads an unsubsampled component (channel c component c at the
+    pixel's own place), else the general path of Pillow's unpacking."""
     kind: int
     mode_l: bool
     palette: np.ndarray     # (256, 3) uint8 (zeros where not P / PA)
     paletted: bool
     comps: np.ndarray       # (components, 4)
+    common: bool
 
 
 def colour_plan(f: J.J2kFile, frame: J2kFrame) -> ColourPlan:
@@ -384,7 +495,18 @@ def colour_plan(f: J.J2kFile, frame: J2kFrame) -> ColourPlan:
                              "fails)")
     if max(frame.x0 + frame.width, frame.y0 + frame.height) > _INT32_MAX:
         raise ValueError("an image grid past 2^31")
-    return ColourPlan(KINDS[kind], f.mode == "L", palette, paletted, comps)
+    # channel c reads component c at the pixel's place where the components
+    # it and the component transform read are unsubsampled (their planes
+    # then have the tile's size)
+    reads = max(WANTED[KINDS[kind]], 3 if n >= 3 and frame.tiles[:, 4].any()
+                else 0)
+    sizes = np.stack([frame.tiles[:, 2] - frame.tiles[:, 0],
+                      frame.tiles[:, 3] - frame.tiles[:, 1]], axis=1)
+    common = bool((comps[:reads, 2:] == 1).all()) and all(
+        (frame.tcs[frame.tiles[:, 5] + m][:, [TC_W, TC_H]] == sizes).all()
+        for m in range(reads))
+    return ColourPlan(KINDS[kind], f.mode == "L", palette, paletted, comps,
+                      common)
 
 
 def _tile_of(frame: J2kFrame, gx: torch.Tensor, gy: torch.Tensor):
@@ -461,7 +583,7 @@ def colour_reference(coeffs: torch.Tensor, frame: J2kFrame,
     cum = [torch.zeros_like(t)]
     for m in range(n):
         cum.append(cum[-1] + tcs[first + m, TC_W] * tcs[first + m, TC_H])
-    wanted = {0: 1, 1: 1, 2: 3, 3: 3, 4: 4}[plan.kind]
+    wanted = WANTED[plan.kind]
     bits = 16 if plan.kind == 1 else 8
     outs = []
     start = torch.zeros_like(t)
@@ -517,10 +639,79 @@ def colour_reference(coeffs: torch.Tensor, frame: J2kFrame,
              + 8192) >> 14).to(torch.uint8)
 
 
+# M1's grid (``colour_launch``): a CTA a band of output rows of one tile,
+# at most COLOUR_SPAN columns wide and about COLOUR_PIXELS pixels, at most
+# COLOUR_MAX_ROWS rows (on an H100 the 768 x 1024 clip frames took 0.0106 /
+# 0.0096 ms in RGB at 1,024 pixels a CTA, 0.0105 / 0.0116 at 512, 0.0102 /
+# 0.0100 at 2,048, 0.0104 / 0.0107 at 3,072: 9/7 / 5/3)
+COLOUR_PIXELS = 1024
+COLOUR_SPAN = 4096
+COLOUR_MAX_ROWS = 64
+# M1's table: a header of 16 ints, the components (4 x 4), the palette,
+# PIL's YCbCr tables, then the CTAs (COLOUR_CTA_COLS each: the tile, the
+# first row, rows, first and end column, then the tile's row of
+# COLOUR_TILE_COLS: origin, size, component transform, per component its
+# plane's offset, samples and transform)
+COLOUR_CTAS_AT = 16 + 16 + 3 * 256 + 4 * 256
+COLOUR_TILE_COLS = 20
+COLOUR_CTA_COLS = 5 + COLOUR_TILE_COLS
+
+
+def colour_launch(frame: J2kFrame, plan: ColourPlan, channels: int):
+    """M1's table and grid for one read: (table int32, CTAs, shared
+    bytes)."""
+    W, H = frame.width, frame.height
+    n = len(plan.comps)
+    if n > 4:
+        raise ValueError("M1 takes at most four components")
+    tiles = frame.tiles.astype(np.int64)
+    if len(tiles) and 4 * int(((tiles[:, 2] - tiles[:, 0]) * (
+            tiles[:, 3] - tiles[:, 1])).max()) > _INT32_MAX:
+        raise ValueError("a tile too large for M1")
+    rows = np.zeros((len(tiles), COLOUR_TILE_COLS), np.int64)
+    rows[:, :2] = tiles[:, :2]
+    rows[:, 2] = tiles[:, 2] - tiles[:, 0]
+    rows[:, 3] = tiles[:, 3] - tiles[:, 1]
+    rows[:, 4] = tiles[:, 4]
+    for m in range(n):
+        tc = frame.tcs[tiles[:, 5] + m]
+        rows[:, 5 + m] = tc[:, TC_OFFSET]
+        rows[:, 9 + m] = tc[:, TC_W].astype(np.int64) * tc[:, TC_H]
+        rows[:, 13 + m] = tc[:, TC_REV]
+    ctas, shared = [], 0
+    for t, (tx0, ty0, tx1, ty1) in enumerate(tiles[:, :4].tolist()):
+        xs, xe = max(tx0, frame.x0) - frame.x0, min(tx1, frame.x0 + W) - \
+            frame.x0
+        ys, ye = max(ty0, frame.y0) - frame.y0, min(ty1, frame.y0 + H) - \
+            frame.y0
+        for a in range(xs, xe, COLOUR_SPAN):
+            b = min(a + COLOUR_SPAN, xe)
+            band = max(1, min(COLOUR_MAX_ROWS, COLOUR_PIXELS // (b - a)))
+            for y in range(ys, ye, band):
+                ctas.append([t, y, min(band, ye - y), a, b])
+            pitch = ((b - a) * channels + 30) & ~15
+            shared = max(shared, min(band, ye - ys) * pitch)
+    comps = np.zeros((4, 4), np.int32)
+    comps[:n] = plan.comps
+    cta_rows = np.array(ctas, np.int64).reshape(-1, 5)
+    cta_rows = np.concatenate([cta_rows, rows[cta_rows[:, 0]]], axis=1)
+    header = np.array([W, H, frame.x0, frame.y0, n, plan.kind,
+                       int(plan.mode_l), int(plan.paletted),
+                       WANTED[plan.kind], 16 if plan.kind == 1 else 8, 0, 0,
+                       0, 0, 0, 0])
+    table = np.concatenate([header, comps.reshape(-1),
+                            plan.palette.astype(np.int64).reshape(-1),
+                            YCC.reshape(-1), cta_rows.reshape(-1)])
+    if len(table) > _INT32_MAX or np.abs(table).max() > _INT32_MAX:
+        raise ValueError("a frame too large for M1")
+    return table.astype(np.int32), len(ctas), shared
+
+
 def j2k_colour(coeffs: torch.Tensor, frame: J2kFrame, plan: ColourPlan,
                channels: int = 3) -> torch.Tensor:
     """M1: D1's planes -> uint8 (H, W, 3) RGB or (H, W) grey on their
-    device, in one launch; on the CPU the twin."""
+    device, in one launch of ``colour_launch``'s grid, by the plan's path;
+    on the CPU the twin."""
     if channels not in (1, 3):
         raise ValueError(f"channels must be 1 or 3, got {channels}")
     if coeffs.device.type == "cpu":
@@ -532,28 +723,24 @@ def j2k_colour(coeffs: torch.Tensor, frame: J2kFrame, plan: ColourPlan,
         raise ValueError(f"a {W} x {H} frame is too large")
     from superviseddescent_tpu_torch.ops._build import load_library
     dev = coeffs.device
-    params = np.array([W, H, frame.x0, frame.y0, frame.tx0, frame.ty0,
-                       frame.tdx, frame.tdy, len(plan.comps), plan.kind,
-                       int(plan.mode_l), int(plan.paletted), channels,
-                       TC_COLS, TILE_COLS, 0], np.int32)
-    blob = np.concatenate([params, plan.comps.reshape(-1),
-                           plan.palette.astype(np.int32).reshape(-1),
-                           YCC.reshape(-1), frame.tiles.reshape(-1),
-                           frame.tcs.reshape(-1)]).astype(np.int32)
-    table = torch.from_numpy(blob).to(dev, non_blocking=True)
+    table, ctas, shared = colour_launch(frame, plan, channels)
+    table = _upload(table, dev)
     out = torch.empty((H, W) + ((3,) if channels == 3 else ()),
                       dtype=torch.uint8, device=dev)
     err = load_library("j2k_pixels").j2k_colour_launch(
-        _ptr(coeffs), _ptr(table), len(frame.tiles), H * W, _ptr(out),
-        _stream(coeffs))
+        _ptr(coeffs), _ptr(table), ctas, int(plan.common), channels, shared,
+        _ptr(out), _stream(coeffs))
     if err != 0:
         raise RuntimeError(f"j2k_pixels (M1) launch failed: CUDA error "
                            f"{err}")
     j2k_colour.launches += 1
+    j2k_colour.paths["common" if plan.common else "general"] += 1
     return out
 
 
 j2k_colour.launches = 0
+# launches by path (ColourPlan.common)
+j2k_colour.paths = {"common": 0, "general": 0}
 
 
 # ---------------------------------------------------------------- #

@@ -6,7 +6,8 @@ writes them and their ``manifest.json``). Here the Python twins run: the
 host stage (markers, tier-2, tier-1) and the plain PyTorch twins of D1
 and M1. The Python tier-1 twin is slow by nature, so it reads the files
 of ``TWIN_FILES`` only (every fixture of at most 64 x 64, all but the two
-768 x 1024 clip frames), which together reach every pass, code-block
+768 x 1024 clip frames and a 16,400 x 64 frame), which together reach
+every pass, code-block
 style, progression order, transform, marker and colour kind;
 ``test_torch_j2k_host.py`` holds the host C++ build to the twin and reads
 every fixture through it. Every file's mode and palette are PIL's,
@@ -45,9 +46,11 @@ REFUSED = [n for n in FILES if "pil_error" in MANIFEST["files"][n]]
 # pass and code-block style (o01-o08), the five progression orders and
 # POC (k11-k14, o10), 5/3 and 9/7 with RCT and ICT, PPM / PPT, ROI,
 # tile-parts, derived quantisation, odd origins and tiles, lines of one
-# sample, every colour kind and precision; the 768 x 1024 frames go
-# through the C++ build (test_torch_j2k_host.py)
+# sample, every colour kind and precision; the 768 x 1024 frames and the
+# 16,400 x 64 one go through the C++ build (test_torch_j2k_host.py)
 TWIN_FILES = [n for n in READABLE if MANIFEST["files"][n]["small"]]
+LARGE = ("f01_clip_97_rpcl.jp2", "f02_clip_53_tiles.jp2",
+         "k40_wide_16400x64.j2k")
 
 
 def sha(a) -> str:
@@ -66,7 +69,7 @@ def test_openjpeg_layout_writes_pils_bytes(tmp_path):
 
 
 def test_twin_files_are_small_and_pils():
-    assert len(TWIN_FILES) == len(READABLE) - 2
+    assert sorted(TWIN_FILES + list(LARGE)) == READABLE
     for name in TWIN_FILES:
         h, w = MANIFEST["files"][name]["shape"][:2]
         assert h <= 64 and w <= 64

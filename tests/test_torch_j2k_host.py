@@ -1,8 +1,9 @@
 """The host C++ stage of JPEG 2000 reading (``csrc/j2k_decode.cu``), built
 with g++ on the CPU: its planes and tables equal the Python twin's, and
 with the PyTorch twins of D1 and M1 it reads every fixture of
-``tests/torch_j2k/`` to PIL's pixels, the two 768 x 1024 clip frames
-included, and refuses every file PIL cannot read.
+``tests/torch_j2k/`` to PIL's pixels, the two 768 x 1024 clip frames and
+the 16,400 x 64 frame (lines past 16,384 samples) included, and refuses
+every file PIL cannot read.
 """
 
 import ctypes

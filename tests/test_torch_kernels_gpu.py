@@ -1658,7 +1658,8 @@ def _j2k_readable():
 @pytest.mark.parametrize("name", _j2k_readable())
 def test_j2k_d1_and_m1_match_their_twins(cuda, name):
     """D1 and M1 on the host C++ stage's planes of every readable JPEG
-    2000 fixture, equal to their twins (plain PyTorch on the CPU)."""
+    2000 fixture, equal to their twins (plain PyTorch on the CPU); D1 in
+    exactly its plan's launches."""
     from superviseddescent_tpu_torch.io import jp2 as J
     from superviseddescent_tpu_torch.ops import j2k as O
     with open(os.path.join(J2K_DIR, name), "rb") as fh:
@@ -1669,10 +1670,48 @@ def test_j2k_d1_and_m1_match_their_twins(cuda, name):
     before = O.j2k_idwt.launches
     card = O.j2k_idwt(frame.coeffs.to(cuda), frame.tcs)
     torch.cuda.synchronize()
-    assert O.j2k_idwt.launches - before <= 2 * int(frame.tcs[:, 5].max())
+    assert O.j2k_idwt.launches - before == len(
+        O.idwt_plan(frame.tcs).launches)
     assert torch.equal(card.cpu(), want)
     for channels in (3, 1):
         px = O.j2k_colour(card, frame, plan, channels)
         assert torch.equal(px.cpu(), O.colour_reference(want, frame, plan,
                                                         channels))
+
+
+def test_j2k_idwt_leaves_the_host_planes_unchanged(cuda):
+    """D1 writes a new tensor; the host stage's planes it reads stay as
+    they were (its tiled levels read their detail bands from them)."""
+    from superviseddescent_tpu_torch.io import jp2 as J
+    from superviseddescent_tpu_torch.ops import j2k as O
+    with open(os.path.join(J2K_DIR, "f01_clip_97_rpcl.jp2"), "rb") as fh:
+        frame = O.decode_native(J.read_file(fh.read()).codestream)
+    coeffs = frame.coeffs.to(cuda)
+    before = coeffs.clone()
+    out = O.j2k_idwt(coeffs, frame.tcs)
+    torch.cuda.synchronize()
+    assert out.data_ptr() != coeffs.data_ptr()
+    assert torch.equal(coeffs, before)
+    assert torch.equal(out.cpu(), O.idwt_reference(frame.coeffs, frame.tcs))
+
+
+@pytest.mark.parametrize("tile", [(8, 4), (64, 32), (64, 64), (7, 3),
+                                  (16, 8), (1, 1), (32, 16)])
+@pytest.mark.parametrize("name", ["k39_odd_tiles_97.j2k",
+                                  "k16_tiles_offset_97.jp2",
+                                  "o24_subsampled_offset.j2k",
+                                  "k15_tiles_offset.jp2", "k36_1x17.jp2",
+                                  "k37_23x1.jp2", "k35_1x1.jp2",
+                                  "k17_res1.j2k"])
+def test_j2k_d1_at_other_plans(cuda, name, tile):
+    """D1 in other tiles (small ones: cut edges, odd origins, lines of one
+    and two samples under the halo): equal to its twin."""
+    from superviseddescent_tpu_torch.io import jp2 as J
+    from superviseddescent_tpu_torch.ops import j2k as O
+    with open(os.path.join(J2K_DIR, name), "rb") as fh:
+        frame = O.decode_native(J.read_file(fh.read()).codestream)
+    plan = O.idwt_plan(frame.tcs, tile)
+    card = O.j2k_idwt(frame.coeffs.to(cuda), frame.tcs, plan)
+    assert torch.equal(card.cpu(), O.idwt_reference(frame.coeffs,
+                                                    frame.tcs))
 

@@ -17,7 +17,8 @@ cannot read, PIL's error. The groups:
   ``num_resolutions`` 1 to 7, code-blocks 4 x 4 to 64 x 64 and
   non-square, precincts, ``quality_layers`` by rate and by dB,
   ``signed``, ``plt``, ``comment``, ``no_jp2``, sizes 1 x 1, 1 x N, N x 1
-  and odd;
+  and odd, and a grey 16,400 x 64 5/3 codestream (a line past 16,384
+  samples);
 * ``o*``: what ``save`` cannot reach, through OpenJPEG's encoder: each
   code-block style (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM) and all
   together, SOP / EPH, progression changes (POC), tile-parts, a region of
@@ -60,6 +61,7 @@ OUT = os.path.join(HERE, "torch_j2k")
 SEED = 0
 CLIP_FRAME = "clip/f000.jpg"
 CLIP_97, CLIP_53 = "f01_clip_97_rpcl.jp2", "f02_clip_53_tiles.jp2"
+WIDE = "k40_wide_16400x64.j2k"
 MODEL = os.path.join(os.path.dirname(HERE), "pretrained", "rcr22_lfpw5.bin")
 STYLES = (("bypass", BYPASS), ("reset", RESET), ("termall", TERMALL),
           ("vsc", VSC), ("pterm", PTERM), ("segsym", SEGSYM),
@@ -294,7 +296,18 @@ def save_fixtures(tmp) -> dict:
     out["k39_odd_tiles_97.j2k"] = pil_save(
         Image.fromarray(grey[:31, :45]), no_jp2=True, irreversible=True,
         tile_size=(8, 7), tile_offset=(1, 1), offset=(3, 3))
+    out[WIDE] = pil_save(Image.fromarray(wide_grey()), no_jp2=True,
+                         quality_layers=[40])
     return out
+
+
+def wide_grey() -> np.ndarray:
+    """A grey frame wider than 16,384 px (D1 once refused lines past that):
+    64 rows of the clip frame's grey from row 400, repeated across 16,400
+    columns; 64 rows because PIL's six resolutions need 32."""
+    grey = clip_rgb()[400:464, :, 1]
+    return np.ascontiguousarray(np.tile(grey, (1, -(-16400 // grey.shape[1])))
+                                [:, :16400])
 
 
 def openjpeg_fixtures(tmp) -> dict:
